@@ -1,0 +1,692 @@
+// Device building blocks shared by the three fused LeMeBlock kernels
+// (c_block.cu, dca_block.cu, s_block.cu).
+//
+// Every public block kernel is a short chain of the launches defined here:
+//   k_linear_ln    out = LN(a) @ W^T + b               (qkv projections)
+//   k_attention    softmax(q k^T * scale) v per (image, head), online
+//                  softmax over key chunks, optionally split over blocks
+//   k_attn_combine merges the per-split (max, sum, acc) partials
+//   k_block_tail   t1 = t + o @ Wp^T + bp; out = t1 + MLP(LN2(t1))
+// All matrix products go through one routine, tile_gemm: a shared-memory
+// tiled product with fp32 accumulation whose A operand is a matrix in
+// global or shared memory, optionally row-LayerNormed on the way in (Rows,
+// LnRows), and whose result goes to an epilogue functor (bias, exact-erf
+// GELU, residual). bf16 products run on the tensor cores (mma.sync
+// m16n8k16, the LayerNorm output rounded to bf16 first, as the TPU kernels
+// round before the MXU); fp32 products stay on FMA, so fp32 keeps full
+// precision. No stage is pipelined: each 32-deep step loads, syncs and
+// multiplies (the next PRs' cp.async / TMA and wgmma work).
+//
+// Types: T is float or __nv_bfloat16 for every activation, weight, bias and
+// norm parameter of one call; products, softmax and LayerNorm statistics are
+// fp32. Weights are in torch Linear layout, (out_features, in_features).
+// head_dim is fixed at 32 (one lane per head channel).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace lm {
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeadDim = 32;
+constexpr int kBK = 32;  // depth of one shared-memory step of tile_gemm
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Two-pass LayerNorm statistics of `rows` rows of width K, one warp per row.
+// get(r, k) returns element k of row r as float.
+template <typename Get>
+__device__ __forceinline__ void row_stats(Get get, int rows, int K, float eps,
+                                          float* s_mean, float* s_rstd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    float s = 0.f;
+    for (int k = lane; k < K; k += 32) s += get(r, k);
+    const float mean = warp_sum(s) / K;
+    float v = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float d = get(r, k) - mean;
+      v += d * d;
+    }
+    const float var = warp_sum(v) / K;
+    if (lane == 0) {
+      s_mean[r] = mean;
+      s_rstd[r] = rsqrtf(var + eps);
+    }
+  }
+}
+
+// The two kinds of A operand of tile_gemm. Rows: a plain row-major matrix
+// (in global or shared memory). LnRows: LayerNorm applied to the rows of a
+// matrix on the way in. Rows past `rows` read as zero. In bf16 both are
+// staged 8 values per 16-byte load; the fp32 path reads them through
+// a_elem.
+template <typename T>
+struct Rows {
+  const T* p;
+  int ld;
+  int rows;
+};
+
+// (a - mean) * rstd * g + beta, with the row statistics in shared memory.
+template <typename T>
+struct LnRows {
+  const T* p;
+  int ld;
+  int rows;
+  const float* mean;
+  const float* rstd;
+  const T* g;
+  const T* beta;
+
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    if (r >= rows) return 0.f;
+    return (to_f(p[(size_t)r * ld + k]) - mean[r]) * rstd[r] * to_f(g[k]) +
+           to_f(beta[k]);
+  }
+};
+
+template <typename LoadA>
+__device__ __forceinline__ float a_elem(const LoadA& a, int r, int k) {
+  return a(r, k);
+}
+template <typename T>
+__device__ __forceinline__ float a_elem(const Rows<T>& a, int r, int k) {
+  return r < a.rows ? to_f(a.p[(size_t)r * a.ld + k]) : 0.f;
+}
+
+// D += A(16x16, bf16, row-major fragment) * B(16x8, bf16, col-major).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Row pitch of the bf16 staging tiles: 40 elements = 20 words, so the
+// eight rows a fragment load touches fall in distinct banks.
+constexpr int kPitch = kBK + 8;
+
+// tile_gemm for bf16: each warp owns a 16 x (BN / warps along N) piece of
+// the tile and issues m16n8k16 products from bf16 tiles in shared memory.
+template <int BM, int BN, typename LoadA, typename Epi>
+__device__ __forceinline__ void tile_gemm_mma(
+    LoadA load_a, const __nv_bfloat16* __restrict__ wt, int ldw, int K,
+    int n0, int ncols, __nv_bfloat16* sA, __nv_bfloat16* sW, Epi epi) {
+  constexpr int WARPS_M = BM / 16, WARPS_N = kWarps / WARPS_M;
+  constexpr int WN = BN / WARPS_N, NT = WN / 8;
+  static_assert(WARPS_M * WARPS_N == kWarps && NT * 8 * WARPS_N == BN,
+                "warp tiling");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  const int g = lane >> 2, tig = lane & 3;
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    __syncthreads();
+    constexpr int V = 8;  // bf16 per 16-byte copy
+    if constexpr (std::is_same<LoadA, Rows<__nv_bfloat16>>::value) {
+      for (int e = tid; e < BM * kBK / V; e += kThreads) {
+        const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < load_a.rows)
+          v = *reinterpret_cast<const uint4*>(
+              load_a.p + (size_t)r * load_a.ld + k0 + k);
+        *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
+      }
+    } else {
+      static_assert(std::is_same<LoadA, LnRows<__nv_bfloat16>>::value,
+                    "A operand must be Rows or LnRows");
+      for (int e = tid; e < BM * kBK / V; e += kThreads) {
+        const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < load_a.rows) {
+          const uint4 va = *reinterpret_cast<const uint4*>(
+              load_a.p + (size_t)r * load_a.ld + k0 + k);
+          const uint4 vg =
+              *reinterpret_cast<const uint4*>(load_a.g + k0 + k);
+          const uint4 vb =
+              *reinterpret_cast<const uint4*>(load_a.beta + k0 + k);
+          const __nv_bfloat162* a2 =
+              reinterpret_cast<const __nv_bfloat162*>(&va);
+          const __nv_bfloat162* g2 =
+              reinterpret_cast<const __nv_bfloat162*>(&vg);
+          const __nv_bfloat162* b2 =
+              reinterpret_cast<const __nv_bfloat162*>(&vb);
+          __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&v);
+          const float mu = load_a.mean[r], rs = load_a.rstd[r];
+#pragma unroll
+          for (int i = 0; i < V / 2; ++i) {
+            const float2 fa = __bfloat1622float2(a2[i]);
+            const float2 fg = __bfloat1622float2(g2[i]);
+            const float2 fb = __bfloat1622float2(b2[i]);
+            o2[i] = __floats2bfloat162_rn((fa.x - mu) * rs * fg.x + fb.x,
+                                          (fa.y - mu) * rs * fg.y + fb.y);
+          }
+        }
+        *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
+      }
+    }
+    for (int e = tid; e < BN * kBK / V; e += kThreads) {
+      const int n = e / (kBK / V), k = (e % (kBK / V)) * V, gn = n0 + n;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gn < ncols)
+        v = *reinterpret_cast<const uint4*>(wt + (size_t)gn * ldw + k0 + k);
+      *reinterpret_cast<uint4*>(sW + n * kPitch + k) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      const __nv_bfloat16* pa = sA + (wm * 16 + g) * kPitch + kk + tig * 2;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(pa);
+      a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * kPitch);
+      a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * kPitch + 8);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const __nv_bfloat16* pb =
+            sW + (wn * WN + t * 8 + g) * kPitch + kk + tig * 2;
+        mma_bf16(acc[t], a, *reinterpret_cast<const uint32_t*>(pb),
+                 *reinterpret_cast<const uint32_t*>(pb + 8));
+      }
+    }
+  }
+  const int r = wm * 16 + g;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int n = n0 + wn * WN + t * 8 + tig * 2;
+    if (n < ncols) {
+      epi(r, n, acc[t][0]);
+      epi(r + 8, n, acc[t][2]);
+    }
+    if (n + 1 < ncols) {
+      epi(r, n + 1, acc[t][1]);
+      epi(r + 8, n + 1, acc[t][3]);
+    }
+  }
+}
+
+// One BM x BN output tile of A[BM x K] @ Wt[n0:n0+BN, :]^T, K % kBK == 0.
+// load_a is a Rows<T> or an LnRows<T>; wt is (ncols, ldw) in torch Linear
+// layout; columns >= ncols are masked. epi(r, n, v) receives every valid
+// output exactly once, from the thread that owns it. sA and sW hold
+// kBK * (BM + 1) and kBK * (BN + 1) floats, 16-byte aligned; in bf16 the
+// operands' rows are 16-byte aligned too (the wrappers check the tensors).
+// The caller synchronises before reading anything the epilogue wrote.
+// fp32: each thread owns a (BM/16) x (BN/16) set of outputs at rows
+// ty + 16 i, columns tx + 16 j, so shared-memory reads are broadcast (A) or
+// consecutive (W). bf16: tile_gemm_mma.
+template <int BM, int BN, typename T, typename LoadA, typename Epi>
+__device__ __forceinline__ void tile_gemm(LoadA load_a,
+                                          const T* __restrict__ wt, int ldw,
+                                          int K, int n0, int ncols, float* sA,
+                                          float* sW, Epi epi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    tile_gemm_mma<BM, BN>(load_a, wt, ldw, K, n0, ncols,
+                          reinterpret_cast<__nv_bfloat16*>(sA),
+                          reinterpret_cast<__nv_bfloat16*>(sW), epi);
+  } else {
+    constexpr int TM = BM / 16, TN = BN / 16;
+    static_assert(TM * 16 == BM && TN * 16 == BN, "tile must be 16-aligned");
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += kBK) {
+      __syncthreads();  // the previous step's (or call's) reads are done
+      for (int e = tid; e < BM * kBK; e += kThreads) {
+        const int r = e / kBK, k = e % kBK;
+        sA[k * (BM + 1) + r] = a_elem(load_a, r, k0 + k);
+      }
+      for (int e = tid; e < BN * kBK; e += kThreads) {
+        const int n = e / kBK, k = e % kBK, gn = n0 + n;
+        sW[k * (BN + 1) + n] =
+            gn < ncols ? to_f(wt[(size_t)gn * ldw + k0 + k]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < kBK; ++k) {
+        float a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = sA[k * (BM + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = sW[k * (BN + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (n < ncols) epi(ty + 16 * i, n, acc[i][j]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------- linear
+
+// One row range of a projection: out[rows, ncols] = LN(a) @ w^T + bias.
+struct LinSeg {
+  const void* a;
+  const void* w;
+  const void* bias;
+  void* out;
+  int rows;
+  int ncols;
+};
+
+// Up to two segments share one launch and one LayerNorm (norm1 of a block
+// feeds both the image-token and the meta-token projections).
+struct LinArgs {
+  LinSeg seg[2];
+  int row_blocks0;  // row blocks of seg[0]; the rest belong to seg[1]
+  const void* ln_w;
+  const void* ln_b;
+  int K;
+  float eps;
+};
+
+constexpr int kLinBM = 64, kLinBN = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
+  __shared__ __align__(16) float sA[kBK * (kLinBM + 1)];
+  __shared__ __align__(16) float sW[kBK * (kLinBN + 1)];
+  __shared__ float s_mean[kLinBM], s_rstd[kLinBM];
+  int rb = blockIdx.x, si = 0;
+  if (rb >= args.row_blocks0) {
+    rb -= args.row_blocks0;
+    si = 1;
+  }
+  const LinSeg sg = args.seg[si];
+  const int n0 = blockIdx.y * kLinBN;
+  if (n0 >= sg.ncols) return;  // uniform over the block, before any barrier
+  const int K = args.K;
+  const int row0 = rb * kLinBM;
+  const int rows = min(kLinBM, sg.rows - row0);
+  const T* __restrict__ A = static_cast<const T*>(sg.a) + (size_t)row0 * K;
+  const T* __restrict__ g = static_cast<const T*>(args.ln_w);
+  const T* __restrict__ beta = static_cast<const T*>(args.ln_b);
+  const T* __restrict__ bias = static_cast<const T*>(sg.bias);
+  T* __restrict__ out = static_cast<T*>(sg.out) + (size_t)row0 * sg.ncols;
+
+  row_stats(
+      [&](int r, int k) {
+        return r < rows ? to_f(A[(size_t)r * K + k]) : 0.f;
+      },
+      kLinBM, K, args.eps, s_mean, s_rstd);
+  __syncthreads();
+  const int ldo = sg.ncols;
+  tile_gemm<kLinBM, kLinBN>(
+      LnRows<T>{A, K, rows, s_mean, s_rstd, g, beta},
+      static_cast<const T*>(sg.w), K, K, n0, sg.ncols, sA, sW,
+      [&](int r, int n, float v) {
+        if (r < rows) out[(size_t)r * ldo + n] = from_f<T>(v + to_f(bias[n]));
+      });
+}
+
+template <typename T>
+int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
+  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kLinBM);
+  dim3 grid(blocks, cdiv(max_ncols, kLinBN));
+  k_linear_ln<T><<<grid, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- attention
+
+// q rows (batch * nq, ldq), k / v rows (batch * nk, ldkv); head h reads
+// columns [32 h, 32 h + 32). Keys are split into `splits` ranges of
+// keys_per_split; with one split the normalised result goes to out, else
+// each split writes its running (max, sum, acc) to pm / pl / pacc, laid out
+// [(b * heads + h) * splits + split][query] (pacc with 32 channels more).
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  float* pm;
+  float* pl;
+  float* pacc;
+  int ldq, ldkv, ldo;
+  int batch, heads, nq, nk;
+  int splits, keys_per_split;
+  float scale;
+};
+
+constexpr int kQPW = 4;                 // queries per warp
+constexpr int kQB = kWarps * kQPW;      // queries per block
+constexpr int kKC = 64;                 // keys per shared-memory chunk
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_attention(const AttnArgs a) {
+  __shared__ float sQ[kQB][kHeadDim];
+  __shared__ float sK[kKC][kHeadDim + 1];
+  __shared__ float sV[kKC][kHeadDim];
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = blockIdx.y * kQB;
+  const int split = blockIdx.z;
+  const int kbeg = split * a.keys_per_split;
+  const int kend = min(a.nk, kbeg + a.keys_per_split);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* __restrict__ Q = static_cast<const T*>(a.q);
+  const T* __restrict__ Kp = static_cast<const T*>(a.k);
+  const T* __restrict__ Vp = static_cast<const T*>(a.v);
+
+  for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
+    const int qi = e / kHeadDim, t = e % kHeadDim, gq = q0 + qi;
+    sQ[qi][t] = gq < a.nq ? to_f(Q[(size_t)(b * a.nq + gq) * a.ldq +
+                                   h * kHeadDim + t]) * a.scale
+                          : 0.f;
+  }
+  float m[kQPW], l[kQPW], acc[kQPW];
+#pragma unroll
+  for (int i = 0; i < kQPW; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    acc[i] = 0.f;
+  }
+  for (int kc = kbeg; kc < kend; kc += kKC) {
+    const int cnt = min(kKC, kend - kc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
+      const int j = e / kHeadDim, t = e % kHeadDim;
+      float kv = 0.f, vv = 0.f;
+      if (j < cnt) {
+        const size_t off = (size_t)(b * a.nk + kc + j) * a.ldkv +
+                           h * kHeadDim + t;
+        kv = to_f(Kp[off]);
+        vv = to_f(Vp[off]);
+      }
+      sK[j][t] = kv;
+      sV[j][t] = vv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kQPW; ++i) {
+      const int qi = warp * kQPW + i;
+      if (q0 + qi >= a.nq) continue;  // uniform over the warp
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < kHeadDim; ++t) {
+        const float qv = sQ[qi][t];
+        s0 = fmaf(qv, sK[lane][t], s0);
+        s1 = fmaf(qv, sK[lane + 32][t], s1);
+      }
+      if (lane >= cnt) s0 = -INFINITY;
+      if (lane + 32 >= cnt) s1 = -INFINITY;
+      // cnt >= 1, so the chunk maximum and m_new are finite
+      const float m_new = fmaxf(m[i], warp_max(fmaxf(s0, s1)));
+      const float alpha = expf(m[i] - m_new);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      l[i] = l[i] * alpha + warp_sum(p0 + p1);
+      float o = acc[i] * alpha;
+      for (int j = 0; j < cnt; ++j) {
+        const float p = __shfl_sync(0xffffffffu, j < 32 ? p0 : p1, j & 31);
+        o = fmaf(p, sV[j][lane], o);
+      }
+      acc[i] = o;
+      m[i] = m_new;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQPW; ++i) {
+    const int gq = q0 + warp * kQPW + i;
+    if (gq >= a.nq) continue;
+    if (a.splits == 1) {
+      T* out = static_cast<T*>(a.out);
+      out[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim + lane] =
+          from_f<T>(acc[i] / l[i]);
+    } else {
+      const size_t p = ((size_t)bh * a.splits + split) * a.nq + gq;
+      if (lane == 0) {
+        a.pm[p] = m[i];
+        a.pl[p] = l[i];
+      }
+      a.pacc[p * kHeadDim + lane] = acc[i];
+    }
+  }
+}
+
+// One warp per (image, head, query): merge the splits' partial softmaxes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_attn_combine(const AttnArgs a) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= a.batch * a.heads * a.nq) return;
+  const int bh = row / a.nq, gq = row % a.nq;
+  const int b = bh / a.heads, h = bh % a.heads;
+  float mx = -INFINITY;
+  for (int s = 0; s < a.splits; ++s)
+    mx = fmaxf(mx, a.pm[((size_t)bh * a.splits + s) * a.nq + gq]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < a.splits; ++s) {
+    const size_t p = ((size_t)bh * a.splits + s) * a.nq + gq;
+    const float w = expf(a.pm[p] - mx);
+    L = fmaf(w, a.pl[p], L);
+    A = fmaf(w, a.pacc[p * kHeadDim + lane], A);
+  }
+  T* out = static_cast<T*>(a.out);
+  out[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim + lane] =
+      from_f<T>(A / L);
+}
+
+template <typename T>
+int launch_attention(const AttnArgs& a, cudaStream_t s) {
+  dim3 grid(a.batch * a.heads, cdiv(a.nq, kQB), a.splits);
+  k_attention<T><<<grid, kThreads, 0, s>>>(a);
+  int err = (int)cudaGetLastError();
+  if (err || a.splits == 1) return err;
+  k_attn_combine<T><<<cdiv(a.batch * a.heads * a.nq, kWarps), kThreads, 0,
+                      s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- tail
+
+// One token stream's block tail: t1 = t + o @ wp^T + bp, out = t1 + MLP.
+struct TailSeg {
+  const void* t;
+  const void* o;
+  const void* wp;
+  const void* bp;
+  void* out;
+  int rows;
+};
+
+// Two streams share one launch and the block's norm2 + MLP weights.
+struct TailArgs {
+  TailSeg seg[2];
+  int row_blocks0;
+  const void* ln_w;
+  const void* ln_b;
+  const void* w1;  // (hidden, C)
+  const void* b1;
+  const void* w2;  // (C, hidden)
+  const void* b2;
+  int C, hidden;
+  float eps;
+};
+
+constexpr int kTailBM = 32, kTailBN = 128, kTailBH = 128;
+
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) & ~size_t(15);
+}
+
+// Shared memory of one tail block: fp32 accumulator (BM x C), LN2(t1) and
+// one hidden chunk in T, the staging tiles, the row statistics.
+inline size_t tail_smem_bytes(int C, size_t elt) {
+  return align16(4 * (size_t)kTailBM * C) + align16(elt * kTailBM * C) +
+         align16(elt * kTailBM * kTailBH) + align16(4 * kBK * (kTailBM + 1)) +
+         align16(4 * kBK * (kTailBN + 1)) + 8 * kTailBM;
+}
+
+// Rows stay in shared memory from the projection to the output. sAcc holds
+// t1 + b2 in fp32 and then gathers fc2; LN2(t1) is stored once in T as
+// fc1's A operand; the hidden activation lives one BM x kTailBH chunk at a
+// time, so the 4C-wide hidden row never exists whole.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C;
+  unsigned char* q = smem;
+  float* sAcc = reinterpret_cast<float*>(q);
+  q += align16(4 * (size_t)kTailBM * C);
+  T* sLN = reinterpret_cast<T*>(q);
+  q += align16(sizeof(T) * kTailBM * C);
+  T* sH = reinterpret_cast<T*>(q);
+  q += align16(sizeof(T) * kTailBM * kTailBH);
+  float* sA = reinterpret_cast<float*>(q);
+  q += align16(4 * kBK * (kTailBM + 1));
+  float* sW = reinterpret_cast<float*>(q);
+  q += align16(4 * kBK * (kTailBN + 1));
+  float* s_mean = reinterpret_cast<float*>(q);
+  float* s_rstd = s_mean + kTailBM;
+
+  int rb = blockIdx.x, si = 0;
+  if (rb >= a.row_blocks0) {
+    rb -= a.row_blocks0;
+    si = 1;
+  }
+  const TailSeg sg = a.seg[si];
+  const int row0 = rb * kTailBM;
+  const int rows = min(kTailBM, sg.rows - row0);
+  const T* __restrict__ tin = static_cast<const T*>(sg.t) + (size_t)row0 * C;
+  const T* __restrict__ o = static_cast<const T*>(sg.o) + (size_t)row0 * C;
+  const T* __restrict__ bp = static_cast<const T*>(sg.bp);
+  const T* __restrict__ g = static_cast<const T*>(a.ln_w);
+  const T* __restrict__ beta = static_cast<const T*>(a.ln_b);
+  const T* __restrict__ w1 = static_cast<const T*>(a.w1);
+  const T* __restrict__ b1 = static_cast<const T*>(a.b1);
+  const T* __restrict__ w2 = static_cast<const T*>(a.w2);
+  const T* __restrict__ b2 = static_cast<const T*>(a.b2);
+  T* __restrict__ out = static_cast<T*>(sg.out) + (size_t)row0 * C;
+
+  // 1. t1 = t + o @ Wp^T + bp, in fp32
+  for (int n0 = 0; n0 < C; n0 += kTailBN)
+    tile_gemm<kTailBM, kTailBN>(
+        Rows<T>{o, C, rows}, static_cast<const T*>(sg.wp), C, C, n0, C, sA,
+        sW, [&](int r, int n, float v) {
+          sAcc[r * C + n] =
+              r < rows ? v + to_f(bp[n]) + to_f(tin[(size_t)r * C + n]) : 0.f;
+        });
+  __syncthreads();
+
+  // 2. LN2(t1) into sLN; then sAcc = t1 + b2 (the second residual)
+  row_stats([&](int r, int k) { return sAcc[r * C + k]; }, kTailBM, C, a.eps,
+            s_mean, s_rstd);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kTailBM * C; e += kThreads) {
+    const int r = e / C, k = e % C;
+    sLN[e] = from_f<T>((sAcc[e] - s_mean[r]) * s_rstd[r] * to_f(g[k]) +
+                       to_f(beta[k]));
+    sAcc[e] += to_f(b2[k]);
+  }
+  __syncthreads();
+
+  // 3. MLP over kTailBH-wide hidden chunks (the last one may be narrower,
+  //    a multiple of kBK): h = GELU(LN2(t1) @ W1c^T + b1c),
+  //    acc += h @ W2[:, chunk]^T
+  for (int j0 = 0; j0 < a.hidden; j0 += kTailBH) {
+    const int kc = min(kTailBH, a.hidden - j0);
+    tile_gemm<kTailBM, kTailBH>(Rows<T>{sLN, C, kTailBM}, w1, C, C, j0,
+                                a.hidden, sA, sW, [&](int r, int n, float v) {
+                                  sH[r * kTailBH + (n - j0)] =
+                                      from_f<T>(gelu_erf(v + to_f(b1[n])));
+                                });
+    for (int n0 = 0; n0 < C; n0 += kTailBN)
+      tile_gemm<kTailBM, kTailBN>(Rows<T>{sH, kTailBH, kTailBM}, w2 + j0,
+                                  a.hidden, kc, n0, C, sA, sW,
+                                  [&](int r, int n, float v) {
+                                    sAcc[r * C + n] += v;
+                                  });
+  }
+  __syncthreads();
+
+  // 4. out = t1 + b2 + fc2
+  for (int e = threadIdx.x; e < rows * C; e += kThreads)
+    out[e] = from_f<T>(sAcc[e]);
+}
+
+template <typename T>
+int launch_tail(const TailArgs& a, cudaStream_t s) {
+  static size_t attr_bytes = 0;  // largest dynamic size granted so far
+  const size_t bytes = tail_smem_bytes(a.C, sizeof(T));
+  if (bytes > attr_bytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k_block_tail<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_bytes = bytes;
+  }
+  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kTailBM);
+  k_block_tail<T><<<blocks, kThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// p[i] as a typed pointer (the host passes every tensor as void*).
+template <typename T>
+const T* cp(const void* const* p, int i) {
+  return static_cast<const T*>(p[i]);
+}
+template <typename T>
+T* mp(const void* const* p, int i) {
+  return static_cast<T*>(const_cast<void*>(p[i]));
+}
+
+}  // namespace
+}  // namespace lm

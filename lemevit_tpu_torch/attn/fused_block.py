@@ -1,0 +1,240 @@
+"""Whole-block LeMeBlock kernels for inference: C, D (and D2) and S blocks.
+
+Each public function takes the block's input tokens and a parameter tuple in
+the order of ``lemevit_tpu.attn.pallas_block`` (norm1, attention
+projections, norm2, MLP), with every matrix in torch ``nn.Linear`` layout
+(out_features, in_features), and returns the block's output tokens:
+
+  c_block(x, c, params, num_heads)                       -> c
+  dca_block(x, c, params, num_heads, scale_x, scale_c)   -> (x, c)
+  s_block(x, c, params, num_heads)                       -> (x, c)
+
+x is (B, N, C) image tokens *after* the conditional position embedding (the
+3x3 depthwise CPE runs outside, as a ``F.conv2d``); c is (B, M, C) meta
+tokens. Pre-norm, no layer-scale, no DropPath: the inference form of every
+released LeMeViT variant.
+
+For a CUDA tensor a function launches its hand-written kernel
+(``csrc/{c,dca,s}_block.cu``, built by ``_build``) or raises; for a CPU
+tensor it runs its ``*_plain`` version, the PyTorch composition the kernels
+are tested against. The TPU kernels applied the LayerNorm affine by folding
+it into the next matmul's weights; here the kernels apply LayerNorm
+(statistics and affine) in the prologue of the product it feeds, so nothing
+is folded and the weights are used as given.
+
+``LAUNCHES[name]`` counts kernel launches of each block (one per call on
+CUDA tensors; the plain versions do not count).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from lemevit_tpu_torch.attn.reference import sdpa_bnhd
+
+LN_EPS = 1e-6          # the blocks' norm1 / norm2
+HEAD_DIM = 32          # the kernels assign one lane per head channel
+KEYS_PER_SPLIT = 256   # image keys per block in the meta-query direction
+MAX_DIM = 640          # the tail keeps (32, C) rows on chip
+
+LAUNCHES = {"c_block": 0, "dca_block": 0, "s_block": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _ln(t, w, b):
+    return F.layer_norm(t, (t.shape[-1],), w, b, LN_EPS)
+
+
+def _mlp_residual(t, ln_w, ln_b, w1, b1, w2, b2):
+    return t + F.linear(F.gelu(F.linear(_ln(t, ln_w, ln_b), w1, b1)), w2, b2)
+
+
+def c_block_plain(x, c, params, *, num_heads: int) -> torch.Tensor:
+    """Pre-norm C block: c attends to LN1(x) (keys/values), proj, residual,
+    norm2 + MLP. Returns the new c."""
+    (ln1w, ln1b, wq, bq, wkv, bkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2) = params
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    q = F.linear(_ln(c, ln1w, ln1b), wq, bq).view(b, m, h, ch // h)
+    kv = F.linear(_ln(x, ln1w, ln1b), wkv, bkv).view(b, n, 2, h, ch // h)
+    o = sdpa_bnhd(q, kv[:, :, 0], kv[:, :, 1]).reshape(b, m, ch)
+    c1 = c + F.linear(o, wp, bp)
+    return _mlp_residual(c1, ln2w, ln2b, w1, b1, w2, b2)
+
+
+def dca_block_plain(x, c, params, *, num_heads: int, scale_x: float,
+                    scale_c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm D block: x attends to the meta tokens, c to the image
+    tokens (both from the block's input), proj_x / proj_c, residuals and
+    the shared norm2 + MLP on both streams."""
+    (ln1w, ln1b, wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc,
+     ln2w, ln2b, w1, b1, w2, b2) = params
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    qkv1 = F.linear(_ln(x, ln1w, ln1b), wqkv1, bqkv1).view(b, n, 3, h, ch // h)
+    qkv2 = F.linear(_ln(c, ln1w, ln1b), wqkv2, bqkv2).view(b, m, 3, h, ch // h)
+    ax = sdpa_bnhd(qkv1[:, :, 0], qkv2[:, :, 1], qkv2[:, :, 2],
+                   scale=scale_x).reshape(b, n, ch)
+    ac = sdpa_bnhd(qkv2[:, :, 0], qkv1[:, :, 1], qkv1[:, :, 2],
+                   scale=scale_c).reshape(b, m, ch)
+    x1 = x + F.linear(ax, wpx, bpx)
+    c1 = c + F.linear(ac, wpc, bpc)
+    return (_mlp_residual(x1, ln2w, ln2b, w1, b1, w2, b2),
+            _mlp_residual(c1, ln2w, ln2b, w1, b1, w2, b2))
+
+
+def s_block_plain(x, c, params, *, num_heads: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm S block applied to x and, with the same weights, to c."""
+    (ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2) = params
+
+    def branch(t):
+        b, n, ch = t.shape
+        h = num_heads
+        qkv = F.linear(_ln(t, ln1w, ln1b), wqkv, bqkv).view(b, n, 3, h,
+                                                            ch // h)
+        o = sdpa_bnhd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        t1 = t + F.linear(o.reshape(b, n, ch), wp, bp)
+        return _mlp_residual(t1, ln2w, ln2b, w1, b1, w2, b2)
+
+    return branch(x), branch(c)
+
+
+# ---------------------------------------------------------------- CUDA
+
+
+def _check(name: str, x, c, params: Sequence[torch.Tensor], num_heads: int,
+           hidden: int) -> None:
+    """Raise on what the kernel does not take."""
+    if x.dim() != 3 or c.dim() != 3 or x.shape[0] != c.shape[0] \
+            or x.shape[2] != c.shape[2]:
+        raise ValueError(f"{name}: x (B,N,C) and c (B,M,C) expected, got "
+                         f"{tuple(x.shape)} and {tuple(c.shape)}")
+    ch = x.shape[2]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: float32 or bfloat16 expected, got {x.dtype}")
+    if ch != num_heads * HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}; "
+                         f"C={ch} with {num_heads} heads")
+    if ch > MAX_DIM:
+        raise ValueError(f"{name}: C={ch} exceeds the kernel's {MAX_DIM}")
+    if hidden % 32:
+        raise ValueError(f"{name}: MLP width {hidden} is not a multiple of 32")
+    for i, t in enumerate((x, c, *params)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name}: tensor {i} is on {t.device}, "
+                             f"expected {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: tensor {i} is {t.dtype}, "
+                            f"expected {x.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor {i} is not contiguous and "
+                             "16-byte aligned")
+
+
+def _check_shapes(name, params, shapes) -> None:
+    for i, (t, s) in enumerate(zip(params, shapes)):
+        if tuple(t.shape) != tuple(s):
+            raise ValueError(f"{name}: parameter {i} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(s)}")
+
+
+def _launch(name: str, x: torch.Tensor, tensors, *scalars) -> None:
+    from lemevit_tpu_torch.attn import _build
+    lib = _build.library()
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = getattr(lib, f"lm_{name}")(_DTYPES[x.dtype], ptrs, *scalars,
+                                          ctypes.c_void_p(stream))
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+
+
+def _partials(b, h, m, n, device):
+    splits = -(-n // KEYS_PER_SPLIT)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(b * h * splits * m, **f32),
+            torch.empty(b * h * splits * m, **f32),
+            torch.empty(b * h * splits * m * HEAD_DIM, **f32))
+
+
+def c_block(x, c, params, *, num_heads: int) -> torch.Tensor:
+    """Fused C block; see the module docstring. params = (ln1_w, ln1_b, Wq,
+    bq, Wkv, bkv, Wproj, bproj, ln2_w, ln2_b, W1, b1, W2, b2)."""
+    if not x.is_cuda:
+        return c_block_plain(x, c, params, num_heads=num_heads)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    hidden = params[10].shape[0]
+    _check("c_block", x, c, params, num_heads, hidden)
+    _check_shapes("c_block", params, [
+        (ch,), (ch,), (ch, ch), (ch,), (2 * ch, ch), (2 * ch,), (ch, ch),
+        (ch,), (ch,), (ch,), (hidden, ch), (hidden,), (ch, hidden), (ch,)])
+    ws = dict(dtype=x.dtype, device=x.device)
+    co = torch.empty_like(c)
+    work = [torch.empty(b * m, ch, **ws), torch.empty(b * n, 2 * ch, **ws),
+            torch.empty(b * m, ch, **ws),
+            *_partials(b, num_heads, m, n, x.device)]
+    _launch("c_block", x, [x, c, *params, co, *work], b, n, m, ch, num_heads,
+            hidden, KEYS_PER_SPLIT, HEAD_DIM ** -0.5, LN_EPS)
+    return co
+
+
+def dca_block(x, c, params, *, num_heads: int, scale_x: float,
+              scale_c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused D block; see the module docstring. params = (ln1_w, ln1_b,
+    Wqkv1, bqkv1, Wqkv2, bqkv2, Wproj_x, bproj_x, Wproj_c, bproj_c, ln2_w,
+    ln2_b, W1, b1, W2, b2)."""
+    if not x.is_cuda:
+        return dca_block_plain(x, c, params, num_heads=num_heads,
+                               scale_x=scale_x, scale_c=scale_c)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    hidden = params[12].shape[0]
+    _check("dca_block", x, c, params, num_heads, hidden)
+    _check_shapes("dca_block", params, [
+        (ch,), (ch,), (3 * ch, ch), (3 * ch,), (3 * ch, ch), (3 * ch,),
+        (ch, ch), (ch,), (ch, ch), (ch,), (ch,), (ch,), (hidden, ch),
+        (hidden,), (ch, hidden), (ch,)])
+    ws = dict(dtype=x.dtype, device=x.device)
+    xo = torch.empty_like(x)
+    co = torch.empty_like(c)
+    work = [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
+            torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws),
+            *_partials(b, num_heads, m, n, x.device)]
+    _launch("dca_block", x, [x, c, *params, xo, co, *work], b, n, m, ch,
+            num_heads, hidden, KEYS_PER_SPLIT, scale_x, scale_c, LN_EPS)
+    return xo, co
+
+
+def s_block(x, c, params, *, num_heads: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused S block; see the module docstring. params = (ln1_w, ln1_b,
+    Wqkv, bqkv, Wproj, bproj, ln2_w, ln2_b, W1, b1, W2, b2)."""
+    if not x.is_cuda:
+        return s_block_plain(x, c, params, num_heads=num_heads)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    hidden = params[8].shape[0]
+    _check("s_block", x, c, params, num_heads, hidden)
+    _check_shapes("s_block", params, [
+        (ch,), (ch,), (3 * ch, ch), (3 * ch,), (ch, ch), (ch,), (ch,), (ch,),
+        (hidden, ch), (hidden,), (ch, hidden), (ch,)])
+    ws = dict(dtype=x.dtype, device=x.device)
+    xo = torch.empty_like(x)
+    co = torch.empty_like(c)
+    work = [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
+            torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws)]
+    _launch("s_block", x, [x, c, *params, xo, co, *work], b, n, m, ch,
+            num_heads, hidden, HEAD_DIM ** -0.5, LN_EPS)
+    return xo, co

@@ -1,0 +1,264 @@
+"""LeMeViT backbone in PyTorch: counterpart of lemevit_tpu/models/lemevit.py.
+
+Images enter NHWC; ``features_only=True`` returns the NHWC stride-4/8/16/32
+feature maps instead of logits.
+  - stem: two 3x3 s2 conv + BN, GELU between -> H/4;
+  - stage i > 0 downsamples with a 3x3 s2 conv + BN, except after a "C"
+    stage (identity: stages 0 and 1 share H/4);
+  - learnable meta tokens (queries_len x embed_dim[0]), projected by a
+    MetaTokenDownsample at the start of every stage;
+  - LeMeBlock: depthwise CPE, norms and one MLP shared by the image and
+    meta-token streams, four forms by attn_type;
+  - head: BatchNorm(x) + LayerNorm(c, eps 1e-5), spatial mean + token mean,
+    then Linear in float32.
+
+In inference (eval mode, autograd off) a pre-norm block without layer-scale
+or MLP dwconv runs as one fused kernel (attn/fused_block.py) when
+``use_kernel(attn_backend, x)`` says so; the CPE stays outside the kernel as
+a depthwise conv. Everything else is the plain composition.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from lemevit_tpu_torch.attn import fused_block
+from lemevit_tpu_torch.attn import reference as ref
+from lemevit_tpu_torch.attn.modules import (
+    BACKENDS,
+    CrossAttention,
+    DualCrossAttention,
+    DualCrossAttentionV2,
+    StandardAttention,
+    use_kernel,
+)
+from lemevit_tpu_torch.core.layers import (
+    ConvBN,
+    ConvStem,
+    DropPath,
+    DWConv,
+    MetaTokenDownsample,
+    Mlp,
+)
+
+_ATTN = {"S": StandardAttention, "C": CrossAttention,
+         "D": DualCrossAttention, "D2": DualCrossAttentionV2}
+
+
+class LeMeBlock(nn.Module):
+    """One LeMeViT block. The norms, the MLP and the layer-scale gammas are
+    shared by the image-token stream x and the meta-token stream c."""
+
+    def __init__(self, dim: int, num_heads: int, attn_type: str,
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0,
+                 layer_scale_init_value: float = -1.0, cpe_ks: int = 3,
+                 pre_norm: bool = True, mlp_dwconv: bool = False,
+                 attn_backend: str = "auto"):
+        super().__init__()
+        if attn_type not in _ATTN:
+            raise ValueError(f"unknown attn_type {attn_type!r}")
+        if attn_backend not in BACKENDS:
+            raise ValueError(f"attn_backend must be one of {BACKENDS}")
+        self.attn_type = attn_type
+        self.num_heads = num_heads
+        self.pre_norm = pre_norm
+        self.mlp_dwconv = mlp_dwconv
+        self.attn_backend = attn_backend
+        self.pos_embed = DWConv(dim, cpe_ks) if cpe_ks > 0 else None
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = _ATTN[attn_type](dim, num_heads)
+        self.mlp = Mlp(dim, int(mlp_ratio * dim), use_dwconv=mlp_dwconv)
+        self.drop_path = DropPath(drop_path)
+        self.use_layer_scale = layer_scale_init_value > 0
+        if self.use_layer_scale:
+            self.gamma1 = nn.Parameter(torch.full((dim,),
+                                                  layer_scale_init_value))
+            self.gamma2 = nn.Parameter(torch.full((dim,),
+                                                  layer_scale_init_value))
+
+    # ------------------------------------------------------------ composition
+
+    def _cpe(self, x):
+        return x if self.pos_embed is None else x + self.pos_embed(x)
+
+    def _scaled(self, gamma: str, t):
+        return getattr(self, gamma) * t if self.use_layer_scale else t
+
+    def _residual_update(self, t, attn_out, hw):
+        """Attention residual + MLP residual on one stream."""
+        dp = self.drop_path
+        if self.pre_norm:
+            t = t + dp(self._scaled("gamma1", attn_out))
+            return t + dp(self._scaled("gamma2", self.mlp(self.norm2(t), hw)))
+        t = self.norm1(t + dp(self._scaled("gamma1", attn_out)))
+        return self.norm2(t + dp(self._scaled("gamma2", self.mlp(t, hw))))
+
+    def _norm_in(self, t):
+        return self.norm1(t) if self.pre_norm else t
+
+    # ------------------------------------------------------------ fused
+
+    def _fusable(self, x) -> bool:
+        """The structural conditions of the fused kernels (the inference form
+        of every released variant), then the backend switch."""
+        return (self.pre_norm and not self.use_layer_scale
+                and not self.mlp_dwconv and not self.training
+                and not torch.is_grad_enabled()
+                and use_kernel(self.attn_backend, x))
+
+    def fused_params(self) -> tuple:
+        """The parameter tuple of this block's fused kernel (fused_block's
+        order, torch Linear layout). D2 maps onto the D kernel through the
+        weight permutation [Wq|Wq|Wv1] / [Wk|Wk|Wv2]: q1 = k1 = q, v1 from x;
+        q2 = k2 = k, v2 from c."""
+        a = self.attn
+        n1 = (self.norm1.weight, self.norm1.bias)
+        tail = (self.norm2.weight, self.norm2.bias,
+                self.mlp.fc1.weight, self.mlp.fc1.bias,
+                self.mlp.fc2.weight, self.mlp.fc2.bias)
+        if self.attn_type == "S":
+            return (*n1, a.qkv.weight, a.qkv.bias, a.proj.weight,
+                    a.proj.bias, *tail)
+        if self.attn_type == "C":
+            return (*n1, a.q.weight, a.q.bias, a.kv.weight, a.kv.bias,
+                    a.proj.weight, a.proj.bias, *tail)
+        if self.attn_type == "D":
+            w1, b1, w2, b2 = (a.qkv1.weight, a.qkv1.bias,
+                              a.qkv2.weight, a.qkv2.bias)
+        else:
+            ch = a.proj_x.weight.shape[0]
+            wq, wv1 = a.qv1.weight[:ch], a.qv1.weight[ch:]
+            bq, bv1 = a.qv1.bias[:ch], a.qv1.bias[ch:]
+            wk, wv2 = a.kv2.weight[:ch], a.kv2.weight[ch:]
+            bk, bv2 = a.kv2.bias[:ch], a.kv2.bias[ch:]
+            w1, b1 = torch.cat([wq, wq, wv1]), torch.cat([bq, bq, bv1])
+            w2, b2 = torch.cat([wk, wk, wv2]), torch.cat([bk, bk, bv2])
+        return (*n1, w1, b1, w2, b2, a.proj_x.weight, a.proj_x.bias,
+                a.proj_c.weight, a.proj_c.bias, *tail)
+
+    # ------------------------------------------------------------ forward
+
+    def forward(self, x, c):
+        """x: (B, H, W, C) NHWC image tokens, c: (B, M, C) meta tokens."""
+        b, h, w, ch = x.shape
+        hw = (h, w)
+        fused = self._fusable(x)
+        xt = self._cpe(x).reshape(b, h * w, ch)
+        if self.attn_type == "C":
+            # x passes through unchanged; only k/v see the CPE-shifted tokens
+            if fused:
+                return x, fused_block.c_block(xt, c, self.fused_params(),
+                                              num_heads=self.num_heads)
+            ac = self.attn(self._norm_in(xt), self._norm_in(c))
+            return x, self._residual_update(c, ac, None)
+        if fused:
+            if self.attn_type == "S":
+                xo, co = fused_block.s_block(xt, c, self.fused_params(),
+                                             num_heads=self.num_heads)
+            else:
+                scale_x, scale_c = ref.dca_scales(h * w, c.shape[1], ch)
+                xo, co = fused_block.dca_block(
+                    xt, c, self.fused_params(), num_heads=self.num_heads,
+                    scale_x=scale_x, scale_c=scale_c)
+            return xo.reshape(b, h, w, ch), co
+        if self.attn_type == "S":
+            ax = self.attn(self._norm_in(xt))
+            ac = self.attn(self._norm_in(c))
+        else:
+            ax, ac = self.attn(self._norm_in(xt), self._norm_in(c))
+        xo = self._residual_update(xt, ax, hw)
+        co = self._residual_update(c, ac, None)
+        return xo.reshape(b, h, w, ch), co
+
+
+class LeMeViT(nn.Module):
+    """Hierarchical vision transformer with learnable meta tokens. Input
+    (B, H, W, in_chans); output logits (B, num_classes) in float32, or with
+    ``features_only`` the NHWC maps of ``out_indices``."""
+
+    def __init__(self, depth: Sequence[int] = (2, 3, 4, 8, 3),
+                 in_chans: int = 3, num_classes: int = 1000,
+                 embed_dim: Sequence[int] = (64, 64, 128, 320, 512),
+                 head_dim: int = 64,
+                 mlp_ratios: Sequence[float] = (4, 4, 4, 4, 4),
+                 drop_path_rate: float = 0.0,
+                 attn_type: Sequence[str] = ("C", "D", "D", "S", "S"),
+                 queries_len: int = 128, cpe_ks: int = 3,
+                 pre_norm: bool = True, mlp_dwconv: bool = False,
+                 layer_scale_init_value: float = -1.0,
+                 features_only: bool = False,
+                 out_indices: Sequence[int] = (1, 2, 3, 4),
+                 attn_backend: str = "auto"):
+        super().__init__()
+        dims = list(embed_dim)
+        self.attn_type = tuple(attn_type)
+        self.depth = tuple(depth)
+        self.num_classes = num_classes
+        self.features_only = features_only
+        self.out_indices = tuple(out_indices)
+        n_stages = len(self.attn_type)
+
+        self.downsample_layers = nn.ModuleList([ConvStem(in_chans, dims[0])])
+        for i in range(n_stages - 1):
+            self.downsample_layers.append(
+                nn.Identity() if self.attn_type[i] == "C"
+                else ConvBN(dims[i], dims[i + 1]))
+
+        self.meta_tokens = nn.Parameter(torch.zeros(queries_len, dims[0]))
+        self.meta_token_downsample = nn.ModuleList(
+            [MetaTokenDownsample(dims[0], dims[0])]
+            + [MetaTokenDownsample(dims[i], dims[i + 1])
+               for i in range(n_stages - 1)])
+
+        dp_rates = np.linspace(0.0, drop_path_rate, sum(depth)).tolist()
+        self.stages = nn.ModuleList()
+        cur = 0
+        for i in range(n_stages):
+            self.stages.append(nn.ModuleList([
+                LeMeBlock(dims[i], dims[i] // head_dim, self.attn_type[i],
+                          mlp_ratio=mlp_ratios[i],
+                          drop_path=dp_rates[cur + j],
+                          layer_scale_init_value=layer_scale_init_value,
+                          cpe_ks=cpe_ks, pre_norm=pre_norm,
+                          mlp_dwconv=mlp_dwconv, attn_backend=attn_backend)
+                for j in range(depth[i])]))
+            cur += depth[i]
+
+        if not features_only:
+            self.norm = nn.BatchNorm2d(dims[-1], eps=1e-5)
+            self.norm_c = nn.LayerNorm(dims[-1], eps=1e-5)
+            self.head = (nn.Linear(dims[-1], num_classes)
+                         if num_classes > 0 else None)
+
+    def set_attn_backend(self, backend: str) -> None:
+        """Switch every block between "auto", "torch" and "cuda"."""
+        if backend not in BACKENDS:
+            raise ValueError(f"attn_backend must be one of {BACKENDS}")
+        for stage in self.stages:
+            for blk in stage:
+                blk.attn_backend = backend
+
+    def forward(self, x):
+        x = x.to(self.meta_tokens.dtype)
+        c = self.meta_tokens[None].expand(x.shape[0], -1, -1)
+        feats = []
+        for i, stage in enumerate(self.stages):
+            x = self.downsample_layers[i](x)
+            c = self.meta_token_downsample[i](c)
+            for blk in stage:
+                x, c = blk(x, c)
+            if self.features_only and i in self.out_indices:
+                feats.append(x)
+        if self.features_only:
+            return feats
+        x = self.norm(x.permute(0, 3, 1, 2)).mean(dim=(2, 3))
+        c = self.norm_c(c).mean(dim=1)
+        x = (x + c).float()
+        if self.head is not None:
+            x = F.linear(x, self.head.weight.float(), self.head.bias.float())
+        return x
