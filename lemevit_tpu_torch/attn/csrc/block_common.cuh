@@ -2,11 +2,15 @@
 // (c_block.cu, dca_block.cu, s_block.cu).
 //
 // Every public block kernel is a short chain of the launches defined here:
-//   k_linear_ln    out = LN(a) @ W^T + b               (qkv projections)
+//   k_linear_ln    out = LN(a) @ W^T + b, a @ W^T + b, or a @ W^T in fp32
+//                  (qkv projections; the training kernels' data-gradient
+//                  products)
 //   k_attention    softmax(q k^T * scale) v per (image, head), online
-//                  softmax over key chunks, optionally split over blocks
+//                  softmax over key chunks, optionally split over blocks;
+//                  optionally each query's log-sum-exp (for the backward)
 //   k_attn_combine merges the per-split (max, sum, acc) partials
-//   k_block_tail   t1 = t + o @ Wp^T + bp; out = t1 + MLP(LN2(t1))
+//   k_block_tail   t1 = t + s1 (o @ Wp^T + bp); out = t1 + s2 MLP(LN2(t1)),
+//                  s1 / s2 per-image DropPath scales (1 in inference)
 // All matrix products go through one routine, tile_gemm: a shared-memory
 // tiled product with fp32 accumulation whose A operand is a matrix in
 // global or shared memory, optionally row-LayerNormed on the way in (Rows,
@@ -147,16 +151,52 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // eight rows a fragment load touches fall in distinct banks.
 constexpr int kPitch = kBK + 8;
 
+// Warp tiling of a BM x BN bf16 tile: each warp owns a 16 x WN piece,
+// NT m16n8 products wide.
+template <int BM, int BN>
+struct MmaShape {
+  static constexpr int WARPS_M = BM / 16, WARPS_N = kWarps / WARPS_M;
+  static constexpr int WN = BN / WARPS_N, NT = WN / 8;
+  static_assert(WARPS_M * WARPS_N == kWarps && NT * 8 * WARPS_N == BN,
+                "warp tiling");
+};
+
+// acc += one kBK-deep step of sA (BM x kBK) @ sW (BN x kBK)^T, both bf16
+// in shared memory with row pitch kPitch.
+template <int BM, int BN>
+__device__ __forceinline__ void mma_kstep(
+    const __nv_bfloat16* sA, const __nv_bfloat16* sW,
+    float (&acc)[MmaShape<BM, BN>::NT][4]) {
+  using S = MmaShape<BM, BN>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % S::WARPS_M, wn = warp / S::WARPS_M;
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    const __nv_bfloat16* pa = sA + (wm * 16 + g) * kPitch + kk + tig * 2;
+    uint32_t a[4];
+    a[0] = *reinterpret_cast<const uint32_t*>(pa);
+    a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * kPitch);
+    a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * kPitch + 8);
+#pragma unroll
+    for (int t = 0; t < S::NT; ++t) {
+      const __nv_bfloat16* pb =
+          sW + (wn * S::WN + t * 8 + g) * kPitch + kk + tig * 2;
+      mma_bf16(acc[t], a, *reinterpret_cast<const uint32_t*>(pb),
+               *reinterpret_cast<const uint32_t*>(pb + 8));
+    }
+  }
+}
+
 // tile_gemm for bf16: each warp owns a 16 x (BN / warps along N) piece of
 // the tile and issues m16n8k16 products from bf16 tiles in shared memory.
 template <int BM, int BN, typename LoadA, typename Epi>
 __device__ __forceinline__ void tile_gemm_mma(
     LoadA load_a, const __nv_bfloat16* __restrict__ wt, int ldw, int K,
     int n0, int ncols, __nv_bfloat16* sA, __nv_bfloat16* sW, Epi epi) {
-  constexpr int WARPS_M = BM / 16, WARPS_N = kWarps / WARPS_M;
-  constexpr int WN = BN / WARPS_N, NT = WN / 8;
-  static_assert(WARPS_M * WARPS_N == kWarps && NT * 8 * WARPS_N == BN,
-                "warp tiling");
+  using S = MmaShape<BM, BN>;
+  constexpr int WARPS_M = S::WARPS_M, WN = S::WN, NT = S::NT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp % WARPS_M, wn = warp / WARPS_M;
   const int g = lane >> 2, tig = lane & 3;
@@ -219,22 +259,7 @@ __device__ __forceinline__ void tile_gemm_mma(
       *reinterpret_cast<uint4*>(sW + n * kPitch + k) = v;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      const __nv_bfloat16* pa = sA + (wm * 16 + g) * kPitch + kk + tig * 2;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(pa);
-      a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * kPitch);
-      a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * kPitch + 8);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const __nv_bfloat16* pb =
-            sW + (wn * WN + t * 8 + g) * kPitch + kk + tig * 2;
-        mma_bf16(acc[t], a, *reinterpret_cast<const uint32_t*>(pb),
-                 *reinterpret_cast<const uint32_t*>(pb + 8));
-      }
-    }
+    mma_kstep<BM, BN>(sA, sW, acc);
   }
   const int r = wm * 16 + g;
 #pragma unroll
@@ -337,11 +362,16 @@ struct LinArgs {
   const void* ln_b;
   int K;
   float eps;
+  int plain_a;  // 1: A is used as given (no LayerNorm, ln_w / ln_b unused)
+  int out_f32;  // 1: out = A @ w^T in float32, no bias (needs plain_a)
 };
 
 constexpr int kLinBM = 64, kLinBN = 64;
 
-template <typename T>
+// The three modes are separate instances, so that each carries one product
+// and a straight epilogue (as one kernel with runtime flags, the inference
+// projection ran 1.5x slower).
+template <typename T, bool kPlainA, bool kOutF32>
 __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
   __shared__ __align__(16) float sA[kBK * (kLinBM + 1)];
   __shared__ __align__(16) float sW[kBK * (kLinBN + 1)];
@@ -358,31 +388,47 @@ __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
   const int row0 = rb * kLinBM;
   const int rows = min(kLinBM, sg.rows - row0);
   const T* __restrict__ A = static_cast<const T*>(sg.a) + (size_t)row0 * K;
-  const T* __restrict__ g = static_cast<const T*>(args.ln_w);
-  const T* __restrict__ beta = static_cast<const T*>(args.ln_b);
   const T* __restrict__ bias = static_cast<const T*>(sg.bias);
-  T* __restrict__ out = static_cast<T*>(sg.out) + (size_t)row0 * sg.ncols;
-
-  row_stats(
-      [&](int r, int k) {
-        return r < rows ? to_f(A[(size_t)r * K + k]) : 0.f;
-      },
-      kLinBM, K, args.eps, s_mean, s_rstd);
-  __syncthreads();
+  using Out = typename std::conditional<kOutF32, float, T>::type;
+  Out* __restrict__ out = static_cast<Out*>(sg.out) + (size_t)row0 * sg.ncols;
   const int ldo = sg.ncols;
-  tile_gemm<kLinBM, kLinBN>(
-      LnRows<T>{A, K, rows, s_mean, s_rstd, g, beta},
-      static_cast<const T*>(sg.w), K, K, n0, sg.ncols, sA, sW,
-      [&](int r, int n, float v) {
-        if (r < rows) out[(size_t)r * ldo + n] = from_f<T>(v + to_f(bias[n]));
-      });
+  auto epi = [&](int r, int n, float v) {
+    if (r >= rows) return;
+    if constexpr (kOutF32)
+      out[(size_t)r * ldo + n] = v;
+    else
+      out[(size_t)r * ldo + n] = from_f<T>(v + to_f(bias[n]));
+  };
+  const T* __restrict__ w = static_cast<const T*>(sg.w);
+  if constexpr (kPlainA) {
+    tile_gemm<kLinBM, kLinBN>(Rows<T>{A, K, rows}, w, K, K, n0, sg.ncols, sA,
+                              sW, epi);
+  } else {
+    row_stats(
+        [&](int r, int k) {
+          return r < rows ? to_f(A[(size_t)r * K + k]) : 0.f;
+        },
+        kLinBM, K, args.eps, s_mean, s_rstd);
+    __syncthreads();
+    tile_gemm<kLinBM, kLinBN>(
+        LnRows<T>{A, K, rows, s_mean, s_rstd, static_cast<const T*>(args.ln_w),
+                  static_cast<const T*>(args.ln_b)},
+        w, K, K, n0, sg.ncols, sA, sW, epi);
+  }
 }
 
 template <typename T>
 int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
+  if (a.out_f32 && (!a.plain_a || a.seg[0].bias || a.seg[1].bias))
+    return (int)cudaErrorInvalidValue;
   const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kLinBM);
   dim3 grid(blocks, cdiv(max_ncols, kLinBN));
-  k_linear_ln<T><<<grid, kThreads, 0, s>>>(a);
+  if (a.out_f32)
+    k_linear_ln<T, true, true><<<grid, kThreads, 0, s>>>(a);
+  else if (a.plain_a)
+    k_linear_ln<T, true, false><<<grid, kThreads, 0, s>>>(a);
+  else
+    k_linear_ln<T, false, false><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -405,6 +451,8 @@ struct AttnArgs {
   int batch, heads, nq, nk;
   int splits, keys_per_split;
   float scale;
+  float* lse;  // with one split and lse set: each query's log-sum-exp of
+               // its scaled scores, at [(b * heads + h) * nq + query]
 };
 
 constexpr int kQPW = 4;                 // queries per warp
@@ -490,6 +538,7 @@ __global__ void __launch_bounds__(kThreads) k_attention(const AttnArgs a) {
       T* out = static_cast<T*>(a.out);
       out[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim + lane] =
           from_f<T>(acc[i] / l[i]);
+      if (a.lse && lane == 0) a.lse[(size_t)bh * a.nq + gq] = m[i] + logf(l[i]);
     } else {
       const size_t p = ((size_t)bh * a.splits + split) * a.nq + gq;
       if (lane == 0) {
@@ -537,7 +586,9 @@ int launch_attention(const AttnArgs& a, cudaStream_t s) {
 
 // ---------------------------------------------------------------- tail
 
-// One token stream's block tail: t1 = t + o @ wp^T + bp, out = t1 + MLP.
+// One token stream's block tail: t1 = t + s1 (o @ wp^T + bp),
+// out = t1 + s2 MLP(LN2(t1)). s1 / s2 are per-image branch scales (image
+// of flat row r: r / seq), 1 where null; t1, where set, receives t1.
 struct TailSeg {
   const void* t;
   const void* o;
@@ -545,6 +596,10 @@ struct TailSeg {
   const void* bp;
   void* out;
   int rows;
+  const float* s1;
+  const float* s2;
+  int seq;
+  void* t1;
 };
 
 // Two streams share one launch and the block's norm2 + MLP weights.
@@ -572,7 +627,7 @@ __host__ __device__ inline size_t align16(size_t b) {
 inline size_t tail_smem_bytes(int C, size_t elt) {
   return align16(4 * (size_t)kTailBM * C) + align16(elt * kTailBM * C) +
          align16(elt * kTailBM * kTailBH) + align16(4 * kBK * (kTailBM + 1)) +
-         align16(4 * kBK * (kTailBN + 1)) + 8 * kTailBM;
+         align16(4 * kBK * (kTailBN + 1)) + 16 * kTailBM;
 }
 
 // Rows stay in shared memory from the projection to the output. sAcc holds
@@ -596,6 +651,8 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
   q += align16(4 * kBK * (kTailBN + 1));
   float* s_mean = reinterpret_cast<float*>(q);
   float* s_rstd = s_mean + kTailBM;
+  float* s_s1 = s_rstd + kTailBM;
+  float* s_s2 = s_s1 + kTailBM;
 
   int rb = blockIdx.x, si = 0;
   if (rb >= a.row_blocks0) {
@@ -605,6 +662,11 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
   const TailSeg sg = a.seg[si];
   const int row0 = rb * kTailBM;
   const int rows = min(kTailBM, sg.rows - row0);
+  for (int r = threadIdx.x; r < kTailBM; r += kThreads) {
+    const int img = sg.seq ? (row0 + r) / sg.seq : 0;
+    s_s1[r] = (sg.s1 && r < rows) ? sg.s1[img] : 1.f;
+    s_s2[r] = (sg.s2 && r < rows) ? sg.s2[img] : 1.f;
+  }
   const T* __restrict__ tin = static_cast<const T*>(sg.t) + (size_t)row0 * C;
   const T* __restrict__ o = static_cast<const T*>(sg.o) + (size_t)row0 * C;
   const T* __restrict__ bp = static_cast<const T*>(sg.bp);
@@ -616,17 +678,24 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
   const T* __restrict__ b2 = static_cast<const T*>(a.b2);
   T* __restrict__ out = static_cast<T*>(sg.out) + (size_t)row0 * C;
 
-  // 1. t1 = t + o @ Wp^T + bp, in fp32
+  // 1. t1 = t + s1 (o @ Wp^T + bp), in fp32 (tile_gemm's first barrier
+  //    orders the scale loads above before the epilogue reads them)
   for (int n0 = 0; n0 < C; n0 += kTailBN)
     tile_gemm<kTailBM, kTailBN>(
         Rows<T>{o, C, rows}, static_cast<const T*>(sg.wp), C, C, n0, C, sA,
         sW, [&](int r, int n, float v) {
-          sAcc[r * C + n] =
-              r < rows ? v + to_f(bp[n]) + to_f(tin[(size_t)r * C + n]) : 0.f;
+          sAcc[r * C + n] = r < rows ? s_s1[r] * (v + to_f(bp[n])) +
+                                           to_f(tin[(size_t)r * C + n])
+                                     : 0.f;
         });
   __syncthreads();
+  if (sg.t1) {
+    T* t1 = static_cast<T*>(sg.t1) + (size_t)row0 * C;
+    for (int e = threadIdx.x; e < rows * C; e += kThreads)
+      t1[e] = from_f<T>(sAcc[e]);
+  }
 
-  // 2. LN2(t1) into sLN; then sAcc = t1 + b2 (the second residual)
+  // 2. LN2(t1) into sLN; then sAcc = t1 + s2 b2 (the second residual)
   row_stats([&](int r, int k) { return sAcc[r * C + k]; }, kTailBM, C, a.eps,
             s_mean, s_rstd);
   __syncthreads();
@@ -634,7 +703,7 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
     const int r = e / C, k = e % C;
     sLN[e] = from_f<T>((sAcc[e] - s_mean[r]) * s_rstd[r] * to_f(g[k]) +
                        to_f(beta[k]));
-    sAcc[e] += to_f(b2[k]);
+    sAcc[e] += s_s2[r] * to_f(b2[k]);
   }
   __syncthreads();
 
@@ -652,12 +721,12 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
       tile_gemm<kTailBM, kTailBN>(Rows<T>{sH, kTailBH, kTailBM}, w2 + j0,
                                   a.hidden, kc, n0, C, sA, sW,
                                   [&](int r, int n, float v) {
-                                    sAcc[r * C + n] += v;
+                                    sAcc[r * C + n] += s_s2[r] * v;
                                   });
   }
   __syncthreads();
 
-  // 4. out = t1 + b2 + fc2
+  // 4. out = t1 + s2 (b2 + fc2)
   for (int e = threadIdx.x; e < rows * C; e += kThreads)
     out[e] = from_f<T>(sAcc[e]);
 }

@@ -1,0 +1,668 @@
+// Device building blocks of the block training kernels (s_train.cu), on top
+// of block_common.cuh. The MLP backward and the weight-gradient product are
+// the same for every block kind, so the D and C training kernels reuse them.
+//   k_ln_rows          a = LN(x) without affine, one warp per row
+//   k_ln_bwd           dx = dres + LN'(x)^T da (LayerNorm without affine)
+//   k_mlp_bwd          per 32-row block: recompute LN2 / fc1 / GELU from t1
+//                      and dt1 = dout + LN'(t1)^T ((dz W2 . GELU'(y)) W1);
+//                      writes mm = LN2(t1), gg = GELU(y), dy = dz W2 . GELU'(y)
+//                      for the weight gradients
+//   k_attn_bwd_rowdot  D = rowsum(dO . o) per (row, head)
+//   k_attn_bwd_dq      dq = scale dS K over key chunks
+//   k_attn_bwd_dkv     dk = scale dS^T Q, dv = P^T dO over query chunks;
+//                      both rebuild P = exp(s - lse) from the forward's
+//                      log-sum-exp, dS = P . (dO v^T - D) (FlashAttention-2)
+//   k_wgrad            dW = G^T A over token rows (and colsum G), split over
+//                      row ranges into fp32 partials; k_wgrad_reduce sums
+//                      the partials and writes dW (and db) in T
+// All reductions and products accumulate in fp32; LayerNorm and GELU
+// derivatives are exact (erf form). The attention kernels are plain fp32
+// FMA, one lane per head channel, as k_attention is.
+#pragma once
+
+#include "block_common.cuh"
+
+namespace lm {
+namespace {
+
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * expf(-0.5f * v * v) * 0.39894228040143268f;
+}
+
+inline float* fp(const void* const* p, int i) {
+  return static_cast<float*>(const_cast<void*>(p[i]));
+}
+
+// ---------------------------------------------------------------- LayerNorm
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    k_ln_rows(const T* __restrict__ x, T* __restrict__ out, int rows, int K,
+              float eps) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const T* p = x + (size_t)r * K;
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += to_f(p[k]);
+  const float mean = warp_sum(s) / K;
+  float v = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = to_f(p[k]) - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / K + eps);
+  T* o = out + (size_t)r * K;
+  for (int k = lane; k < K; k += 32)
+    o[k] = from_f<T>((to_f(p[k]) - mean) * rstd);
+}
+
+// dx = dres + rstd (da - mean(da) - th mean(da th)), th = (x - mean) rstd
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    k_ln_bwd(const T* __restrict__ x, const float* __restrict__ da,
+             const T* __restrict__ dres, T* __restrict__ dx, int rows, int K,
+             float eps) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const size_t off = (size_t)r * K;
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += to_f(x[off + k]);
+  const float mean = warp_sum(s) / K;
+  float v = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = to_f(x[off + k]) - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / K + eps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float th = (to_f(x[off + k]) - mean) * rstd, g = da[off + k];
+    s1 += g;
+    s2 += g * th;
+  }
+  const float m1 = warp_sum(s1) / K, m2 = warp_sum(s2) / K;
+  for (int k = lane; k < K; k += 32) {
+    const float th = (to_f(x[off + k]) - mean) * rstd;
+    dx[off + k] =
+        from_f<T>(to_f(dres[off + k]) + rstd * (da[off + k] - m1 - th * m2));
+  }
+}
+
+template <typename T>
+int launch_ln_rows(const void* x, void* out, int rows, int K, float eps,
+                   cudaStream_t s) {
+  k_ln_rows<T><<<cdiv(rows, kWarps), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), rows, K, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ln_bwd(const void* x, const float* da, const void* dres, void* dx,
+                  int rows, int K, float eps, cudaStream_t s) {
+  k_ln_bwd<T><<<cdiv(rows, kWarps), kThreads, 0, s>>>(
+      static_cast<const T*>(x), da, static_cast<const T*>(dres),
+      static_cast<T*>(dx), rows, K, eps);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- MLP bwd
+
+// One token stream of the MLP backward. dz = s2 dout (the DropPath-scaled
+// upstream gradient) comes in; mm (rows, C), gg and dy (rows, hidden) go
+// out for the weight gradients.
+struct MlpBwdSeg {
+  const void* t1;
+  const void* dout;
+  const void* dz;
+  void* dt1;
+  void* mm;
+  void* gg;
+  void* dy;
+  int rows;
+};
+
+struct MlpBwdArgs {
+  MlpBwdSeg seg[2];
+  int row_blocks0;
+  const void* w1;   // (hidden, C)
+  const void* b1;   // (hidden,)
+  const void* w2t;  // (hidden, C) = W2^T
+  const void* w1t;  // (C, hidden) = W1^T
+  int C, hidden;
+  float eps;
+};
+
+constexpr int kMbBM = 32, kMbBN = 128, kMbBH = 128;
+
+// fp32 d(LN2 output) accumulator, LN2(t1) in T, one fc1 chunk in fp32 and
+// its dy in T, the staging tiles, the row statistics.
+inline size_t mlp_bwd_smem_bytes(int C, size_t elt) {
+  return align16(4 * (size_t)kMbBM * C) + align16(elt * kMbBM * C) +
+         align16(4 * (size_t)kMbBM * kMbBH) + align16(elt * kMbBM * kMbBH) +
+         align16(4 * kBK * (kMbBM + 1)) + align16(4 * kBK * (kMbBN + 1)) +
+         8 * kMbBM;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_mlp_bwd(const MlpBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = a.C, Hd = a.hidden;
+  unsigned char* q = smem;
+  float* sAcc = reinterpret_cast<float*>(q);
+  q += align16(4 * (size_t)kMbBM * C);
+  T* sLN = reinterpret_cast<T*>(q);
+  q += align16(sizeof(T) * kMbBM * C);
+  float* sY = reinterpret_cast<float*>(q);
+  q += align16(4 * (size_t)kMbBM * kMbBH);
+  T* sH = reinterpret_cast<T*>(q);
+  q += align16(sizeof(T) * kMbBM * kMbBH);
+  float* sA = reinterpret_cast<float*>(q);
+  q += align16(4 * kBK * (kMbBM + 1));
+  float* sW = reinterpret_cast<float*>(q);
+  q += align16(4 * kBK * (kMbBN + 1));
+  float* s_mean = reinterpret_cast<float*>(q);
+  float* s_rstd = s_mean + kMbBM;
+
+  int rb = blockIdx.x, si = 0;
+  if (rb >= a.row_blocks0) {
+    rb -= a.row_blocks0;
+    si = 1;
+  }
+  const MlpBwdSeg sg = a.seg[si];
+  const int row0 = rb * kMbBM;
+  const int rows = min(kMbBM, sg.rows - row0);
+  const size_t oc = (size_t)row0 * C, oh = (size_t)row0 * Hd;
+  const T* __restrict__ t1 = static_cast<const T*>(sg.t1) + oc;
+  const T* __restrict__ dout = static_cast<const T*>(sg.dout) + oc;
+  const T* __restrict__ dz = static_cast<const T*>(sg.dz) + oc;
+  T* __restrict__ dt1 = static_cast<T*>(sg.dt1) + oc;
+  T* __restrict__ mm = static_cast<T*>(sg.mm) + oc;
+  T* __restrict__ gg = static_cast<T*>(sg.gg) + oh;
+  T* __restrict__ dy = static_cast<T*>(sg.dy) + oh;
+  const T* __restrict__ w1 = static_cast<const T*>(a.w1);
+  const T* __restrict__ b1 = static_cast<const T*>(a.b1);
+  const T* __restrict__ w2t = static_cast<const T*>(a.w2t);
+  const T* __restrict__ w1t = static_cast<const T*>(a.w1t);
+
+  // 1. mm = LN2(t1) (no affine: W1 is folded) into sLN and device memory
+  row_stats([&](int r, int k) {
+              return r < rows ? to_f(t1[(size_t)r * C + k]) : 0.f;
+            },
+            kMbBM, C, a.eps, s_mean, s_rstd);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kMbBM * C; e += kThreads) {
+    const int r = e / C;
+    const T v =
+        from_f<T>(r < rows ? (to_f(t1[e]) - s_mean[r]) * s_rstd[r] : 0.f);
+    sLN[e] = v;
+    sAcc[e] = 0.f;
+    if (r < rows) mm[e] = v;
+  }
+
+  // 2. per kMbBH-wide hidden chunk: y = mm W1c^T + b1c; dy = (dz W2c) .
+  //    GELU'(y); d(mm) += dy W1c. The barriers at the top of every
+  //    tile_gemm order each epilogue's shared writes before the next reads.
+  for (int j0 = 0; j0 < Hd; j0 += kMbBH) {
+    const int kc = min(kMbBH, Hd - j0);
+    tile_gemm<kMbBM, kMbBH>(Rows<T>{sLN, C, kMbBM}, w1, C, C, j0, Hd, sA, sW,
+                            [&](int r, int n, float v) {
+                              sY[r * kMbBH + (n - j0)] = v + to_f(b1[n]);
+                            });
+    tile_gemm<kMbBM, kMbBH>(
+        Rows<T>{dz, C, rows}, w2t, C, C, j0, Hd, sA, sW,
+        [&](int r, int n, float v) {
+          const float y = sY[r * kMbBH + (n - j0)];
+          const T d = from_f<T>(v * gelu_erf_grad(y));
+          sH[r * kMbBH + (n - j0)] = d;
+          if (r < rows) {
+            dy[(size_t)r * Hd + n] = d;
+            gg[(size_t)r * Hd + n] = from_f<T>(gelu_erf(y));
+          }
+        });
+    for (int n0 = 0; n0 < C; n0 += kMbBN)
+      tile_gemm<kMbBM, kMbBN>(Rows<T>{sH, kMbBH, kMbBM}, w1t + j0, Hd, kc, n0,
+                              C, sA, sW, [&](int r, int n, float v) {
+                                sAcc[r * C + n] += v;
+                              });
+  }
+  __syncthreads();
+
+  // 3. dt1 = dout + LN2 backward of d(mm), one warp per row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    const float mean = s_mean[r], rstd = s_rstd[r];
+    const float* g = sAcc + r * C;
+    const T* t = t1 + (size_t)r * C;
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = lane; k < C; k += 32) {
+      const float th = (to_f(t[k]) - mean) * rstd;
+      s1 += g[k];
+      s2 += g[k] * th;
+    }
+    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+    for (int k = lane; k < C; k += 32) {
+      const float th = (to_f(t[k]) - mean) * rstd;
+      dt1[(size_t)r * C + k] = from_f<T>(to_f(dout[(size_t)r * C + k]) +
+                                         rstd * (g[k] - m1 - th * m2));
+    }
+  }
+}
+
+template <typename T>
+int launch_mlp_bwd(const MlpBwdArgs& a, cudaStream_t s) {
+  static size_t attr_bytes = 0;  // largest dynamic size granted so far
+  const size_t bytes = mlp_bwd_smem_bytes(a.C, sizeof(T));
+  if (bytes > attr_bytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k_mlp_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_bytes = bytes;
+  }
+  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kMbBM);
+  k_mlp_bwd<T><<<blocks, kThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- wgrad
+
+// One BM x BN tile of G[r0:r1, o0:o0+BM]^T @ A[r0:r1, i0:i0+BN]. The sum
+// runs over token rows, so both operands are read along their rows (16
+// bytes per thread in bf16) and transposed into the staging tiles. Rows
+// past r1 and columns past O / I read as zero; O and I are multiples of 8.
+// epi(r, n, v) gets tile-local indices.
+template <int BM, int BN, typename T, typename Epi>
+__device__ __forceinline__ void tile_gemm_tn(const T* __restrict__ G, int ldg,
+                                             const T* __restrict__ A, int lda,
+                                             int r0, int r1, int o0, int O,
+                                             int i0, int I, float* sA,
+                                             float* sW, Epi epi) {
+  const int tid = threadIdx.x;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using S = MmaShape<BM, BN>;
+    __nv_bfloat16* a16 = reinterpret_cast<__nv_bfloat16*>(sA);
+    __nv_bfloat16* w16 = reinterpret_cast<__nv_bfloat16*>(sW);
+    float acc[S::NT][4];
+#pragma unroll
+    for (int t = 0; t < S::NT; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+    constexpr int V = 8;
+    for (int k0 = r0; k0 < r1; k0 += kBK) {
+      __syncthreads();
+      for (int e = tid; e < kBK * BM / V; e += kThreads) {
+        const int k = e / (BM / V), o = (e % (BM / V)) * V;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (k0 + k < r1 && o0 + o < O)
+          v = *reinterpret_cast<const uint4*>(G + (size_t)(k0 + k) * ldg +
+                                              o0 + o);
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+        for (int u = 0; u < V; ++u) a16[(o + u) * kPitch + k] = h[u];
+      }
+      for (int e = tid; e < kBK * BN / V; e += kThreads) {
+        const int k = e / (BN / V), i = (e % (BN / V)) * V;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (k0 + k < r1 && i0 + i < I)
+          v = *reinterpret_cast<const uint4*>(A + (size_t)(k0 + k) * lda +
+                                              i0 + i);
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+        for (int u = 0; u < V; ++u) w16[(i + u) * kPitch + k] = h[u];
+      }
+      __syncthreads();
+      mma_kstep<BM, BN>(a16, w16, acc);
+    }
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp % S::WARPS_M, wn = warp / S::WARPS_M;
+    const int g = lane >> 2, tig = lane & 3;
+    const int r = wm * 16 + g;
+#pragma unroll
+    for (int t = 0; t < S::NT; ++t) {
+      const int n = wn * S::WN + t * 8 + tig * 2;
+      epi(r, n, acc[t][0]);
+      epi(r, n + 1, acc[t][1]);
+      epi(r + 8, n, acc[t][2]);
+      epi(r + 8, n + 1, acc[t][3]);
+    }
+  } else {
+    constexpr int TM = BM / 16, TN = BN / 16;
+    const int tx = tid & 15, ty = tid >> 4;
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int k0 = r0; k0 < r1; k0 += kBK) {
+      __syncthreads();
+      for (int e = tid; e < BM * kBK; e += kThreads) {
+        const int k = e / BM, o = e % BM;
+        sA[k * (BM + 1) + o] =
+            (k0 + k < r1 && o0 + o < O)
+                ? to_f(G[(size_t)(k0 + k) * ldg + o0 + o])
+                : 0.f;
+      }
+      for (int e = tid; e < BN * kBK; e += kThreads) {
+        const int k = e / BN, i = e % BN;
+        sW[k * (BN + 1) + i] =
+            (k0 + k < r1 && i0 + i < I)
+                ? to_f(A[(size_t)(k0 + k) * lda + i0 + i])
+                : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < kBK; ++k) {
+        float av[TM], bv[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[i] = sA[k * (BM + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) bv[j] = sW[k * (BN + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) epi(ty + 16 * i, tx + 16 * j, acc[i][j]);
+  }
+}
+
+// One token stream of a weight gradient: dW += G^T A over its rows.
+struct WgradSeg {
+  const void* g;  // (rows, O)
+  const void* a;  // (rows, I)
+  int rows;
+};
+
+struct WgradArgs {
+  WgradSeg seg[2];
+  int splits0;         // row ranges of seg[0]; the rest belong to seg[1]
+  int rows_per_split;  // a multiple of kBK
+  int O, I;            // dW is (O, I), torch Linear layout
+  float* part;         // (splits, O, I) fp32 partial sums
+  float* part_bias;    // (splits, O) partial column sums of G, or null
+};
+
+constexpr int kWgBM = 64, kWgBN = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_wgrad(const WgradArgs a) {
+  __shared__ __align__(16) float sA[kBK * (kWgBM + 1)];
+  __shared__ __align__(16) float sW[kBK * (kWgBN + 1)];
+  const int split = blockIdx.z;
+  int sp = split, si = 0;
+  if (sp >= a.splits0) {
+    sp -= a.splits0;
+    si = 1;
+  }
+  const WgradSeg sg = a.seg[si];
+  const int r0 = sp * a.rows_per_split;
+  const int r1 = min(sg.rows, r0 + a.rows_per_split);
+  const int o0 = blockIdx.y * kWgBM, i0 = blockIdx.x * kWgBN;
+  const T* __restrict__ G = static_cast<const T*>(sg.g);
+  const T* __restrict__ A = static_cast<const T*>(sg.a);
+  float* part = a.part + (size_t)split * a.O * a.I;
+  tile_gemm_tn<kWgBM, kWgBN>(G, a.O, A, a.I, r0, r1, o0, a.O, i0, a.I, sA, sW,
+                             [&](int r, int n, float v) {
+                               const int o = o0 + r, i = i0 + n;
+                               if (o < a.O && i < a.I)
+                                 part[(size_t)o * a.I + i] = v;
+                             });
+  if (a.part_bias && blockIdx.x == 0) {
+    for (int o = threadIdx.x; o < kWgBM && o0 + o < a.O; o += kThreads) {
+      float s = 0.f;
+      for (int r = r0; r < r1; ++r) s += to_f(G[(size_t)r * a.O + o0 + o]);
+      a.part_bias[(size_t)split * a.O + o0 + o] = s;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    k_wgrad_reduce(const float* __restrict__ part,
+                   const float* __restrict__ part_bias, int splits, int O,
+                   int I, T* __restrict__ dw, T* __restrict__ db) {
+  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t n = (size_t)O * I;
+  if (idx < n) {
+    float s = 0.f;
+    for (int k = 0; k < splits; ++k) s += part[(size_t)k * n + idx];
+    dw[idx] = from_f<T>(s);
+  } else if (db && idx < n + O) {
+    const size_t j = idx - n;
+    float s = 0.f;
+    for (int k = 0; k < splits; ++k) s += part_bias[(size_t)k * O + j];
+    db[j] = from_f<T>(s);
+  }
+}
+
+// dw (O, I) = sum of G^T A over both segments; db (O,) = column sums of G
+// when db is set (a.part_bias must then be set too).
+template <typename T>
+int launch_wgrad(const WgradArgs& a, void* dw, void* db, cudaStream_t s) {
+  const int splits = a.splits0 + cdiv(a.seg[1].rows, a.rows_per_split);
+  dim3 grid(cdiv(a.I, kWgBN), cdiv(a.O, kWgBM), splits);
+  k_wgrad<T><<<grid, kThreads, 0, s>>>(a);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int total = a.O * a.I + (db ? a.O : 0);
+  k_wgrad_reduce<T><<<cdiv(total, kThreads), kThreads, 0, s>>>(
+      a.part, a.part_bias, splits, a.O, a.I, static_cast<T*>(dw),
+      static_cast<T*>(db));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- attention
+
+// Self-attention backward of one token stream. q / k / v are column
+// thirds of qkv; head h uses columns [32 h, 32 h + 32) of each third.
+struct AttnBwdArgs {
+  const void* qkv;   // (batch * n, 3C)
+  const void* o;     // (batch * n, C) attention output of the forward
+  const float* dO;   // (batch * n, C) gradient of o
+  const float* lse;  // (batch * heads * n) log-sum-exp from the forward
+  float* D;          // (batch * heads * n) rowsum(dO . o)
+  void* dqkv;        // (batch * n, 3C) out: dq | dk | dv
+  int batch, heads, n, C;
+  float scale;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    k_attn_bwd_rowdot(const AttnBwdArgs a) {
+  const int idx = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (idx >= a.batch * a.n * a.heads) return;
+  const int row = idx / a.heads, h = idx % a.heads;
+  const int b = row / a.n, i = row % a.n;
+  const size_t off = (size_t)row * a.C + h * kHeadDim + lane;
+  const float s =
+      warp_sum(a.dO[off] * to_f(static_cast<const T*>(a.o)[off]));
+  if (lane == 0) a.D[((size_t)b * a.heads + h) * a.n + i] = s;
+}
+
+// One block per (image, head, kQB queries); each warp owns kQPW queries and
+// streams the keys through shared memory in kKC chunks, lane j taking keys
+// j and j + 32 of a chunk.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_attn_bwd_dq(const AttnBwdArgs a) {
+  __shared__ float sQ[kQB][kHeadDim];
+  __shared__ float sdO[kQB][kHeadDim];
+  __shared__ float sK[kKC][kHeadDim + 1];
+  __shared__ float sV[kKC][kHeadDim + 1];
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = blockIdx.y * kQB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = 3 * a.C;
+  const T* __restrict__ qkv = static_cast<const T*>(a.qkv);
+  for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
+    const int qi = e / kHeadDim, t = e % kHeadDim, gq = q0 + qi;
+    const size_t row = (size_t)b * a.n + gq;
+    const bool ok = gq < a.n;
+    sQ[qi][t] = ok ? to_f(qkv[row * ld + h * kHeadDim + t]) * a.scale : 0.f;
+    sdO[qi][t] = ok ? a.dO[row * a.C + h * kHeadDim + t] : 0.f;
+  }
+  float lse[kQPW], Dv[kQPW], acc[kQPW];
+#pragma unroll
+  for (int i = 0; i < kQPW; ++i) {
+    const int gq = q0 + warp * kQPW + i;
+    const size_t p = (size_t)bh * a.n + gq;
+    lse[i] = gq < a.n ? a.lse[p] : 0.f;
+    Dv[i] = gq < a.n ? a.D[p] : 0.f;
+    acc[i] = 0.f;
+  }
+  for (int kc = 0; kc < a.n; kc += kKC) {
+    const int cnt = min(kKC, a.n - kc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
+      const int j = e / kHeadDim, t = e % kHeadDim;
+      float kv = 0.f, vv = 0.f;
+      if (j < cnt) {
+        const size_t off =
+            ((size_t)b * a.n + kc + j) * ld + h * kHeadDim + t;
+        kv = to_f(qkv[off + a.C]);
+        vv = to_f(qkv[off + 2 * a.C]);
+      }
+      sK[j][t] = kv;
+      sV[j][t] = vv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kQPW; ++i) {
+      const int qi = warp * kQPW + i;
+      if (q0 + qi >= a.n) continue;  // uniform over the warp
+      float s0 = 0.f, s1 = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < kHeadDim; ++t) {
+        const float qv = sQ[qi][t], gv = sdO[qi][t];
+        s0 = fmaf(qv, sK[lane][t], s0);
+        s1 = fmaf(qv, sK[lane + 32][t], s1);
+        d0 = fmaf(gv, sV[lane][t], d0);
+        d1 = fmaf(gv, sV[lane + 32][t], d1);
+      }
+      const float p0 = lane < cnt ? expf(s0 - lse[i]) : 0.f;
+      const float p1 = lane + 32 < cnt ? expf(s1 - lse[i]) : 0.f;
+      const float ds0 = p0 * (d0 - Dv[i]), ds1 = p1 * (d1 - Dv[i]);
+      float o = acc[i];
+      for (int j = 0; j < cnt; ++j) {
+        const float d = __shfl_sync(0xffffffffu, j < 32 ? ds0 : ds1, j & 31);
+        o = fmaf(d, sK[j][lane], o);
+      }
+      acc[i] = o;
+    }
+  }
+  T* dqkv = static_cast<T*>(a.dqkv);
+#pragma unroll
+  for (int i = 0; i < kQPW; ++i) {
+    const int gq = q0 + warp * kQPW + i;
+    if (gq >= a.n) continue;
+    dqkv[((size_t)b * a.n + gq) * ld + h * kHeadDim + lane] =
+        from_f<T>(acc[i] * a.scale);
+  }
+}
+
+// One block per (image, head, kQB keys); each warp owns kQPW keys and
+// streams the queries (scaled q, dO, lse, D) through shared memory in kKC
+// chunks, lane i taking queries i and i + 32 of a chunk.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    k_attn_bwd_dkv(const AttnBwdArgs a) {
+  __shared__ float sKb[kQB][kHeadDim];
+  __shared__ float sVb[kQB][kHeadDim];
+  __shared__ float sQ[kKC][kHeadDim + 1];
+  __shared__ float sdO[kKC][kHeadDim + 1];
+  __shared__ float sL[kKC], sD[kKC];
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int k0 = blockIdx.y * kQB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = 3 * a.C;
+  const T* __restrict__ qkv = static_cast<const T*>(a.qkv);
+  for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
+    const int kj = e / kHeadDim, t = e % kHeadDim, gk = k0 + kj;
+    const size_t off = ((size_t)b * a.n + gk) * ld + h * kHeadDim + t;
+    sKb[kj][t] = gk < a.n ? to_f(qkv[off + a.C]) : 0.f;
+    sVb[kj][t] = gk < a.n ? to_f(qkv[off + 2 * a.C]) : 0.f;
+  }
+  float dk[kQPW], dv[kQPW];
+#pragma unroll
+  for (int i = 0; i < kQPW; ++i) dk[i] = dv[i] = 0.f;
+  for (int qc = 0; qc < a.n; qc += kKC) {
+    const int cnt = min(kKC, a.n - qc);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
+      const int j = e / kHeadDim, t = e % kHeadDim;
+      float qv = 0.f, gv = 0.f;
+      if (j < cnt) {
+        const size_t row = (size_t)b * a.n + qc + j;
+        qv = to_f(qkv[row * ld + h * kHeadDim + t]) * a.scale;
+        gv = a.dO[row * a.C + h * kHeadDim + t];
+      }
+      sQ[j][t] = qv;
+      sdO[j][t] = gv;
+    }
+    for (int j = threadIdx.x; j < kKC; j += kThreads) {
+      const size_t p = (size_t)bh * a.n + qc + j;
+      sL[j] = j < cnt ? a.lse[p] : 0.f;
+      sD[j] = j < cnt ? a.D[p] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kQPW; ++i) {
+      const int kj = warp * kQPW + i;
+      if (k0 + kj >= a.n) continue;  // uniform over the warp
+      float s0 = 0.f, s1 = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < kHeadDim; ++t) {
+        const float kv = sKb[kj][t], vv = sVb[kj][t];
+        s0 = fmaf(sQ[lane][t], kv, s0);
+        s1 = fmaf(sQ[lane + 32][t], kv, s1);
+        d0 = fmaf(sdO[lane][t], vv, d0);
+        d1 = fmaf(sdO[lane + 32][t], vv, d1);
+      }
+      const float p0 = lane < cnt ? expf(s0 - sL[lane]) : 0.f;
+      const float p1 = lane + 32 < cnt ? expf(s1 - sL[lane + 32]) : 0.f;
+      const float ds0 = p0 * (d0 - sD[lane]), ds1 = p1 * (d1 - sD[lane + 32]);
+      float gk = dk[i], gv = dv[i];
+      for (int j = 0; j < cnt; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, j < 32 ? p0 : p1, j & 31);
+        const float dj = __shfl_sync(0xffffffffu, j < 32 ? ds0 : ds1, j & 31);
+        gv = fmaf(pj, sdO[j][lane], gv);
+        gk = fmaf(dj, sQ[j][lane], gk);
+      }
+      dk[i] = gk;
+      dv[i] = gv;
+    }
+  }
+  T* dqkv = static_cast<T*>(a.dqkv);
+#pragma unroll
+  for (int i = 0; i < kQPW; ++i) {
+    const int gk = k0 + warp * kQPW + i;
+    if (gk >= a.n) continue;
+    const size_t off = ((size_t)b * a.n + gk) * ld + h * kHeadDim + lane;
+    dqkv[off + a.C] = from_f<T>(dk[i]);
+    dqkv[off + 2 * a.C] = from_f<T>(dv[i]);
+  }
+}
+
+template <typename T>
+int launch_attn_bwd(const AttnBwdArgs& a, cudaStream_t s) {
+  k_attn_bwd_rowdot<T><<<cdiv(a.batch * a.n * a.heads, kWarps), kThreads, 0,
+                         s>>>(a);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 grid(a.batch * a.heads, cdiv(a.n, kQB));
+  k_attn_bwd_dq<T><<<grid, kThreads, 0, s>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  k_attn_bwd_dkv<T><<<grid, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace lm

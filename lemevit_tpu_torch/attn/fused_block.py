@@ -148,7 +148,10 @@ def _check_shapes(name, params, shapes) -> None:
                              f"{tuple(t.shape)}, expected {tuple(s)}")
 
 
-def _launch(name: str, x: torch.Tensor, tensors, *scalars) -> None:
+def _launch(name: str, x: torch.Tensor, tensors, *scalars,
+            counts=LAUNCHES) -> None:
+    """Run entry point lm_<name> on x's device and stream in x's dtype and
+    add one to counts[name]."""
     from lemevit_tpu_torch.attn import _build
     lib = _build.library()
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
@@ -157,7 +160,7 @@ def _launch(name: str, x: torch.Tensor, tensors, *scalars) -> None:
         code = getattr(lib, f"lm_{name}")(_DTYPES[x.dtype], ptrs, *scalars,
                                           ctypes.c_void_p(stream))
     _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _partials(b, h, m, n, device):

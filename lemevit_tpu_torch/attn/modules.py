@@ -9,10 +9,12 @@ Four forms, keyed by a stage's ``attn_type``:
                              c <- attn(k, q, v1)
 Layout (B, N, H, d) throughout. Counterpart of lemevit_tpu/attn/modules.py.
 
-Kernels: a whole pre-norm block runs as one fused kernel
-(``attn/fused_block.py``), chosen by ``use_kernel``; these modules are the
-composition a block falls back to (training, post-norm, layer-scale, or
-``attn_backend="torch"``). The JAX package's attention-only kernels
+Kernels: a whole pre-norm block runs as hand-written kernels
+(``attn/fused_block.py`` in inference, ``attn/fused_train.py`` for S blocks
+in training), chosen by ``use_kernel`` and the JAX package's token-count
+limits; these modules are the composition a block runs otherwise
+(post-norm, layer-scale, above those limits, on CPU tensors under "auto",
+or ``attn_backend="torch"``). The JAX package's attention-only kernels
 (pallas_dca.dca, pallas_mhsa.mhsa) have no port yet, so the modules always
 compose.
 """

@@ -65,13 +65,35 @@ def nhwc_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode update of ``running_var`` takes the
+    *biased* batch variance, as flax's BatchNorm does (torch's takes the
+    unbiased one); momentum 0.1 here is flax's 0.9. Statistics in fp32;
+    eval mode is torch's own."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2, 3))
+            var = x32.var(dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class ConvBN(nn.Sequential):
     """3x3 stride-2 conv + BatchNorm, NHWC in and out: a stage downsample
     (children 0 conv, 1 bn)."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(nn.Conv2d(in_ch, out_ch, 3, 2, 1),
-                         nn.BatchNorm2d(out_ch, eps=1e-5))
+                         BatchNorm(out_ch, eps=1e-5))
 
     def forward(self, x):
         return nhwc_conv(super().forward, x)
@@ -84,10 +106,10 @@ class ConvStem(nn.Sequential):
     def __init__(self, in_ch: int, features: int):
         super().__init__(
             nn.Conv2d(in_ch, features // 2, 3, 2, 1),
-            nn.BatchNorm2d(features // 2, eps=1e-5),
+            BatchNorm(features // 2, eps=1e-5),
             nn.GELU(),
             nn.Conv2d(features // 2, features, 3, 2, 1),
-            nn.BatchNorm2d(features, eps=1e-5))
+            BatchNorm(features, eps=1e-5))
 
     def forward(self, x):
         return nhwc_conv(super().forward, x)
@@ -114,19 +136,35 @@ class DWConv(nn.Conv2d):
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth on a residual branch; identity in eval
-    mode or at rate 0."""
+    mode or at rate 0. The keep masks are drawn from ``generator``, a
+    ``torch.Generator`` on the activations' device that the training loop
+    sets (``LeMeViT.set_generator``) and seeds from its --seed, so a run is
+    reproducible; training at a rate above 0 without one raises."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def scales(self, n: int, batch: int, device) -> Optional[torch.Tensor]:
+        """(n, batch) float32 branch scales keep_mask / keep on ``device``
+        (n independent draws per sample), or None where DropPath is the
+        identity (eval mode or rate 0)."""
+        if self.rate == 0.0 or not self.training:
+            return None
+        g = self.generator
+        if g is None:
+            raise RuntimeError("DropPath at rate > 0 in training needs a "
+                               "torch.Generator (LeMeViT.set_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(n, batch, generator=g, device=g.device) < keep
+        return (mask.float() / keep).to(device)
 
     def forward(self, x):
-        if self.rate == 0.0 or not self.training:
+        s = self.scales(1, x.shape[0], x.device)
+        if s is None:
             return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.empty(shape, dtype=x.dtype, device=x.device)
-        return x * mask.bernoulli_(keep) / keep
+        return x * s[0].view(-1, *([1] * (x.dim() - 1))).to(x.dtype)
 
 
 class Mlp(nn.Module):

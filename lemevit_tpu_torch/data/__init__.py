@@ -1,1 +1,1 @@
-"""Synthetic data, normalisation and batching for evaluation."""
+"""Synthetic data, normalisation, batch augmentation and loaders."""

@@ -12,21 +12,30 @@ feature maps instead of logits.
   - head: BatchNorm(x) + LayerNorm(c, eps 1e-5), spatial mean + token mean,
     then Linear in float32.
 
-In inference (eval mode, autograd off) a pre-norm block without layer-scale
-or MLP dwconv runs as one fused kernel (attn/fused_block.py) when
-``use_kernel(attn_backend, x)`` says so; the CPE stays outside the kernel as
-a depthwise conv. Everything else is the plain composition.
+A pre-norm block without layer-scale or MLP dwconv runs as hand-written
+kernels where ``use_kernel(attn_backend, x)`` says so and the JAX package
+would run its kernel at that token count (``kernel_takes``):
+  - inference (eval mode, autograd off): the whole-block kernels of
+    attn/fused_block.py, for C, D/D2 and S blocks;
+  - training (train mode, autograd on): the S-block training kernels of
+    attn/fused_train.py. The C and D training kernels are not ported yet,
+    so such a block raises rather than composing unasked.
+The CPE stays outside the kernels as a depthwise conv. Everything else is
+the plain composition. Under ``torch.autocast`` the kernels run in the
+autocast type, their weights cast per block as the JAX package's
+``.astype(dtype)`` does.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from lemevit_tpu_torch.attn import fused_block
+from lemevit_tpu_torch.attn import fused_block, fused_train
 from lemevit_tpu_torch.attn import reference as ref
 from lemevit_tpu_torch.attn.modules import (
     BACKENDS,
@@ -37,6 +46,7 @@ from lemevit_tpu_torch.attn.modules import (
     use_kernel,
 )
 from lemevit_tpu_torch.core.layers import (
+    BatchNorm,
     ConvBN,
     ConvStem,
     DropPath,
@@ -47,6 +57,31 @@ from lemevit_tpu_torch.core.layers import (
 
 _ATTN = {"S": StandardAttention, "C": CrossAttention,
          "D": DualCrossAttention, "D2": DualCrossAttentionV2}
+
+# Token counts up to which the JAX package runs a block kernel; above them
+# it composes, and so does the port.
+MAX_N_S_KERNEL = 1024       # lemevit_tpu/attn/pallas_block.py:38 _MAX_N_SBLOCK
+MAX_N_BLOCK_KERNEL = 3136   # lemevit_tpu/models/lemevit.py:387 (C, D, D2)
+
+
+def kernel_takes(attn_type: str, n: int) -> bool:
+    """Whether a block of ``attn_type`` over ``n`` image tokens is within
+    the token counts the JAX package runs its block kernels for."""
+    return n <= (MAX_N_S_KERNEL if attn_type == "S" else MAX_N_BLOCK_KERNEL)
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The type a block's kernels run in: the autocast type where autocast
+    is on for t's device, else t's own."""
+    dev = t.device.type
+    if torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return t.dtype
+
+
+def _branch(y: torch.Tensor, s: Optional[torch.Tensor]) -> torch.Tensor:
+    """A residual branch times its per-image DropPath scale (B,), if any."""
+    return y if s is None else y * s.view(-1, 1, 1).to(y.dtype)
 
 
 class LeMeBlock(nn.Module):
@@ -89,27 +124,54 @@ class LeMeBlock(nn.Module):
     def _scaled(self, gamma: str, t):
         return getattr(self, gamma) * t if self.use_layer_scale else t
 
-    def _residual_update(self, t, attn_out, hw):
-        """Attention residual + MLP residual on one stream."""
-        dp = self.drop_path
+    def _residual_update(self, t, attn_out, hw, s1=None, s2=None):
+        """Attention residual + MLP residual on one stream; s1 / s2 are the
+        two branches' per-image DropPath scales (None: identity)."""
         if self.pre_norm:
-            t = t + dp(self._scaled("gamma1", attn_out))
-            return t + dp(self._scaled("gamma2", self.mlp(self.norm2(t), hw)))
-        t = self.norm1(t + dp(self._scaled("gamma1", attn_out)))
-        return self.norm2(t + dp(self._scaled("gamma2", self.mlp(t, hw))))
+            t = t + _branch(self._scaled("gamma1", attn_out), s1)
+            return t + _branch(
+                self._scaled("gamma2", self.mlp(self.norm2(t), hw)), s2)
+        t = self.norm1(t + _branch(self._scaled("gamma1", attn_out), s1))
+        return self.norm2(
+            t + _branch(self._scaled("gamma2", self.mlp(t, hw)), s2))
 
     def _norm_in(self, t):
         return self.norm1(t) if self.pre_norm else t
 
+    def dp_scales(self, batch: int, device) -> Optional[torch.Tensor]:
+        """The (4, batch) DropPath branch scales of one training forward
+        (attn-x, mlp-x, attn-c, mlp-c: four independent draws, as the JAX
+        package's _dp_scales), or None where DropPath is the identity."""
+        return self.drop_path.scales(4, batch, device)
+
     # ------------------------------------------------------------ fused
 
     def _fusable(self, x) -> bool:
-        """The structural conditions of the fused kernels (the inference form
-        of every released variant), then the backend switch."""
+        """For NHWC tokens x: the structural conditions of the fused kernels
+        (the pre-norm form of every released variant), the JAX package's
+        token-count limits, then the backend switch."""
         return (self.pre_norm and not self.use_layer_scale
-                and not self.mlp_dwconv and not self.training
-                and not torch.is_grad_enabled()
+                and not self.mlp_dwconv
+                and kernel_takes(self.attn_type, x.shape[1] * x.shape[2])
                 and use_kernel(self.attn_backend, x))
+
+    def _s_train(self, xt, c, dp):
+        """The S block through the training kernels: norm1 / norm2 folded
+        into qkv / fc1 outside the autograd Function, so autograd chains the
+        LayerNorm affine gradients (the JAX package's _try_fused_train)."""
+        a, mlp = self.attn, self.mlp
+        wqkv, bqkv = fused_train.fold_ln(self.norm1.weight, self.norm1.bias,
+                                         a.qkv.weight, a.qkv.bias)
+        w1, b1 = fused_train.fold_ln(self.norm2.weight, self.norm2.bias,
+                                     mlp.fc1.weight, mlp.fc1.bias)
+        dt = compute_dtype(xt)
+        params = [t.to(dt) for t in (wqkv, bqkv, a.proj.weight, a.proj.bias,
+                                     w1, b1, mlp.fc2.weight, mlp.fc2.bias)]
+        if dp is None:
+            dp = torch.ones(4, xt.shape[0], device=xt.device)
+        return fused_train.s_block_train(xt.to(dt), c.to(dt), params,
+                                         dp.contiguous(),
+                                         num_heads=self.num_heads)
 
     def fused_params(self) -> tuple:
         """The parameter tuple of this block's fused kernel (fused_block's
@@ -143,27 +205,47 @@ class LeMeBlock(nn.Module):
 
     # ------------------------------------------------------------ forward
 
-    def forward(self, x, c):
-        """x: (B, H, W, C) NHWC image tokens, c: (B, M, C) meta tokens."""
+    def forward(self, x, c, dp: Optional[torch.Tensor] = None):
+        """x: (B, H, W, C) NHWC image tokens, c: (B, M, C) meta tokens.
+        ``dp``: the (4, B) DropPath scales of a training forward
+        (dp_scales), drawn here when not given."""
         b, h, w, ch = x.shape
         hw = (h, w)
-        fused = self._fusable(x)
+        train = self.training and torch.is_grad_enabled()
+        infer = not self.training and not torch.is_grad_enabled()
+        fused = (train or infer) and self._fusable(x)
+        if train and dp is None:
+            dp = self.dp_scales(b, x.device)
+        if fused and train and self.attn_type != "S":
+            raise NotImplementedError(
+                f"the {self.attn_type} block's training kernels are not "
+                "ported yet (ROADMAP.md, next slice: lemevit_* training); "
+                "pass attn_backend='torch' (--attn-backend torch) to compose "
+                "this block in plain PyTorch")
+        s1x, s2x, s1c, s2c = (None,) * 4 if dp is None else dp
         xt = self._cpe(x).reshape(b, h * w, ch)
+        if fused and train:
+            xo, co = self._s_train(xt, c, dp)
+            return xo.reshape(b, h, w, ch), co
+        if fused:
+            dt = compute_dtype(xt)
+            xt, c = xt.to(dt), c.to(dt)
+            params = [t.to(dt) for t in self.fused_params()]
         if self.attn_type == "C":
             # x passes through unchanged; only k/v see the CPE-shifted tokens
             if fused:
-                return x, fused_block.c_block(xt, c, self.fused_params(),
+                return x, fused_block.c_block(xt, c, params,
                                               num_heads=self.num_heads)
             ac = self.attn(self._norm_in(xt), self._norm_in(c))
-            return x, self._residual_update(c, ac, None)
+            return x, self._residual_update(c, ac, None, s1c, s2c)
         if fused:
             if self.attn_type == "S":
-                xo, co = fused_block.s_block(xt, c, self.fused_params(),
+                xo, co = fused_block.s_block(xt, c, params,
                                              num_heads=self.num_heads)
             else:
                 scale_x, scale_c = ref.dca_scales(h * w, c.shape[1], ch)
                 xo, co = fused_block.dca_block(
-                    xt, c, self.fused_params(), num_heads=self.num_heads,
+                    xt, c, params, num_heads=self.num_heads,
                     scale_x=scale_x, scale_c=scale_c)
             return xo.reshape(b, h, w, ch), co
         if self.attn_type == "S":
@@ -171,8 +253,8 @@ class LeMeBlock(nn.Module):
             ac = self.attn(self._norm_in(c))
         else:
             ax, ac = self.attn(self._norm_in(xt), self._norm_in(c))
-        xo = self._residual_update(xt, ax, hw)
-        co = self._residual_update(c, ac, None)
+        xo = self._residual_update(xt, ax, hw, s1x, s2x)
+        co = self._residual_update(c, ac, None, s1c, s2c)
         return xo.reshape(b, h, w, ch), co
 
 
@@ -193,9 +275,11 @@ class LeMeViT(nn.Module):
                  layer_scale_init_value: float = -1.0,
                  features_only: bool = False,
                  out_indices: Sequence[int] = (1, 2, 3, 4),
+                 remat_stages: Sequence[int] = (),
                  attn_backend: str = "auto"):
         super().__init__()
         dims = list(embed_dim)
+        self.remat_stages = tuple(remat_stages)
         self.attn_type = tuple(attn_type)
         self.depth = tuple(depth)
         self.num_classes = num_classes
@@ -230,7 +314,7 @@ class LeMeViT(nn.Module):
             cur += depth[i]
 
         if not features_only:
-            self.norm = nn.BatchNorm2d(dims[-1], eps=1e-5)
+            self.norm = BatchNorm(dims[-1], eps=1e-5)
             self.norm_c = nn.LayerNorm(dims[-1], eps=1e-5)
             self.head = (nn.Linear(dims[-1], num_classes)
                          if num_classes > 0 else None)
@@ -243,6 +327,13 @@ class LeMeViT(nn.Module):
             for blk in stage:
                 blk.attn_backend = backend
 
+    def set_generator(self, generator: torch.Generator) -> None:
+        """Draw every block's DropPath masks from ``generator`` (a
+        torch.Generator on the activations' device)."""
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = generator
+
     def forward(self, x):
         x = x.to(self.meta_tokens.dtype)
         c = self.meta_tokens[None].expand(x.shape[0], -1, -1)
@@ -250,8 +341,17 @@ class LeMeViT(nn.Module):
         for i, stage in enumerate(self.stages):
             x = self.downsample_layers[i](x)
             c = self.meta_token_downsample[i](c)
+            remat = (i in self.remat_stages and self.training
+                     and torch.is_grad_enabled())
             for blk in stage:
-                x, c = blk(x, c)
+                if remat:
+                    # the masks are drawn outside, so that the recomputed
+                    # forward of the backward sees the same ones
+                    x, c = checkpoint(blk, x, c,
+                                      blk.dp_scales(x.shape[0], x.device),
+                                      use_reentrant=False)
+                else:
+                    x, c = blk(x, c)
             if self.features_only and i in self.out_indices:
                 feats.append(x)
         if self.features_only:

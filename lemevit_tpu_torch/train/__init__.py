@@ -1,1 +1,2 @@
-"""Evaluation metrics and checkpoint loading."""
+"""Train state, optimizer and schedules, the train step and its metrics,
+checkpoints."""

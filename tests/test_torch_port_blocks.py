@@ -2,10 +2,8 @@
 JAX package's fused Pallas block (run in interpret mode on the CPU, as
 tests/test_pallas.py runs it), the port's LeMeBlock against the JAX
 LeMeBlock, and the D2 weight permutation. fp32, tolerance 3e-5 (the JAX
-suite's own for fused blocks).
-
-Tests marked ``gpu`` hold the CUDA kernels against their plain versions on
-the card and skip without one."""
+suite's own for fused blocks). The CUDA kernels are held against these
+plain versions on the card in tests/test_torch_gpu.py."""
 from types import SimpleNamespace
 
 import numpy as np
@@ -31,15 +29,6 @@ PLAIN = SimpleNamespace(c_block=fb.c_block_plain,
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setattr(pallas_block, "_INTERPRET", True)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
 
 
 def _ln(rng, ch=C):
@@ -224,47 +213,3 @@ def test_d2_permutation_layout():
     assert torch.equal(wqkv1, torch.cat([wq, wq, wv1]))
     assert torch.equal(wqkv2, torch.cat([wk, wk, wv2]))
     assert p[3].shape == (3 * C,) and p[5].shape == (3 * C,)
-
-
-# ---------------------------------------------------------------- card
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("kind,n,ch", [("c", 3136, 96), ("d", 784, 192),
-                                       ("s", 196, 384), ("s", 49, 512)])
-def test_kernel_matches_plain_on_gpu(cuda, kind, n, ch, dtype, tol):
-    rng = np.random.RandomState(1)
-    h = ch // 32
-    x = torch.from_numpy(rng.randn(2, n, ch).astype(np.float32))
-    c = torch.from_numpy(rng.randn(2, M, ch).astype(np.float32))
-    params = [torch.from_numpy(a) for a in make_params(kind, rng, ch, 4 * ch)]
-    xd, cd = x.to(cuda, dtype), c.to(cuda, dtype)
-    pd = [p.to(cuda, dtype) for p in params]
-    sx, sc = dca_scales(n, M, ch)
-    calls = {"c": lambda m, *a: (m.c_block(*a, num_heads=h),),
-             "d": lambda m, *a: m.dca_block(*a, num_heads=h, scale_x=sx,
-                                            scale_c=sc),
-             "s": lambda m, *a: m.s_block(*a, num_heads=h)}[kind]
-    name = {"c": "c_block", "d": "dca_block", "s": "s_block"}[kind]
-    before = fb.LAUNCHES[name]
-    got = calls(fb, xd, cd, pd)
-    torch.cuda.synchronize()
-    assert fb.LAUNCHES[name] == before + 1
-    want = calls(PLAIN, xd.float(), cd.float(), [p.float() for p in pd])
-    for g_, w_ in zip(got, want):
-        torch.testing.assert_close(g_.float(), w_, rtol=tol, atol=tol)
-
-
-@pytest.mark.gpu
-def test_kernel_rejects_unsupported_shapes_on_gpu(cuda):
-    rng = np.random.RandomState(2)
-    x = torch.randn(2, 64, C, device=cuda)
-    c = torch.randn(2, M, C, device=cuda)
-    params = [torch.from_numpy(a).to(cuda) for a in make_params("s", rng)]
-    with pytest.raises(ValueError, match="head_dim"):
-        fb.s_block(x, c, params, num_heads=4)  # head_dim 16
-    with pytest.raises(TypeError):
-        fb.s_block(x.double(), c.double(), [p.double() for p in params],
-                   num_heads=H)

@@ -13,7 +13,7 @@ import torch
 
 import lemevit_tpu_torch
 from lemevit_tpu_torch.attn import _build
-from lemevit_tpu_torch.cli import benchmark, validate
+from lemevit_tpu_torch.cli import benchmark, train, validate
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "lemevit_tpu_torch"
@@ -72,11 +72,11 @@ def test_create_model_refuses_cpu_fallback(no_cuda):
     assert next(m.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("cli", [benchmark, validate])
+@pytest.mark.parametrize("cli", [benchmark, validate, train])
 def test_cli_refuses_cpu_fallback(no_cuda, cli):
     argv = ["--model", "lemevit_micro", "--img-size", "32",
             "--batch-size", "2"]
-    if cli is validate:
+    if cli is not benchmark:
         argv.append("--synthetic")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
@@ -144,23 +144,3 @@ def test_chip_smoke_fails_without_cuda():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
-
-
-@pytest.mark.gpu
-def test_model_kernel_path_matches_torch_path_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from lemevit_tpu_torch.attn import fused_block as fb
-    m = lemevit_tpu_torch.create_model("lemevit_tiny").eval()
-    x = torch.randn(2, 64, 64, 3, device="cuda")
-    before = dict(fb.LAUNCHES)
-    with torch.no_grad():
-        got = m(x)
-        m.set_attn_backend("torch")
-        want = m(x)
-    assert fb.LAUNCHES["c_block"] - before["c_block"] == 1
-    assert fb.LAUNCHES["dca_block"] - before["dca_block"] == 4
-    assert fb.LAUNCHES["s_block"] - before["s_block"] == 10
-    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)

@@ -151,6 +151,7 @@ def test_drop_path():
     dp.eval()
     assert torch.equal(dp(x), x)
     dp.train()
+    dp.generator = torch.Generator().manual_seed(0)
     y = dp(x)
     kept = (y == 0).flatten(1).all(1) | torch.isclose(y, x * 2).flatten(
         1).all(1)
