@@ -3,9 +3,10 @@ NVIDIA Hopper (sm_90a), beside the JAX package ``lemevit_tpu``.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``create_model(..., device="cpu")``, ``--device cpu``); without a CUDA
-device they raise. The whole pre-norm C, D/D2 and S blocks of inference run
-as the fused kernels of ``attn/fused_block.py``; the S blocks of training
-(``cli/train.py``) run as the training kernels of ``attn/fused_train.py``.
+device they raise. The whole pre-norm C, D/D2 and S blocks run as
+hand-written kernels: in inference the fused kernels of
+``attn/fused_block.py``, in training (``cli/train.py``) the training kernels
+of ``attn/fused_train.py``.
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,8 @@
 //   k_attention    softmax(q k^T * scale) v per (image, head), online
 //                  softmax over key chunks, optionally split over blocks;
 //                  optionally each query's log-sum-exp (for the backward)
-//   k_attn_combine merges the per-split (max, sum, acc) partials
+//   k_attn_combine merges the per-split (max, sum, acc) partials (and
+//                  writes the log-sum-exp where asked)
 //   k_block_tail   t1 = t + s1 (o @ Wp^T + bp); out = t1 + s2 MLP(LN2(t1)),
 //                  s1 / s2 per-image DropPath scales (1 in inference)
 // All matrix products go through one routine, tile_gemm: a shared-memory
@@ -451,8 +452,9 @@ struct AttnArgs {
   int batch, heads, nq, nk;
   int splits, keys_per_split;
   float scale;
-  float* lse;  // with one split and lse set: each query's log-sum-exp of
-               // its scaled scores, at [(b * heads + h) * nq + query]
+  float* lse;  // where set: each query's log-sum-exp of its scaled scores,
+               // at [(b * heads + h) * nq + query] (written by k_attention
+               // with one split, else by k_attn_combine)
 };
 
 constexpr int kQPW = 4;                 // queries per warp
@@ -571,6 +573,8 @@ __global__ void __launch_bounds__(kThreads) k_attn_combine(const AttnArgs a) {
   T* out = static_cast<T*>(a.out);
   out[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim + lane] =
       from_f<T>(A / L);
+  // the training forwards' log-sum-exp; null on the serving path
+  if (a.lse && lane == 0) a.lse[row] = mx + logf(L);
 }
 
 template <typename T>

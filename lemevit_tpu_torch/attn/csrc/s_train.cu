@@ -171,17 +171,25 @@ int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   err = launch_linear<T>(lo, C, s);
   if (err) return err;
 
-  for (int si = 0; si < 2; ++si) {
+  for (int si = 0; si < 2; ++si) {  // q / k / v: the thirds of qkv
+    const T* qkv = cp<T>(p, 21 + si);
+    T* dqkv = mp<T>(p, 27 + si);
     AttnBwdArgs ab{};
-    ab.qkv = p[21 + si];
+    ab.q = qkv;
+    ab.k = qkv + C;
+    ab.v = qkv + 2 * C;
     ab.o = p[10 + si];
     ab.dO = fp(p, 23 + si);
     ab.lse = fp(p, 12 + si);
     ab.D = fp(p, 25 + si);
-    ab.dqkv = mp<T>(p, 27 + si);
+    ab.dq = dqkv;
+    ab.dk = dqkv + C;
+    ab.dv = dqkv + 2 * C;
+    ab.ldq = ab.ldkv = ab.lddq = ab.lddkv = 3 * C;
+    ab.ldo = C;
     ab.batch = B;
     ab.heads = H;
-    ab.n = si == 0 ? N : M;
+    ab.nq = ab.nk = si == 0 ? N : M;
     ab.C = C;
     ab.scale = scale;
     err = launch_attn_bwd<T>(ab, s);

@@ -1,15 +1,18 @@
-// Device building blocks of the block training kernels (s_train.cu), on top
-// of block_common.cuh. The MLP backward and the weight-gradient product are
-// the same for every block kind, so the D and C training kernels reuse them.
+// Device building blocks of the block training kernels (s_train.cu,
+// dca_train.cu, c_train.cu), on top of block_common.cuh. The MLP backward
+// and the weight-gradient product are the same for every block kind.
 //   k_ln_rows          a = LN(x) without affine, one warp per row
-//   k_ln_bwd           dx = dres + LN'(x)^T da (LayerNorm without affine)
+//   k_ln_bwd           dx = dres + LN'(x)^T da (LayerNorm without affine;
+//                      dres may be null)
 //   k_mlp_bwd          per 32-row block: recompute LN2 / fc1 / GELU from t1
 //                      and dt1 = dout + LN'(t1)^T ((dz W2 . GELU'(y)) W1);
 //                      writes mm = LN2(t1), gg = GELU(y), dy = dz W2 . GELU'(y)
 //                      for the weight gradients
 //   k_attn_bwd_rowdot  D = rowsum(dO . o) per (row, head)
 //   k_attn_bwd_dq      dq = scale dS K over key chunks
-//   k_attn_bwd_dkv     dk = scale dS^T Q, dv = P^T dO over query chunks;
+//   k_attn_bwd_dkv     dk = scale dS^T Q, dv = P^T dO over query chunks
+//                      (self-attention, or cross-attention with nq != nk
+//                      and separate q / k / v and dq / dk / dv buffers);
 //                      both rebuild P = exp(s - lse) from the forward's
 //                      log-sum-exp, dS = P . (dO v^T - D) (FlashAttention-2)
 //   k_wgrad            dW = G^T A over token rows (and colsum G), split over
@@ -58,7 +61,8 @@ __global__ void __launch_bounds__(kThreads)
     o[k] = from_f<T>((to_f(p[k]) - mean) * rstd);
 }
 
-// dx = dres + rstd (da - mean(da) - th mean(da th)), th = (x - mean) rstd
+// dx = dres + rstd (da - mean(da) - th mean(da th)), th = (x - mean) rstd;
+// no residual where dres is null (x passes a block by another path)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     k_ln_bwd(const T* __restrict__ x, const float* __restrict__ da,
@@ -86,8 +90,8 @@ __global__ void __launch_bounds__(kThreads)
   const float m1 = warp_sum(s1) / K, m2 = warp_sum(s2) / K;
   for (int k = lane; k < K; k += 32) {
     const float th = (to_f(x[off + k]) - mean) * rstd;
-    dx[off + k] =
-        from_f<T>(to_f(dres[off + k]) + rstd * (da[off + k] - m1 - th * m2));
+    const float r = dres ? to_f(dres[off + k]) : 0.f;
+    dx[off + k] = from_f<T>(r + rstd * (da[off + k] - m1 - th * m2));
   }
 }
 
@@ -460,16 +464,26 @@ int launch_wgrad(const WgradArgs& a, void* dw, void* db, cudaStream_t s) {
 
 // ---------------------------------------------------------------- attention
 
-// Self-attention backward of one token stream. q / k / v are column
-// thirds of qkv; head h uses columns [32 h, 32 h + 32) of each third.
+// Attention backward of one direction: nq queries of each image attend to
+// its nk keys (self-attention: the same rows, nq == nk). q rows
+// (batch * nq, ldq), k / v rows (batch * nk, ldkv), o rows (batch * nq,
+// ldo) and dO (batch * nq, C) fp32; dq goes to rows of ld lddq, dk / dv to
+// rows of ld lddkv, each written exactly once. Head h uses columns
+// [32 h, 32 h + 32) of every operand. lse and D are per (image, head,
+// query), at [(b * heads + h) * nq + query].
 struct AttnBwdArgs {
-  const void* qkv;   // (batch * n, 3C)
-  const void* o;     // (batch * n, C) attention output of the forward
-  const float* dO;   // (batch * n, C) gradient of o
-  const float* lse;  // (batch * heads * n) log-sum-exp from the forward
-  float* D;          // (batch * heads * n) rowsum(dO . o)
-  void* dqkv;        // (batch * n, 3C) out: dq | dk | dv
-  int batch, heads, n, C;
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;     // attention output of the forward
+  const float* dO;   // gradient of o
+  const float* lse;  // log-sum-exp of the forward's scaled scores
+  float* D;          // rowsum(dO . o)
+  void* dq;
+  void* dk;
+  void* dv;
+  int ldq, ldkv, ldo, lddq, lddkv;
+  int batch, heads, nq, nk, C;
   float scale;
 };
 
@@ -478,13 +492,14 @@ __global__ void __launch_bounds__(kThreads)
     k_attn_bwd_rowdot(const AttnBwdArgs a) {
   const int idx = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (idx >= a.batch * a.n * a.heads) return;
+  if (idx >= a.batch * a.nq * a.heads) return;
   const int row = idx / a.heads, h = idx % a.heads;
-  const int b = row / a.n, i = row % a.n;
-  const size_t off = (size_t)row * a.C + h * kHeadDim + lane;
-  const float s =
-      warp_sum(a.dO[off] * to_f(static_cast<const T*>(a.o)[off]));
-  if (lane == 0) a.D[((size_t)b * a.heads + h) * a.n + i] = s;
+  const int b = row / a.nq, i = row % a.nq;
+  const int col = h * kHeadDim + lane;
+  const T* o = static_cast<const T*>(a.o);
+  const float s = warp_sum(a.dO[(size_t)row * a.C + col] *
+                           to_f(o[(size_t)row * a.ldo + col]));
+  if (lane == 0) a.D[((size_t)b * a.heads + h) * a.nq + i] = s;
 }
 
 // One block per (image, head, kQB queries); each warp owns kQPW queries and
@@ -499,35 +514,37 @@ __global__ void __launch_bounds__(kThreads) k_attn_bwd_dq(const AttnBwdArgs a) {
   const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
   const int q0 = blockIdx.y * kQB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ld = 3 * a.C;
-  const T* __restrict__ qkv = static_cast<const T*>(a.qkv);
+  const T* __restrict__ Q = static_cast<const T*>(a.q);
+  const T* __restrict__ Kp = static_cast<const T*>(a.k);
+  const T* __restrict__ Vp = static_cast<const T*>(a.v);
   for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
     const int qi = e / kHeadDim, t = e % kHeadDim, gq = q0 + qi;
-    const size_t row = (size_t)b * a.n + gq;
-    const bool ok = gq < a.n;
-    sQ[qi][t] = ok ? to_f(qkv[row * ld + h * kHeadDim + t]) * a.scale : 0.f;
+    const size_t row = (size_t)b * a.nq + gq;
+    const bool ok = gq < a.nq;
+    sQ[qi][t] =
+        ok ? to_f(Q[row * a.ldq + h * kHeadDim + t]) * a.scale : 0.f;
     sdO[qi][t] = ok ? a.dO[row * a.C + h * kHeadDim + t] : 0.f;
   }
   float lse[kQPW], Dv[kQPW], acc[kQPW];
 #pragma unroll
   for (int i = 0; i < kQPW; ++i) {
     const int gq = q0 + warp * kQPW + i;
-    const size_t p = (size_t)bh * a.n + gq;
-    lse[i] = gq < a.n ? a.lse[p] : 0.f;
-    Dv[i] = gq < a.n ? a.D[p] : 0.f;
+    const size_t p = (size_t)bh * a.nq + gq;
+    lse[i] = gq < a.nq ? a.lse[p] : 0.f;
+    Dv[i] = gq < a.nq ? a.D[p] : 0.f;
     acc[i] = 0.f;
   }
-  for (int kc = 0; kc < a.n; kc += kKC) {
-    const int cnt = min(kKC, a.n - kc);
+  for (int kc = 0; kc < a.nk; kc += kKC) {
+    const int cnt = min(kKC, a.nk - kc);
     __syncthreads();
     for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
       const int j = e / kHeadDim, t = e % kHeadDim;
       float kv = 0.f, vv = 0.f;
       if (j < cnt) {
         const size_t off =
-            ((size_t)b * a.n + kc + j) * ld + h * kHeadDim + t;
-        kv = to_f(qkv[off + a.C]);
-        vv = to_f(qkv[off + 2 * a.C]);
+            ((size_t)b * a.nk + kc + j) * a.ldkv + h * kHeadDim + t;
+        kv = to_f(Kp[off]);
+        vv = to_f(Vp[off]);
       }
       sK[j][t] = kv;
       sV[j][t] = vv;
@@ -536,7 +553,7 @@ __global__ void __launch_bounds__(kThreads) k_attn_bwd_dq(const AttnBwdArgs a) {
 #pragma unroll
     for (int i = 0; i < kQPW; ++i) {
       const int qi = warp * kQPW + i;
-      if (q0 + qi >= a.n) continue;  // uniform over the warp
+      if (q0 + qi >= a.nq) continue;  // uniform over the warp
       float s0 = 0.f, s1 = 0.f, d0 = 0.f, d1 = 0.f;
 #pragma unroll
       for (int t = 0; t < kHeadDim; ++t) {
@@ -557,12 +574,12 @@ __global__ void __launch_bounds__(kThreads) k_attn_bwd_dq(const AttnBwdArgs a) {
       acc[i] = o;
     }
   }
-  T* dqkv = static_cast<T*>(a.dqkv);
+  T* dq = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < kQPW; ++i) {
     const int gq = q0 + warp * kQPW + i;
-    if (gq >= a.n) continue;
-    dqkv[((size_t)b * a.n + gq) * ld + h * kHeadDim + lane] =
+    if (gq >= a.nq) continue;
+    dq[((size_t)b * a.nq + gq) * a.lddq + h * kHeadDim + lane] =
         from_f<T>(acc[i] * a.scale);
   }
 }
@@ -581,33 +598,34 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
   const int k0 = blockIdx.y * kQB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ld = 3 * a.C;
-  const T* __restrict__ qkv = static_cast<const T*>(a.qkv);
+  const T* __restrict__ Q = static_cast<const T*>(a.q);
+  const T* __restrict__ Kp = static_cast<const T*>(a.k);
+  const T* __restrict__ Vp = static_cast<const T*>(a.v);
   for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
     const int kj = e / kHeadDim, t = e % kHeadDim, gk = k0 + kj;
-    const size_t off = ((size_t)b * a.n + gk) * ld + h * kHeadDim + t;
-    sKb[kj][t] = gk < a.n ? to_f(qkv[off + a.C]) : 0.f;
-    sVb[kj][t] = gk < a.n ? to_f(qkv[off + 2 * a.C]) : 0.f;
+    const size_t off = ((size_t)b * a.nk + gk) * a.ldkv + h * kHeadDim + t;
+    sKb[kj][t] = gk < a.nk ? to_f(Kp[off]) : 0.f;
+    sVb[kj][t] = gk < a.nk ? to_f(Vp[off]) : 0.f;
   }
   float dk[kQPW], dv[kQPW];
 #pragma unroll
   for (int i = 0; i < kQPW; ++i) dk[i] = dv[i] = 0.f;
-  for (int qc = 0; qc < a.n; qc += kKC) {
-    const int cnt = min(kKC, a.n - qc);
+  for (int qc = 0; qc < a.nq; qc += kKC) {
+    const int cnt = min(kKC, a.nq - qc);
     __syncthreads();
     for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
       const int j = e / kHeadDim, t = e % kHeadDim;
       float qv = 0.f, gv = 0.f;
       if (j < cnt) {
-        const size_t row = (size_t)b * a.n + qc + j;
-        qv = to_f(qkv[row * ld + h * kHeadDim + t]) * a.scale;
+        const size_t row = (size_t)b * a.nq + qc + j;
+        qv = to_f(Q[row * a.ldq + h * kHeadDim + t]) * a.scale;
         gv = a.dO[row * a.C + h * kHeadDim + t];
       }
       sQ[j][t] = qv;
       sdO[j][t] = gv;
     }
     for (int j = threadIdx.x; j < kKC; j += kThreads) {
-      const size_t p = (size_t)bh * a.n + qc + j;
+      const size_t p = (size_t)bh * a.nq + qc + j;
       sL[j] = j < cnt ? a.lse[p] : 0.f;
       sD[j] = j < cnt ? a.D[p] : 0.f;
     }
@@ -615,7 +633,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kQPW; ++i) {
       const int kj = warp * kQPW + i;
-      if (k0 + kj >= a.n) continue;  // uniform over the warp
+      if (k0 + kj >= a.nk) continue;  // uniform over the warp
       float s0 = 0.f, s1 = 0.f, d0 = 0.f, d1 = 0.f;
 #pragma unroll
       for (int t = 0; t < kHeadDim; ++t) {
@@ -639,28 +657,30 @@ __global__ void __launch_bounds__(kThreads)
       dv[i] = gv;
     }
   }
-  T* dqkv = static_cast<T*>(a.dqkv);
+  T* dkp = static_cast<T*>(a.dk);
+  T* dvp = static_cast<T*>(a.dv);
 #pragma unroll
   for (int i = 0; i < kQPW; ++i) {
     const int gk = k0 + warp * kQPW + i;
-    if (gk >= a.n) continue;
-    const size_t off = ((size_t)b * a.n + gk) * ld + h * kHeadDim + lane;
-    dqkv[off + a.C] = from_f<T>(dk[i]);
-    dqkv[off + 2 * a.C] = from_f<T>(dv[i]);
+    if (gk >= a.nk) continue;
+    const size_t off = ((size_t)b * a.nk + gk) * a.lddkv + h * kHeadDim + lane;
+    dkp[off] = from_f<T>(dk[i]);
+    dvp[off] = from_f<T>(dv[i]);
   }
 }
 
 template <typename T>
 int launch_attn_bwd(const AttnBwdArgs& a, cudaStream_t s) {
-  k_attn_bwd_rowdot<T><<<cdiv(a.batch * a.n * a.heads, kWarps), kThreads, 0,
+  k_attn_bwd_rowdot<T><<<cdiv(a.batch * a.nq * a.heads, kWarps), kThreads, 0,
                          s>>>(a);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  dim3 grid(a.batch * a.heads, cdiv(a.n, kQB));
-  k_attn_bwd_dq<T><<<grid, kThreads, 0, s>>>(a);
+  k_attn_bwd_dq<T><<<dim3(a.batch * a.heads, cdiv(a.nq, kQB)), kThreads, 0,
+                     s>>>(a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  k_attn_bwd_dkv<T><<<grid, kThreads, 0, s>>>(a);
+  k_attn_bwd_dkv<T><<<dim3(a.batch * a.heads, cdiv(a.nk, kQB)), kThreads, 0,
+                      s>>>(a);
   return (int)cudaGetLastError();
 }
 

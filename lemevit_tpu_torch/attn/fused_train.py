@@ -1,28 +1,44 @@
-"""Training kernels of the pre-norm S block: counterpart of
-lemevit_tpu/attn/pallas_train.py::s_block_train (the custom VJP ``_s_train``
-with ``_s_train_fwd_call``, ``_mlp_bwd_call`` and ``_s_train_bwd_call``).
+"""Training kernels of the pre-norm LeMeViT blocks: counterpart of
+lemevit_tpu/attn/pallas_train.py's s_block_train, dca_block_train and
+c_block_train (custom VJPs around the Pallas training kernels).
 
   s_block_train(x, c, params, dp, *, num_heads) -> (x_out, c_out)
+  dca_block_train(x, c, params, dp, *, num_heads, scale_x, scale_c)
+                                                -> (x_out, c_out)
+  c_block_train(x, c, params, dp, *, num_heads) -> c_out
 
 x is (B, N, C) image tokens *after* the conditional position embedding (the
 CPE stays outside, a depthwise ``F.conv2d`` under autograd, as the JAX
-package's default); c is (B, M, C) meta tokens. ``params`` is the LN-folded
-8-tuple (Wqkv', bqkv', Wp, bp, W1', b1', W2, b2) in torch ``nn.Linear``
-layout: ``fold_ln`` folds norm1 into qkv and norm2 into fc1 *outside* the
-autograd Function, so autograd chains the LayerNorm gamma / beta gradients.
+package's default); c is (B, M, C) meta tokens. ``params`` are LN-folded
+tuples in torch ``nn.Linear`` layout: ``fold_ln`` folds norm1 into the
+attention's input projections and norm2 into fc1 *outside* the autograd
+Function, so autograd chains the LayerNorm gamma / beta gradients.
+  S    (Wqkv', bqkv', Wp, bp, W1', b1', W2, b2)
+  D    (Wqkv1', bqkv1', Wqkv2', bqkv2', Wpx, bpx, Wpc, bpc, W1', b1', W2, b2);
+       D2 blocks pass [Wq|Wq|Wv1] / [Wk|Wk|Wv2] here (LeMeBlock.fused_params)
+  C    (Wq', bq', Wkv', bkv', Wp, bp, W1', b1', W2, b2); the C block returns
+       c only, and x gets gradients through k / v
 ``dp`` is the (4, B) fp32 table of per-image DropPath branch scales
 (s1x, s2x, s1c, s2c): keep_mask / keep, applied to the whole branch
-including its bias (timm semantics); it gets no gradient.
+including its bias (timm semantics); it gets no gradient. The D scales are
+reference.dca_scales' (log_N(M) C^-1/2 and C^-1/2), the S and C scale
+head_dim^-1/2.
 
-The Function runs three phases, each a hand-written kernel chain on CUDA
-tensors (``csrc/s_train.cu``) and its plain PyTorch version on CPU tensors:
-  s_train_fwd  the forward; also returns t1 (the post-attention residual),
-               the attention output o and each query's log-sum-exp
-  mlp_bwd      (t1, upstream grads) -> dt1, dW1, db1, dW2, db2
-  s_attn_bwd   (x, dt1, o, lse) -> dx, dWqkv, dbqkv, dWp, dbp
+Each Function runs explicit phases, each a hand-written kernel chain on CUDA
+tensors (``csrc/s_train.cu``, ``dca_train.cu``, ``c_train.cu``) and its
+plain PyTorch version on CPU tensors:
+  s_train_fwd / dca_train_fwd   the forward; also returns t1 (the
+                                post-attention residual), the attention
+                                outputs o and each query's log-sum-exp
+  c_train_fwd                   the same on the meta stream only
+  mlp_bwd      (t1, upstream grads) -> dt1, dW1, db1, dW2, db2; the C block
+               runs it with an empty image stream
+  s_attn_bwd / dca_attn_bwd / c_attn_bwd
+               (x, c, dt1, o, lse) -> the data and attention weight grads
 The weight gradients accumulate in fp32 and are returned in the parameters'
-dtype. ``s_block_train_plain`` is the same block composed under autograd:
-the reference the phases are tested against.
+dtype. ``*_block_train_plain`` is each block composed under autograd: the
+reference the phases are tested against. The plain phases take head_dim
+from the shapes; the kernels take head_dim 32.
 
 ``LAUNCHES[name]`` counts kernel launches of each phase (one per call on CUDA
 tensors; the plain versions do not count).
@@ -39,7 +55,9 @@ from lemevit_tpu_torch.attn import fused_block as fb
 from lemevit_tpu_torch.attn.reference import sdpa_bnhd
 
 LN_EPS = fb.LN_EPS
-LAUNCHES = {"s_train_fwd": 0, "mlp_bwd": 0, "s_attn_bwd": 0}
+LAUNCHES = {"s_train_fwd": 0, "mlp_bwd": 0, "s_attn_bwd": 0,
+            "dca_train_fwd": 0, "dca_attn_bwd": 0, "c_train_fwd": 0,
+            "c_attn_bwd": 0}
 WGRAD_TILE = 64         # k_wgrad's output tile edge
 
 
@@ -79,26 +97,75 @@ def _col(s, t):
     return s.view(-1, *([1] * (t.dim() - 1)))
 
 
+def _heads(t, h):
+    """(B, n, C) -> (B, n, h, C / h) in fp32."""
+    return t.float().unflatten(-1, (h, -1))
+
+
+def _attn_fwd(q, k, v, h, scale):
+    """Softmax attention of q (B, nq, C) over k / v (B, nk, C) with h heads:
+    (o (B, nq, C), lse (B, h, nq)), both fp32."""
+    q, k, v = (_heads(t, h) for t in (q, k, v))
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.einsum("bhnm,bmhd->bnhd", p, v).flatten(2), lse
+
+
+def _attn_bwd(q, k, v, o, d_o, lse, h, scale):
+    """Backward of _attn_fwd from its log-sum-exp (P rebuilt, dS = P (dO
+    v^T - rowsum(dO o))): (dq, dk, dv) fp32, shaped as q, k, v."""
+    q, k, v, o, d_o = (_heads(t, h) for t in (q, k, v, o, d_o))
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+                  - lse[..., None])
+    rowdot = (d_o * o).sum(-1).permute(0, 2, 1)
+    ds = p * (torch.einsum("bnhd,bmhd->bhnm", d_o, v) - rowdot[..., None])
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, d_o)
+    return dq.flatten(2), dk.flatten(2), dv.flatten(2)
+
+
+def _tail(t, o, wp, bp, s1, s2, w1, b1, w2, b2):
+    """One stream's block tail in fp32, rounded as the kernels round:
+    t1 = t + s1 (o Wp^T + bp), out = t1 + s2 MLP(norm(t1)). Returns (out,
+    t1) in t's dtype."""
+    dt = t.dtype
+    t1 = t.float() + _col(s1, t) * F.linear(o, wp, bp).float()
+    g = F.gelu(F.linear(_norm(t1).to(dt), w1, b1).float()).to(dt)
+    out = t1 + _col(s2, t) * F.linear(g, w2, b2).float()
+    return out.to(dt), t1.to(dt)
+
+
+def _wgrad(g, a):
+    """G^T A over every token row, fp32: the weight gradient of a Linear
+    with input a and output gradient g."""
+    return g.reshape(-1, g.shape[-1]).float().t() @ a.reshape(
+        -1, a.shape[-1]).float()
+
+
+def _colsum(g):
+    return g.float().reshape(-1, g.shape[-1]).sum(0)
+
+
+def _dproj(s1, dt1):
+    """s1 dt1: the gradient of a DropPath-scaled projection, in dt1's
+    dtype."""
+    return (_col(s1, dt1) * dt1.float()).to(dt1.dtype)
+
+
 def s_train_fwd_plain(x, c, params, dp, *, num_heads: int):
     """Forward of both streams: (x_out, c_out, t1x, t1c, o_x, o_c, lse_x,
     lse_c); lse is (B, H, n) fp32, the rest in x's dtype."""
     wqkv, bqkv, wp, bp, w1, b1, w2, b2 = params
     dt = x.dtype
+    scale = (x.shape[-1] // num_heads) ** -0.5
 
     def branch(t, s1, s2):
-        b, n, ch = t.shape
-        h = num_heads
-        d = ch // h
-        qkv = F.linear(_norm(t).to(dt), wqkv, bqkv).view(b, n, 3, h, d)
-        q, k, v = (qkv[:, :, i].float() for i in range(3))
-        s = torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5
-        lse = torch.logsumexp(s, dim=-1)
-        p = torch.exp(s - lse[..., None])
-        o = torch.einsum("bhnm,bmhd->bnhd", p, v).reshape(b, n, ch).to(dt)
-        t1 = t.float() + _col(s1, t) * F.linear(o, wp, bp).float()
-        g = F.gelu(F.linear(_norm(t1).to(dt), w1, b1).float()).to(dt)
-        out = t1 + _col(s2, t) * F.linear(g, w2, b2).float()
-        return out.to(dt), t1.to(dt), o, lse
+        q, k, v = F.linear(_norm(t).to(dt), wqkv, bqkv).chunk(3, -1)
+        o, lse = _attn_fwd(q, k, v, num_heads, scale)
+        out, t1 = _tail(t, o.to(dt), wp, bp, s1, s2, w1, b1, w2, b2)
+        return out, t1, o.to(dt), lse
 
     xo, t1x, ox, lx = branch(x, dp[0], dp[1])
     co, t1c, oc, lc = branch(c, dp[2], dp[3])
@@ -114,6 +181,9 @@ def mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2):
     acc = [0.0, 0.0, 0.0, 0.0]
     dt1s = []
     for t1, dout, s2 in ((t1x, dxo, dp[1]), (t1c, dco, dp[3])):
+        if not t1.numel():  # an empty stream (the C block's image tokens)
+            dt1s.append(torch.empty_like(t1))
+            continue
         ch = t1.shape[-1]
         dz = (_col(s2, dout) * dout.float()).to(dt).reshape(-1, ch)
         t1f = t1.reshape(-1, ch)
@@ -124,10 +194,8 @@ def mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2):
         dmm = dy.float() @ w1f
         dt1 = dout.reshape(-1, ch).float() + _ln_bwd(dmm, t1f)
         dt1s.append(dt1.to(dt).reshape(t1.shape))
-        for i, v in enumerate((dy.float().t() @ mm.float(),
-                               dy.float().sum(0),
-                               dz.float().t() @ gg.float(),
-                               dz.float().sum(0))):
+        for i, v in enumerate((_wgrad(dy, mm), _colsum(dy), _wgrad(dz, gg),
+                               _colsum(dz))):
             acc[i] = acc[i] + v
     return (dt1s[0], dt1s[1], acc[0].to(w1.dtype), acc[1].to(b1.dtype),
             acc[2].to(w2.dtype), acc[3].to(w2.dtype))
@@ -139,38 +207,116 @@ def s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x,
     returns (dx, dc, dWqkv, dbqkv, dWp, dbp). LN1 and qkv are recomputed,
     P is rebuilt from the forward's log-sum-exp."""
     dt = x.dtype
+    scale = (x.shape[-1] // num_heads) ** -0.5
     acc = [0.0, 0.0, 0.0, 0.0]
     grads = []
     for t, dt1, s1, o, lse in ((x, dt1x, dp[0], ox, lse_x),
                                (c, dt1c, dp[2], oc, lse_c)):
-        b, n, ch = t.shape
-        h = num_heads
-        d = ch // h
-        scale = d ** -0.5
-        dproj = (_col(s1, dt1) * dt1.float()).to(dt)
+        dproj = _dproj(s1, dt1)
         a = _norm(t).to(dt)
-        qkv = F.linear(a, wqkv, bqkv).view(b, n, 3, h, d)
-        q, k, v = (qkv[:, :, i].float() for i in range(3))
-        d_o = (dproj.float() @ wp.float()).view(b, n, h, d)
-        p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
-                      - lse[..., None])
-        rowdot = (d_o * o.float().view(b, n, h, d)).sum(-1).permute(0, 2, 1)
-        dpr = torch.einsum("bnhd,bmhd->bhnm", d_o, v)
-        ds = p * (dpr - rowdot[..., None])
-        dq = torch.einsum("bhnm,bmhd->bnhd", ds, k) * scale
-        dk = torch.einsum("bhnm,bnhd->bmhd", ds, q) * scale
-        dv = torch.einsum("bhnm,bnhd->bmhd", p, d_o)
-        dqkv = torch.stack([dq, dk, dv], dim=2).reshape(b * n, 3 * ch).to(dt)
-        da = (dqkv.float() @ wqkv.float()).view(b, n, ch)
-        grads.append((dt1.float() + _ln_bwd(da, t)).to(dt))
-        for i, val in enumerate((dqkv.float().t() @ a.reshape(-1, ch).float(),
-                                 dqkv.float().sum(0),
-                                 dproj.reshape(-1, ch).float().t()
-                                 @ o.reshape(-1, ch).float(),
-                                 dproj.float().sum((0, 1)))):
+        q, k, v = F.linear(a, wqkv, bqkv).chunk(3, -1)
+        dqkv = torch.cat(_attn_bwd(q, k, v, o, dproj.float() @ wp.float(),
+                                   lse, num_heads, scale), -1).to(dt)
+        grads.append((dt1.float() + _ln_bwd(dqkv.float() @ wqkv.float(), t)
+                      ).to(dt))
+        for i, val in enumerate((_wgrad(dqkv, a), _colsum(dqkv),
+                                 _wgrad(dproj, o), _colsum(dproj))):
             acc[i] = acc[i] + val
     return (grads[0], grads[1], acc[0].to(wqkv.dtype), acc[1].to(bqkv.dtype),
             acc[2].to(wp.dtype), acc[3].to(wp.dtype))
+
+
+def dca_train_fwd_plain(x, c, params, dp, *, num_heads: int, scale_x: float,
+                        scale_c: float):
+    """D-block forward (the TPU's _dca_train_fwd_kernel): (x_out, c_out,
+    t1x, t1c, o_x, o_c, lse_x, lse_c); lse is (B, H, n) fp32, the rest in
+    x's dtype."""
+    wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc, w1, b1, w2, b2 = params
+    dt = x.dtype
+    q1, k1, v1 = F.linear(_norm(x).to(dt), wqkv1, bqkv1).chunk(3, -1)
+    q2, k2, v2 = F.linear(_norm(c).to(dt), wqkv2, bqkv2).chunk(3, -1)
+    ox, lx = _attn_fwd(q1, k2, v2, num_heads, scale_x)
+    oc, lc = _attn_fwd(q2, k1, v1, num_heads, scale_c)
+    ox, oc = ox.to(dt), oc.to(dt)
+    xo, t1x = _tail(x, ox, wpx, bpx, dp[0], dp[1], w1, b1, w2, b2)
+    co, t1c = _tail(c, oc, wpc, bpc, dp[2], dp[3], w1, b1, w2, b2)
+    return xo, co, t1x, t1c, ox, oc, lx, lc
+
+
+def dca_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2,
+                       wpx, wpc, ox, oc, lse_x, lse_c, *, num_heads: int,
+                       scale_x: float, scale_c: float):
+    """D-block attention backward (the TPU's _dca_attn_bwd_kernel): returns
+    (dx, dc, dWqkv1, dbqkv1, dWqkv2, dbqkv2, dWpx, dbpx, dWpc, dbpc). The
+    x direction's dq lands in dqkv1, its dk / dv in dqkv2, and the c
+    direction's the other way round."""
+    dt = x.dtype
+    dpx, dpc = _dproj(dp[0], dt1x), _dproj(dp[2], dt1c)
+    ax, ac = _norm(x).to(dt), _norm(c).to(dt)
+    q1, k1, v1 = F.linear(ax, wqkv1, bqkv1).chunk(3, -1)
+    q2, k2, v2 = F.linear(ac, wqkv2, bqkv2).chunk(3, -1)
+    dq1, dk2, dv2 = _attn_bwd(q1, k2, v2, ox, dpx.float() @ wpx.float(),
+                              lse_x, num_heads, scale_x)
+    dq2, dk1, dv1 = _attn_bwd(q2, k1, v1, oc, dpc.float() @ wpc.float(),
+                              lse_c, num_heads, scale_c)
+    dqkv1 = torch.cat([dq1, dk1, dv1], -1).to(dt)
+    dqkv2 = torch.cat([dq2, dk2, dv2], -1).to(dt)
+    dx = dt1x.float() + _ln_bwd(dqkv1.float() @ wqkv1.float(), x)
+    dc = dt1c.float() + _ln_bwd(dqkv2.float() @ wqkv2.float(), c)
+    return (dx.to(dt), dc.to(dt),
+            _wgrad(dqkv1, ax).to(wqkv1.dtype),
+            _colsum(dqkv1).to(bqkv1.dtype),
+            _wgrad(dqkv2, ac).to(wqkv2.dtype),
+            _colsum(dqkv2).to(bqkv2.dtype),
+            _wgrad(dpx, ox).to(wpx.dtype), _colsum(dpx).to(wpx.dtype),
+            _wgrad(dpc, oc).to(wpc.dtype), _colsum(dpc).to(wpc.dtype))
+
+
+def c_train_fwd_plain(x, c, params, dp, *, num_heads: int):
+    """C-block forward (the TPU's _c_train_fwd_kernel): (c_out, t1c, o,
+    lse); lse is (B, H, M) fp32, the rest in x's dtype."""
+    wq, bq, wkv, bkv, wp, bp, w1, b1, w2, b2 = params
+    dt = x.dtype
+    q = F.linear(_norm(c).to(dt), wq, bq)
+    k, v = F.linear(_norm(x).to(dt), wkv, bkv).chunk(2, -1)
+    o, lse = _attn_fwd(q, k, v, num_heads,
+                       (x.shape[-1] // num_heads) ** -0.5)
+    o = o.to(dt)
+    co, t1c = _tail(c, o, wp, bp, dp[2], dp[3], w1, b1, w2, b2)
+    return co, t1c, o, lse
+
+
+def c_attn_bwd_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
+                     num_heads: int):
+    """C-block attention backward (the TPU's _c_attn_bwd_kernel): returns
+    (dxt, dc, dWq, dbq, dWkv, dbkv, dWp, dbp). dxt is the gradient through
+    k / v alone: x's identity path past the block is autograd's."""
+    dt = x.dtype
+    dpc = _dproj(dp[2], dt1c)
+    ax, ac = _norm(x).to(dt), _norm(c).to(dt)
+    q = F.linear(ac, wq, bq)
+    k, v = F.linear(ax, wkv, bkv).chunk(2, -1)
+    dq, dk, dv = _attn_bwd(q, k, v, o, dpc.float() @ wp.float(), lse,
+                           num_heads, (x.shape[-1] // num_heads) ** -0.5)
+    dq, dkv = dq.to(dt), torch.cat([dk, dv], -1).to(dt)
+    dxt = _ln_bwd(dkv.float() @ wkv.float(), x)
+    dc = dt1c.float() + _ln_bwd(dq.float() @ wq.float(), c)
+    return (dxt.to(dt), dc.to(dt), _wgrad(dq, ac).to(wq.dtype),
+            _colsum(dq).to(bq.dtype), _wgrad(dkv, ax).to(wkv.dtype),
+            _colsum(dkv).to(bkv.dtype), _wgrad(dpc, o).to(wp.dtype),
+            _colsum(dpc).to(wp.dtype))
+
+
+def _ln(t):
+    return F.layer_norm(t, (t.shape[-1],), eps=LN_EPS)
+
+
+def _tail_autograd(t, o, wp, bp, s1, s2, w1, b1, w2, b2):
+    """One stream's tail under autograd: t1 = t + s1 proj(o), out = t1 +
+    s2 MLP(norm(t1))."""
+    t1 = t + _col(s1, t).to(t.dtype) * F.linear(o, wp, bp)
+    mlp = F.linear(F.gelu(F.linear(_ln(t1), w1, b1)), w2, b2)
+    return t1 + _col(s2, t).to(t.dtype) * mlp
 
 
 def s_block_train_plain(x, c, params, dp, *, num_heads: int
@@ -179,37 +325,81 @@ def s_block_train_plain(x, c, params, dp, *, num_heads: int
     params and branch scales of s_block_train."""
     wqkv, bqkv, wp, bp, w1, b1, w2, b2 = params
 
-    def ln(t):
-        return F.layer_norm(t, (t.shape[-1],), eps=LN_EPS)
-
     def branch(t, s1, s2):
         b, n, ch = t.shape
         h = num_heads
-        qkv = F.linear(ln(t), wqkv, bqkv).view(b, n, 3, h, ch // h)
+        qkv = F.linear(_ln(t), wqkv, bqkv).view(b, n, 3, h, ch // h)
         o = sdpa_bnhd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-        t1 = t + _col(s1, t).to(t.dtype) * F.linear(o.reshape(b, n, ch), wp,
-                                                    bp)
-        mlp = F.linear(F.gelu(F.linear(ln(t1), w1, b1)), w2, b2)
-        return t1 + _col(s2, t).to(t.dtype) * mlp
+        return _tail_autograd(t, o.reshape(b, n, ch), wp, bp, s1, s2, w1, b1,
+                              w2, b2)
 
     return branch(x, dp[0], dp[1]), branch(c, dp[2], dp[3])
+
+
+def dca_block_train_plain(x, c, params, dp, *, num_heads: int,
+                          scale_x: float, scale_c: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The D block composed in PyTorch under autograd, with the LN-folded
+    params and branch scales of dca_block_train."""
+    wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc, w1, b1, w2, b2 = params
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    qkv1 = F.linear(_ln(x), wqkv1, bqkv1).view(b, n, 3, h, ch // h)
+    qkv2 = F.linear(_ln(c), wqkv2, bqkv2).view(b, m, 3, h, ch // h)
+    ox = sdpa_bnhd(qkv1[:, :, 0], qkv2[:, :, 1], qkv2[:, :, 2],
+                   scale=scale_x).reshape(b, n, ch)
+    oc = sdpa_bnhd(qkv2[:, :, 0], qkv1[:, :, 1], qkv1[:, :, 2],
+                   scale=scale_c).reshape(b, m, ch)
+    return (_tail_autograd(x, ox, wpx, bpx, dp[0], dp[1], w1, b1, w2, b2),
+            _tail_autograd(c, oc, wpc, bpc, dp[2], dp[3], w1, b1, w2, b2))
+
+
+def c_block_train_plain(x, c, params, dp, *, num_heads: int
+                        ) -> torch.Tensor:
+    """The C block composed in PyTorch under autograd, with the LN-folded
+    params and branch scales of c_block_train. Returns the new c."""
+    wq, bq, wkv, bkv, wp, bp, w1, b1, w2, b2 = params
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    q = F.linear(_ln(c), wq, bq).view(b, m, h, ch // h)
+    kv = F.linear(_ln(x), wkv, bkv).view(b, n, 2, h, ch // h)
+    o = sdpa_bnhd(q, kv[:, :, 0], kv[:, :, 1]).reshape(b, m, ch)
+    return _tail_autograd(c, o, wp, bp, dp[2], dp[3], w1, b1, w2, b2)
 
 
 # ---------------------------------------------------------------- CUDA
 
 
-def _check(name, x, c, params: Sequence[torch.Tensor], dp, num_heads: int):
+def _param_shapes(kind: str, ch: int, hidden: int):
+    """The LN-folded parameter shapes of an "s", "dca" or "c" block."""
+    attn = {"s": [(3 * ch, ch), (3 * ch,), (ch, ch), (ch,)],
+            "dca": [(3 * ch, ch), (3 * ch,), (3 * ch, ch), (3 * ch,),
+                    (ch, ch), (ch,), (ch, ch), (ch,)],
+            "c": [(ch, ch), (ch,), (2 * ch, ch), (2 * ch,), (ch, ch),
+                  (ch,)]}[kind]
+    return attn + [(hidden, ch), (hidden,), (ch, hidden), (ch,)]
+
+
+def _check(name, kind, x, c, params: Sequence[torch.Tensor], dp,
+           num_heads: int):
     b, n, ch = x.shape
-    hidden = params[4].shape[0]
+    hidden = params[-4].shape[0]
     fb._check(name, x, c, params, num_heads, hidden)
-    fb._check_shapes(name, params, [
-        (3 * ch, ch), (3 * ch,), (ch, ch), (ch,), (hidden, ch), (hidden,),
-        (ch, hidden), (ch,)])
+    fb._check_shapes(name, params, _param_shapes(kind, ch, hidden))
     if (dp.dtype != torch.float32 or tuple(dp.shape) != (4, b)
             or dp.device != x.device or not dp.is_contiguous()):
         raise ValueError(f"{name}: dp must be a contiguous float32 (4, {b}) "
                          f"tensor on {x.device}, got {dp.dtype} "
                          f"{tuple(dp.shape)} on {dp.device}")
+
+
+def _check_tensors(name, like, tensors) -> None:
+    for i, t in enumerate(tensors):
+        if not t.is_contiguous() or t.dtype != like.dtype or not t.is_cuda:
+            raise ValueError(f"{name}: tensor {i} must be a contiguous "
+                             f"CUDA {like.dtype} tensor")
 
 
 def _wgrad_split(rows0: int, rows1: int, shapes, sms: int
@@ -232,42 +422,45 @@ def _ws(shape, like, dtype=None):
     return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
 
 
-def _fwd_cuda(x, c, params, dp, *, num_heads: int):
-    _check("s_train_fwd", x, c, params, dp, num_heads)
+def _ln_identity(x):
+    """The ones / zeros a training kernel takes for LN1's and LN2's affine
+    (the weights come folded)."""
+    ch = x.shape[-1]
+    return (torch.ones(ch, dtype=x.dtype, device=x.device),
+            torch.zeros(ch, dtype=x.dtype, device=x.device))
+
+
+def s_train_fwd(x, c, params, dp, *, num_heads: int):
+    """The S forward phase; see s_train_fwd_plain."""
+    if not x.is_cuda:
+        return s_train_fwd_plain(x, c, params, dp, num_heads=num_heads)
+    _check("s_train_fwd", "s", x, c, params, dp, num_heads)
     b, n, ch = x.shape
     m = c.shape[1]
     hidden = params[4].shape[0]
     f32 = torch.float32
-    ones = torch.ones(ch, dtype=x.dtype, device=x.device)
-    zeros = torch.zeros(ch, dtype=x.dtype, device=x.device)
     outs = [torch.empty_like(x), torch.empty_like(c), torch.empty_like(x),
             torch.empty_like(c), _ws((b, n, ch), x), _ws((b, m, ch), x),
             _ws((b, num_heads, n), x, f32), _ws((b, num_heads, m), x, f32)]
     work = [_ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x)]
-    fb._launch("s_train_fwd", x, [x, c, ones, zeros, *params, dp, *outs,
-                                  *work],
+    fb._launch("s_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
+                                  *outs, *work],
                b, n, m, ch, num_heads, hidden, fb.HEAD_DIM ** -0.5, LN_EPS,
                counts=LAUNCHES)
     return tuple(outs)
 
 
-def s_train_fwd(x, c, params, dp, *, num_heads: int):
-    """The forward phase; see the module docstring."""
-    if not x.is_cuda:
-        return s_train_fwd_plain(x, c, params, dp, num_heads=num_heads)
-    return _fwd_cuda(x, c, params, dp, num_heads=num_heads)
-
-
 def mlp_bwd(t1x, t1c, dxo, dco, dp, w1, b1, w2):
-    """The MLP-backward phase; see mlp_bwd_plain."""
+    """The MLP-backward phase; see mlp_bwd_plain. The image stream (t1x,
+    dxo) may hold no tokens."""
     if not t1x.is_cuda:
         return mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2)
     b, n, ch = t1x.shape
     m = t1c.shape[1]
     hidden = w1.shape[0]
-    dzx = (_col(dp[1], dxo) * dxo.float()).to(t1x.dtype)
-    dzc = (_col(dp[3], dco) * dco.float()).to(t1x.dtype)
-    db2 = (dzx.float().sum((0, 1)) + dzc.float().sum((0, 1))).to(w2.dtype)
+    dzx = _dproj(dp[1], dxo)
+    dzc = _dproj(dp[3], dco)
+    db2 = (_colsum(dzx) + _colsum(dzc)).to(w2.dtype)
     rps, splits = _wgrad_split(b * n, b * m, [(hidden, ch), (ch, hidden)],
                                _sms(t1x.device))
     f32 = torch.float32
@@ -280,10 +473,7 @@ def mlp_bwd(t1x, t1c, dxo, dco, dp, w1, b1, w2):
             _ws((splits * hidden,), t1x, f32)]
     tensors = [t1x, t1c, dxo, dco, dzx, dzc, w1, b1, w2.t().contiguous(),
                w1.t().contiguous()]
-    for i, t in enumerate(tensors):
-        if not t.is_contiguous() or t.dtype != t1x.dtype or not t.is_cuda:
-            raise ValueError(f"mlp_bwd: tensor {i} must be a contiguous "
-                             f"CUDA {t1x.dtype} tensor")
+    _check_tensors("mlp_bwd", t1x, tensors)
     fb._launch("mlp_bwd", t1x, [*tensors, *outs, *work], b, n, m, ch, hidden,
                rps, LN_EPS, counts=LAUNCHES)
     return (*outs, db2)
@@ -291,16 +481,15 @@ def mlp_bwd(t1x, t1c, dxo, dco, dp, w1, b1, w2):
 
 def s_attn_bwd(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x, lse_c,
                *, num_heads: int):
-    """The attention-backward phase; see s_attn_bwd_plain."""
+    """The S attention-backward phase; see s_attn_bwd_plain."""
     if not x.is_cuda:
         return s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox,
                                 oc, lse_x, lse_c, num_heads=num_heads)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
-    dpx = (_col(dp[0], dt1x) * dt1x.float()).to(x.dtype)
-    dpc = (_col(dp[2], dt1c) * dt1c.float()).to(x.dtype)
-    dbp = (dpx.float().sum((0, 1)) + dpc.float().sum((0, 1))).to(wp.dtype)
+    dpx, dpc = _dproj(dp[0], dt1x), _dproj(dp[2], dt1c)
+    dbp = (_colsum(dpx) + _colsum(dpc)).to(wp.dtype)
     rps, splits = _wgrad_split(b * n, b * m, [(3 * ch, ch), (ch, ch)],
                                _sms(x.device))
     f32 = torch.float32
@@ -316,14 +505,138 @@ def s_attn_bwd(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x, lse_c,
             _ws((splits * 3 * ch,), x, f32)]
     tensors = [x, c, dt1x, dt1c, dpx, dpc, wqkv, bqkv, wqkv.t().contiguous(),
                wp.t().contiguous(), ox, oc]
-    for i, t in enumerate(tensors):
-        if not t.is_contiguous() or t.dtype != x.dtype or not t.is_cuda:
-            raise ValueError(f"s_attn_bwd: tensor {i} must be a contiguous "
-                             f"CUDA {x.dtype} tensor")
+    _check_tensors("s_attn_bwd", x, tensors)
     fb._launch("s_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work],
                b, n, m, ch, h, rps, fb.HEAD_DIM ** -0.5, LN_EPS,
                counts=LAUNCHES)
     return (*outs, dbp)
+
+
+def dca_train_fwd(x, c, params, dp, *, num_heads: int, scale_x: float,
+                  scale_c: float):
+    """The D forward phase; see dca_train_fwd_plain."""
+    if not x.is_cuda:
+        return dca_train_fwd_plain(x, c, params, dp, num_heads=num_heads,
+                                   scale_x=scale_x, scale_c=scale_c)
+    _check("dca_train_fwd", "dca", x, c, params, dp, num_heads)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    hidden = params[8].shape[0]
+    f32 = torch.float32
+    outs = [torch.empty_like(x), torch.empty_like(c), torch.empty_like(x),
+            torch.empty_like(c), _ws((b, n, ch), x), _ws((b, m, ch), x),
+            _ws((b, h, n), x, f32), _ws((b, h, m), x, f32)]
+    work = [_ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
+            *fb._partials(b, h, m, n, x.device)]
+    fb._launch("dca_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
+                                    *outs, *work],
+               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT, scale_x, scale_c,
+               LN_EPS, counts=LAUNCHES)
+    return tuple(outs)
+
+
+def dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
+                 ox, oc, lse_x, lse_c, *, num_heads: int, scale_x: float,
+                 scale_c: float):
+    """The D attention-backward phase; see dca_attn_bwd_plain."""
+    if not x.is_cuda:
+        return dca_attn_bwd_plain(
+            x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc, ox,
+            oc, lse_x, lse_c, num_heads=num_heads, scale_x=scale_x,
+            scale_c=scale_c)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    dpx, dpc = _dproj(dp[0], dt1x), _dproj(dp[2], dt1c)
+    dbpx, dbpc = _colsum(dpx).to(wpx.dtype), _colsum(dpc).to(wpc.dtype)
+    shapes = [(3 * ch, ch), (ch, ch)]
+    rps_x, sx = _wgrad_split(b * n, 0, shapes, _sms(x.device))
+    rps_c, sc = _wgrad_split(b * m, 0, shapes, _sms(x.device))
+    splits = max(sx, sc)
+    f32 = torch.float32
+    outs = [torch.empty_like(x), torch.empty_like(c),
+            torch.empty_like(wqkv1), torch.empty_like(bqkv1),
+            torch.empty_like(wqkv2), torch.empty_like(bqkv2),
+            torch.empty_like(wpx), torch.empty_like(wpc)]
+    work = [_ws((b * n, ch), x), _ws((b * m, ch), x),
+            _ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
+            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
+            _ws((b * h * n,), x, f32), _ws((b * h * m,), x, f32),
+            _ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
+            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
+            _ws((splits * 3 * ch * ch,), x, f32),
+            _ws((splits * 3 * ch,), x, f32)]
+    tensors = [x, c, dt1x, dt1c, dpx, dpc, wqkv1, bqkv1, wqkv2, bqkv2,
+               wqkv1.t().contiguous(), wqkv2.t().contiguous(),
+               wpx.t().contiguous(), wpc.t().contiguous(), ox, oc]
+    _check_tensors("dca_attn_bwd", x, tensors)
+    fb._launch("dca_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work],
+               b, n, m, ch, h, rps_x, rps_c, scale_x, scale_c, LN_EPS,
+               counts=LAUNCHES)
+    dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dwpc = outs
+    return (dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dbpx, dwpc, dbpc)
+
+
+def c_train_fwd(x, c, params, dp, *, num_heads: int):
+    """The C forward phase; see c_train_fwd_plain."""
+    if not x.is_cuda:
+        return c_train_fwd_plain(x, c, params, dp, num_heads=num_heads)
+    _check("c_train_fwd", "c", x, c, params, dp, num_heads)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    hidden = params[6].shape[0]
+    outs = [torch.empty_like(c), torch.empty_like(c), _ws((b, m, ch), x),
+            _ws((b, h, m), x, torch.float32)]
+    work = [_ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
+            *fb._partials(b, h, m, n, x.device)]
+    fb._launch("c_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
+                                  *outs, *work],
+               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT,
+               fb.HEAD_DIM ** -0.5, LN_EPS, counts=LAUNCHES)
+    return tuple(outs)
+
+
+def c_attn_bwd(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
+               num_heads: int):
+    """The C attention-backward phase; see c_attn_bwd_plain."""
+    if not x.is_cuda:
+        return c_attn_bwd_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse,
+                                num_heads=num_heads)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    dpc = _dproj(dp[2], dt1c)
+    dbp = _colsum(dpc).to(wp.dtype)
+    rps_x, sx = _wgrad_split(b * n, 0, [(2 * ch, ch)], _sms(x.device))
+    rps_c, sc = _wgrad_split(b * m, 0, [(ch, ch)], _sms(x.device))
+    splits = max(sx, sc)
+    f32 = torch.float32
+    outs = [torch.empty_like(x), torch.empty_like(c), torch.empty_like(wq),
+            torch.empty_like(bq), torch.empty_like(wkv),
+            torch.empty_like(bkv), torch.empty_like(wp)]
+    work = [_ws((b * n, ch), x), _ws((b * m, ch), x),
+            _ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
+            _ws((b * m, ch), x, f32), _ws((b * h * m,), x, f32),
+            _ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
+            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
+            _ws((splits * 2 * ch * ch,), x, f32),
+            _ws((splits * 2 * ch,), x, f32)]
+    tensors = [x, c, dt1c, dpc, wq, bq, wkv, bkv, wq.t().contiguous(),
+               wkv.t().contiguous(), wp.t().contiguous(), o]
+    _check_tensors("c_attn_bwd", x, tensors)
+    fb._launch("c_attn_bwd", x, [*tensors, lse, *outs, *work],
+               b, n, m, ch, h, rps_x, rps_c, fb.HEAD_DIM ** -0.5, LN_EPS,
+               counts=LAUNCHES)
+    return (*outs, dbp)
+
+
+def _upstream(g, like):
+    """An output's incoming gradient as the kernels take it (zeros where
+    autograd passes None)."""
+    return (torch.zeros_like(like) if g is None
+            else g.to(like.dtype).contiguous())
 
 
 class _STrain(torch.autograd.Function):
@@ -343,12 +656,8 @@ class _STrain(torch.autograd.Function):
     def backward(ctx, dxo, dco):
         x, c, dp, t1x, t1c, ox, oc, lx, lc, *params = ctx.saved_tensors
         wqkv, bqkv, wp, _, w1, b1, w2, _ = params
-        dxo = (torch.zeros_like(x) if dxo is None
-               else dxo.to(x.dtype).contiguous())
-        dco = (torch.zeros_like(c) if dco is None
-               else dco.to(c.dtype).contiguous())
-        dt1x, dt1c, dw1, db1, dw2, db2 = mlp_bwd(t1x, t1c, dxo, dco, dp,
-                                                 w1, b1, w2)
+        dt1x, dt1c, dw1, db1, dw2, db2 = mlp_bwd(
+            t1x, t1c, _upstream(dxo, x), _upstream(dco, c), dp, w1, b1, w2)
         dx, dc, dwqkv, dbqkv, dwp, dbp = s_attn_bwd(
             x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lx, lc,
             num_heads=ctx.num_heads)
@@ -356,7 +665,74 @@ class _STrain(torch.autograd.Function):
                 db2)
 
 
+class _DcaTrain(torch.autograd.Function):
+    """Forward and backward of dca_block_train."""
+
+    @staticmethod
+    def forward(ctx, x, c, dp, num_heads, scale_x, scale_c, *params):
+        x, c = x.contiguous(), c.contiguous()
+        params = [p.contiguous() for p in params]
+        xo, co, t1x, t1c, ox, oc, lx, lc = dca_train_fwd(
+            x, c, params, dp, num_heads=num_heads, scale_x=scale_x,
+            scale_c=scale_c)
+        ctx.save_for_backward(x, c, dp, t1x, t1c, ox, oc, lx, lc, *params)
+        ctx.kw = dict(num_heads=num_heads, scale_x=scale_x, scale_c=scale_c)
+        return xo, co
+
+    @staticmethod
+    def backward(ctx, dxo, dco):
+        x, c, dp, t1x, t1c, ox, oc, lx, lc, *params = ctx.saved_tensors
+        wqkv1, bqkv1, wqkv2, bqkv2, wpx, _, wpc, _, w1, b1, w2, _ = params
+        dt1x, dt1c, dw1, db1, dw2, db2 = mlp_bwd(
+            t1x, t1c, _upstream(dxo, x), _upstream(dco, c), dp, w1, b1, w2)
+        g = dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2,
+                         wpx, wpc, ox, oc, lx, lc, **ctx.kw)
+        return (g[0], g[1], None, None, None, None, *g[2:], dw1, db1, dw2,
+                db2)
+
+
+class _CTrain(torch.autograd.Function):
+    """Forward and backward of c_block_train. The MLP backward runs on the
+    meta stream alone (mlp_bwd with an empty image stream)."""
+
+    @staticmethod
+    def forward(ctx, x, c, dp, num_heads, *params):
+        x, c = x.contiguous(), c.contiguous()
+        params = [p.contiguous() for p in params]
+        co, t1c, o, lse = c_train_fwd(x, c, params, dp, num_heads=num_heads)
+        ctx.save_for_backward(x, c, dp, t1c, o, lse, *params)
+        ctx.num_heads = num_heads
+        return co
+
+    @staticmethod
+    def backward(ctx, dco):
+        x, c, dp, t1c, o, lse, *params = ctx.saved_tensors
+        wq, bq, wkv, bkv, wp, _, w1, b1, w2, _ = params
+        none = x.new_empty((x.shape[0], 0, x.shape[2]))
+        _, dt1c, dw1, db1, dw2, db2 = mlp_bwd(
+            none, t1c, none, _upstream(dco, c), dp, w1, b1, w2)
+        dxt, dc, dwq, dbq, dwkv, dbkv, dwp, dbp = c_attn_bwd(
+            x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse,
+            num_heads=ctx.num_heads)
+        return (dxt, dc, None, None, dwq, dbq, dwkv, dbkv, dwp, dbp, dw1,
+                db1, dw2, db2)
+
+
 def s_block_train(x, c, params, dp, *, num_heads: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable S block for training; see the module docstring."""
     return _STrain.apply(x, c, dp, num_heads, *params)
+
+
+def dca_block_train(x, c, params, dp, *, num_heads: int, scale_x: float,
+                    scale_c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable D (and D2) block for training; see the module
+    docstring."""
+    return _DcaTrain.apply(x, c, dp, num_heads, float(scale_x),
+                           float(scale_c), *params)
+
+
+def c_block_train(x, c, params, dp, *, num_heads: int) -> torch.Tensor:
+    """Differentiable C block for training: returns the new c; see the
+    module docstring."""
+    return _CTrain.apply(x, c, dp, num_heads, *params)

@@ -10,8 +10,8 @@ Four forms, keyed by a stage's ``attn_type``:
 Layout (B, N, H, d) throughout. Counterpart of lemevit_tpu/attn/modules.py.
 
 Kernels: a whole pre-norm block runs as hand-written kernels
-(``attn/fused_block.py`` in inference, ``attn/fused_train.py`` for S blocks
-in training), chosen by ``use_kernel`` and the JAX package's token-count
+(``attn/fused_block.py`` in inference, ``attn/fused_train.py`` in
+training), chosen by ``use_kernel`` and the JAX package's token-count
 limits; these modules are the composition a block runs otherwise
 (post-norm, layer-scale, above those limits, on CPU tensors under "auto",
 or ``attn_backend="torch"``). The JAX package's attention-only kernels

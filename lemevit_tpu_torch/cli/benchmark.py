@@ -1,19 +1,27 @@
 """Throughput benchmark CLI: the flags and ``--result`` JSON of
 lemevit_tpu/cli/benchmark.py (samples/s, ms/step, parameter count, GMACs,
-OOM batch-decay retry). ``--bench inference`` is ported; training is not.
+OOM batch-decay retry), for ``--bench inference``, ``train`` and ``both``.
+
+Inference runs a model with bf16 weights (the CUDA default) in eval mode;
+training keeps float32 parameters and runs the step under bf16 autocast, as
+cli/train.py does (flax's ``dtype=bfloat16``), so the blocks go through the
+hand-written training kernels.
 
 Usage:
   python -m lemevit_tpu_torch.cli.benchmark --model lemevit_base --bench inference
+  python -m lemevit_tpu_torch.cli.benchmark --model lemevit_tiny --bench train --batch-size 64
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-import time
 
+import numpy as np
 import torch
 
 from lemevit_tpu_torch.attn.modules import BACKENDS
+from lemevit_tpu_torch.utils.profiling import StepTimer, cost_analysis
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,36 +45,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def count_gmacs(model, img_size: int, device, dtype) -> float:
-    """Multiply-adds of one image's forward (matmuls and convolutions),
-    counted by torch.utils.flop_counter. It runs with autograd on, so the
-    blocks take the plain composition: the fused kernels are opaque to the
-    counter."""
-    from torch.utils.flop_counter import FlopCounterMode
-    x = torch.zeros(1, img_size, img_size, 3, device=device, dtype=dtype)
-    with FlopCounterMode(display=False) as fc:
-        model(x)
-    return fc.get_total_flops() / 2 / 1e9
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_inference(args, model, x):
     """Warm up, then time ``num_bench_iter`` forwards ending in a device
     synchronise. Returns (result dict, last logits)."""
-    device = x.device
+    timer = StepTimer(x.device)
     with torch.inference_mode():
         for _ in range(max(args.num_warm_iter, 1)):
             out = model(x)
-        _sync(device)
-        t0 = time.perf_counter()
+        timer.start()
         for _ in range(args.num_bench_iter):
             out = model(x)
-        _sync(device)
-    step_time = (time.perf_counter() - t0) / max(args.num_bench_iter, 1)
+        step_time = timer.stop() / max(args.num_bench_iter, 1)
     return {
         "samples_per_sec": round(args.batch_size / step_time, 2),
         "step_time": round(step_time * 1000, 3),
@@ -75,13 +64,50 @@ def run_inference(args, model, x):
     }, out
 
 
+def run_train(args, model, x, autocast_dtype=None) -> dict:
+    """lemevit_tpu/cli/benchmark.py::run_train: AdamW at 1e-3 and train_step
+    on fixed labels; one warm step, then ``num_bench_iter`` steps ending in
+    a device synchronise; then as many eval forwards for ``fwd_time``.
+    ``model`` holds float32 parameters; the steps and forwards run under
+    autocast to ``autocast_dtype`` where given."""
+    from lemevit_tpu_torch.train.optim import build_optimizer
+    from lemevit_tpu_torch.train.state import TrainState
+    from lemevit_tpu_torch.train.steps import train_step
+
+    device = x.device
+    timer = StepTimer(device)
+    state = TrainState(model, build_optimizer(model), lambda u: 1e-3)
+    labels = torch.from_numpy(np.random.RandomState(0).randint(
+        0, args.num_classes, args.batch_size)).to(device)
+    n = max(args.num_bench_iter, 1)
+    train_step(state, x, labels, autocast_dtype=autocast_dtype)
+    timer.start()
+    for _ in range(n):
+        train_step(state, x, labels, autocast_dtype=autocast_dtype)
+    dt = timer.stop() / n
+
+    autocast = (torch.autocast(device.type, dtype=autocast_dtype)
+                if autocast_dtype is not None else contextlib.nullcontext())
+    model.eval()
+    with torch.inference_mode(), autocast:
+        model(x)
+        timer.start()
+        for _ in range(n):
+            model(x)
+        dt_fwd = timer.stop() / n
+    model.train()
+    return {
+        "samples_per_sec": round(args.batch_size / dt, 2),
+        "step_time": round(dt * 1000, 3),
+        "fwd_time": round(dt_fwd * 1000, 3),
+        "bwd_opt_time": round((dt - dt_fwd) * 1000, 3),
+        "batch_size": args.batch_size,
+    }
+
+
 def benchmark(args) -> dict:
     from lemevit_tpu_torch.models.registry import create_model, resolve_device
 
-    if args.bench in ("train", "both"):
-        raise NotImplementedError(
-            "--bench train is not yet ported to lemevit_tpu_torch "
-            "(inference only)")
     device = resolve_device(args.device)
     bf16 = args.bf16 if args.bf16 is not None else device.type == "cuda"
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -90,17 +116,30 @@ def benchmark(args) -> dict:
     while batch_size >= 1:
         try:
             args.batch_size = batch_size
-            model = create_model(args.model, num_classes=args.num_classes,
-                                 attn_backend=args.attn_backend,
-                                 device=device, dtype=dtype).eval()
-            results["param_count"] = round(
-                sum(p.numel() for p in model.parameters()) / 1e6, 2)
-            results["gmacs"] = round(
-                count_gmacs(model, args.img_size, device, dtype), 2)
+
+            def make(dt):
+                return create_model(args.model, num_classes=args.num_classes,
+                                     attn_backend=args.attn_backend,
+                                     device=device, dtype=dt)
             g = torch.Generator().manual_seed(0)
             x = torch.randn(batch_size, args.img_size, args.img_size, 3,
                             generator=g).to(device)
-            results["inference"], _ = run_inference(args, model, x)
+            # inference keeps ``dtype`` weights, training float32 ones
+            infer = args.bench in ("inference", "both", "profile")
+            model_dtype = dtype if infer else torch.float32
+            model = make(model_dtype)
+            results["param_count"] = round(
+                sum(p.numel() for p in model.parameters()) / 1e6, 2)
+            results["gmacs"] = round(cost_analysis(
+                model, args.img_size, device, model_dtype)["gmacs"], 2)
+            if infer:
+                results["inference"], _ = run_inference(args, model.eval(), x)
+            if args.bench in ("train", "both"):
+                if infer:
+                    del model
+                    model = make(torch.float32)
+                results["train"] = run_train(
+                    args, model.train(), x, torch.bfloat16 if bf16 else None)
             results["device"] = (torch.cuda.get_device_name(device)
                                  if device.type == "cuda" else "cpu")
             break

@@ -2,8 +2,9 @@
 
   - two-stage YAML + argparse config (utils/parser.py), args.yaml record
   - float32 parameters, optimizer state and EMA; bf16 compute by default on
-    CUDA (autocast), so the S blocks of a ``vit_tiny`` train through the
+    CUDA (autocast); the C, D/D2 and S blocks train through the
     hand-written training kernels (attn/fused_train.py)
+  - ``--summary`` logs the parameter table and GMACs per image
   - AdamW + warmup-cosine with the LR scaled to the global batch
   - random erasing, mixup / cutmix and label smoothing on the device
   - EMA of the parameters, per-stage remat (--remat-stages), checkpoints
@@ -16,10 +17,10 @@ configs and not used), aug-splits / JSD, the plateau schedule and other
 optimizers, and multi-device runs are not ported yet and raise.
 
 Usage:
-  python -m lemevit_tpu_torch.cli.train --synthetic --model vit_tiny \\
+  python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_tiny \\
       --config configs/lemevit.yaml --epochs 1 --steps-per-epoch 6
   python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_micro \\
-      --img-size 32 --batch-size 4 --attn-backend torch --device cpu
+      --img-size 32 --batch-size 4 --device cpu --summary
 """
 from __future__ import annotations
 
@@ -55,8 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="lemevit_tiny")
     p.add_argument("--attn-backend", default="auto", choices=list(BACKENDS),
                    help="block dispatch: 'torch' composes every block in "
-                        "plain PyTorch (needed to train C / D blocks, whose "
-                        "training kernels are not ported yet)")
+                        "plain PyTorch instead of the CUDA kernels")
     p.add_argument("--drop-path", type=float, default=0.15)
     p.add_argument("--remat-stages", type=int, nargs="*", default=[])
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction,
@@ -110,6 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-interval", type=int, default=1)
     p.add_argument("--steps-per-epoch", type=int, default=0,
                    help="override (mainly for synthetic smoke runs)")
+    p.add_argument("--summary", action="store_true",
+                   help="log the parameter table and GMACs per image")
     return p
 
 
@@ -182,6 +184,12 @@ def train(args, args_text: str = "") -> dict:
                          remat_stages=tuple(args.remat_stages),
                          attn_backend=args.attn_backend, device=device,
                          seed=args.seed)
+    if args.summary:
+        from lemevit_tpu_torch.utils.profiling import (cost_analysis,
+                                                       model_summary)
+        logger.info("\n%s", model_summary(model))
+        logger.info("GMACs/image: %.4g",
+                    cost_analysis(model, args.img_size)["gmacs"])
     if args.initial_checkpoint:
         load_pretrained(model, args.initial_checkpoint)
     sched = build_lr_schedule(

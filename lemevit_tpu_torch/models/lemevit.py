@@ -17,9 +17,10 @@ kernels where ``use_kernel(attn_backend, x)`` says so and the JAX package
 would run its kernel at that token count (``kernel_takes``):
   - inference (eval mode, autograd off): the whole-block kernels of
     attn/fused_block.py, for C, D/D2 and S blocks;
-  - training (train mode, autograd on): the S-block training kernels of
-    attn/fused_train.py. The C and D training kernels are not ported yet,
-    so such a block raises rather than composing unasked.
+  - training (train mode, autograd on): the training kernels of
+    attn/fused_train.py (autograd Functions), for C, D/D2 and S blocks,
+    with the LayerNorm affines folded into the next product outside them
+    and D2 mapped onto the D kernels by the same weight permutation.
 The CPE stays outside the kernels as a depthwise conv. Everything else is
 the plain composition. Under ``torch.autocast`` the kernels run in the
 autocast type, their weights cast per block as the JAX package's
@@ -155,23 +156,42 @@ class LeMeBlock(nn.Module):
                 and kernel_takes(self.attn_type, x.shape[1] * x.shape[2])
                 and use_kernel(self.attn_backend, x))
 
-    def _s_train(self, xt, c, dp):
-        """The S block through the training kernels: norm1 / norm2 folded
-        into qkv / fc1 outside the autograd Function, so autograd chains the
-        LayerNorm affine gradients (the JAX package's _try_fused_train)."""
-        a, mlp = self.attn, self.mlp
-        wqkv, bqkv = fused_train.fold_ln(self.norm1.weight, self.norm1.bias,
-                                         a.qkv.weight, a.qkv.bias)
-        w1, b1 = fused_train.fold_ln(self.norm2.weight, self.norm2.bias,
-                                     mlp.fc1.weight, mlp.fc1.bias)
+    def train_params(self) -> list:
+        """The LN-folded parameter tuple of this block's training kernels
+        (attn/fused_train.py's order): norm1 folded into each attention
+        input projection (qkv; q and kv; qkv1 and qkv2) and norm2 into fc1,
+        under autograd, so that autograd chains the LayerNorm affine
+        gradients (the JAX package's _try_fused_train). Built on
+        fused_params, so D2's permuted weights sum their duplicated
+        columns' gradients."""
+        p = self.fused_params()
+        (g1, be1), attn, tail = p[:2], p[2:-6], p[-6:]
+        n_in = 1 if self.attn_type == "S" else 2
+        out = []
+        for i in range(n_in):
+            out += fused_train.fold_ln(g1, be1, attn[2 * i], attn[2 * i + 1])
+        out += attn[2 * n_in:]
+        out += fused_train.fold_ln(*tail[:4])
+        return out + list(tail[4:])
+
+    def _train_kernels(self, xt, c, dp, n: int):
+        """The block through its training kernels, weights cast to the
+        compute type. Returns (x_out, c_out); the C block's x_out is None
+        (x passes it unchanged)."""
         dt = compute_dtype(xt)
-        params = [t.to(dt) for t in (wqkv, bqkv, a.proj.weight, a.proj.bias,
-                                     w1, b1, mlp.fc2.weight, mlp.fc2.bias)]
+        params = [t.to(dt) for t in self.train_params()]
         if dp is None:
             dp = torch.ones(4, xt.shape[0], device=xt.device)
-        return fused_train.s_block_train(xt.to(dt), c.to(dt), params,
-                                         dp.contiguous(),
-                                         num_heads=self.num_heads)
+        xt, c, dp = xt.to(dt), c.to(dt), dp.contiguous()
+        h = self.num_heads
+        if self.attn_type == "S":
+            return fused_train.s_block_train(xt, c, params, dp, num_heads=h)
+        if self.attn_type == "C":
+            return None, fused_train.c_block_train(xt, c, params, dp,
+                                                   num_heads=h)
+        scale_x, scale_c = ref.dca_scales(n, c.shape[1], xt.shape[-1])
+        return fused_train.dca_block_train(xt, c, params, dp, num_heads=h,
+                                           scale_x=scale_x, scale_c=scale_c)
 
     def fused_params(self) -> tuple:
         """The parameter tuple of this block's fused kernel (fused_block's
@@ -216,17 +236,12 @@ class LeMeBlock(nn.Module):
         fused = (train or infer) and self._fusable(x)
         if train and dp is None:
             dp = self.dp_scales(b, x.device)
-        if fused and train and self.attn_type != "S":
-            raise NotImplementedError(
-                f"the {self.attn_type} block's training kernels are not "
-                "ported yet (ROADMAP.md, next slice: lemevit_* training); "
-                "pass attn_backend='torch' (--attn-backend torch) to compose "
-                "this block in plain PyTorch")
         s1x, s2x, s1c, s2c = (None,) * 4 if dp is None else dp
         xt = self._cpe(x).reshape(b, h * w, ch)
         if fused and train:
-            xo, co = self._s_train(xt, c, dp)
-            return xo.reshape(b, h, w, ch), co
+            xo, co = self._train_kernels(xt, c, dp, h * w)
+            # the C block passes x (before the CPE) through unchanged
+            return (x if xo is None else xo.reshape(b, h, w, ch)), co
         if fused:
             dt = compute_dtype(xt)
             xt, c = xt.to(dt), c.to(dt)

@@ -96,10 +96,22 @@ def test_benchmark_cli_on_cpu(tmp_path, capsys):
     assert "--result" in capsys.readouterr().out
 
 
-def test_benchmark_train_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        benchmark.main(["--model", "lemevit_micro", "--bench", "train",
-                        "--device", "cpu"])
+@pytest.mark.parametrize("bench", ["train", "both"])
+def test_benchmark_train_on_cpu(bench):
+    """--bench train / both return the JAX CLI's result keys."""
+    res = benchmark.main(["--model", "lemevit_micro", "--bench", bench,
+                          "--img-size", "32", "--batch-size", "2",
+                          "--num-classes", "10", "--num-bench-iter", "1",
+                          "--device", "cpu"])
+    tr = res["train"]
+    assert set(tr) == {"samples_per_sec", "step_time", "fwd_time",
+                       "bwd_opt_time", "batch_size"}
+    assert tr["batch_size"] == 2 and tr["samples_per_sec"] > 0
+    assert tr["step_time"] > 0 and tr["fwd_time"] > 0
+    assert ("inference" in res) == (bench == "both")
+    if bench == "both":
+        assert set(res["inference"]) == {"samples_per_sec", "step_time",
+                                         "batch_size", "img_size"}
 
 
 def test_validate_cli_on_cpu(tmp_path):

@@ -13,6 +13,7 @@ import glob
 import json
 import math
 import os
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from lemevit_tpu.data import mixup as jmix
 from lemevit_tpu.models import LeMeViT as JLeMeViT
 from lemevit_tpu.train import optim as joptim
 from lemevit_tpu.train.steps import cross_entropy_loss as j_ce
+import lemevit_tpu_torch
 from lemevit_tpu_torch.cli import train as train_cli
 from lemevit_tpu_torch.data import mixup as tmix
 from lemevit_tpu_torch.data.datasets import SyntheticDataset
@@ -37,6 +39,7 @@ from lemevit_tpu_torch.train import checkpoint as ckpt
 from lemevit_tpu_torch.train import optim as toptim
 from lemevit_tpu_torch.train.state import ModelEma, TrainState
 from lemevit_tpu_torch.train.steps import cross_entropy_loss, train_step
+from lemevit_tpu_torch.utils import profiling
 from lemevit_tpu_torch.utils.parser import load_flat_yaml
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -392,3 +395,38 @@ def test_train_cli_on_cpu_resumes(tmp_path, model, extra):
     assert res["steps"] == 6
     with open(out / "summary.csv") as f:
         assert [r["epoch"] for r in csv.DictReader(f)] == ["0", "1", "2"]
+
+
+def test_train_cli_trains_cd_blocks_with_summary(tmp_path):
+    """The C / D / S micro model trains without --attn-backend torch, and
+    --summary logs the parameter table and GMACs per image."""
+    res = _run(tmp_path, "lemevit_micro", 1, "--summary")
+    assert res["steps"] == 2 and math.isfinite(res["train_loss"])
+    log = (tmp_path / "lemevit_micro" / "train.log").read_text()
+    assert "TOTAL" in log and "stages.0" in log
+    gmacs = float(re.search(r"GMACs/image: (\S+)", log).group(1))
+    assert gmacs > 0
+
+
+def test_profiling_utilities(tmp_path):
+    m = lemevit_tpu_torch.create_model("lemevit_micro", device="cpu",
+                                       num_classes=10).train()
+    table = profiling.model_summary(m)
+    total = sum(p.numel() for p in m.parameters())
+    assert "TOTAL" in table and f"{total:,}" in table
+    assert "meta_tokens" in table and "stages.1" in table
+    cost = profiling.cost_analysis(m, 32)
+    assert cost["flops"] > 0 and cost["gmacs"] == cost["flops"] / 2e9
+    assert m.training  # the mode is restored
+    timer = profiling.StepTimer("cpu")
+    for _ in range(2):
+        timer.start()
+        m(torch.zeros(2, 32, 32, 3))
+        assert timer.stop() > 0
+    assert len(timer.times) == 2 and timer.mean_ms > 0
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        m(torch.zeros(2, 32, 32, 3))
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    assert any("conv" in e.key for e in prof.key_averages())
+    info = profiling.versions()
+    assert info["torch"] == torch.__version__ and "nvcc" in info

@@ -1,19 +1,22 @@
 """PyTorch port, training forward and backward of the model on the CPU
 against the JAX package:
-  - a train-mode S LeMeBlock against the JAX LeMeBlock(attn_backend=
-    "pallas") run in interpret mode (tests/test_pallas_train.py's way), on
-    the composed path and on the training-kernel path (the autograd
-    Function's plain phases): loss 2e-4, every gradient 5e-3;
-  - one whole train step of an S-only micro vit_tiny against JAX's
-    create_train_state + make_train_step + build_optimizer (attn_backend
-    "xla"): loss 2e-4, grad norm, every parameter's update, the BatchNorm
-    running statistics and the EMA parameters 5e-3;
+  - a train-mode C, D, D2 and S LeMeBlock against the JAX
+    LeMeBlock(attn_backend="pallas") run in interpret mode
+    (tests/test_pallas_train.py's way), on the composed path and on the
+    training-kernel path (the autograd Functions' plain phases): loss 2e-4,
+    every gradient 5e-3;
+  - one whole train step of an S-only micro vit_tiny and of C/D and C/D2
+    micro LeMeViTs against JAX's create_train_state + make_train_step +
+    build_optimizer (attn_backend "xla"): loss 2e-4, grad norm, every
+    parameter's update, the BatchNorm running statistics and the EMA
+    parameters 5e-3;
   - the repairs: BatchNorm's train-mode running variance (flax's biased
     one), DropPath's explicit generator, the JAX package's token-count
-    limits of the block kernels; and C / D blocks refusing to compose
-    quietly where their training kernels would run; remat.
+    limits of the block kernels; C / D / D2 blocks training on the kernel
+    path; remat.
 All fp32."""
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -28,10 +31,11 @@ from lemevit_tpu.models import LeMeViT as JLeMeViT
 from lemevit_tpu.models.lemevit import LeMeBlock as JBlock
 from lemevit_tpu.train import build_optimizer as j_build_optimizer
 from lemevit_tpu.train import create_train_state, make_train_step
+from lemevit_tpu.train.steps import cross_entropy_loss as j_cross_entropy_loss
 from lemevit_tpu_torch.attn import fused_train as ft
 from lemevit_tpu_torch.core import layers as tl
 from lemevit_tpu_torch.models import lemevit as tmod
-from lemevit_tpu_torch.models.convert import from_jax_params
+from lemevit_tpu_torch.models.convert import _ATTN_KEYS, from_jax_params
 from lemevit_tpu_torch.train.optim import build_optimizer
 from lemevit_tpu_torch.train.state import ModelEma, TrainState
 from lemevit_tpu_torch.train.steps import train_step
@@ -42,26 +46,45 @@ GRAD_TOL = dict(rtol=5e-3, atol=5e-3)
 MICRO = dict(depth=(1, 1, 1, 1), embed_dim=(16, 32, 32, 32), head_dim=8,
              mlp_ratios=(4, 4, 4, 4), attn_type=("S", "S", "S", "S"),
              queries_len=8, num_classes=10)
+# the C / D / D2 stages at the kernels' head_dim; at 32^2 the stages see
+# 64, 64, 16, 4 and 1 image tokens
+MICRO_CD = dict(depth=(1, 1, 1, 1, 1), embed_dim=(32, 32, 64, 64, 64),
+                head_dim=32, mlp_ratios=(4, 4, 4, 4, 4),
+                attn_type=("C", "D", "D", "S", "S"), queries_len=16,
+                num_classes=10)
+CONFIGS = {"S": MICRO, "CD": MICRO_CD,
+           "CD2": dict(MICRO_CD, attn_type=("C", "D2", "D2", "S", "S"))}
+# Below this share of its tensor's largest gradient, an element's gradient
+# lies within fp32 rounding of zero (the C/D models have such elements by
+# chance, e.g. 3e-7 of 0.27 in CD's stage-2 downsample conv), and Adam's
+# first step, g / (|g| + 1e-8), turns its relative error into an update
+# error of order one; such elements are held to the +-LR bound.
+NOISE_FLOOR = {"S": 0.0, "CD": 1e-5, "CD2": 1e-5}
 LR = 0.1
+WD = 0.05
 EMA_DECAY = 0.996
-BN_FED_BIASES = {"downsample_layers.0.0.bias", "downsample_layers.0.3.bias",
-                 "downsample_layers.1.0.bias", "downsample_layers.2.0.bias",
-                 "downsample_layers.3.0.bias"}
+# a conv bias feeding a train-mode BatchNorm: the stem's two convs and each
+# downsample's conv
+BN_FED_BIAS = re.compile(r"downsample_layers\.(\d+\.0|0\.3)\.bias")
+# the key part of a bias whose keys meet only other tokens' queries
+KEY_BIASES = {"attn.qkv.bias": (1, 3), "attn.qkv1.bias": (1, 3),
+              "attn.qkv2.bias": (1, 3), "attn.kv.bias": (0, 2)}
 
 
 def _live_grad(name, t):
     """Mask of the elements whose exact gradient is not structurally zero.
     Zero are: a conv bias feeding a train-mode BatchNorm (the batch mean is
-    subtracted) and the key third of a qkv bias (it shifts a query's scores
-    alike, which softmax ignores). There the gradient is rounding noise in
-    either framework and Adam's first step +-LR on its sign, so those
-    elements are only held to that bound."""
+    subtracted) and the key part of a qkv / qkv1 / qkv2 / kv bias (it
+    shifts a query's scores alike, which softmax ignores). There the
+    gradient is rounding noise in either framework and Adam's first step
+    +-LR on its sign, so those elements are only held to that bound."""
     keep = np.ones(tuple(t.shape), bool)
-    if name in BN_FED_BIASES:
+    if BN_FED_BIAS.fullmatch(name):
         keep[:] = False
-    elif name.endswith("attn.qkv.bias"):
-        ch = t.shape[0] // 3
-        keep[ch:2 * ch] = False
+    for suffix, (part, parts) in KEY_BIASES.items():
+        if name.endswith(suffix):
+            w = t.shape[0] // parts
+            keep[part * w:(part + 1) * w] = False
     return keep
 
 
@@ -77,8 +100,8 @@ def _np(a):
     return np.asarray(a, dtype=np.float32)
 
 
-def _block_sd(tree):
-    """Port LeMeBlock("S") state_dict from a JAX block's params."""
+def _block_sd(tree, attn_type):
+    """Port LeMeBlock state_dict from a JAX block's params."""
     def lin(p):
         return {"weight": _np(p["kernel"]).T, "bias": _np(p["bias"])}
 
@@ -89,9 +112,9 @@ def _block_sd(tree):
             _np(tree["pos_embed"]["dwconv"]["kernel"]), (3, 2, 0, 1)),
             "bias": _np(tree["pos_embed"]["dwconv"]["bias"])},
         "norm1": ln(tree["norm1"]), "norm2": ln(tree["norm2"]),
-        "attn.qkv": lin(tree["attn"]["qkv"]),
-        "attn.proj": lin(tree["attn"]["proj"]),
         "mlp.0": lin(tree["mlp"]["fc1"]), "mlp.3": lin(tree["mlp"]["fc2"])}
+    for key in _ATTN_KEYS[attn_type]:
+        parts[f"attn.{key}"] = lin(tree["attn"][key])
     return {f"{k}.{w}": torch.from_numpy(np.ascontiguousarray(v))
             for k, d in parts.items() for w, v in d.items()}
 
@@ -103,16 +126,19 @@ def _randomize(tree, rng):
 
 
 @pytest.mark.parametrize("path", ["composed", "kernel"])
-def test_block_train_matches_jax(monkeypatch, request, path):
+@pytest.mark.parametrize("attn_type", ["S", "C", "D", "D2"])
+def test_block_train_matches_jax(monkeypatch, request, attn_type, path):
     monkeypatch.setattr(pallas_block, "_INTERPRET", True)
     if path == "kernel":
         request.getfixturevalue("kernel_path")
     rng = np.random.RandomState(0)
     x = rng.randn(2, 8, 8, C).astype(np.float32)
     c = rng.randn(2, M, C).astype(np.float32)
-    jb = JBlock(dim=C, num_heads=H, attn_type="S", attn_backend="pallas")
-    v = JBlock(dim=C, num_heads=H, attn_type="S", attn_backend="xla").init(
-        jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(c))
+    jb = JBlock(dim=C, num_heads=H, attn_type=attn_type,
+                attn_backend="pallas")
+    v = JBlock(dim=C, num_heads=H, attn_type=attn_type,
+               attn_backend="xla").init(jax.random.PRNGKey(0),
+                                        jnp.asarray(x), jnp.asarray(c))
     v = {"params": _randomize(v["params"], rng)}
 
     def jloss(v_, x_, c_):
@@ -122,8 +148,8 @@ def test_block_train_matches_jax(monkeypatch, request, path):
     jl, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
         v, jnp.asarray(x), jnp.asarray(c))
 
-    tb = tmod.LeMeBlock(C, H, "S").train()
-    tb.load_state_dict(_block_sd(v["params"]), strict=True)
+    tb = tmod.LeMeBlock(C, H, attn_type).train()
+    tb.load_state_dict(_block_sd(v["params"], attn_type), strict=True)
     tx = torch.tensor(x, requires_grad=True)
     tc = torch.tensor(c, requires_grad=True)
     before = dict(ft.LAUNCHES)
@@ -132,7 +158,7 @@ def test_block_train_matches_jax(monkeypatch, request, path):
     loss.backward()
     assert ft.LAUNCHES == before  # CPU tensors: plain phases, no launches
     np.testing.assert_allclose(loss.item(), float(jl), **LOSS_TOL)
-    want = _block_sd(jg[0]["params"])
+    want = _block_sd(jg[0]["params"], attn_type)
     for name, p in tb.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
                                    **GRAD_TOL, err_msg=name)
@@ -141,15 +167,17 @@ def test_block_train_matches_jax(monkeypatch, request, path):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_train_step():
-    """Inputs, the state before and after one JAX train step, and its
-    metrics (numpy), for the S-only micro model at 32^2, B = 4."""
+def _jax_train_step(config):
+    """Inputs, the state before and after one JAX train step, its metrics
+    and, where NOISE_FLOOR[config] is set, the gradients of its loss (as
+    variables, for from_jax_params; else None), all numpy, for a micro
+    model of CONFIGS at 32^2, B = 4."""
     rng = np.random.RandomState(1)
     x = rng.rand(4, 32, 32, 3).astype(np.float32)
     labels = rng.randint(0, 10, 4)
     targets = np.eye(10, dtype=np.float32)[labels] * 0.9 + 0.01
-    jm = JLeMeViT(**MICRO, attn_backend="xla")
-    tx = j_build_optimizer(lambda s: LR, weight_decay=0.05)
+    jm = JLeMeViT(**CONFIGS[config], attn_backend="xla")
+    tx = j_build_optimizer(lambda s: LR, weight_decay=WD)
     st = create_train_state(jm, jax.random.PRNGKey(0), (2, 32, 32, 3), tx,
                             ema_decay=EMA_DECAY)
     stats = jax.tree.map(
@@ -164,21 +192,36 @@ def _jax_train_step():
                              "label": jnp.asarray(targets)},
                         jax.random.PRNGKey(1))
     to_np = functools.partial(jax.tree.map, np.asarray)
+    grads = None
+    if NOISE_FLOOR[config]:
+        def loss_fn(p):  # the step's loss (no drop-path: rng unused)
+            logits, _ = jm.apply({"params": p, "batch_stats": stats},
+                                 jnp.asarray(x), train=True,
+                                 rngs={"dropout": jax.random.PRNGKey(1)},
+                                 mutable=["batch_stats"])
+            return j_cross_entropy_loss(logits, jnp.asarray(targets))
+        grads = to_np({"params": jax.jit(jax.grad(loss_fn))(params),
+                       "batch_stats": stats})
     return (x, targets, to_np(st.variables), to_np(new.variables),
             to_np({"params": new.ema_params,
                    "batch_stats": new.batch_stats}),
-            {k: float(v) for k, v in metrics.items()})
+            {k: float(v) for k, v in metrics.items()}, grads)
 
 
 @pytest.mark.parametrize("path", ["composed", "kernel"])
-def test_train_step_matches_jax(request, path):
+@pytest.mark.parametrize("config", ["S", "CD", "CD2"])
+def test_train_step_matches_jax(request, config, path):
     if path == "kernel":
         request.getfixturevalue("kernel_path")
-    x, targets, v0, v1, ema1, jmetrics = _jax_train_step()
-    tm = tmod.LeMeViT(**MICRO)
+    x, targets, v0, v1, ema1, jmetrics, jgrads = _jax_train_step(config)
+    tm = tmod.LeMeViT(**CONFIGS[config])
     sd0 = from_jax_params(v0, tm)
     tm.load_state_dict(sd0, strict=True)
-    state = TrainState(tm, build_optimizer(tm, weight_decay=0.05),
+    floor = NOISE_FLOOR[config]
+    # the noise floor is read off the reference's gradients, so that the
+    # port's own cannot exempt an element
+    grads = from_jax_params(jgrads, tm) if floor else {}
+    state = TrainState(tm, build_optimizer(tm, weight_decay=WD),
                        lambda u: LR, ModelEma(tm, EMA_DECAY))
     metrics = train_step(state, torch.from_numpy(x),
                          torch.from_numpy(targets))
@@ -198,6 +241,9 @@ def test_train_step_matches_jax(request, path):
             # the update, in units of the LR (Adam's first step is ~ +-LR),
             # of the live and the EMA parameters
             keep = _live_grad(name, t)
+            if name in grads:
+                g = grads[name].abs()
+                keep &= (g >= floor * g.max()).numpy()
             for tag, new, ref, scale in (
                     ("", t, want[name], LR),
                     ("ema ", state.ema.params[name], want_ema[name],
@@ -206,7 +252,11 @@ def test_train_step_matches_jax(request, path):
                 want_u = ((ref - sd0[name]) / scale).numpy()
                 np.testing.assert_allclose(got_u[keep], want_u[keep],
                                            **GRAD_TOL, err_msg=tag + name)
-                assert np.abs(got_u[~keep]).max(initial=0) <= 1 + 1e-4
+                # +-1, and AdamW's decoupled decay WD |p| where the noise
+                # floor masks an element of a decayed weight
+                bound = 1 + 1e-4 + (WD * np.abs(sd0[name].numpy()) if floor
+                                    else 0)
+                assert (np.abs(got_u) <= bound)[~keep].all()
         else:  # BatchNorm running statistics
             np.testing.assert_allclose(t.numpy(), want[name].numpy(),
                                        **GRAD_TOL, err_msg=name)
@@ -279,14 +329,23 @@ def test_dispatch_takes_jax_token_limits(kernel_path):
 
 
 @pytest.mark.parametrize("attn_type", ["C", "D", "D2"])
-def test_cd_blocks_refuse_to_train_without_kernels(kernel_path, attn_type):
-    blk = tmod.LeMeBlock(32, 1, attn_type).train()
-    x, c = torch.randn(2, 4, 4, 32), torch.randn(2, 4, 32)
-    with pytest.raises(NotImplementedError, match="attn-backend torch"):
-        blk(x, c)
-    blk.attn_backend = "torch"
+def test_cd_blocks_train_on_kernel_path(kernel_path, attn_type):
+    """A train-mode C / D / D2 block where its training kernels run: no
+    raise, the shapes and gradients of both streams, the C block's x passed
+    through, and on CPU tensors the plain phases (no launch counted)."""
+    blk = tmod.LeMeBlock(32, 1, attn_type, drop_path=0.3).train()
+    blk.drop_path.generator = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 4, 32, requires_grad=True)
+    c = torch.randn(2, 8, 32, requires_grad=True)
+    assert blk._fusable(x)
+    before = dict(ft.LAUNCHES)
     xo, co = blk(x, c)
     assert xo.shape == x.shape and co.shape == c.shape
+    assert (xo is x) == (attn_type == "C")
+    (xo.square().sum() + co.square().sum()).backward()
+    assert ft.LAUNCHES == before
+    assert x.grad.shape == x.shape and c.grad.abs().sum() > 0
+    assert all(p.grad is not None for p in blk.parameters())
 
 
 def test_remat_stages_keep_masks_and_gradients():
