@@ -3,8 +3,8 @@
   python3 chip_smoke.py
 
 Builds the CUDA kernels from lemevit_tpu_torch/attn/csrc and drives the
-port's main paths, each with its kernels' launch counts set to 0 just before
-it and read just after:
+port's main paths, each with every kernel's launch count set to 0 just
+before it and read just after:
   - serving: every inference block kernel held against its plain PyTorch
     version at the shapes of LeMeViT-Base at 224^2, base's kernel path
     against its plain path, a bf16 batch of 64 served through
@@ -14,13 +14,23 @@ it and read just after:
     vit_tiny's shapes, one fp32 train step on the kernel path against the
     plain path, then cli.train on synthetic data (224^2, bf16, batch 64,
     configs/lemevit.yaml, 6 steps and one eval) and a profile of one train
-    step;
+    step; stage 0 (N = 3136) composes, its meta-token stream on the mhsa
+    kernel;
   - training lemevit_tiny (C, D and S blocks): the inference kernels at its
     five shapes, its C, D and S training kernels (forward, MLP backward,
     attention backward) held against their plain versions, a D2 training
     block through the weight permutation, one fp32 train step on the kernel
     path against the plain path, cli.train as above, cli.benchmark --bench
-    train, and a profile of one train step.
+    train, and a profile of one train step;
+  - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
+    6 classes): the attention-only kernels held against their plain
+    versions (dca_attn at stages 1-2's shapes, through D2's aliasing and
+    one backward; mhsa at three shapes) beside SDPA's time on the same
+    inputs, the S kernels at stages 3-4's shapes (N = 1024, 256), the crop
+    forward's kernel path against its plain path (fp32 at batch 1, bf16 at
+    batch 8) with its launches, slide inference of a 1024^2 image (9
+    windows), cli.train_seg on synthetic data (batch 8, bf16, 6 steps and
+    a slide-inference eval) and a profile of one seg train step.
 Every phase prints one line; any failure raises and exits non-zero. The
 last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -37,6 +47,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 B_CHECK = 8          # batch of the fp32 kernel checks
 B_MAIN = 64          # batch of the served and trained main paths (bf16)
@@ -61,6 +72,18 @@ TINY_TRAIN = [("c", 3136, 64, 1), ("dca", 3136, 64, 2), ("dca", 784, 128, 2),
 # vit_tiny at 224^2, stages 1-3 (stage 0, N = 3136, composes as in the JAX
 # package): S blocks, each launching s_block once per eval forward
 VIT_TRAIN = [("s", 784, 192, 2), ("s", 196, 320, 4), ("s", 49, 384, 2)]
+# UperNet on lemevit_tiny at 512^2 (cli.train_seg's defaults): batch, crop,
+# head channels, classes; the fp32 checks' batch
+SEG_B, SEG_CROP, SEG_CH, SEG_CLASSES, SEG_B_CHECK = 8, 512, 512, 6, 2
+# stages 1-2 compose (N > 3136): each D block's attention is one dca_attn
+# call, (N, C, blocks)
+SEG_DCA = [(16384, 64, 2), (4096, 128, 2)]
+# stages 3-4 run the S kernels at new token counts, (kind, N, C, blocks)
+SEG_S = [("s", 1024, 192, 8), ("s", 256, 320, 2)]
+# mhsa: (N, C, fp32 batch, bf16 batch): vit_tiny's stage-0 meta stream,
+# an S block that composes at N = 196 and at the kernel's largest N
+MHSA_SHAPES = [(16, 96, B_CHECK, B_MAIN), (196, 320, B_CHECK, B_MAIN),
+               (1024, 192, SEG_B_CHECK, SEG_B)]
 TRAIN_PHASES = {"s": ("s_train_fwd", "mlp_bwd", "s_attn_bwd"),
                 "dca": ("dca_train_fwd", "mlp_bwd", "dca_attn_bwd"),
                 "c": ("c_train_fwd", "mlp_bwd", "c_attn_bwd")}
@@ -85,14 +108,22 @@ KERNELS = {
                     "lemevit_tpu/attn/pallas_train.py:1442"),
     "c_attn_bwd": ("lemevit_tpu_torch/attn/csrc/c_train.cu",
                    "lemevit_tpu/attn/pallas_train.py:1514"),
+    "dca_attn": ("lemevit_tpu_torch/attn/csrc/dca_attn.cu",
+                 "lemevit_tpu/attn/pallas_dca.py:185"),
+    "mhsa": ("lemevit_tpu_torch/attn/csrc/mhsa.cu",
+             "lemevit_tpu/attn/pallas_mhsa.py:95"),
 }
 # launches per train step and per eval forward of each trained model
-VIT_STEP = {"s_train_fwd": 8, "mlp_bwd": 8, "s_attn_bwd": 8}
-VIT_EVAL = {"s_block": 8}
+VIT_STEP = {"s_train_fwd": 8, "mlp_bwd": 8, "s_attn_bwd": 8, "mhsa": 2}
+VIT_EVAL = {"s_block": 8, "mhsa": 2}
 TINY_STEP = {"c_train_fwd": 1, "c_attn_bwd": 1, "dca_train_fwd": 4,
              "dca_attn_bwd": 4, "s_train_fwd": 10, "s_attn_bwd": 10,
              "mlp_bwd": 15}
 TINY_EVAL = {"c_block": 1, "dca_block": 4, "s_block": 10}
+# UperNet: launches per crop forward and per train_seg step
+SEG_CROP_FWD = {"dca_attn": 4, "s_block": 10}
+SEG_STEP = {"dca_attn": 4, "s_train_fwd": 10, "mlp_bwd": 10,
+            "s_attn_bwd": 10}
 # tolerances of the training-kernel checks: outputs |err| <= tol (1 + |ref|),
 # gradients |err| <= tol (max|ref| + |ref|) per tensor (a weight gradient
 # sums B N products, so its error scales with the tensor, not the element)
@@ -126,8 +157,26 @@ def bound(nbytes: float, flops: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def counters() -> tuple:
+    """Every kernel's launch count: the block kernels', the training
+    kernels' and the attention-only kernels'."""
+    from lemevit_tpu_torch.attn import dca, fused_block, fused_train, mhsa
+    return (fused_block.LAUNCHES, fused_train.LAUNCHES, dca.LAUNCHES,
+            mhsa.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
+
+
+def launched_since(before: dict) -> dict:
+    """The kernels launched since ``before`` (a launch_counts() copy)."""
+    return {k: v - before[k] for k, v in launch_counts().items()
+            if v != before[k]}
+
+
 def reset(*counts) -> None:
-    for c in counts:
+    for c in counts or counters():
         for k in c:
             c[k] = 0
 
@@ -278,10 +327,11 @@ def profile_call(fn, what: str, top: int = 16) -> dict:
             "launches": launches}
 
 
-def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g):
-    """One inference block kernel at one shape: fp32 at B_CHECK (rtol =
-    atol = 1e-4), bf16 at B_MAIN (3e-2 against fp32 on the same bf16-cast
-    inputs), then times, bound and rate at B_MAIN in bf16."""
+def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g, b_check=B_CHECK,
+                       b_main=B_MAIN):
+    """One inference block kernel at one shape: fp32 at b_check (rtol =
+    atol = 1e-4), bf16 at b_main (3e-2 against fp32 on the same bf16-cast
+    inputs), then times, bound and rate at b_main in bf16."""
     from lemevit_tpu_torch.attn.reference import dca_scales
     wrappers = {"c_block": fb.c_block, "dca_block": fb.dca_block,
                 "s_block": fb.s_block}
@@ -297,9 +347,9 @@ def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g):
 
     hidden = 4 * ch
     p32 = make_params(kind, ch, hidden, g)
-    x = torch.randn(B_MAIN, n, ch, generator=g)
-    c = torch.randn(B_MAIN, M, ch, generator=g)
-    xs, cs = x[:B_CHECK].to(dev), c[:B_CHECK].to(dev)
+    x = torch.randn(b_main, n, ch, generator=g)
+    c = torch.randn(b_main, M, ch, generator=g)
+    xs, cs = x[:b_check].to(dev), c[:b_check].to(dev)
     ps = [t.to(dev) for t in p32]
     err32 = max_err(call(wrappers, xs, cs, ps), call(plains, xs, cs, ps),
                     1e-4)
@@ -311,14 +361,15 @@ def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g):
     del got, want
     ms = cuda_ms(lambda: call(wrappers, xb, cb, pb))
     plain_ms = cuda_ms(lambda: call(plains, xb, cb, pb))
-    nbytes, flops = work(kind, B_MAIN, n, ch, hidden,
+    nbytes, flops = work(kind, b_main, n, ch, hidden,
                          sum(t.numel() for t in pb) * 2, 2)
     t_bound, by = bound(nbytes, flops)
-    row = dict(name=kind, n=n, c=ch, batch=B_MAIN, per_forward=per_fwd,
+    row = dict(name=kind, n=n, c=ch, batch=b_main, per_forward=per_fwd,
                err_fp32=err32, err_bf16=err16, ms=ms, plain_ms=plain_ms,
                bound_ms=t_bound, bound_by=by, tflops=flops / ms / 1e9)
-    say("kernel", f"{kind} N={n} C={ch}: fp32 err {err32:.2e} (B=8), "
-        f"bf16 err {err16:.2e} (B=64); {ms:.3f} ms vs plain "
+    say("kernel", f"{kind} N={n} C={ch}: fp32 err {err32:.2e} "
+        f"(B={b_check}), bf16 err {err16:.2e} (B={b_main}); {ms:.3f} ms vs "
+        f"plain "
         f"{plain_ms:.3f} ms; bound {t_bound:.4f} ms ({by}); "
         f"{row['tflops']:.1f} TFLOP/s")
     return row
@@ -382,11 +433,12 @@ def phase_calls(ft, kind, x, c, p, dp, gx, gc, kw):
     }
 
 
-def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False):
+def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
+                        b_check=B_CHECK, b_main=B_MAIN):
     """A training block (its three kernels under autograd) against its
-    autograd composition: fp32 at B_CHECK, bf16 at B_MAIN against fp32 on
+    autograd composition: fp32 at b_check, bf16 at b_main against fp32 on
     the same bf16-cast inputs (TRAIN_TOL); then each kernel timed at
-    B_MAIN in bf16 beside its plain phase and its bound. The last four
+    b_main in bf16 beside its plain phase and its bound. The last four
     gradients (fc1, fc2) come from the MLP backward, the rest from the
     attention backward (which also carries the MLP's dt1 into dx / dc).
     With ``profile``, the attention backward's device time by kernel."""
@@ -398,7 +450,7 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False):
     plain = getattr(ft, f"{kind}_block_train_plain")
     fwd_name, _, bwd_name = TRAIN_PHASES[kind]
     errs = {}
-    for dtype, b in ((torch.float32, B_CHECK), (torch.bfloat16, B_MAIN)):
+    for dtype, b in ((torch.float32, b_check), (torch.bfloat16, b_main)):
         x, c, p, dp, gx, gc = train_inputs(ft, kind, b, n, ch, g, dev, dtype)
         got_o, got_g = run_train_block(fused, x, c, p, dp, gx, gc, kw)
         torch.cuda.synchronize()
@@ -415,26 +467,27 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False):
                                    names[:-4]),
             "scale": max(w.abs().max().item() for w in want_g)}
         del got_o, got_g, want_o, want_g
-    # times per kernel, bf16, B_MAIN, on the inputs of the last check
+    # times per kernel, bf16, b_main, on the inputs of the last check
     rows = []
     for name, (kern, plain_fn) in phase_calls(ft, kind, x, c, p, dp, gx, gc,
                                               kw).items():
         ms = cuda_ms(kern)
         plain_ms = cuda_ms(plain_fn)
         n_seen = 0 if (kind == "c" and name == "mlp_bwd") else n
-        t_bound, by = bound(*train_work(name, B_MAIN, n_seen, ch))
+        t_bound, by = bound(*train_work(name, b_main, n_seen, ch))
         if profile and name == bwd_name:
-            profile_call(kern, f"{name} N={n} C={ch} B={B_MAIN}", top=10)
+            profile_call(kern, f"{name} N={n} C={ch} B={b_main}", top=10)
         rows.append(dict(
-            name=name, kind=kind, n=n, c=ch, batch=B_MAIN, per_step=blocks,
+            name=name, kind=kind, n=n, c=ch, batch=b_main, per_step=blocks,
             err_fp32=errs[torch.float32][name],
             err_bf16=errs[torch.bfloat16][name],
             grad_scale_bf16=errs[torch.bfloat16]["scale"], ms=ms,
             plain_ms=plain_ms, bound_ms=t_bound, bound_by=by))
     e32, e16 = errs[torch.float32], errs[torch.bfloat16]
-    say("train-kernel", f"{kind} N={n} C={ch}: fp32 B=8 err out "
+    say("train-kernel", f"{kind} N={n} C={ch}: fp32 B={b_check} err out "
         f"{e32[fwd_name]:.2e}, grads {max(e32['mlp_bwd'], e32[bwd_name]):.2e}"
-        f" of max {e32['scale']:.3g}; bf16 B=64 err out {e16[fwd_name]:.2e}, "
+        f" of max {e32['scale']:.3g}; bf16 B={b_main} err out "
+        f"{e16[fwd_name]:.2e}, "
         f"grads {max(e16['mlp_bwd'], e16[bwd_name]):.2e} of max "
         f"{e16['scale']:.3g} | " + "; ".join(
             f"{r['name']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
@@ -483,7 +536,7 @@ def check_d2_train_block(ft, dev, g):
         f"element (limit 1e-3); launches {launched}")
 
 
-def check_train_step(ft, dev, name, expect):
+def check_train_step(dev, name, expect):
     """One fp32 train step's loss and gradients of ``name`` at 224^2, B=2,
     drop-path 0.15 with the same masks: the kernel path against
     --attn-backend torch. Limits: loss 1e-4 abs; each parameter's gradient
@@ -496,15 +549,14 @@ def check_train_step(ft, dev, name, expect):
     g = torch.Generator().manual_seed(3)
     img = torch.randn(2, 224, 224, 3, generator=g).to(dev)
     labels = torch.randint(0, 1000, (2,), generator=g).to(dev)
-    before = dict(ft.LAUNCHES)
+    before = launch_counts()
     losses = []
     for m in (kern, plain):
         m.set_generator(torch.Generator(device=dev).manual_seed(11))
         loss = cross_entropy_loss(m(img), labels)
         loss.backward()
         losses.append(loss.item())
-    launched = {k: ft.LAUNCHES[k] - before[k] for k in before
-                if ft.LAUNCHES[k] != before[k]}
+    launched = launched_since(before)
     if launched != expect:
         raise AssertionError(f"{name} train step launches {launched}, "
                              f"expected {expect}")
@@ -525,7 +577,7 @@ def check_train_step(ft, dev, name, expect):
         f"(1e-3 max|ref| + 1e-6); launches {launched}")
 
 
-def train_main_path(ft, fb, model, per_step, per_eval):
+def train_main_path(model, per_step, per_eval):
     """cli.train on synthetic data: ``model``, 224^2, bf16, B=64, the
     reference recipe (configs/lemevit.yaml: mixup, cutmix, erasing,
     smoothing, drop-path 0.15, EMA), 1 epoch of TRAIN_STEPS steps and one
@@ -533,7 +585,7 @@ def train_main_path(ft, fb, model, per_step, per_eval):
     and read just after. Returns (launches, result)."""
     from lemevit_tpu_torch.cli import train as train_cli
     with tempfile.TemporaryDirectory() as out:
-        reset(ft.LAUNCHES, fb.LAUNCHES)
+        reset()
         torch.cuda.reset_peak_memory_stats()
         res = train_cli.main([
             "--synthetic", "--model", model, "--img-size", "224",
@@ -541,7 +593,7 @@ def train_main_path(ft, fb, model, per_step, per_eval):
             "--config", str(REPO / "configs" / "lemevit.yaml"),
             "--epochs", "1", "--steps-per-epoch", str(TRAIN_STEPS),
             "--output", out])
-        launches = {**ft.LAUNCHES, **fb.LAUNCHES}
+        launches = launch_counts()
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         with open(Path(out) / model / "summary.csv") as f:
             rows = list(csv.DictReader(f))
@@ -550,13 +602,10 @@ def train_main_path(ft, fb, model, per_step, per_eval):
         ckpts = list((Path(out) / model / "checkpoints").glob(
             "checkpoint-*.pth"))
     eval_fwds = 2 * 2  # two val batches, live and EMA model
-    want = {k: 0 for k in launches}
-    want.update({k: v * TRAIN_STEPS for k, v in per_step.items()})
-    want.update({k: v * eval_fwds for k, v in per_eval.items()})
-    if launches != want:
-        raise AssertionError(f"{model}: launches {launches} in "
-                             f"{TRAIN_STEPS} steps and {eval_fwds} eval "
-                             f"forwards, expected {want}")
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS
+            + per_eval.get(k, 0) * eval_fwds for k in launches}
+    expect_launches(launches, want, f"{model} ({TRAIN_STEPS} steps, "
+                    f"{eval_fwds} eval forwards)")
     loss = res["train_loss"]
     if not (loss == loss and abs(loss) < 1e3) or res["steps"] != TRAIN_STEPS \
             or len(ckpts) != 1:
@@ -566,9 +615,9 @@ def train_main_path(ft, fb, model, per_step, per_eval):
         f"{res['step_ms']:.2f} ms/step (steps 2-{TRAIN_STEPS}), peak "
         f"{res['peak_gib']:.2f} GiB allocated; eval top1 "
         f"{res['best_top1']:.3f}; launches per step " + ", ".join(
-            f"{k} {launches[k] // TRAIN_STEPS}" for k in per_step)
+            f"{k} {v}" for k, v in per_step.items())
         + "; per eval forward " + ", ".join(
-            f"{k} {launches[k] // eval_fwds}" for k in per_eval))
+            f"{k} {v}" for k, v in per_eval.items()))
     return launches, res
 
 
@@ -602,6 +651,261 @@ def host_batch_ms(n: int = 3) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def attn_work(name, b, n, ch, elt=2):
+    """(bytes, operations) of one attention-only call: each input read
+    once, each output written once, multiply-adds counted as two. dca_attn:
+    q1, k1, v1, x_out (B, N, C) and q2, k2, v2, c_out (B, M, C); two
+    products of B N M C per direction. mhsa: q, k, v, out (B, N, C); two
+    products of B N^2 C."""
+    if name == "dca_attn":
+        return 4 * b * (n + M) * ch * elt, 8 * b * n * M * ch
+    return 4 * b * n * ch * elt, 4 * b * n * n * ch
+
+
+def sdpa_ms(groups) -> float:
+    """Time of F.scaled_dot_product_attention over each (q, k, v, scale)
+    of ``groups``, in (B, H, L, d) layout (copied into it beforehand):
+    the library's time for the same attention, for the table only."""
+    lib = [(*[t.unflatten(-1, (t.shape[-1] // 32, 32)).transpose(1, 2)
+              .contiguous() for t in qkv], scale) for *qkv, scale in groups]
+
+    def run():
+        for q, k, v, scale in lib:
+            F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return cuda_ms(run)
+
+
+def check_dca_attn(n, ch, blocks, dev, g):
+    """dca_attn at one of UperNet's stage 1-2 shapes against dca_plain, on
+    column views of projection outputs as the D module passes them: fp32
+    at SEG_B_CHECK (1e-4), bf16 at SEG_B (3e-2 against fp32 on the same
+    bf16-cast inputs); D2's dca(q, q, v1, k, k, v2) on qv / kv views in
+    fp32, its outputs and, through the Function (kernel forward, plain
+    backward), the gradients of both projections against plain autograd
+    (1e-4 of each one's largest element); then times at SEG_B in bf16
+    beside the plain version and SDPA's two calls."""
+    from lemevit_tpu_torch.attn import dca as dm
+    from lemevit_tpu_torch.attn.reference import dca_scales
+    sx, sc = dca_scales(n, M, ch)
+    kw = dict(scale_x=sx, scale_c=sc, num_heads=ch // 32)
+
+    def views(b, dtype, parts=3):
+        lin1 = torch.randn(b, n, parts * ch, generator=g).to(dev, dtype)
+        lin2 = torch.randn(b, M, parts * ch, generator=g).to(dev, dtype)
+        return lin1, lin2
+
+    l1, l2 = views(SEG_B_CHECK, torch.float32)
+    a32 = (*l1.split(ch, -1), *l2.split(ch, -1))
+    err32 = max_err(dm.dca_kernel(*a32, **kw), dm.dca_plain(*a32, **kw),
+                    1e-4)
+    l1, l2 = views(SEG_B, torch.bfloat16)
+    a16 = (*l1.split(ch, -1), *l2.split(ch, -1))
+    err16 = max_err(dm.dca_kernel(*a16, **kw),
+                    dm.dca_plain(*[t.float() for t in a16], **kw), 3e-2)
+
+    # D2: q and k passed twice, one backward through the Function
+    lin1, lin2 = (t.requires_grad_() for t in views(SEG_B_CHECK,
+                                                    torch.float32, 2))
+    wx = torch.randn(SEG_B_CHECK, n, ch, generator=g).to(dev)
+    wc = torch.randn(SEG_B_CHECK, M, ch, generator=g).to(dev)
+
+    def run(fn):
+        lin1.grad = lin2.grad = None
+        q, v1 = lin1.split(ch, -1)
+        k, v2 = lin2.split(ch, -1)
+        xo, co = fn(q, q, v1, k, k, v2, **kw)
+        ((xo * wx).sum() + (co * wc).sum()).backward()
+        return [xo.detach(), co.detach()], [lin1.grad, lin2.grad]
+    before = launch_counts()
+    got_o, got_g = run(dm.dca)
+    if launched_since(before) != {"dca_attn": 1}:
+        raise AssertionError(f"dca D2 launches {launched_since(before)}")
+    want_o, want_g = run(dm.dca_plain)
+    err_d2 = max(max_err(got_o, want_o, 1e-4),
+                 max_grad_err(got_g, want_g, 1e-4, ["dqv", "dkv"]))
+    del lin1, lin2, got_g, want_g
+
+    ms = cuda_ms(lambda: dm.dca_kernel(*a16, **kw))
+    plain_ms = cuda_ms(lambda: dm.dca_plain(*a16, **kw))
+    lib_ms = sdpa_ms([(a16[0], a16[4], a16[5], sx),
+                      (a16[3], a16[1], a16[2], sc)])
+    t_bound, by = bound(*attn_work("dca_attn", SEG_B, n, ch))
+    row = dict(name="dca_attn", n=n, c=ch, batch=SEG_B, per_step=blocks,
+               err_fp32=err32, err_bf16=err16, err_d2_fp32=err_d2, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=t_bound,
+               bound_by=by)
+    say("attn-kernel", f"dca_attn N={n} C={ch} M={M}: fp32 err {err32:.2e} "
+        f"(B={SEG_B_CHECK}), bf16 err {err16:.2e} (B={SEG_B}), D2 aliasing "
+        f"out / grads err {err_d2:.2e}; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms, SDPA x2 {lib_ms:.4f} ms; bound "
+        f"{t_bound:.4f} ms ({by})")
+    return row
+
+
+def check_mhsa(n, ch, b_check, b_main, dev, g):
+    """mhsa at one shape against mhsa_plain, on column views of a qkv
+    projection: fp32 at b_check (1e-4), bf16 at b_main (3e-2 against fp32
+    on the same bf16-cast inputs); then times at b_main in bf16 beside the
+    plain version and one SDPA call."""
+    from lemevit_tpu_torch.attn import mhsa as mm
+    kw = dict(scale=32 ** -0.5, num_heads=ch // 32)
+    errs = []
+    for b, dtype, tol in ((b_check, torch.float32, 1e-4),
+                          (b_main, torch.bfloat16, 3e-2)):
+        qkv = torch.randn(b, n, 3 * ch, generator=g).to(dev, dtype)
+        args = qkv.split(ch, -1)
+        errs.append(max_err([mm.mhsa_kernel(*args, **kw)],
+                            [mm.mhsa_plain(*[t.float() for t in args],
+                                           **kw)], tol))
+    ms = cuda_ms(lambda: mm.mhsa_kernel(*args, **kw))
+    plain_ms = cuda_ms(lambda: mm.mhsa_plain(*args, **kw))
+    lib_ms = sdpa_ms([(*args, kw["scale"])])
+    t_bound, by = bound(*attn_work("mhsa", b_main, n, ch))
+    say("attn-kernel", f"mhsa N={n} C={ch}: fp32 err {errs[0]:.2e} "
+        f"(B={b_check}), bf16 err {errs[1]:.2e} (B={b_main}); {ms:.4f} ms "
+        f"vs plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound "
+        f"{t_bound:.4f} ms ({by})")
+    return dict(name="mhsa", n=n, c=ch, batch=b_main, err_fp32=errs[0],
+                err_bf16=errs[1], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=t_bound, bound_by=by)
+
+
+def expect_launches(launched: dict, want: dict, what: str) -> None:
+    """Raise unless exactly the kernels of ``want`` launched, as often."""
+    got = {k: v for k, v in launched.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def seg_serving(dev, g) -> dict:
+    """UperNet's crop forward (eval, 512^2), kernel path against plain
+    path: fp32 logits at batch 1 (1e-3 of max(1, max |ref|)) and bf16
+    (autocast) at SEG_B against the plain path in fp32 (max abs error over
+    max |ref| at most 5e-2, argmax agreement at least 0.99), launches per
+    crop forward; crop-forward img/s at SEG_B in bf16; then slide
+    inference of a 1024^2 image (9 windows) at batch 1 in bf16, its
+    launches and ms per image."""
+    from lemevit_tpu_torch.tasks.upernet import create_upernet, slide_inference
+    model = create_upernet("lemevit_tiny", SEG_CLASSES, channels=SEG_CH,
+                           device=dev, seed=0).eval()
+    bf16 = lambda: torch.autocast("cuda", dtype=torch.bfloat16)  # noqa: E731
+    img1 = torch.randn(1, SEG_CROP, SEG_CROP, 3, generator=g).to(dev)
+    img8 = torch.randn(SEG_B, SEG_CROP, SEG_CROP, 3, generator=g).to(dev)
+    with torch.inference_mode():
+        reset()
+        fused = model(img1)
+        expect_launches(launch_counts(), SEG_CROP_FWD, "UperNet crop fwd")
+        with bf16():
+            got = model(img8)
+        model.backbone.set_attn_backend("torch")
+        plain = model(img1)
+        want = model(img8)
+        model.backbone.set_attn_backend("auto")
+    err32 = (fused - plain).abs().max().item()
+    lim = 1e-3 * max(1.0, plain.abs().max().item())
+    rel16 = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    if not (fused.shape == (1, SEG_CROP, SEG_CROP, SEG_CLASSES)
+            and torch.isfinite(got).all() and err32 <= lim
+            and rel16 <= 5e-2 and agree >= 0.99):
+        raise AssertionError(f"UperNet kernel vs plain: fp32 {err32:.3g} "
+                             f"(limit {lim:.3g}), bf16 {rel16:.3g} of max "
+                             f"|ref|, argmax agreement {agree:.4f}")
+    del fused, plain, got, want
+    with torch.inference_mode(), bf16():
+        for _ in range(2):
+            model(img8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            model(img8)
+        torch.cuda.synchronize()
+        crop_s = (time.perf_counter() - t0) / 5
+    big = torch.randn(1, 2 * SEG_CROP, 2 * SEG_CROP, 3, generator=g).to(dev)
+
+    def slide():
+        with torch.inference_mode(), bf16():
+            return slide_inference(model, big, SEG_CLASSES,
+                                   crop_size=SEG_CROP, stride=384)
+    slide()
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    out = slide()
+    torch.cuda.synchronize()
+    slide_ms = (time.perf_counter() - t0) * 1e3
+    slide_launches = launch_counts()
+    expect_launches(slide_launches, {k: 9 * v for k, v in
+                                     SEG_CROP_FWD.items()}, "slide")
+    if out.shape != (1, 2 * SEG_CROP, 2 * SEG_CROP, SEG_CLASSES) \
+            or not torch.isfinite(out).all():
+        raise AssertionError("slide inference logits")
+    res = {"fp32_err": err32, "bf16_rel_err": rel16, "argmax_agree": agree,
+           "crop_img_per_s": SEG_B / crop_s, "crop_ms": crop_s * 1e3,
+           "slide_ms_per_1024_image": slide_ms}
+    say("seg-serve", f"UperNet lemevit_tiny {SEG_CROP}^2 crop forward: "
+        f"kernel vs plain fp32 B=1 err {err32:.2e} (limit {lim:.2e}); "
+        f"bf16 B={SEG_B} err {rel16:.2e} of max |ref|, argmax agreement "
+        f"{agree:.4f}; launches per crop "
+        + ", ".join(f"{k} {v}" for k, v in SEG_CROP_FWD.items())
+        + f"; bf16 B={SEG_B} {res['crop_img_per_s']:.2f} img/s "
+        f"({res['crop_ms']:.2f} ms); slide inference 1024^2 (9 windows) "
+        f"{slide_ms:.2f} ms per image")
+    return res
+
+
+def seg_main_path() -> tuple:
+    """cli.train_seg on synthetic data with its defaults (lemevit_tiny,
+    512^2, batch 8, bf16), 6 steps and one slide-inference eval of the 8
+    validation images, its launch counts set to 0 just before and read
+    just after. Returns (launches, result)."""
+    from lemevit_tpu_torch.cli import train_seg
+    steps = TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as out:
+        reset()
+        res = train_seg.main(["--synthetic", "--iters", str(steps),
+                              "--eval-interval", str(steps), "--output",
+                              out])
+        launches = launch_counts()
+        ckpts = list((Path(out) / "checkpoints").glob("checkpoint-*.pth"))
+    windows = SEG_B  # 8 validation images of one 512^2 window each
+    want = {k: v * steps for k, v in SEG_STEP.items()}
+    for k, v in SEG_CROP_FWD.items():
+        want[k] = want.get(k, 0) + v * windows
+    expect_launches(launches, want, f"train_seg ({steps} steps, {windows} "
+                    "eval windows)")
+    m = res["final_metrics"]
+    if not (res["steps"] == steps and len(ckpts) == 1
+            and abs(res["loss"]) < 1e3 and set(m) == {"mIoU", "OA", "mF1"}
+            and all(0 <= v <= 100 for v in m.values())):
+        raise AssertionError(f"train_seg: {res}, checkpoints {ckpts}")
+    say("train-seg", f"UperNet lemevit_tiny {SEG_CROP}^2 bf16 B={SEG_B}: "
+        f"{steps} steps, loss {res['loss']:.4f}, "
+        f"{res['samples_per_sec']:.2f} img/s, {res['step_ms']:.2f} ms/step "
+        f"(steps 2-{steps}), peak {res['peak_gib']:.2f} GiB allocated; eval "
+        + json.dumps({k: round(v, 3) for k, v in m.items()})
+        + "; launches per step " + ", ".join(
+            f"{k} {v}" for k, v in SEG_STEP.items()))
+    return launches, res
+
+
+def profile_seg_step(dev) -> dict:
+    """torch.profiler table of one bf16 SEG_B UperNet train step."""
+    from lemevit_tpu_torch.cli.train_seg import seg_train_step
+    from lemevit_tpu_torch.tasks.upernet import create_upernet
+    model = create_upernet("lemevit_tiny", SEG_CLASSES, channels=SEG_CH,
+                           device=dev, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=0.05)
+    g = torch.Generator().manual_seed(6)
+    img = torch.randint(0, 256, (SEG_B, SEG_CROP, SEG_CROP, 3), generator=g,
+                        dtype=torch.uint8).to(dev)
+    mask = torch.randint(0, SEG_CLASSES, (SEG_B, SEG_CROP, SEG_CROP),
+                         generator=g).to(dev)
+    return profile_call(lambda: seg_train_step(
+        model, opt, 1e-4, img, mask, autocast_dtype=torch.bfloat16),
+        "one UperNet train step")
+
+
 def kernel_entry(name, rows, launches, weight_key, **extra):
     """The per-kernel JSON entry: launch-weighted means over the main
     path's shapes."""
@@ -617,7 +921,9 @@ def kernel_entry(name, rows, launches, weight_key, **extra):
         "bound_ms": mean("bound_ms"),
         "bound_by": max(rows, key=lambda r: r["bound_ms"]
                         * r[weight_key])["bound_by"],
-        "library_ms": None, "shapes": strip(rows), **extra}
+        "library_ms": (mean("library_ms") if all("library_ms" in r
+                                                 for r in rows) else None),
+        "shapes": strip(rows), **extra}
 
 
 def strip(rows):
@@ -697,15 +1003,13 @@ def main() -> None:
     model = create_model("lemevit_base", device=dev,
                          dtype=torch.bfloat16).eval()
     x = torch.randn(B_MAIN, 224, 224, 3, generator=g).to(dev)
-    reset(fb.LAUNCHES)
+    reset()
     res, logits = benchmark.run_inference(args, model, x)
-    launches = dict(fb.LAUNCHES)
+    launches = launch_counts()
     n_fwd = args.num_warm_iter + args.num_bench_iter
     expect = {"c_block": 2, "dca_block": 8, "s_block": 22}
-    for k, per in expect.items():
-        if launches[k] != per * n_fwd:
-            raise AssertionError(f"{k}: {launches[k]} launches in {n_fwd} "
-                                 f"forwards, expected {per} per forward")
+    expect_launches(launches, {k: per * n_fwd for k, per in expect.items()},
+                    f"lemevit_base, {n_fwd} forwards")
     if logits.shape != (B_MAIN, 1000) or not torch.isfinite(logits).all():
         raise AssertionError("main-path logits are not finite (64, 1000)")
     say("serve", f"lemevit_base 224 bf16 B={B_MAIN}: "
@@ -731,8 +1035,8 @@ def main() -> None:
     vit_rows = []
     for kind, n, ch, blocks in VIT_TRAIN:
         vit_rows += check_train_kernels(ft, kind, n, ch, blocks, dev, g)
-    check_train_step(ft, dev, "vit_tiny", VIT_STEP)
-    vit_launches, _ = train_main_path(ft, fb, "vit_tiny", VIT_STEP, VIT_EVAL)
+    check_train_step(dev, "vit_tiny", VIT_STEP)
+    vit_launches, _ = train_main_path("vit_tiny", VIT_STEP, VIT_EVAL)
     profile_train_step(dev, "vit_tiny")
 
     # 7. training lemevit_tiny (C, D, S): inference kernels at its shapes,
@@ -745,9 +1049,9 @@ def main() -> None:
         train_rows += check_train_kernels(ft, kind, n, ch, blocks, dev, g,
                                           profile=n == 3136)
     check_d2_train_block(ft, dev, g)
-    check_train_step(ft, dev, "lemevit_tiny", TINY_STEP)
-    tiny_launches, tiny_res = train_main_path(ft, fb, "lemevit_tiny",
-                                              TINY_STEP, TINY_EVAL)
+    check_train_step(dev, "lemevit_tiny", TINY_STEP)
+    tiny_launches, tiny_res = train_main_path("lemevit_tiny", TINY_STEP,
+                                              TINY_EVAL)
     bres = benchmark.main(["--model", "lemevit_tiny", "--bench", "train",
                            "--batch-size", str(B_MAIN),
                            "--num-bench-iter", "5"])
@@ -771,7 +1075,41 @@ def main() -> None:
         "port_kernel_share": (prof["port_ms"] / prof["device_ms"]
                               if prof else None)}))
 
-    # 8. per-kernel numbers: per-launch means over each main path's mix
+    # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
+    #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
+    #    the S kernels at stages 3-4's, the crop forward and slide
+    #    inference, then its main path cli.train_seg and a profile
+    dca_rows = [check_dca_attn(n, ch, blocks, dev, g)
+                for n, ch, blocks in SEG_DCA]
+    mhsa_rows = [check_mhsa(n, ch, bc, bm, dev, g)
+                 for n, ch, bc, bm in MHSA_SHAPES]
+    for row, per in zip(mhsa_rows, (VIT_STEP["mhsa"], 0, 0)):
+        row["per_step"] = per  # only N = 16 runs on a main path (vit_tiny)
+    seg_eval_rows = [check_block_kernel(fb, "s_block", n, ch, blocks, dev, g,
+                                        b_check=SEG_B_CHECK, b_main=SEG_B)
+                     for _, n, ch, blocks in SEG_S]
+    seg_train_rows = []
+    for kind, n, ch, blocks in SEG_S:
+        seg_train_rows += check_train_kernels(
+            ft, kind, n, ch, blocks, dev, g, b_check=SEG_B_CHECK,
+            b_main=SEG_B)
+    serve = seg_serving(dev, g)
+    seg_launches, seg_res = seg_main_path()
+    seg_prof = profile_seg_step(dev)
+    say("seg-summary", json.dumps({
+        "model": "UperNet lemevit_tiny", "crop": SEG_CROP, "batch": SEG_B,
+        "dtype": "bf16", "train_img_per_s": seg_res["samples_per_sec"],
+        "train_ms_per_step": seg_res["step_ms"],
+        "train_peak_gib": seg_res["peak_gib"],
+        "final_metrics": seg_res["final_metrics"], **serve,
+        "device_ms_per_step": seg_prof.get("device_ms"),
+        "launches_per_step": seg_prof.get("launches"),
+        "device_busy_share": (seg_prof["device_ms"] / seg_prof["wall_ms"]
+                              if seg_prof else None),
+        "port_kernel_share": (seg_prof["port_ms"] / seg_prof["device_ms"]
+                              if seg_prof else None)}))
+
+    # 9. per-kernel numbers: per-launch means over each main path's mix
     kernels = []
     for name in ("c_block", "dca_block", "s_block"):
         kernels.append(kernel_entry(
@@ -780,19 +1118,31 @@ def main() -> None:
             tiny_shapes=strip(r for r in tiny_rows if r["name"] == name),
             tiny_train_eval_launches=tiny_launches[name],
             **({"vit_tiny_train_eval_launches": vit_launches[name],
-                "vit_tiny_shapes": strip(vit_eval_rows)}
+                "vit_tiny_shapes": strip(vit_eval_rows),
+                "seg_train_eval_launches": seg_launches[name],
+                "seg_shapes": strip(seg_eval_rows)}
                if name == "s_block" else {})))
     for name in KERNELS:
-        if name in fb.LAUNCHES:
+        if name in fb.LAUNCHES or name in ("dca_attn", "mhsa"):
             continue
         extra = {}
         if name in VIT_STEP:
             extra = dict(vit_tiny_launches=vit_launches[name],
                          vit_tiny_shapes=strip(r for r in vit_rows
                                                if r["name"] == name))
+        if name in SEG_STEP:
+            extra.update(seg_launches=seg_launches[name],
+                         seg_shapes=strip(r for r in seg_train_rows
+                                          if r["name"] == name))
         kernels.append(kernel_entry(
             name, [r for r in train_rows if r["name"] == name],
             tiny_launches[name], "per_step", **extra))
+    kernels.append(kernel_entry(
+        "dca_attn", dca_rows, seg_launches["dca_attn"], "per_step",
+        per_crop_forward=SEG_CROP_FWD["dca_attn"]))
+    kernels.append(kernel_entry(
+        "mhsa", mhsa_rows, vit_launches["mhsa"], "per_step",
+        vit_tiny_per_eval_forward=VIT_EVAL["mhsa"]))
     say("done", f"{time.time() - t_start:.0f} s")
     print(f"kernels: {json.dumps(list(KERNELS))}")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,10 @@ Entry points run on the GPU unless the caller asks for the CPU
 device they raise. The whole pre-norm C, D/D2 and S blocks run as
 hand-written kernels: in inference the fused kernels of
 ``attn/fused_block.py``, in training (``cli/train.py``) the training kernels
-of ``attn/fused_train.py``.
+of ``attn/fused_train.py``. Blocks those kernels do not take (above their
+token counts, as in UperNet segmentation at 512^2, ``cli/train_seg.py``)
+compose, their attention on the attention-only kernels of ``attn/dca.py``
+and ``attn/mhsa.py``.
 """
 
 __version__ = "0.1.0"

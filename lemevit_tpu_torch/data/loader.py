@@ -1,5 +1,5 @@
-"""Host-to-device loaders of a map-style dataset of (uint8 HWC image, int
-label) samples; counterpart of lemevit_tpu/data/loader.py.
+"""Host-to-device loaders of a map-style dataset; counterpart of
+lemevit_tpu/data/loader.py.
 
   create_loader(dataset, batch_size, device)   evaluation: in order, the
       last batch may be short
@@ -7,6 +7,10 @@ label) samples; counterpart of lemevit_tpu/data/loader.py.
       epoch from seed + epoch (set_epoch), whole batches only, and
       iter_batches(start) to resume mid-epoch without building the skipped
       batches
+
+Both take ``collate_fn``: a list of samples -> a dict of CPU tensors. The
+default, ``collate_labels``, takes (uint8 HWC image, int label) samples;
+segmentation passes its own for (image, mask) samples.
 
 Batches cross as uint8 NHWC (normalised on the device), from pinned host
 memory without blocking the host. The training loader builds its batches in
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -25,11 +29,19 @@ import torch
 PREFETCH = 2  # batches the training loader's thread builds ahead
 
 
-def _collate(dataset, indices) -> Dict[str, torch.Tensor]:
-    items = [dataset[int(i)] for i in indices]
-    return {"image": torch.from_numpy(np.stack([im for im, _ in items])),
-            "label": torch.tensor([lab for _, lab in items],
+Collate = Callable[[Sequence], Dict[str, torch.Tensor]]
+
+
+def collate_labels(samples) -> Dict[str, torch.Tensor]:
+    """{"image": uint8 (B, H, W, 3), "label": int64 (B,)}."""
+    return {"image": torch.from_numpy(np.stack([im for im, _ in samples])),
+            "label": torch.tensor([lab for _, lab in samples],
                                   dtype=torch.int64)}
+
+
+def _collate(dataset, indices, collate_fn: Collate = collate_labels
+             ) -> Dict[str, torch.Tensor]:
+    return collate_fn([dataset[int(i)] for i in indices])
 
 
 def _to_device(batch: Dict[str, torch.Tensor], device: torch.device
@@ -39,24 +51,26 @@ def _to_device(batch: Dict[str, torch.Tensor], device: torch.device
             for k, v in batch.items()}
 
 
-def create_loader(dataset, batch_size: int, device: torch.device
+def create_loader(dataset, batch_size: int, device: torch.device,
+                  collate_fn: Collate = collate_labels
                   ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Yield {"image": uint8 (B, H, W, 3), "label": int64 (B,)} on
-    ``device``; the last batch may be short."""
+    """Yield collated batches (by default {"image": uint8 (B, H, W, 3),
+    "label": int64 (B,)}) on ``device``; the last batch may be short."""
     for start in range(0, len(dataset), batch_size):
         idx = range(start, min(start + batch_size, len(dataset)))
-        yield _to_device(_collate(dataset, idx), device)
+        yield _to_device(_collate(dataset, idx, collate_fn), device)
 
 
 class Loader:
     """Training batches; see the module docstring."""
 
     def __init__(self, dataset, batch_size: int, device: torch.device,
-                 seed: int = 0):
+                 seed: int = 0, collate_fn: Collate = collate_labels):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = device
         self.seed = seed
+        self.collate_fn = collate_fn
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -95,7 +109,8 @@ class Loader:
         def produce():
             try:
                 for bi in range(start, len(self)):
-                    batch = _collate(self.dataset, idx[bi * bs:(bi + 1) * bs])
+                    batch = _collate(self.dataset, idx[bi * bs:(bi + 1) * bs],
+                                     self.collate_fn)
                     if pin:
                         batch = {k: v.pin_memory() for k, v in batch.items()}
                     if not put(batch):

@@ -6,7 +6,8 @@ reference ``.pth`` needs no converter: ``strip_prefixes`` unwraps it and
 package's variables ({'params', 'batch_stats'}, as numpy arrays) into the
 port's state_dict, so one set of weights can drive both packages; its logic
 is that of lemevit_tpu/models/convert.py::flax_to_torch (conv HWIO -> OIHW,
-dense (in, out) -> (out, in)).
+dense (in, out) -> (out, in)). ``from_jax_upernet`` does the same for the
+JAX UperNet (tasks/upernet.py).
 """
 from __future__ import annotations
 
@@ -41,81 +42,125 @@ _ATTN_KEYS = {
 }
 
 
-def from_jax_params(variables: Mapping[str, Any], model
-                    ) -> Dict[str, torch.Tensor]:
-    """State dict for ``model`` (a port LeMeViT) from JAX variables."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    sd: Dict[str, torch.Tensor] = {}
+class _Writer:
+    """Puts JAX arrays into a port state_dict under port names: conv HWIO
+    -> OIHW, dense (in, out) -> (out, in), flax BatchNorm's scale / bias /
+    mean / var -> weight / bias / running_mean / running_var."""
 
+    def __init__(self, params, stats):
+        self.params, self.stats = params, stats
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    @staticmethod
     def get(tree, path):
         for p in path:
             tree = tree[p]
         return np.asarray(tree, dtype=np.float32)
 
-    def put(key, arr):
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    def put(self, key, arr):
+        self.sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
 
-    def conv(dst, path):
-        put(f"{dst}.weight", np.transpose(get(params, path + ["kernel"]),
-                                          (3, 2, 0, 1)))
-        put(f"{dst}.bias", get(params, path + ["bias"]))
+    def conv(self, dst, path, bias=True):
+        self.put(f"{dst}.weight", np.transpose(
+            self.get(self.params, path + ["kernel"]), (3, 2, 0, 1)))
+        if bias:
+            self.put(f"{dst}.bias", self.get(self.params, path + ["bias"]))
 
-    def bn(dst, path):
-        put(f"{dst}.weight", get(params, path + ["scale"]))
-        put(f"{dst}.bias", get(params, path + ["bias"]))
-        put(f"{dst}.running_mean", get(stats, path + ["mean"]))
-        put(f"{dst}.running_var", get(stats, path + ["var"]))
-        sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+    def bn(self, dst, path):
+        self.put(f"{dst}.weight", self.get(self.params, path + ["scale"]))
+        self.put(f"{dst}.bias", self.get(self.params, path + ["bias"]))
+        self.put(f"{dst}.running_mean", self.get(self.stats, path + ["mean"]))
+        self.put(f"{dst}.running_var", self.get(self.stats, path + ["var"]))
+        self.sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
 
-    def lin(dst, path):
-        put(f"{dst}.weight", get(params, path + ["kernel"]).T)
-        put(f"{dst}.bias", get(params, path + ["bias"]))
+    def lin(self, dst, path):
+        self.put(f"{dst}.weight", self.get(self.params, path + ["kernel"]).T)
+        self.put(f"{dst}.bias", self.get(self.params, path + ["bias"]))
 
-    def ln(dst, path):
-        put(f"{dst}.weight", get(params, path + ["scale"]))
-        put(f"{dst}.bias", get(params, path + ["bias"]))
+    def ln(self, dst, path):
+        self.put(f"{dst}.weight", self.get(self.params, path + ["scale"]))
+        self.put(f"{dst}.bias", self.get(self.params, path + ["bias"]))
 
+
+def from_jax_params(variables: Mapping[str, Any], model
+                    ) -> Dict[str, torch.Tensor]:
+    """State dict for ``model`` (a port LeMeViT) from JAX variables."""
+    params = variables["params"]
+    w = _Writer(params, variables.get("batch_stats", {}))
     attn_types = list(model.attn_type)
-    conv("downsample_layers.0.0", ["stem", "conv1", "conv"])
-    bn("downsample_layers.0.1", ["stem", "conv1", "bn"])
-    conv("downsample_layers.0.3", ["stem", "conv2", "conv"])
-    bn("downsample_layers.0.4", ["stem", "conv2", "bn"])
+    w.conv("downsample_layers.0.0", ["stem", "conv1", "conv"])
+    w.bn("downsample_layers.0.1", ["stem", "conv1", "bn"])
+    w.conv("downsample_layers.0.3", ["stem", "conv2", "conv"])
+    w.bn("downsample_layers.0.4", ["stem", "conv2", "bn"])
     for i in range(1, len(attn_types)):
         if attn_types[i - 1] == "C":
             continue
-        conv(f"downsample_layers.{i}.0", [f"downsample{i}", "conv"])
-        bn(f"downsample_layers.{i}.1", [f"downsample{i}", "bn"])
+        w.conv(f"downsample_layers.{i}.0", [f"downsample{i}", "conv"])
+        w.bn(f"downsample_layers.{i}.1", [f"downsample{i}", "bn"])
 
-    put("meta_tokens", get(params, ["meta_tokens"]))
+    w.put("meta_tokens", w.get(params, ["meta_tokens"]))
     for i in range(len(attn_types)):
         dst, src = f"meta_token_downsample.{i}", f"meta_downsample{i}"
-        lin(f"{dst}.0", [src, "fc1"])
-        ln(f"{dst}.1", [src, "ln1"])
-        lin(f"{dst}.3", [src, "fc2"])
-        ln(f"{dst}.4", [src, "ln2"])
+        w.lin(f"{dst}.0", [src, "fc1"])
+        w.ln(f"{dst}.1", [src, "ln1"])
+        w.lin(f"{dst}.3", [src, "fc2"])
+        w.ln(f"{dst}.4", [src, "ln2"])
 
     for i, at in enumerate(attn_types):
         for j in range(model.depth[i]):
             dst, blk = f"stages.{i}.{j}", f"stage{i}_block{j}"
             tree = params[blk]
             if "pos_embed" in tree:
-                conv(f"{dst}.pos_embed", [blk, "pos_embed", "dwconv"])
-            ln(f"{dst}.norm1", [blk, "norm1"])
-            ln(f"{dst}.norm2", [blk, "norm2"])
+                w.conv(f"{dst}.pos_embed", [blk, "pos_embed", "dwconv"])
+            w.ln(f"{dst}.norm1", [blk, "norm1"])
+            w.ln(f"{dst}.norm2", [blk, "norm2"])
             for ak in _ATTN_KEYS[at]:
-                lin(f"{dst}.attn.{ak}", [blk, "attn", ak])
-            lin(f"{dst}.mlp.0", [blk, "mlp", "fc1"])
+                w.lin(f"{dst}.attn.{ak}", [blk, "attn", ak])
+            w.lin(f"{dst}.mlp.0", [blk, "mlp", "fc1"])
             if "dwconv" in tree["mlp"]:
-                conv(f"{dst}.mlp.1", [blk, "mlp", "dwconv", "dwconv"])
-            lin(f"{dst}.mlp.3", [blk, "mlp", "fc2"])
+                w.conv(f"{dst}.mlp.1", [blk, "mlp", "dwconv", "dwconv"])
+            w.lin(f"{dst}.mlp.3", [blk, "mlp", "fc2"])
             for g in ("gamma1", "gamma2"):
                 if g in tree:
-                    put(f"{dst}.{g}", get(params, [blk, g]).reshape(-1))
+                    w.put(f"{dst}.{g}", w.get(params, [blk, g]).reshape(-1))
 
     if not model.features_only:
-        bn("norm", ["norm"])
-        ln("norm_c", ["norm_c"])
+        w.bn("norm", ["norm"])
+        w.ln("norm_c", ["norm_c"])
         if "head" in params:
-            lin("head", ["head"])
-    return sd
+            w.lin("head", ["head"])
+    return w.sd
+
+
+def from_jax_upernet(variables: Mapping[str, Any], model
+                     ) -> Dict[str, torch.Tensor]:
+    """State dict for ``model`` (a port tasks.upernet.UperNet) from the
+    JAX UperNet's variables, module names as the JAX package's: the
+    backbone under ``backbone.``, ``decode_head`` (ppm/pool{i},
+    bottleneck, lateral{i}, fpn{i}, fuse, seg) and ``aux_head`` (conv{i},
+    seg)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {f"backbone.{k}": v for k, v in from_jax_params(
+        {"params": params["backbone"],
+         "batch_stats": stats.get("backbone", {})}, model.backbone).items()}
+    w = _Writer(params, stats)
+
+    def conv_module(dst, path):
+        w.conv(f"{dst}.conv", path + ["conv"], bias=False)
+        w.bn(f"{dst}.bn", path + ["bn"])
+
+    head = model.decode_head
+    for i in range(len(head.ppm.pool_scales)):
+        conv_module(f"decode_head.ppm.pool{i}",
+                    ["decode_head", "ppm", f"pool{i}"])
+    conv_module("decode_head.bottleneck", ["decode_head", "bottleneck"])
+    for i in range(head.levels - 1):
+        conv_module(f"decode_head.lateral{i}", ["decode_head", f"lateral{i}"])
+        conv_module(f"decode_head.fpn{i}", ["decode_head", f"fpn{i}"])
+    conv_module("decode_head.fuse", ["decode_head", "fuse"])
+    w.conv("decode_head.seg", ["decode_head", "seg"])
+    for i in range(model.aux_head.num_convs):
+        conv_module(f"aux_head.conv{i}", ["aux_head", f"conv{i}"])
+    w.conv("aux_head.seg", ["aux_head", "seg"])
+    return {**sd, **w.sd}

@@ -21,10 +21,14 @@ would run its kernel at that token count (``kernel_takes``):
     attn/fused_train.py (autograd Functions), for C, D/D2 and S blocks,
     with the LayerNorm affines folded into the next product outside them
     and D2 mapped onto the D kernels by the same weight permutation.
-The CPE stays outside the kernels as a depthwise conv. Everything else is
-the plain composition. Under ``torch.autocast`` the kernels run in the
-autocast type, their weights cast per block as the JAX package's
-``.astype(dtype)`` does.
+The CPE stays outside the kernels as a depthwise conv. Any other block
+(post-norm, layer-scale, MLP dwconv, or above the token counts:
+segmentation at 512^2, where stages 0-2 see 16384 and 4096 image tokens)
+composes its norms, residuals and MLP, and its attention module hands the
+attention to the attention-only kernels of attn/dca.py and attn/mhsa.py
+under the same switch (attn/modules.py). Under ``torch.autocast`` the
+kernels run in the autocast type, their weights cast per block as the JAX
+package's ``.astype(dtype)`` does.
 """
 from __future__ import annotations
 
@@ -103,11 +107,10 @@ class LeMeBlock(nn.Module):
         self.num_heads = num_heads
         self.pre_norm = pre_norm
         self.mlp_dwconv = mlp_dwconv
-        self.attn_backend = attn_backend
         self.pos_embed = DWConv(dim, cpe_ks) if cpe_ks > 0 else None
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = _ATTN[attn_type](dim, num_heads)
+        self.attn = _ATTN[attn_type](dim, num_heads, attn_backend)
         self.mlp = Mlp(dim, int(mlp_ratio * dim), use_dwconv=mlp_dwconv)
         self.drop_path = DropPath(drop_path)
         self.use_layer_scale = layer_scale_init_value > 0
@@ -116,6 +119,18 @@ class LeMeBlock(nn.Module):
                                                   layer_scale_init_value))
             self.gamma2 = nn.Parameter(torch.full((dim,),
                                                   layer_scale_init_value))
+
+    @property
+    def attn_backend(self) -> str:
+        """The block's kernel switch ("auto", "torch" or "cuda"), held by
+        its attention module, which reads it too."""
+        return self.attn.attn_backend
+
+    @attn_backend.setter
+    def attn_backend(self, backend: str) -> None:
+        if backend not in BACKENDS:
+            raise ValueError(f"attn_backend must be one of {BACKENDS}")
+        self.attn.attn_backend = backend
 
     # ------------------------------------------------------------ composition
 
@@ -297,6 +312,7 @@ class LeMeViT(nn.Module):
         self.remat_stages = tuple(remat_stages)
         self.attn_type = tuple(attn_type)
         self.depth = tuple(depth)
+        self.embed_dim = tuple(dims)
         self.num_classes = num_classes
         self.features_only = features_only
         self.out_indices = tuple(out_indices)
@@ -335,7 +351,8 @@ class LeMeViT(nn.Module):
                          if num_classes > 0 else None)
 
     def set_attn_backend(self, backend: str) -> None:
-        """Switch every block between "auto", "torch" and "cuda"."""
+        """Switch every block (and its attention module) between "auto",
+        "torch" and "cuda"."""
         if backend not in BACKENDS:
             raise ValueError(f"attn_backend must be one of {BACKENDS}")
         for stage in self.stages:

@@ -10,8 +10,9 @@ applied so far) with optax's formulas, so its values equal the JAX
 package's. ``torch.optim.AdamW`` takes the update; its decoupled decay
 ``p -= lr * wd * p`` is optax's ``adamw`` mask-applied decay. Clipping and
 gradient accumulation are done by the train step (train/steps.py), as
-optax's chain does them. The plateau schedule, the detection and
-segmentation schedules and the other optimizers are not ported yet.
+optax's chain does them. ``warmup_poly_schedule`` is the segmentation
+schedule (cli/train_seg.py). The plateau schedule, the detection schedule
+and the other optimizers are not ported yet.
 """
 from __future__ import annotations
 
@@ -98,6 +99,24 @@ def build_lr_schedule(
 
     def schedule(t: int) -> float:
         return warmup(t) if t < warmup_steps else main(t - warmup_steps)
+
+    return schedule
+
+
+def warmup_poly_schedule(base_lr: float, total_steps: int,
+                         power: float = 1.0, min_lr: float = 0.0,
+                         warmup_iters: int = 1500,
+                         warmup_ratio: float = 1e-6) -> Schedule:
+    """mmcv's poly policy with linear warmup, the segmentation schedule of
+    record (lemevit_tpu/train/optim.py:107-128): progress is s / total with
+    no warmup offset, and the warmup factor multiplies the poly value, so
+    at s = 1500 of 80000 the LR is base_lr (1 - 1500 / 80000)."""
+    def schedule(t: int) -> float:
+        s = float(t)
+        warm = (1.0 - (1.0 - s / max(warmup_iters, 1)) * (1.0 - warmup_ratio)
+                if s < warmup_iters else 1.0)
+        frac = min(max(s / max(total_steps, 1), 0.0), 1.0)
+        return ((base_lr - min_lr) * (1.0 - frac) ** power + min_lr) * warm
 
     return schedule
 

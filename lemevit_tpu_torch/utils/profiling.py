@@ -68,20 +68,28 @@ def cost_analysis(model, img_size: int, device=None,
                   dtype: torch.dtype = torch.float32) -> Dict[str, float]:
     """Operations of one image's forward: {"flops", "gmacs"}, counted by
     torch.utils.flop_counter over the matrix products and convolutions. The
-    model runs in eval mode with autograd on, so every block takes the
-    plain composition (the fused kernels are opaque to the counter); its
-    mode is restored after."""
+    model runs in eval mode with autograd on and every block and attention
+    module on the plain composition (attn_backend "torch": the kernels are
+    opaque to the counter); its mode and backends are restored after."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from lemevit_tpu_torch.models.lemevit import LeMeBlock
     if device is None:
         device = next(model.parameters()).device
     x = torch.zeros(1, img_size, img_size, 3, device=device, dtype=dtype)
     was_training = model.training
+    blocks = [m for m in model.modules() if isinstance(m, LeMeBlock)]
+    backends = [blk.attn_backend for blk in blocks]
     model.eval()
     try:
+        for blk in blocks:
+            blk.attn_backend = "torch"
         with FlopCounterMode(display=False) as fc:
             model(x)
     finally:
         model.train(was_training)
+        for blk, backend in zip(blocks, backends):
+            blk.attn_backend = backend
     flops = float(fc.get_total_flops())
     return {"flops": flops, "gmacs": flops / 2e9}
 

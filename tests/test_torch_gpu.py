@@ -5,10 +5,11 @@ package, so it runs on a GPU machine without flax:
 
   python -m pytest tests/test_torch_gpu.py -q -m gpu
 
-Tolerances: inference blocks fp32 1e-4, bf16 3e-2 (against fp32 on the
-same bf16-cast inputs); training kernels (S, D, C) the same on outputs and,
-on gradients, 1e-3 (fp32) and 5e-2 (bf16) of each tensor's largest element;
-whole models 1e-3 (fp32 logits, gradients)."""
+Tolerances: inference blocks and attention-only kernels fp32 1e-4, bf16
+3e-2 (against fp32 on the same bf16-cast inputs); training kernels (S, D,
+C) the same on outputs and, on gradients, 1e-3 (fp32) and 5e-2 (bf16) of
+each tensor's largest element; whole models 1e-3 (fp32 logits,
+gradients)."""
 import numpy as np
 import pytest
 import torch
@@ -264,3 +265,113 @@ def test_lemevit_train_kernel_path_matches_torch_path_on_gpu(cuda, name,
         torch.testing.assert_close(
             a.grad, b.grad, rtol=0,
             atol=1e-3 * b.grad.abs().max().item() + 1e-6)
+
+
+def _attn_counts():
+    from lemevit_tpu_torch.attn import dca, mhsa
+    return {**dca.LAUNCHES, **mhsa.LAUNCHES}
+
+
+def _attn_launched(before):
+    return {k: v - before[k] for k, v in _attn_counts().items()
+            if v != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,ch", [(4096, 128), (1024, 64), (1000, 64)])
+def test_dca_attn_matches_plain_on_gpu(cuda, n, ch, dtype, tol):
+    """dca_attn on column views of projection outputs (D: leading
+    dimension 3C) against dca_plain in fp32 on the same inputs; N = 1000
+    leaves a ragged last key split and query block (the JAX package
+    declines it, the kernel takes it)."""
+    from lemevit_tpu_torch.attn import dca
+    g = torch.Generator().manual_seed(7)
+    lin1 = torch.randn(2, n, 3 * ch, generator=g).to(cuda, dtype)
+    lin2 = torch.randn(2, M, 3 * ch, generator=g).to(cuda, dtype)
+    args = (*lin1.split(ch, -1), *lin2.split(ch, -1))
+    sx, sc = dca_scales(n, M, ch)
+    kw = dict(scale_x=sx, scale_c=sc, num_heads=ch // 32)
+    before = _attn_counts()
+    got = dca.dca_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert _attn_launched(before) == {"dca_attn": 1}
+    want = dca.dca_plain(*[t.float() for t in args], **kw)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.float(), w_, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_dca_aliased_grads_on_gpu(cuda):
+    """D2's dca(q, q, v1, k, k, v2) through the Function: kernel forward,
+    gradients of the qv / kv projections against plain autograd."""
+    from lemevit_tpu_torch.attn import dca
+    g = torch.Generator().manual_seed(8)
+    n, ch = 1024, 64
+    lin1 = torch.randn(2, n, 2 * ch, generator=g).to(cuda).requires_grad_()
+    lin2 = torch.randn(2, M, 2 * ch, generator=g).to(cuda).requires_grad_()
+    sx, sc = dca_scales(n, M, ch)
+
+    def run(fn):
+        lin1.grad = lin2.grad = None
+        q, v1 = lin1.split(ch, -1)
+        k, v2 = lin2.split(ch, -1)
+        xo, co = fn(q, q, v1, k, k, v2, scale_x=sx, scale_c=sc, num_heads=2)
+        (xo.square().sum() + co.sum()).backward()
+        return [xo, co, lin1.grad, lin2.grad]
+    before = _attn_counts()
+    got = run(dca.dca)
+    assert _attn_launched(before) == {"dca_attn": 1}
+    want = run(dca.dca_plain)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,ch", [(16, 96), (196, 320), (1024, 192)])
+def test_mhsa_matches_plain_on_gpu(cuda, n, ch, dtype, tol):
+    from lemevit_tpu_torch.attn import mhsa
+    g = torch.Generator().manual_seed(9)
+    qkv = torch.randn(2, n, 3 * ch, generator=g).to(cuda, dtype)
+    args = qkv.split(ch, -1)
+    kw = dict(scale=32 ** -0.5, num_heads=ch // 32)
+    before = _attn_counts()
+    got = mhsa.mhsa_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert _attn_launched(before) == {"mhsa": 1}
+    want = mhsa.mhsa_plain(*[t.float() for t in args], **kw)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_attn_kernels_reject_other_head_dims_on_gpu(cuda):
+    from lemevit_tpu_torch.attn import dca, mhsa
+    t = torch.randn(2, 64, 64, device=cuda)
+    m = torch.randn(2, M, 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        mhsa.mhsa(t, t, t, num_heads=4)  # head_dim 16: JAX takes it
+    with pytest.raises(ValueError, match="head_dim"):
+        dca.dca(t, t, t, m, m, m, scale_x=0.1, scale_c=0.1, num_heads=4)
+
+
+@pytest.mark.gpu
+def test_upernet_kernel_path_matches_torch_path_on_gpu(cuda):
+    """UperNet on lemevit_tiny at 512^2, eval, fp32: the composed D blocks
+    (N = 16384, 4096) on dca_attn and the S blocks on s_block, against
+    the plain path."""
+    from lemevit_tpu_torch.tasks.upernet import create_upernet
+    m = create_upernet("lemevit_tiny", 6, channels=64).eval()
+    x = torch.randn(1, 512, 512, 3, device="cuda")
+    before = {**dict(fb.LAUNCHES), **_attn_counts()}
+    with torch.no_grad():
+        got = m(x)
+        now = {**dict(fb.LAUNCHES), **_attn_counts()}
+        m.backbone.set_attn_backend("torch")
+        want = m(x)
+    assert {k: v - before[k] for k, v in now.items() if v != before[k]} \
+        == {"dca_attn": 4, "s_block": 10}
+    torch.testing.assert_close(got, want, rtol=1e-3,
+                               atol=1e-3 * max(1.0, want.abs().max().item()))
