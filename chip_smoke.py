@@ -9,6 +9,14 @@ before it and read just after:
     version at the shapes of LeMeViT-Base at 224^2, base's kernel path
     against its plain path, a bf16 batch of 64 served through
     cli.benchmark's inference function, and cli.validate on synthetic data;
+  - serving base on the slice's path (s_stage, cpe_in_kernel): the s_stage
+    kernel held against its plain version and against the chain of S block
+    kernels at base's, lemevit_tiny's and UperNet's stage shapes, with and
+    without CPEs; the three block kernels' cpe mode against their plain
+    versions at base's shapes, timed beside the external CPE placement;
+    base's slice logits against its plain path, a bf16 batch of 64 served
+    beside the default path's img/s, a profile of one forward (one
+    k_s_stage per S stage, no CPE convolution) and cli.validate;
   - training vit_tiny (all S blocks): the three S-block training kernels
     and the S inference kernel held against their plain versions at
     vit_tiny's shapes, one fp32 train step on the kernel path against the
@@ -61,6 +69,13 @@ REPO = Path(__file__).resolve().parent
 MAIN_SHAPES = [("c_block", 3136, 96, 2),
                ("dca_block", 3136, 96, 4), ("dca_block", 784, 192, 4),
                ("s_block", 196, 384, 18), ("s_block", 49, 512, 4)]
+# base's blocks with the CPE in the kernel: (kernel, N, image width, C,
+# launches per forward on the slice's path; its S blocks run in s_stage)
+CPE_SHAPES = [("c_block", 3136, 56, 96, 2),
+              ("dca_block", 3136, 56, 96, 4), ("dca_block", 784, 28, 192, 4),
+              ("s_block", 196, 14, 384, 0), ("s_block", 49, 7, 512, 0)]
+# launches per base forward on the slice's path
+SLICE_FWD = {"c_block": 2, "dca_block": 8, "s_stage": 2}
 # lemevit_tiny at 224^2: (kernel, N, C, launches per eval forward)
 TINY_SHAPES = [("c_block", 3136, 64, 1),
                ("dca_block", 3136, 64, 2), ("dca_block", 784, 128, 2),
@@ -75,6 +90,12 @@ VIT_TRAIN = [("s", 784, 192, 2), ("s", 196, 320, 4), ("s", 49, 384, 2)]
 # UperNet on lemevit_tiny at 512^2 (cli.train_seg's defaults): batch, crop,
 # head channels, classes; the fp32 checks' batch
 SEG_B, SEG_CROP, SEG_CH, SEG_CLASSES, SEG_B_CHECK = 8, 512, 512, 6, 2
+# s_stage: (stage, blocks, N, image width, C, fp32 batch, bf16 batch,
+# launches per base forward on the slice's path)
+STAGE_SHAPES = [("base stage 3", 18, 196, 14, 384, B_CHECK, B_MAIN, 1),
+                ("base stage 4", 4, 49, 7, 512, B_CHECK, B_MAIN, 1),
+                ("lemevit_tiny stage 3", 8, 196, 14, 192, B_CHECK, B_MAIN, 0),
+                ("UperNet stage 3", 8, 1024, 32, 192, SEG_B_CHECK, SEG_B, 0)]
 # stages 1-2 compose (N > 3136): each D block's attention is one dca_attn
 # call, (N, C, blocks)
 SEG_DCA = [(16384, 64, 2), (4096, 128, 2)]
@@ -94,6 +115,8 @@ KERNELS = {
                   "lemevit_tpu/attn/pallas_block.py:929"),
     "s_block": ("lemevit_tpu_torch/attn/csrc/s_block.cu",
                 "lemevit_tpu/attn/pallas_block.py:1095"),
+    "s_stage": ("lemevit_tpu_torch/attn/csrc/s_stage.cu",
+                "lemevit_tpu/attn/pallas_block.py:1250"),
     "s_train_fwd": ("lemevit_tpu_torch/attn/csrc/s_train.cu",
                     "lemevit_tpu/attn/pallas_train.py:907"),
     "mlp_bwd": ("lemevit_tpu_torch/attn/csrc/s_train.cu",
@@ -199,9 +222,10 @@ def make_params(kind, ch, hidden, g):
     return p + ln() + lin(hidden, ch) + lin(ch, hidden)
 
 
-def work(kind, b, n, ch, hidden, n_params_bytes, elt):
+def work(kind, b, n, ch, hidden, n_params_bytes, elt, cpe=False):
     """(bytes, operations) one call must move and do: each input read
-    once, each output written once; multiply-adds counted as two."""
+    once, each output written once; multiply-adds counted as two; with
+    ``cpe`` the 3x3 CPE's 9 multiply-adds per image-token element too."""
     m = M
     if kind == "c_block":
         io = (b * n * ch + 2 * b * m * ch) * elt
@@ -217,6 +241,8 @@ def work(kind, b, n, ch, hidden, n_params_bytes, elt):
         rows = n + m
         flops = 2 * b * (rows * ch * 3 * ch + 2 * (n * n + m * m) * ch
                          + rows * ch * ch + 2 * rows * ch * hidden)
+    if cpe:
+        flops += 18 * b * n * ch
     return io + n_params_bytes, flops
 
 
@@ -273,17 +299,18 @@ def max_err(got, want, tol):
 
 
 def max_grad_err(got, want, tol, names):
-    """Max abs error over gradient tensors; raises where |err| > tol
-    (max|ref| + |ref|) within a tensor."""
+    """Max abs error over gradient tensors (or any whose elements' errors
+    follow the tensor's scale); raises where |err| > tol (max|ref| + |ref|)
+    within a tensor."""
     err = 0.0
     for a, r, name in zip(got, want, names):
         a = a.float()
         if not torch.isfinite(a).all():
-            raise AssertionError(f"gradient {name} is not finite")
+            raise AssertionError(f"{name} is not finite")
         d = (a - r).abs()
         lim = tol * (r.abs().max() + r.abs())
         if bool((d > lim).any()):
-            raise AssertionError(f"gradient {name}: max abs err "
+            raise AssertionError(f"{name}: max abs err "
                                  f"{d.max().item():.3g} beyond tol {tol} "
                                  f"of max |ref| {r.abs().max().item():.3g}")
         err = max(err, d.max().item())
@@ -313,6 +340,9 @@ def profile_call(fn, what: str, top: int = 16) -> dict:
     if not rows:
         say("profile", f"{what}: no device time recorded: not measured")
         return {}
+    by_name = {}  # launches of each kernel and calls of each host op
+    for e in prof.key_averages():
+        by_name[e.key] = by_name.get(e.key, 0) + e.count
     busy = sum(r[1] for r in rows)
     ours = sum(r[1] for r in rows if "lm::" in r[0])
     launches = sum(r[2] for r in rows)
@@ -324,53 +354,156 @@ def profile_call(fn, what: str, top: int = 16) -> dict:
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         say("profile", f"{ms:8.3f} ms  {count:4d}x  {key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": busy, "port_ms": ours,
-            "launches": launches}
+            "launches": launches, "by_name": by_name}
 
 
 def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g, b_check=B_CHECK,
-                       b_main=B_MAIN):
+                       b_main=B_MAIN, img_w=0):
     """One inference block kernel at one shape: fp32 at b_check (rtol =
     atol = 1e-4), bf16 at b_main (3e-2 against fp32 on the same bf16-cast
-    inputs), then times, bound and rate at b_main in bf16."""
+    inputs), then times, bound and rate at b_main in bf16. With img_w, the
+    kernel's cpe mode: x before a seeded 3x3 CPE that the kernel applies,
+    against the plain version with cpe_plain, also timed in the external
+    placement (cpe_plain's F.conv2d, then the kernel without its CPE)."""
     from lemevit_tpu_torch.attn.reference import dca_scales
     wrappers = {"c_block": fb.c_block, "dca_block": fb.dca_block,
                 "s_block": fb.s_block}
     plains = {"c_block": fb.c_block_plain, "dca_block": fb.dca_block_plain,
               "s_block": fb.s_block_plain}
 
-    def call(fns, x, c, p):
+    def call(fns, x, c, p, cpe=None):
         kw = {"num_heads": ch // 32}
         if kind == "dca_block":
             kw["scale_x"], kw["scale_c"] = dca_scales(n, M, ch)
+        if cpe is not None:
+            kw.update(cpe=cpe, img_w=img_w)
         out = fns[kind](x, c, p, **kw)
         return out if isinstance(out, tuple) else (out,)
 
     hidden = 4 * ch
     p32 = make_params(kind, ch, hidden, g)
+    cpe32 = ([0.3 * torch.randn(9, ch, generator=g),
+              0.1 * torch.randn(ch, generator=g)] if img_w else [])
     x = torch.randn(b_main, n, ch, generator=g)
     c = torch.randn(b_main, M, ch, generator=g)
     xs, cs = x[:b_check].to(dev), c[:b_check].to(dev)
     ps = [t.to(dev) for t in p32]
-    err32 = max_err(call(wrappers, xs, cs, ps), call(plains, xs, cs, ps),
-                    1e-4)
+    cpes = [t.to(dev) for t in cpe32] or None
+    err32 = max_err(call(wrappers, xs, cs, ps, cpes),
+                    call(plains, xs, cs, ps, cpes), 1e-4)
     xb, cb = x.to(dev, torch.bfloat16), c.to(dev, torch.bfloat16)
     pb = [t.to(dev, torch.bfloat16) for t in p32]
-    got = call(wrappers, xb, cb, pb)
-    want = call(plains, xb.float(), cb.float(), [t.float() for t in pb])
+    cpeb = [t.to(dev, torch.bfloat16) for t in cpe32] or None
+    got = call(wrappers, xb, cb, pb, cpeb)
+    want = call(plains, xb.float(), cb.float(), [t.float() for t in pb],
+                cpeb and [t.float() for t in cpeb])
     err16 = max_err(got, want, 3e-2)
     del got, want
-    ms = cuda_ms(lambda: call(wrappers, xb, cb, pb))
-    plain_ms = cuda_ms(lambda: call(plains, xb, cb, pb))
+    ms = cuda_ms(lambda: call(wrappers, xb, cb, pb, cpeb))
+    plain_ms = cuda_ms(lambda: call(plains, xb, cb, pb, cpeb))
     nbytes, flops = work(kind, b_main, n, ch, hidden,
-                         sum(t.numel() for t in pb) * 2, 2)
+                         sum(t.numel() for t in pb + (cpeb or [])) * 2, 2,
+                         cpe=bool(img_w))
     t_bound, by = bound(nbytes, flops)
     row = dict(name=kind, n=n, c=ch, batch=b_main, per_forward=per_fwd,
                err_fp32=err32, err_bf16=err16, ms=ms, plain_ms=plain_ms,
                bound_ms=t_bound, bound_by=by, tflops=flops / ms / 1e9)
-    say("kernel", f"{kind} N={n} C={ch}: fp32 err {err32:.2e} "
+    what = ""
+    if img_w:
+        row.update(img_w=img_w, external_cpe_ms=cuda_ms(lambda: call(
+            wrappers, fb.cpe_plain(xb, *cpeb, img_w), cb, pb)))
+        what = (f" with its CPE ({n // img_w}x{img_w}; external conv + "
+                f"kernel {row['external_cpe_ms']:.3f} ms)")
+    say("kernel", f"{kind} N={n} C={ch}{what}: fp32 err {err32:.2e} "
         f"(B={b_check}), bf16 err {err16:.2e} (B={b_main}); {ms:.3f} ms vs "
         f"plain "
         f"{plain_ms:.3f} ms; bound {t_bound:.4f} ms ({by}); "
+        f"{row['tflops']:.1f} TFLOP/s")
+    return row
+
+
+def check_stage(fb, label, nb, n, img_w, ch, b_check, b_main, per_fwd, dev,
+                g):
+    """s_stage at one stage's shape, nb seeded blocks (proj and fc2 weights
+    scaled by (2 nb)^-1/2 and CPE taps 0.1 N(0, 1), so x keeps its scale
+    over the stage), with and without CPEs: fp32 at b_check against
+    s_stage_plain (1e-4 (1 + |ref|)); bf16 at b_main against s_stage_plain
+    in fp32 on the same bf16-cast inputs (3e-2 (max|ref| + |ref|): x is
+    rounded to bf16 between the blocks, so an element's error follows the
+    tensor's scale) and against the chain of s_block(cpe=...) kernels on
+    the same bf16 inputs (3e-2 (1 + |ref|)). Then, with CPEs, the times at
+    b_main in bf16 of the stage, the chain and the plain version (mean of
+    5), and the bound summed over the blocks."""
+    hidden = 4 * ch
+    params, cpes = [], []
+    for _ in range(nb):
+        p = make_params("s_block", ch, hidden, g)
+        p[4], p[10] = (t * (2 * nb) ** -0.5 for t in (p[4], p[10]))
+        params.append(p)
+        cpes.append([0.1 * torch.randn(9, ch, generator=g),
+                     0.1 * torch.randn(ch, generator=g)])
+    x = torch.randn(b_main, n, ch, generator=g)
+    c = torch.randn(b_main, M, ch, generator=g)
+    kw = dict(num_heads=ch // 32, img_w=img_w)
+
+    def cast(dt, dtype=None):
+        """(params, cpes) on the card in dt (then in dtype, if given)."""
+        to = lambda ts: [t.to(dev, dt).to(dtype or dt) for t in ts]  # noqa
+        return [to(p) for p in params], [to(q) for q in cpes]
+
+    def chain(xs, cs, ps, cps):
+        for j, p in enumerate(ps):
+            xs, cs = fb.s_block(xs, cs, p, cpe=cps and cps[j], **kw)
+        return xs, cs
+
+    errs = {}
+    for use_cpe in (False, True):
+        p32, c32 = cast(torch.float32)
+        c32 = c32 if use_cpe else None
+        xs, cs = x[:b_check].to(dev), c[:b_check].to(dev)
+        e32 = max_err(fb.s_stage(xs, cs, p32, cpes=c32, **kw),
+                      fb.s_stage_plain(xs, cs, p32, cpes=c32, **kw), 1e-4)
+        pb, cpb = cast(torch.bfloat16)
+        pf, cpf = cast(torch.bfloat16, torch.float32)
+        cpb, cpf = (cpb, cpf) if use_cpe else (None, None)
+        xb, cb = x.to(dev, torch.bfloat16), c.to(dev, torch.bfloat16)
+        got = fb.s_stage(xb, cb, pb, cpes=cpb, **kw)
+        want = fb.s_stage_plain(xb.float(), cb.float(), pf, cpes=cpf, **kw)
+        e16 = max_grad_err(got, want, 3e-2, ["stage x", "stage c"])
+        scale = max(w.abs().max().item() for w in want)
+        # how many elements the per-block check's 3e-2 (1 + |ref|) misses
+        beyond = sum(int(((a.float() - r).abs() > 3e-2 * (1 + r.abs()))
+                         .sum()) for a, r in zip(got, want))
+        e_chain = max_err(got, [t.float() for t in
+                                chain(xb, cb, pb, cpb)], 3e-2)
+        errs[use_cpe] = (e32, e16, e_chain, scale, beyond)
+        del got, want
+    ms = cuda_ms(lambda: fb.s_stage(xb, cb, pb, cpes=cpb, **kw), 5, 1)
+    chain_ms = cuda_ms(lambda: chain(xb, cb, pb, cpb), 5, 1)
+    plain_ms = cuda_ms(lambda: fb.s_stage_plain(xb, cb, pb, cpes=cpb, **kw),
+                       5, 1)
+    got_n = (b_main * (n + M)) * ch
+    n_params = sum(t.numel() for p in pb + cpb for t in p)
+    nbytes, flops = work("s_block", b_main, n, ch, hidden, n_params * 2, 2,
+                         cpe=True)
+    flops *= nb  # x and c cross device memory once; every block computes
+    t_bound, by = bound(nbytes, flops)
+    row = dict(name="s_stage", stage=label, blocks=nb, n=n, img_w=img_w,
+               c=ch, batch=b_main, per_forward=per_fwd,
+               err_fp32=max(e[0] for e in errs.values()),
+               err_bf16=max(e[1] for e in errs.values()),
+               err_bf16_vs_chain=max(e[2] for e in errs.values()),
+               bf16_beyond_elementwise=max(e[4] for e in errs.values()),
+               ms=ms, chain_ms=chain_ms, plain_ms=plain_ms,
+               bound_ms=t_bound, bound_by=by, tflops=flops / ms / 1e9)
+    say("stage", f"s_stage {label} ({nb} blocks, N={n} C={ch}): "
+        + "; ".join(f"{'with' if k else 'no'} CPEs fp32 err {e[0]:.2e} "
+                    f"(B={b_check}), bf16 err {e[1]:.2e} of max |ref| "
+                    f"{e[3]:.3g} ({e[4]} of {got_n} elements beyond 3e-2 "
+                    f"(1 + |ref|)), vs the s_block chain {e[2]:.2e} "
+                    f"(B={b_main})" for k, e in errs.items())
+        + f" | {ms:.3f} ms vs chain of {nb} s_block {chain_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms; bound {t_bound:.4f} ms ({by}); "
         f"{row['tflops']:.1f} TFLOP/s")
     return row
 
@@ -906,6 +1039,83 @@ def profile_seg_step(dev) -> dict:
         "one UperNet train step")
 
 
+def serve_slice(dev, g, default_res, prof_default) -> tuple:
+    """Base at 224^2 on the slice's path (s_stage, cpe_in_kernel): fp32
+    logits at B=2 against the plain path (1e-3) with SLICE_FWD's launches;
+    the main path, a bf16 batch of B_MAIN through cli.benchmark's inference
+    function, its launch counts set to 0 just before and read just after;
+    a profile of one forward, which must show one k_s_stage launch per S
+    stage and 32 fewer convolutions (the blocks' CPEs) than the default
+    path's profile; cli.validate --s-stage --cpe-in-kernel. Returns (main
+    path launches, result)."""
+    from lemevit_tpu_torch import create_model
+    from lemevit_tpu_torch.cli import benchmark, validate
+    kw = dict(s_stage=True, cpe_in_kernel=True)
+    model = create_model("lemevit_base", device=dev, **kw).eval()
+    img = torch.randn(2, 224, 224, 3, generator=g).to(dev)
+    with torch.no_grad():
+        reset()
+        fused = model(img)
+        expect_launches(launch_counts(), SLICE_FWD, "base slice forward")
+        model.set_attn_backend("torch")
+        plain = model(img)
+    err = (fused - plain).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"base slice logits vs plain path {err:.3g}")
+    del model
+
+    args = benchmark.build_parser().parse_args(
+        ["--model", "lemevit_base", "--batch-size", str(B_MAIN),
+         "--num-warm-iter", "2", "--num-bench-iter", "10", "--s-stage",
+         "--cpe-in-kernel"])
+    model = create_model("lemevit_base", device=dev, dtype=torch.bfloat16,
+                         **kw).eval()
+    x = torch.randn(B_MAIN, 224, 224, 3, generator=g).to(dev)
+    reset()
+    res, logits = benchmark.run_inference(args, model, x)
+    launches = launch_counts()
+    n_fwd = args.num_warm_iter + args.num_bench_iter
+    expect_launches(launches, {k: v * n_fwd for k, v in SLICE_FWD.items()},
+                    f"lemevit_base slice path, {n_fwd} forwards")
+    if logits.shape != (B_MAIN, 1000) or not torch.isfinite(logits).all():
+        raise AssertionError("slice-path logits are not finite (64, 1000)")
+    say("serve-slice", f"lemevit_base 224 bf16 B={B_MAIN} with s_stage and "
+        f"the CPE in the kernels: {res['samples_per_sec']} img/s, "
+        f"{res['step_time']} ms/step (default path in this run: "
+        f"{default_res['samples_per_sec']} img/s, "
+        f"{default_res['step_time']} ms); fp32 B=2 logits vs plain path "
+        f"{err:.2e} (limit 1e-3); launches per forward " + ", ".join(
+            f"{k} {launches[k] // n_fwd}" for k in SLICE_FWD))
+    with torch.inference_mode():
+        prof = profile_call(lambda: model(x), "one forward on the slice path")
+    del model
+    if not prof or not prof_default:
+        raise AssertionError("the profiler recorded no device time")
+    stages = sum(v for k, v in prof["by_name"].items() if "k_s_stage" in k)
+    convs = [p["by_name"].get("aten::conv2d", 0)
+             for p in (prof_default, prof)]
+    if stages != SLICE_FWD["s_stage"] or convs[0] - convs[1] != 32:
+        raise AssertionError(f"slice profile: {stages} k_s_stage launches, "
+                             f"{convs[1]} convolutions against the default "
+                             f"path's {convs[0]}")
+    say("serve-slice", f"profile: {stages} k_s_stage launches (one per S "
+        f"stage), {convs[1]} convolutions (the default path: {convs[0]}, "
+        "its 32 CPEs among them)")
+    vres = validate.main(["--model", "lemevit_base", "--synthetic",
+                          "--batch-size", str(B_MAIN), "--max-batches", "2",
+                          "--s-stage", "--cpe-in-kernel"])
+    if not (vres["loss"] > 0 and vres["samples_per_sec"] > 0):
+        raise AssertionError(f"validate slice: {vres}")
+    say("validate", "--s-stage --cpe-in-kernel " + json.dumps(vres))
+    return launches, {"img_per_s": res["samples_per_sec"],
+                      "ms_per_forward": res["step_time"],
+                      "default_img_per_s": default_res["samples_per_sec"],
+                      "fp32_logits_err": err,
+                      "device_ms_per_forward": prof["device_ms"],
+                      "profiled_wall_ms": prof["wall_ms"],
+                      "convolutions": convs[1]}
+
+
 def kernel_entry(name, rows, launches, weight_key, **extra):
     """The per-kernel JSON entry: launch-weighted means over the main
     path's shapes."""
@@ -1017,7 +1227,7 @@ def main() -> None:
         f"launches per forward " + ", ".join(
             f"{k} {launches[k] // n_fwd}" for k in expect))
     with torch.inference_mode():
-        profile_call(lambda: model(x), "one forward")
+        prof_default = profile_call(lambda: model(x), "one forward")
     del model
 
     # 5. validate on synthetic data
@@ -1026,6 +1236,14 @@ def main() -> None:
     if not (vres["loss"] > 0 and vres["samples_per_sec"] > 0):
         raise AssertionError(f"validate: {vres}")
     say("validate", json.dumps(vres))
+
+    # 5b. the slice's path: s_stage and the blocks' in-kernel CPE against
+    #     their plain versions, then base served through them
+    stage_rows = [check_stage(fb, *shape, dev, g) for shape in STAGE_SHAPES]
+    cpe_rows = [check_block_kernel(fb, kind, n, ch, per_fwd, dev, g,
+                                   img_w=w)
+                for kind, n, w, ch, per_fwd in CPE_SHAPES]
+    slice_launches, slice_res = serve_slice(dev, g, res, prof_default)
 
     # 6. training vit_tiny (all S): the inference and training kernels at
     #    its shapes, one step against the plain path, then its main path and
@@ -1115,6 +1333,8 @@ def main() -> None:
         kernels.append(kernel_entry(
             name, [r for r in shape_rows if r["name"] == name],
             launches[name], "per_forward",
+            cpe_shapes=strip(r for r in cpe_rows if r["name"] == name),
+            slice_launches=slice_launches[name],
             tiny_shapes=strip(r for r in tiny_rows if r["name"] == name),
             tiny_train_eval_launches=tiny_launches[name],
             **({"vit_tiny_train_eval_launches": vit_launches[name],
@@ -1137,6 +1357,11 @@ def main() -> None:
         kernels.append(kernel_entry(
             name, [r for r in train_rows if r["name"] == name],
             tiny_launches[name], "per_step", **extra))
+    kernels.append(kernel_entry(
+        "s_stage", [r for r in stage_rows if r["per_forward"]],
+        slice_launches["s_stage"], "per_forward",
+        other_shapes=strip(r for r in stage_rows if not r["per_forward"]),
+        slice_serving=slice_res))
     kernels.append(kernel_entry(
         "dca_attn", dca_rows, seg_launches["dca_attn"], "per_step",
         per_crop_forward=SEG_CROP_FWD["dca_attn"]))

@@ -1,7 +1,8 @@
-// Device building blocks shared by the three fused LeMeBlock kernels
-// (c_block.cu, dca_block.cu, s_block.cu).
+// Device building blocks shared by the fused LeMeBlock kernels (c_block.cu,
+// dca_block.cu, s_block.cu, s_stage.cu and the training kernels).
 //
-// Every public block kernel is a short chain of the launches defined here:
+// Every public block kernel is a short chain of the launches defined here
+// (s_stage.cu runs their bodies, attention_tile and tail_rows, in one):
 //   k_linear_ln    out = LN(a) @ W^T + b, a @ W^T + b, or a @ W^T in fp32
 //                  (qkv projections; the training kernels' data-gradient
 //                  products)
@@ -15,11 +16,12 @@
 // All matrix products go through one routine, tile_gemm: a shared-memory
 // tiled product with fp32 accumulation whose A operand is a matrix in
 // global or shared memory, optionally row-LayerNormed on the way in (Rows,
-// LnRows), and whose result goes to an epilogue functor (bias, exact-erf
-// GELU, residual). bf16 products run on the tensor cores (mma.sync
-// m16n8k16, the LayerNorm output rounded to bf16 first, as the TPU kernels
-// round before the MXU); fp32 products stay on FMA, so fp32 keeps full
-// precision. No stage is pipelined: each 32-deep step loads, syncs and
+// LnRows), or the LayerNorm of the block's 3x3 conditional position
+// embedding (CPE) of its rows (LnCpeRows), and whose result goes to an
+// epilogue functor (bias, exact-erf GELU, residual). bf16 products run on
+// the tensor cores (mma.sync m16n8k16, the LayerNorm output rounded to
+// bf16 first, as the TPU kernels round before the MXU); fp32 products stay
+// on FMA, so fp32 keeps full precision. No stage is pipelined: each 32-deep step loads, syncs and
 // multiplies (the next PRs' cp.async / TMA and wgmma work).
 //
 // Types: T is float or __nv_bfloat16 for every activation, weight, bias and
@@ -74,7 +76,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Two-pass LayerNorm statistics of `rows` rows of width K, one warp per row.
 // get(r, k) returns element k of row r as float.
@@ -99,11 +101,11 @@ __device__ __forceinline__ void row_stats(Get get, int rows, int K, float eps,
   }
 }
 
-// The two kinds of A operand of tile_gemm. Rows: a plain row-major matrix
-// (in global or shared memory). LnRows: LayerNorm applied to the rows of a
-// matrix on the way in. Rows past `rows` read as zero. In bf16 both are
-// staged 8 values per 16-byte load; the fp32 path reads them through
-// a_elem.
+// The A operands of tile_gemm. Rows: a plain row-major matrix (in global
+// or shared memory). LnRows: LayerNorm applied to the rows of a matrix on
+// the way in. Rows past `rows` read as zero. In bf16 both are staged 8
+// values per 16-byte load; the fp32 path reads them through a_elem. (The
+// CPE's LnCpeRows below is staged element by element.)
 template <typename T>
 struct Rows {
   const T* p;
@@ -126,6 +128,70 @@ struct LnRows {
     if (r >= rows) return 0.f;
     return (to_f(p[(size_t)r * ld + k]) - mean[r]) * rstd[r] * to_f(g[k]) +
            to_f(beta[k]);
+  }
+};
+
+// ---------------------------------------------------------------- CPE
+
+// A block's conditional position embedding, x + dwconv3x3(x) + bias with
+// zero padding at each image's edges (the counterpart of the TPU kernels'
+// lemevit_tpu/attn/pallas_block.py::_cpe_flat). Tokens are flat (B*N, C)
+// rows, N = H * W per image; a row's image position comes from its flat
+// index, so a shift never reaches into the next image of a batch.
+struct Cpe {
+  const void* taps;  // (9, C) in (ky, kx) order; null: no CPE
+  const void* bias;  // (C,)
+  int img_w;         // W
+  int img_n;         // N = H * W
+};
+
+// The CPE of rows [0, rows) of p (row pitch = C, the taps' channel count),
+// whose row 0 is flat row g0: x[i] + bias + sum_9 tap[ky, kx] x[i + (ky - 1)
+// W + (kx - 1)] in fp32, rounded to T (the type x would be stored in after
+// an external CPE). Rows past `rows` read as zero.
+template <typename T>
+struct CpeRows {
+  const T* p;
+  int ld;
+  int rows;
+  int g0;
+  Cpe cpe;
+
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    if (r >= rows) return 0.f;
+    const T* taps = static_cast<const T*>(cpe.taps);
+    const int i = (g0 + r) % cpe.img_n;
+    const int y = i / cpe.img_w, xc = i - y * cpe.img_w;
+    const int img_h = cpe.img_n / cpe.img_w;
+    const T* px = p + (size_t)r * ld + k;
+    float acc = to_f(static_cast<const T*>(cpe.bias)[k]);
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      if (y + dy < 0 || y + dy >= img_h) continue;
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        if (xc + dx < 0 || xc + dx >= cpe.img_w) continue;
+        acc = fmaf(to_f(taps[((dy + 1) * 3 + dx + 1) * ld + k]),
+                   to_f(px[(ptrdiff_t)(dy * cpe.img_w + dx) * ld]), acc);
+      }
+    }
+    return to_f(from_f<T>(to_f(*px) + acc));
+  }
+};
+
+// LayerNorm of the CPE'd rows, statistics in shared memory: any product's
+// A operand can read CPE'd rows without a separate pass over x.
+template <typename T>
+struct LnCpeRows {
+  CpeRows<T> x;
+  const float* mean;
+  const float* rstd;
+  const T* g;
+  const T* beta;
+
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    if (r >= x.rows) return 0.f;
+    return (x(r, k) - mean[r]) * rstd[r] * to_f(g[k]) + to_f(beta[k]);
   }
 };
 
@@ -219,9 +285,14 @@ __device__ __forceinline__ void tile_gemm_mma(
               load_a.p + (size_t)r * load_a.ld + k0 + k);
         *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
       }
+    } else if constexpr (!std::is_same<LoadA, LnRows<__nv_bfloat16>>::value) {
+      // any other operand (LnCpeRows) element by element, rounded to bf16
+      // as the LnRows path rounds
+      for (int e = tid; e < BM * kBK; e += kThreads) {
+        const int r = e / kBK, k = e % kBK;
+        sA[r * kPitch + k] = __float2bfloat16(load_a(r, k0 + k));
+      }
     } else {
-      static_assert(std::is_same<LoadA, LnRows<__nv_bfloat16>>::value,
-                    "A operand must be Rows or LnRows");
       for (int e = tid; e < BM * kBK / V; e += kThreads) {
         const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -278,8 +349,8 @@ __device__ __forceinline__ void tile_gemm_mma(
 }
 
 // One BM x BN output tile of A[BM x K] @ Wt[n0:n0+BN, :]^T, K % kBK == 0.
-// load_a is a Rows<T> or an LnRows<T>; wt is (ncols, ldw) in torch Linear
-// layout; columns >= ncols are masked. epi(r, n, v) receives every valid
+// load_a is a Rows<T>, an LnRows<T> or an LnCpeRows<T>; wt is (ncols, ldw)
+// in torch Linear layout; columns >= ncols are masked. epi(r, n, v) receives every valid
 // output exactly once, from the thread that owns it. sA and sW hold
 // kBK * (BM + 1) and kBK * (BN + 1) floats, 16-byte aligned; in bf16 the
 // operands' rows are 16-byte aligned too (the wrappers check the tensors).
@@ -365,14 +436,16 @@ struct LinArgs {
   float eps;
   int plain_a;  // 1: A is used as given (no LayerNorm, ln_w / ln_b unused)
   int out_f32;  // 1: out = A @ w^T in float32, no bias (needs plain_a)
+  Cpe cpe;      // where cpe.taps is set: seg[cpe_seg] is LayerNormed after
+  int cpe_seg;  // its CPE (its rows are the image tokens, B * img_n)
 };
 
 constexpr int kLinBM = 64, kLinBN = 64;
 
-// The three modes are separate instances, so that each carries one product
+// The four modes are separate instances, so that each carries one product
 // and a straight epilogue (as one kernel with runtime flags, the inference
 // projection ran 1.5x slower).
-template <typename T, bool kPlainA, bool kOutF32>
+template <typename T, bool kPlainA, bool kOutF32, bool kCpe = false>
 __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
   __shared__ __align__(16) float sA[kBK * (kLinBM + 1)];
   __shared__ __align__(16) float sW[kBK * (kLinBN + 1)];
@@ -404,6 +477,15 @@ __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
   if constexpr (kPlainA) {
     tile_gemm<kLinBM, kLinBN>(Rows<T>{A, K, rows}, w, K, K, n0, sg.ncols, sA,
                               sW, epi);
+  } else if (kCpe && si == args.cpe_seg) {
+    // the image rows: statistics and product both read their CPE
+    const CpeRows<T> xc{A, K, rows, row0, args.cpe};
+    row_stats(xc, kLinBM, K, args.eps, s_mean, s_rstd);
+    __syncthreads();
+    tile_gemm<kLinBM, kLinBN>(
+        LnCpeRows<T>{xc, s_mean, s_rstd, static_cast<const T*>(args.ln_w),
+                     static_cast<const T*>(args.ln_b)},
+        w, K, K, n0, sg.ncols, sA, sW, epi);
   } else {
     row_stats(
         [&](int r, int k) {
@@ -420,7 +502,8 @@ __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
 
 template <typename T>
 int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
-  if (a.out_f32 && (!a.plain_a || a.seg[0].bias || a.seg[1].bias))
+  if ((a.out_f32 && (!a.plain_a || a.seg[0].bias || a.seg[1].bias)) ||
+      (a.cpe.taps && a.plain_a))
     return (int)cudaErrorInvalidValue;
   const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kLinBM);
   dim3 grid(blocks, cdiv(max_ncols, kLinBN));
@@ -428,6 +511,8 @@ int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
     k_linear_ln<T, true, true><<<grid, kThreads, 0, s>>>(a);
   else if (a.plain_a)
     k_linear_ln<T, true, false><<<grid, kThreads, 0, s>>>(a);
+  else if (a.cpe.taps)
+    k_linear_ln<T, false, false, true><<<grid, kThreads, 0, s>>>(a);
   else
     k_linear_ln<T, false, false><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
@@ -460,22 +545,32 @@ struct AttnArgs {
 constexpr int kQPW = 4;                 // queries per warp
 constexpr int kQB = kWarps * kQPW;      // queries per block
 constexpr int kKC = 64;                 // keys per shared-memory chunk
+// shared floats of one attention tile: queries, keys (padded), values
+constexpr int kAttnSmemFloats =
+    kQB * kHeadDim + kKC * (kHeadDim + 1) + kKC * kHeadDim;
 
+// One (image, head) pair's kQB queries from q0 against one split of the
+// keys, in `smem` (kAttnSmemFloats). Starts with a barrier, so a block may
+// run several tiles in turn (k_s_stage does).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) k_attention(const AttnArgs a) {
-  __shared__ float sQ[kQB][kHeadDim];
-  __shared__ float sK[kKC][kHeadDim + 1];
-  __shared__ float sV[kKC][kHeadDim];
-  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.y * kQB;
-  const int split = blockIdx.z;
+__device__ __forceinline__ void attention_tile(const AttnArgs& a, int bh,
+                                               int q0, int split,
+                                               float* smem) {
+  float (*sQ)[kHeadDim] = reinterpret_cast<float (*)[kHeadDim]>(smem);
+  float (*sK)[kHeadDim + 1] =
+      reinterpret_cast<float (*)[kHeadDim + 1]>(smem + kQB * kHeadDim);
+  float (*sV)[kHeadDim] = reinterpret_cast<float (*)[kHeadDim]>(
+      smem + kQB * kHeadDim + kKC * (kHeadDim + 1));
+  const int b = bh / a.heads, h = bh % a.heads;
   const int kbeg = split * a.keys_per_split;
   const int kend = min(a.nk, kbeg + a.keys_per_split);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* __restrict__ Q = static_cast<const T*>(a.q);
-  const T* __restrict__ Kp = static_cast<const T*>(a.k);
-  const T* __restrict__ Vp = static_cast<const T*>(a.v);
+  // not restrict: k_s_stage writes q, k and v earlier in the same launch
+  const T* Q = static_cast<const T*>(a.q);
+  const T* Kp = static_cast<const T*>(a.k);
+  const T* Vp = static_cast<const T*>(a.v);
 
+  __syncthreads();  // a previous tile's reads of sQ / sK / sV are done
   for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
     const int qi = e / kHeadDim, t = e % kHeadDim, gq = q0 + qi;
     sQ[qi][t] = gq < a.nq ? to_f(Q[(size_t)(b * a.nq + gq) * a.ldq +
@@ -552,6 +647,12 @@ __global__ void __launch_bounds__(kThreads) k_attention(const AttnArgs a) {
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k_attention(const AttnArgs a) {
+  __shared__ float smem[kAttnSmemFloats];
+  attention_tile<T>(a, blockIdx.x, blockIdx.y * kQB, blockIdx.z, smem);
+}
+
 // One warp per (image, head, query): merge the splits' partial softmaxes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) k_attn_combine(const AttnArgs a) {
@@ -604,6 +705,7 @@ struct TailSeg {
   const float* s2;
   int seq;
   void* t1;
+  Cpe cpe;  // where cpe.taps is set: t is before its CPE (image rows)
 };
 
 // Two streams share one launch and the block's norm2 + MLP weights.
@@ -634,13 +736,18 @@ inline size_t tail_smem_bytes(int C, size_t elt) {
          align16(4 * kBK * (kTailBN + 1)) + 16 * kTailBM;
 }
 
-// Rows stay in shared memory from the projection to the output. sAcc holds
-// t1 + b2 in fp32 and then gathers fc2; LN2(t1) is stored once in T as
-// fc1's A operand; the hidden activation lives one BM x kTailBH chunk at a
-// time, so the 4C-wide hidden row never exists whole.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// Rows [row0, row0 + kTailBM) of one stream's tail, in `smem`
+// (tail_smem_bytes). Rows stay in shared memory from the projection to the
+// output. sAcc holds t1 + b2 in fp32 and then gathers fc2; LN2(t1) is stored
+// once in T as fc1's A operand; the hidden activation lives one BM x
+// kTailBH chunk at a time, so the 4C-wide hidden row never exists whole.
+// With kCpe and sg.cpe.taps set, t is the stream before its CPE and the
+// residual reads the CPE of its rows. t, o and out may be written earlier
+// in the same launch (k_s_stage), so they are not read as restrict.
+template <typename T, bool kCpe>
+__device__ __forceinline__ void tail_rows(const TailArgs& a,
+                                          const TailSeg& sg, int row0,
+                                          unsigned char* smem) {
   const int C = a.C;
   unsigned char* q = smem;
   float* sAcc = reinterpret_cast<float*>(q);
@@ -658,21 +765,14 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
   float* s_s1 = s_rstd + kTailBM;
   float* s_s2 = s_s1 + kTailBM;
 
-  int rb = blockIdx.x, si = 0;
-  if (rb >= a.row_blocks0) {
-    rb -= a.row_blocks0;
-    si = 1;
-  }
-  const TailSeg sg = a.seg[si];
-  const int row0 = rb * kTailBM;
   const int rows = min(kTailBM, sg.rows - row0);
   for (int r = threadIdx.x; r < kTailBM; r += kThreads) {
     const int img = sg.seq ? (row0 + r) / sg.seq : 0;
     s_s1[r] = (sg.s1 && r < rows) ? sg.s1[img] : 1.f;
     s_s2[r] = (sg.s2 && r < rows) ? sg.s2[img] : 1.f;
   }
-  const T* __restrict__ tin = static_cast<const T*>(sg.t) + (size_t)row0 * C;
-  const T* __restrict__ o = static_cast<const T*>(sg.o) + (size_t)row0 * C;
+  const T* tin = static_cast<const T*>(sg.t) + (size_t)row0 * C;
+  const T* o = static_cast<const T*>(sg.o) + (size_t)row0 * C;
   const T* __restrict__ bp = static_cast<const T*>(sg.bp);
   const T* __restrict__ g = static_cast<const T*>(a.ln_w);
   const T* __restrict__ beta = static_cast<const T*>(a.ln_b);
@@ -680,7 +780,13 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
   const T* __restrict__ b1 = static_cast<const T*>(a.b1);
   const T* __restrict__ w2 = static_cast<const T*>(a.w2);
   const T* __restrict__ b2 = static_cast<const T*>(a.b2);
-  T* __restrict__ out = static_cast<T*>(sg.out) + (size_t)row0 * C;
+  T* out = static_cast<T*>(sg.out) + (size_t)row0 * C;
+  const CpeRows<T> tcpe{tin, C, rows, row0, sg.cpe};
+  const auto t_at = [&](int r, int n) {
+    if constexpr (kCpe)
+      if (sg.cpe.taps) return tcpe(r, n);
+    return to_f(tin[(size_t)r * C + n]);
+  };
 
   // 1. t1 = t + s1 (o @ Wp^T + bp), in fp32 (tile_gemm's first barrier
   //    orders the scale loads above before the epilogue reads them)
@@ -688,9 +794,8 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
     tile_gemm<kTailBM, kTailBN>(
         Rows<T>{o, C, rows}, static_cast<const T*>(sg.wp), C, C, n0, C, sA,
         sW, [&](int r, int n, float v) {
-          sAcc[r * C + n] = r < rows ? s_s1[r] * (v + to_f(bp[n])) +
-                                           to_f(tin[(size_t)r * C + n])
-                                     : 0.f;
+          sAcc[r * C + n] =
+              r < rows ? s_s1[r] * (v + to_f(bp[n])) + t_at(r, n) : 0.f;
         });
   __syncthreads();
   if (sg.t1) {
@@ -735,20 +840,46 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
     out[e] = from_f<T>(sAcc[e]);
 }
 
+template <typename T, bool kCpe>
+__global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int rb = blockIdx.x, si = 0;
+  if (rb >= a.row_blocks0) {
+    rb -= a.row_blocks0;
+    si = 1;
+  }
+  tail_rows<T, kCpe>(a, a.seg[si], rb * kTailBM, smem);
+}
+
+// Sets k's dynamic shared memory limit to `bytes` once per size increase
+// (attr_bytes: the largest granted so far, one per kernel instance).
+template <typename Kernel>
+int grant_smem(Kernel k, size_t bytes, size_t& attr_bytes) {
+  if (bytes <= attr_bytes) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  attr_bytes = bytes;
+  return 0;
+}
+
+template <typename T, bool kCpe>
+int launch_tail_inst(const TailArgs& a, cudaStream_t s) {
+  static size_t attr_bytes = 0;
+  const size_t bytes = tail_smem_bytes(a.C, sizeof(T));
+  if (const int err = grant_smem(k_block_tail<T, kCpe>, bytes, attr_bytes))
+    return err;
+  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kTailBM);
+  k_block_tail<T, kCpe><<<blocks, kThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The CPE reading residual is its own instance, as k_linear_ln's modes are.
 template <typename T>
 int launch_tail(const TailArgs& a, cudaStream_t s) {
-  static size_t attr_bytes = 0;  // largest dynamic size granted so far
-  const size_t bytes = tail_smem_bytes(a.C, sizeof(T));
-  if (bytes > attr_bytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k_block_tail<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    attr_bytes = bytes;
-  }
-  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kTailBM);
-  k_block_tail<T><<<blocks, kThreads, bytes, s>>>(a);
-  return (int)cudaGetLastError();
+  if (a.seg[0].cpe.taps || a.seg[1].cpe.taps)
+    return launch_tail_inst<T, true>(a, s);
+  return launch_tail_inst<T, false>(a, s);
 }
 
 // p[i] as a typed pointer (the host passes every tensor as void*).

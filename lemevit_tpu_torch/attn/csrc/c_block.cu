@@ -11,6 +11,10 @@
 //      k_attn_combine merges them. The TPU carried these across sequential
 //      grid steps; GPU blocks run in no order, hence the second pass.
 //   3. k_block_tail on the B*M meta rows.
+// cpe mode (taps and bias given, x before its CPE): only the kv product's A
+// operand sees the CPE'd rows (LnCpeRows: each row's 3x3 neighbourhood is
+// read where the prologue stages it); x passes through unchanged, so nothing
+// CPE'd is ever written.
 // Bound on the H100: bytes. Each image row is read once and costs ~4 C^2
 // operations (the kv projection), 2 C per byte of bf16 input: 192 at C = 96,
 // below the card's bf16 line of ~295. It still round-trips kv (B*N*2C,
@@ -22,7 +26,7 @@ namespace {
 
 template <typename T>
 int c_block(const void* const* p, int B, int N, int M, int C, int H,
-            int hidden, int keys_per_split, float scale, float eps,
+            int hidden, int keys_per_split, int img_w, float scale, float eps,
             cudaStream_t s) {
   LinArgs la{};
   la.seg[0] = {p[1], p[4], p[5], mp<T>(p, 17), B * M, C};
@@ -32,6 +36,8 @@ int c_block(const void* const* p, int B, int N, int M, int C, int H,
   la.ln_b = p[3];
   la.K = C;
   la.eps = eps;
+  la.cpe = {p[23], p[24], img_w, N};
+  la.cpe_seg = 1;
   int err = launch_linear<T>(la, 2 * C, s);
   if (err) return err;
 
@@ -77,15 +83,17 @@ int c_block(const void* const* p, int B, int N, int M, int C, int H,
 
 // p: x, c, ln1_w, ln1_b, wq, bq, wkv, bkv, wp, bp, ln2_w, ln2_b, w1, b1, w2,
 //    b2 | c_out | workspace q (B*M, C), kv (B*N, 2C), o (B*M, C),
-//    pm, pl (B*H*splits*M floats), pacc (B*H*splits*M*32 floats).
+//    pm, pl (B*H*splits*M floats), pacc (B*H*splits*M*32 floats) |
+//    cpe_taps (9, C), cpe_bias (C,), both null without the CPE (then x is
+//    after it; img_w is the image width, N = H * img_w).
 // dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t code.
 extern "C" int lm_c_block(int dtype, const void* const* p, int B, int N,
                           int M, int C, int H, int hidden, int keys_per_split,
-                          float scale, float eps, void* stream) {
+                          int img_w, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return lm::c_block<float>(p, B, N, M, C, H, hidden, keys_per_split,
-                              scale, eps, s);
+                              img_w, scale, eps, s);
   return lm::c_block<__nv_bfloat16>(p, B, N, M, C, H, hidden, keys_per_split,
-                                    scale, eps, s);
+                                    img_w, scale, eps, s);
 }

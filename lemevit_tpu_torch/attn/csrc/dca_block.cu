@@ -18,6 +18,11 @@
 // products run on mma.sync from shared-memory tiles staged by plain loads
 // (no TMA, no wgmma, no pipelining yet). Round trips through device memory:
 // qkv1 (3x the size of x) and the x-direction attention output.
+// cpe mode (taps and bias given, x before its CPE): k_linear_ln's x rows
+// are LayerNormed after their CPE (LnCpeRows, the 3x3 neighbourhood read
+// where the prologue stages a row), and k_block_tail recomputes the CPE of
+// its rows for the residual rather than reading a CPE'd copy of x: no
+// workspace, one more pass over x's neighbourhoods in the tail.
 #include "block_common.cuh"
 
 namespace lm {
@@ -25,8 +30,9 @@ namespace {
 
 template <typename T>
 int dca_block(const void* const* p, int B, int N, int M, int C, int H,
-              int hidden, int keys_per_split, float scale_x, float scale_c,
-              float eps, cudaStream_t s) {
+              int hidden, int keys_per_split, int img_w, float scale_x,
+              float scale_c, float eps, cudaStream_t s) {
+  const Cpe cpe{p[27], p[28], img_w, N};
   LinArgs la{};
   la.seg[0] = {p[0], p[4], p[5], mp<T>(p, 20), B * N, 3 * C};
   la.seg[1] = {p[1], p[6], p[7], mp<T>(p, 21), B * M, 3 * C};
@@ -35,6 +41,8 @@ int dca_block(const void* const* p, int B, int N, int M, int C, int H,
   la.ln_b = p[3];
   la.K = C;
   la.eps = eps;
+  la.cpe = cpe;
+  la.cpe_seg = 0;
   int err = launch_linear<T>(la, 3 * C, s);
   if (err) return err;
 
@@ -81,6 +89,7 @@ int dca_block(const void* const* p, int B, int N, int M, int C, int H,
 
   TailArgs ta{};
   ta.seg[0] = {p[0], p[22], p[8], p[9], mp<T>(p, 18), B * N};
+  ta.seg[0].cpe = cpe;
   ta.seg[1] = {p[1], p[23], p[10], p[11], mp<T>(p, 19), B * M};
   ta.row_blocks0 = cdiv(B * N, kTailBM);
   ta.ln_w = p[12];
@@ -101,16 +110,17 @@ int dca_block(const void* const* p, int B, int N, int M, int C, int H,
 // p: x, c, ln1_w, ln1_b, wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc,
 //    ln2_w, ln2_b, w1, b1, w2, b2 | x_out, c_out | workspace qkv1 (B*N, 3C),
 //    qkv2 (B*M, 3C), ax (B*N, C), ac (B*M, C), pm, pl (B*H*splits*M floats),
-//    pacc (B*H*splits*M*32 floats).
+//    pacc (B*H*splits*M*32 floats) | cpe_taps (9, C), cpe_bias (C,), null
+//    without the CPE (img_w: the image width, N = H * img_w).
 extern "C" int lm_dca_block(int dtype, const void* const* p, int B, int N,
                             int M, int C, int H, int hidden,
-                            int keys_per_split, float scale_x, float scale_c,
-                            float eps, void* stream) {
+                            int keys_per_split, int img_w, float scale_x,
+                            float scale_c, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return lm::dca_block<float>(p, B, N, M, C, H, hidden, keys_per_split,
-                                scale_x, scale_c, eps, s);
+                                img_w, scale_x, scale_c, eps, s);
   return lm::dca_block<__nv_bfloat16>(p, B, N, M, C, H, hidden,
-                                      keys_per_split, scale_x, scale_c, eps,
-                                      s);
+                                      keys_per_split, img_w, scale_x, scale_c,
+                                      eps, s);
 }

@@ -14,6 +14,9 @@
 // loads; the tail re-stages every weight for each 32-row block, which
 // wgmma with TMA multicast or larger row blocks would cut. Round trips
 // through device memory: qkv (3x the size of x) and the attention output.
+// cpe mode (taps and bias given, x before its CPE; the TPU kernels'
+// _cpe_flat): as dca_block.cu's, the qkv prologue LayerNorms the CPE'd rows
+// and the tail recomputes the CPE of its rows for the residual.
 #include "block_common.cuh"
 
 namespace lm {
@@ -21,7 +24,8 @@ namespace {
 
 template <typename T>
 int s_block(const void* const* p, int B, int N, int M, int C, int H,
-            int hidden, float scale, float eps, cudaStream_t s) {
+            int hidden, int img_w, float scale, float eps, cudaStream_t s) {
+  const Cpe cpe{p[20], p[21], img_w, N};
   LinArgs la{};
   la.seg[0] = {p[0], p[4], p[5], mp<T>(p, 16), B * N, 3 * C};
   la.seg[1] = {p[1], p[4], p[5], mp<T>(p, 17), B * M, 3 * C};
@@ -30,6 +34,8 @@ int s_block(const void* const* p, int B, int N, int M, int C, int H,
   la.ln_b = p[3];
   la.K = C;
   la.eps = eps;
+  la.cpe = cpe;
+  la.cpe_seg = 0;
   int err = launch_linear<T>(la, 3 * C, s);
   if (err) return err;
 
@@ -57,6 +63,7 @@ int s_block(const void* const* p, int B, int N, int M, int C, int H,
 
   TailArgs ta{};
   ta.seg[0] = {p[0], p[18], p[6], p[7], mp<T>(p, 14), B * N};
+  ta.seg[0].cpe = cpe;
   ta.seg[1] = {p[1], p[19], p[6], p[7], mp<T>(p, 15), B * M};
   ta.row_blocks0 = cdiv(B * N, kTailBM);
   ta.ln_w = p[8];
@@ -76,14 +83,16 @@ int s_block(const void* const* p, int B, int N, int M, int C, int H,
 
 // p: x, c, ln1_w, ln1_b, wqkv, bqkv, wp, bp, ln2_w, ln2_b, w1, b1, w2, b2 |
 //    x_out, c_out | workspace qkv_x (B*N, 3C), qkv_c (B*M, 3C),
-//    o_x (B*N, C), o_c (B*M, C).
+//    o_x (B*N, C), o_c (B*M, C) | cpe_taps (9, C), cpe_bias (C,), null
+//    without the CPE (img_w: the image width, N = H * img_w).
 extern "C" int lm_s_block(int dtype, const void* const* p, int B, int N,
-                          int M, int C, int H, int hidden, float scale,
-                          float eps, void* stream) {
+                          int M, int C, int H, int hidden, int img_w,
+                          float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::s_block<float>(p, B, N, M, C, H, hidden, scale, eps, s);
-  return lm::s_block<__nv_bfloat16>(p, B, N, M, C, H, hidden, scale, eps, s);
+    return lm::s_block<float>(p, B, N, M, C, H, hidden, img_w, scale, eps, s);
+  return lm::s_block<__nv_bfloat16>(p, B, N, M, C, H, hidden, img_w, scale,
+                                    eps, s);
 }
 
 // Message for a code returned by any lm_* entry point.

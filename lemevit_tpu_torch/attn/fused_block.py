@@ -1,26 +1,33 @@
-"""Whole-block LeMeBlock kernels for inference: C, D (and D2) and S blocks.
+"""Whole-block LeMeBlock kernels for inference: C, D (and D2) and S blocks,
+and a whole stage of S blocks.
 
 Each public function takes the block's input tokens and a parameter tuple in
 the order of ``lemevit_tpu.attn.pallas_block`` (norm1, attention
 projections, norm2, MLP), with every matrix in torch ``nn.Linear`` layout
 (out_features, in_features), and returns the block's output tokens:
 
-  c_block(x, c, params, num_heads)                       -> c
-  dca_block(x, c, params, num_heads, scale_x, scale_c)   -> (x, c)
-  s_block(x, c, params, num_heads)                       -> (x, c)
+  c_block(x, c, params, num_heads, cpe, img_w)                      -> c
+  dca_block(x, c, params, num_heads, scale_x, scale_c, cpe, img_w)  -> (x, c)
+  s_block(x, c, params, num_heads, cpe, img_w)                      -> (x, c)
+  s_stage(x, c, params_list, num_heads, cpes, img_w)                -> (x, c)
 
-x is (B, N, C) image tokens *after* the conditional position embedding (the
-3x3 depthwise CPE runs outside, as a ``F.conv2d``); c is (B, M, C) meta
-tokens. Pre-norm, no layer-scale, no DropPath: the inference form of every
-released LeMeViT variant.
+x is (B, N, C) image tokens, N = H * img_w; c is (B, M, C) meta tokens.
+Without ``cpe`` x is after the conditional position embedding (the 3x3
+depthwise CPE ran outside, as a ``F.conv2d``). With ``cpe`` = (taps (9, C)
+in (ky, kx) order, bias (C,)) x is *before* it and the kernel applies it
+(``cpe_plain`` is the same function in PyTorch); the C block returns only c,
+the D and S blocks return the CPE'd stream's update. ``s_stage`` runs one
+``s_block`` per parameter tuple in one launch, each with its own pair of
+``cpes`` (or none). Pre-norm, no layer-scale, no DropPath: the inference
+form of every released LeMeViT variant.
 
 For a CUDA tensor a function launches its hand-written kernel
-(``csrc/{c,dca,s}_block.cu``, built by ``_build``) or raises; for a CPU
-tensor it runs its ``*_plain`` version, the PyTorch composition the kernels
-are tested against. The TPU kernels applied the LayerNorm affine by folding
-it into the next matmul's weights; here the kernels apply LayerNorm
-(statistics and affine) in the prologue of the product it feeds, so nothing
-is folded and the weights are used as given.
+(``csrc/{c,dca,s}_block.cu``, ``csrc/s_stage.cu``, built by ``_build``) or
+raises; for a CPU tensor it runs its ``*_plain`` version, the PyTorch
+composition the kernels are tested against. The TPU kernels applied the
+LayerNorm affine by folding it into the next matmul's weights; here the
+kernels apply LayerNorm (statistics and affine) in the prologue of the
+product it feeds, so nothing is folded and the weights are used as given.
 
 ``LAUNCHES[name]`` counts kernel launches of each block (one per call on
 CUDA tensors; the plain versions do not count).
@@ -39,8 +46,9 @@ LN_EPS = 1e-6          # the blocks' norm1 / norm2
 HEAD_DIM = 32          # the kernels assign one lane per head channel
 KEYS_PER_SPLIT = 256   # image keys per block in the meta-query direction
 MAX_DIM = 640          # the tail keeps (32, C) rows on chip
+MAX_N_STAGE = 1024     # lemevit_tpu/attn/pallas_block.py:38 _MAX_N_SBLOCK
 
-LAUNCHES = {"c_block": 0, "dca_block": 0, "s_block": 0}
+LAUNCHES = {"c_block": 0, "dca_block": 0, "s_block": 0, "s_stage": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,9 +64,28 @@ def _mlp_residual(t, ln_w, ln_b, w1, b1, w2, b2):
     return t + F.linear(F.gelu(F.linear(_ln(t, ln_w, ln_b), w1, b1)), w2, b2)
 
 
-def c_block_plain(x, c, params, *, num_heads: int) -> torch.Tensor:
+def cpe_plain(x, taps, bias, img_w: int) -> torch.Tensor:
+    """The conditional position embedding x + dwconv3x3(x) + bias of (B, N,
+    C) tokens from images img_w wide, zero-padded at each image's edges: a
+    depthwise ``F.conv2d`` on the NHWC view, as ``core/layers.py::DWConv``
+    computes it. taps (9, C) in (ky, kx) order, bias (C,)."""
+    b, n, ch = x.shape
+    img = x.reshape(b, n // img_w, img_w, ch).permute(0, 3, 1, 2)
+    y = F.conv2d(img, taps.t().reshape(ch, 1, 3, 3), bias, padding=1,
+                 groups=ch)
+    return x + y.permute(0, 2, 3, 1).reshape(b, n, ch)
+
+
+def _with_cpe(x, cpe, img_w):
+    return x if cpe is None else cpe_plain(x, *cpe, img_w)
+
+
+def c_block_plain(x, c, params, *, num_heads: int, cpe=None,
+                  img_w: int = 0) -> torch.Tensor:
     """Pre-norm C block: c attends to LN1(x) (keys/values), proj, residual,
-    norm2 + MLP. Returns the new c."""
+    norm2 + MLP. Returns the new c. With ``cpe`` the keys and values come
+    from the CPE of x."""
+    x = _with_cpe(x, cpe, img_w)
     (ln1w, ln1b, wq, bq, wkv, bkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2) = params
     b, n, ch = x.shape
     m = c.shape[1]
@@ -71,10 +98,13 @@ def c_block_plain(x, c, params, *, num_heads: int) -> torch.Tensor:
 
 
 def dca_block_plain(x, c, params, *, num_heads: int, scale_x: float,
-                    scale_c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                    scale_c: float, cpe=None, img_w: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm D block: x attends to the meta tokens, c to the image
     tokens (both from the block's input), proj_x / proj_c, residuals and
-    the shared norm2 + MLP on both streams."""
+    the shared norm2 + MLP on both streams. With ``cpe`` x first goes
+    through its CPE."""
+    x = _with_cpe(x, cpe, img_w)
     (ln1w, ln1b, wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc,
      ln2w, ln2b, w1, b1, w2, b2) = params
     b, n, ch = x.shape
@@ -92,9 +122,11 @@ def dca_block_plain(x, c, params, *, num_heads: int, scale_x: float,
             _mlp_residual(c1, ln2w, ln2b, w1, b1, w2, b2))
 
 
-def s_block_plain(x, c, params, *, num_heads: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm S block applied to x and, with the same weights, to c."""
+def s_block_plain(x, c, params, *, num_heads: int, cpe=None,
+                  img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm S block applied to x (after its CPE, with ``cpe``) and, with
+    the same weights, to c."""
+    x = _with_cpe(x, cpe, img_w)
     (ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2) = params
 
     def branch(t):
@@ -109,12 +141,47 @@ def s_block_plain(x, c, params, *, num_heads: int
     return branch(x), branch(c)
 
 
+def s_stage_plain(x, c, params_list, *, num_heads: int, cpes=None,
+                  img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A stage of S blocks: ``s_block_plain`` with each block's parameters
+    and CPE (``cpes[j]``, or none) in turn."""
+    for j, params in enumerate(params_list):
+        x, c = s_block_plain(x, c, params, num_heads=num_heads,
+                             cpe=None if cpes is None else cpes[j],
+                             img_w=img_w)
+    return x, c
+
+
+def stage_takes(n: int, m: int, ch: int, num_heads: int, n_blocks: int,
+                cpes=None) -> bool:
+    """Whether a stage of ``n_blocks`` S blocks goes to ``s_stage``: the
+    JAX package's ``pallas_block.s_stage`` declines (returns None) for fewer
+    than 2 blocks, more than 1024 image tokens, C not divisible by the
+    heads, M not a multiple of 8, or blocks of which some have a CPE and
+    others not (``cpes`` given with a None in it)."""
+    return (n_blocks >= 2 and n <= MAX_N_STAGE and ch % num_heads == 0
+            and m % 8 == 0
+            and (cpes is None or all(cp is not None for cp in cpes)))
+
+
 # ---------------------------------------------------------------- CUDA
 
 
 def _check(name: str, x, c, params: Sequence[torch.Tensor], num_heads: int,
-           hidden: int) -> None:
-    """Raise on what the kernel does not take."""
+           hidden: int, cpe=None, img_w: int = 0) -> None:
+    """Raise on what the kernel does not take. ``cpe``: the (taps, bias)
+    pair the kernel applies to x, images img_w wide."""
+    if cpe is not None:
+        ch, n = x.shape[-1], x.shape[1]
+        taps, bias = cpe
+        if tuple(taps.shape) != (9, ch) or tuple(bias.shape) != (ch,):
+            raise ValueError(f"{name}: CPE taps (9, {ch}) and bias ({ch},) "
+                             f"expected, got {tuple(taps.shape)} and "
+                             f"{tuple(bias.shape)}")
+        if img_w <= 0 or n % img_w:
+            raise ValueError(f"{name}: N={n} tokens are not whole rows of "
+                             f"an image {img_w} wide")
+        params = [*params, taps, bias]
     if x.dim() != 3 or c.dim() != 3 or x.shape[0] != c.shape[0] \
             or x.shape[2] != c.shape[2]:
         raise ValueError(f"{name}: x (B,N,C) and c (B,M,C) expected, got "
@@ -154,7 +221,8 @@ def _launch(name: str, x: torch.Tensor, tensors, *scalars,
     add one to counts[name]."""
     from lemevit_tpu_torch.attn import _build
     lib = _build.library()
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[0 if t is None else t.data_ptr() for t in tensors])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = getattr(lib, f"lm_{name}")(_DTYPES[x.dtype], ptrs, *scalars,
@@ -171,15 +239,17 @@ def _partials(b, h, m, n, device):
             torch.empty(b * h * splits * m * HEAD_DIM, **f32))
 
 
-def c_block(x, c, params, *, num_heads: int) -> torch.Tensor:
+def c_block(x, c, params, *, num_heads: int, cpe=None,
+            img_w: int = 0) -> torch.Tensor:
     """Fused C block; see the module docstring. params = (ln1_w, ln1_b, Wq,
     bq, Wkv, bkv, Wproj, bproj, ln2_w, ln2_b, W1, b1, W2, b2)."""
     if not x.is_cuda:
-        return c_block_plain(x, c, params, num_heads=num_heads)
+        return c_block_plain(x, c, params, num_heads=num_heads, cpe=cpe,
+                             img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     hidden = params[10].shape[0]
-    _check("c_block", x, c, params, num_heads, hidden)
+    _check("c_block", x, c, params, num_heads, hidden, cpe, img_w)
     _check_shapes("c_block", params, [
         (ch,), (ch,), (ch, ch), (ch,), (2 * ch, ch), (2 * ch,), (ch, ch),
         (ch,), (ch,), (ch,), (hidden, ch), (hidden,), (ch, hidden), (ch,)])
@@ -188,23 +258,31 @@ def c_block(x, c, params, *, num_heads: int) -> torch.Tensor:
     work = [torch.empty(b * m, ch, **ws), torch.empty(b * n, 2 * ch, **ws),
             torch.empty(b * m, ch, **ws),
             *_partials(b, num_heads, m, n, x.device)]
-    _launch("c_block", x, [x, c, *params, co, *work], b, n, m, ch, num_heads,
-            hidden, KEYS_PER_SPLIT, HEAD_DIM ** -0.5, LN_EPS)
+    _launch("c_block", x, [x, c, *params, co, *work, *_cpe_ptrs(cpe)], b, n,
+            m, ch, num_heads, hidden, KEYS_PER_SPLIT, img_w,
+            HEAD_DIM ** -0.5, LN_EPS)
     return co
 
 
+def _cpe_ptrs(cpe):
+    """The (taps, bias) tensors a kernel reads, or two nulls."""
+    return (None, None) if cpe is None else cpe
+
+
 def dca_block(x, c, params, *, num_heads: int, scale_x: float,
-              scale_c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+              scale_c: float, cpe=None, img_w: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused D block; see the module docstring. params = (ln1_w, ln1_b,
     Wqkv1, bqkv1, Wqkv2, bqkv2, Wproj_x, bproj_x, Wproj_c, bproj_c, ln2_w,
     ln2_b, W1, b1, W2, b2)."""
     if not x.is_cuda:
         return dca_block_plain(x, c, params, num_heads=num_heads,
-                               scale_x=scale_x, scale_c=scale_c)
+                               scale_x=scale_x, scale_c=scale_c, cpe=cpe,
+                               img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     hidden = params[12].shape[0]
-    _check("dca_block", x, c, params, num_heads, hidden)
+    _check("dca_block", x, c, params, num_heads, hidden, cpe, img_w)
     _check_shapes("dca_block", params, [
         (ch,), (ch,), (3 * ch, ch), (3 * ch,), (3 * ch, ch), (3 * ch,),
         (ch, ch), (ch,), (ch, ch), (ch,), (ch,), (ch,), (hidden, ch),
@@ -215,29 +293,76 @@ def dca_block(x, c, params, *, num_heads: int, scale_x: float,
     work = [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
             torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws),
             *_partials(b, num_heads, m, n, x.device)]
-    _launch("dca_block", x, [x, c, *params, xo, co, *work], b, n, m, ch,
-            num_heads, hidden, KEYS_PER_SPLIT, scale_x, scale_c, LN_EPS)
+    _launch("dca_block", x, [x, c, *params, xo, co, *work, *_cpe_ptrs(cpe)],
+            b, n, m, ch, num_heads, hidden, KEYS_PER_SPLIT, img_w, scale_x,
+            scale_c, LN_EPS)
     return xo, co
 
 
-def s_block(x, c, params, *, num_heads: int
+def _s_shapes(ch, hidden):
+    return [(ch,), (ch,), (3 * ch, ch), (3 * ch,), (ch, ch), (ch,), (ch,),
+            (ch,), (hidden, ch), (hidden,), (ch, hidden), (ch,)]
+
+
+def _s_work(b, n, m, ch, like):
+    """qkv and attention-output workspaces of both streams."""
+    ws = dict(dtype=like.dtype, device=like.device)
+    return [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
+            torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws)]
+
+
+def s_block(x, c, params, *, num_heads: int, cpe=None, img_w: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused S block; see the module docstring. params = (ln1_w, ln1_b,
     Wqkv, bqkv, Wproj, bproj, ln2_w, ln2_b, W1, b1, W2, b2)."""
     if not x.is_cuda:
-        return s_block_plain(x, c, params, num_heads=num_heads)
+        return s_block_plain(x, c, params, num_heads=num_heads, cpe=cpe,
+                             img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     hidden = params[8].shape[0]
-    _check("s_block", x, c, params, num_heads, hidden)
-    _check_shapes("s_block", params, [
-        (ch,), (ch,), (3 * ch, ch), (3 * ch,), (ch, ch), (ch,), (ch,), (ch,),
-        (hidden, ch), (hidden,), (ch, hidden), (ch,)])
-    ws = dict(dtype=x.dtype, device=x.device)
+    _check("s_block", x, c, params, num_heads, hidden, cpe, img_w)
+    _check_shapes("s_block", params, _s_shapes(ch, hidden))
     xo = torch.empty_like(x)
     co = torch.empty_like(c)
-    work = [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
-            torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws)]
-    _launch("s_block", x, [x, c, *params, xo, co, *work], b, n, m, ch,
-            num_heads, hidden, HEAD_DIM ** -0.5, LN_EPS)
+    _launch("s_block", x, [x, c, *params, xo, co, *_s_work(b, n, m, ch, x),
+                           *_cpe_ptrs(cpe)],
+            b, n, m, ch, num_heads, hidden, img_w, HEAD_DIM ** -0.5, LN_EPS)
+    return xo, co
+
+
+def s_stage(x, c, params_list, *, num_heads: int, cpes=None,
+            img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A stage of fused S blocks in one launch (``csrc/s_stage.cu``); see
+    the module docstring. params_list: one ``s_block`` parameter tuple per
+    block; cpes: one (taps (9, C), bias (C,)) pair per block, or None. A
+    CUDA call that ``stage_takes`` declines raises."""
+    if not x.is_cuda:
+        return s_stage_plain(x, c, params_list, num_heads=num_heads,
+                             cpes=cpes, img_w=img_w)
+    b, n, ch = x.shape
+    m = c.shape[1]
+    nb = len(params_list)
+    if not stage_takes(n, m, ch, num_heads, nb, cpes):
+        raise ValueError(f"s_stage: {nb} blocks at N={n}, M={m}, C={ch}, "
+                         f"{num_heads} heads are not taken (stage_takes)")
+    hidden = params_list[0][8].shape[0]
+    for j, params in enumerate(params_list):
+        cpe = None if cpes is None else cpes[j]
+        _check("s_stage", x, c, params, num_heads, hidden, cpe, img_w)
+        _check_shapes("s_stage", params, _s_shapes(ch, hidden))
+    blocks = [t for j, params in enumerate(params_list)
+              for t in (*params, *_cpe_ptrs(None if cpes is None
+                                            else cpes[j]))]
+    # the blocks' pointers, copied from pinned memory on x's stream
+    table = torch.tensor([0 if t is None else t.data_ptr() for t in blocks],
+                         dtype=torch.int64).pin_memory().to(
+                             x.device, non_blocking=True)
+    xo = torch.empty_like(x)
+    co = torch.empty_like(c)
+    xa = None if cpes is None else torch.empty_like(x)
+    _launch("s_stage", x, [x, c, xo, co, xa, *_s_work(b, n, m, ch, x),
+                           table],
+            nb, b, n, m, ch, num_heads, hidden, img_w, int(cpes is not None),
+            HEAD_DIM ** -0.5, LN_EPS)
     return xo, co

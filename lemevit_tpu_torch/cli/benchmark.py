@@ -9,6 +9,7 @@ hand-written training kernels.
 
 Usage:
   python -m lemevit_tpu_torch.cli.benchmark --model lemevit_base --bench inference
+  python -m lemevit_tpu_torch.cli.benchmark --model lemevit_base --bench inference --s-stage --cpe-in-kernel
   python -m lemevit_tpu_torch.cli.benchmark --model lemevit_tiny --bench train --batch-size 64
 """
 from __future__ import annotations
@@ -30,6 +31,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn-backend", default="auto", choices=list(BACKENDS),
                    help="block dispatch: 'torch' bypasses the fused CUDA "
                         "kernels (escape hatch)")
+    p.add_argument("--s-stage", action="store_true",
+                   help="inference: each S stage of 2+ blocks in one "
+                        "s_stage kernel launch (the JAX PB_S_STAGE=1)")
+    p.add_argument("--cpe-in-kernel", action="store_true",
+                   help="inference: the block kernels apply the 3x3 CPE "
+                        "to pre-CPE tokens (the JAX PB_{S,D,C}_CPE=1)")
     p.add_argument("--bench", default="inference",
                    choices=["inference", "train", "both", "profile"])
     p.add_argument("--batch-size", type=int, default=256)
@@ -120,6 +127,8 @@ def benchmark(args) -> dict:
             def make(dt):
                 return create_model(args.model, num_classes=args.num_classes,
                                      attn_backend=args.attn_backend,
+                                     s_stage=args.s_stage,
+                                     cpe_in_kernel=args.cpe_in_kernel,
                                      device=device, dtype=dt)
             g = torch.Generator().manual_seed(0)
             x = torch.randn(batch_size, args.img_size, args.img_size, 3,

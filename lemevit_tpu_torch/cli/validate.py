@@ -6,6 +6,7 @@ decode and ReaL labels are not ported yet and raise.
 
 Usage:
   python -m lemevit_tpu_torch.cli.validate --model lemevit_base --synthetic
+  python -m lemevit_tpu_torch.cli.validate --model lemevit_base --synthetic --s-stage --cpe-in-kernel
 """
 from __future__ import annotations
 
@@ -33,6 +34,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--native-decode", action=argparse.BooleanOptionalAction,
                    default=None)
     p.add_argument("--packed-data", default="")
+    p.add_argument("--s-stage", action="store_true",
+                   help="inference: each S stage of 2+ blocks in one "
+                        "s_stage kernel launch (the JAX PB_S_STAGE=1)")
+    p.add_argument("--cpe-in-kernel", action="store_true",
+                   help="inference: the block kernels apply the 3x3 CPE "
+                        "to pre-CPE tokens (the JAX PB_{S,D,C}_CPE=1)")
     p.add_argument("--bf16", action="store_true", default=None,
                    help="bfloat16 weights and activations (default on CUDA)")
     p.add_argument("--device", default="cuda",
@@ -66,6 +73,8 @@ def validate(args) -> dict:
     bf16 = args.bf16 if args.bf16 is not None else device.type == "cuda"
     dtype = torch.bfloat16 if bf16 else torch.float32
     model = create_model(args.model, num_classes=args.num_classes,
+                         s_stage=args.s_stage,
+                         cpe_in_kernel=args.cpe_in_kernel,
                          device=device, dtype=dtype)
     if args.checkpoint:
         load_pretrained(model, args.checkpoint, use_ema=args.use_ema)

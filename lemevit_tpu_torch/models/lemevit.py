@@ -21,8 +21,13 @@ would run its kernel at that token count (``kernel_takes``):
     attn/fused_train.py (autograd Functions), for C, D/D2 and S blocks,
     with the LayerNorm affines folded into the next product outside them
     and D2 mapped onto the D kernels by the same weight permutation.
-The CPE stays outside the kernels as a depthwise conv. Any other block
-(post-norm, layer-scale, MLP dwconv, or above the token counts:
+By default the CPE stays outside the kernels as a depthwise conv; with
+``cpe_in_kernel`` the inference kernels take the pre-CPE tokens and apply a
+3x3 CPE themselves (the JAX package's ``PB_{S,D,C}_CPE=1``; training keeps
+it outside, as its default ``PB_TRAIN_CPE=ext`` does). With ``s_stage`` an
+inference forward runs each "S" stage of two or more blocks as one
+``fused_block.s_stage`` launch, its CPEs inside (``PB_S_STAGE=1``). Any
+other block (post-norm, layer-scale, MLP dwconv, or above the token counts:
 segmentation at 512^2, where stages 0-2 see 16384 and 4096 image tokens)
 composes its norms, residuals and MLP, and its attention module hands the
 attention to the attention-only kernels of attn/dca.py and attn/mhsa.py
@@ -97,7 +102,7 @@ class LeMeBlock(nn.Module):
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  layer_scale_init_value: float = -1.0, cpe_ks: int = 3,
                  pre_norm: bool = True, mlp_dwconv: bool = False,
-                 attn_backend: str = "auto"):
+                 attn_backend: str = "auto", cpe_in_kernel: bool = False):
         super().__init__()
         if attn_type not in _ATTN:
             raise ValueError(f"unknown attn_type {attn_type!r}")
@@ -105,6 +110,8 @@ class LeMeBlock(nn.Module):
             raise ValueError(f"attn_backend must be one of {BACKENDS}")
         self.attn_type = attn_type
         self.num_heads = num_heads
+        # the inference kernels apply a 3x3 CPE to pre-CPE tokens
+        self.cpe_in_kernel = cpe_in_kernel
         self.pre_norm = pre_norm
         self.mlp_dwconv = mlp_dwconv
         self.pos_embed = DWConv(dim, cpe_ks) if cpe_ks > 0 else None
@@ -136,6 +143,28 @@ class LeMeBlock(nn.Module):
 
     def _cpe(self, x):
         return x if self.pos_embed is None else x + self.pos_embed(x)
+
+    def cpe_weights(self):
+        """The CPE as the kernels take it: (taps (9, C) in (ky, kx) order,
+        bias (C,)), or None where the block has no CPE (cpe_ks 0). Raises
+        LookupError for a kernel size other than 3, as the JAX package's
+        _cpe_weights does."""
+        if self.pos_embed is None:
+            return None
+        if self.pos_embed.kernel_size != (3, 3):
+            raise LookupError("the kernels' CPE is 3x3 only")
+        w = self.pos_embed.weight  # (C, 1, 3, 3)
+        return w.reshape(w.shape[0], 9).t().contiguous(), self.pos_embed.bias
+
+    def _kernel_cpe(self):
+        """The CPE the inference kernels apply (cpe_in_kernel and a 3x3
+        CPE), else None: the CPE, if any, runs outside."""
+        if not self.cpe_in_kernel:
+            return None
+        try:
+            return self.cpe_weights()
+        except LookupError:
+            return None
 
     def _scaled(self, gamma: str, t):
         return getattr(self, gamma) * t if self.use_layer_scale else t
@@ -252,7 +281,8 @@ class LeMeBlock(nn.Module):
         if train and dp is None:
             dp = self.dp_scales(b, x.device)
         s1x, s2x, s1c, s2c = (None,) * 4 if dp is None else dp
-        xt = self._cpe(x).reshape(b, h * w, ch)
+        cpe = self._kernel_cpe() if fused and infer else None
+        xt = (x if cpe is not None else self._cpe(x)).reshape(b, h * w, ch)
         if fused and train:
             xo, co = self._train_kernels(xt, c, dp, h * w)
             # the C block passes x (before the CPE) through unchanged
@@ -261,22 +291,21 @@ class LeMeBlock(nn.Module):
             dt = compute_dtype(xt)
             xt, c = xt.to(dt), c.to(dt)
             params = [t.to(dt) for t in self.fused_params()]
+            kw = dict(num_heads=self.num_heads, img_w=w,
+                      cpe=None if cpe is None else [t.to(dt) for t in cpe])
         if self.attn_type == "C":
             # x passes through unchanged; only k/v see the CPE-shifted tokens
             if fused:
-                return x, fused_block.c_block(xt, c, params,
-                                              num_heads=self.num_heads)
+                return x, fused_block.c_block(xt, c, params, **kw)
             ac = self.attn(self._norm_in(xt), self._norm_in(c))
             return x, self._residual_update(c, ac, None, s1c, s2c)
         if fused:
             if self.attn_type == "S":
-                xo, co = fused_block.s_block(xt, c, params,
-                                             num_heads=self.num_heads)
+                xo, co = fused_block.s_block(xt, c, params, **kw)
             else:
                 scale_x, scale_c = ref.dca_scales(h * w, c.shape[1], ch)
-                xo, co = fused_block.dca_block(
-                    xt, c, params, num_heads=self.num_heads,
-                    scale_x=scale_x, scale_c=scale_c)
+                xo, co = fused_block.dca_block(xt, c, params, scale_x=scale_x,
+                                               scale_c=scale_c, **kw)
             return xo.reshape(b, h, w, ch), co
         if self.attn_type == "S":
             ax = self.attn(self._norm_in(xt))
@@ -306,9 +335,11 @@ class LeMeViT(nn.Module):
                  features_only: bool = False,
                  out_indices: Sequence[int] = (1, 2, 3, 4),
                  remat_stages: Sequence[int] = (),
-                 attn_backend: str = "auto"):
+                 attn_backend: str = "auto", s_stage: bool = False,
+                 cpe_in_kernel: bool = False):
         super().__init__()
         dims = list(embed_dim)
+        self.s_stage = s_stage
         self.remat_stages = tuple(remat_stages)
         self.attn_type = tuple(attn_type)
         self.depth = tuple(depth)
@@ -340,7 +371,8 @@ class LeMeViT(nn.Module):
                           drop_path=dp_rates[cur + j],
                           layer_scale_init_value=layer_scale_init_value,
                           cpe_ks=cpe_ks, pre_norm=pre_norm,
-                          mlp_dwconv=mlp_dwconv, attn_backend=attn_backend)
+                          mlp_dwconv=mlp_dwconv, attn_backend=attn_backend,
+                          cpe_in_kernel=cpe_in_kernel)
                 for j in range(depth[i])]))
             cur += depth[i]
 
@@ -366,6 +398,38 @@ class LeMeViT(nn.Module):
             if isinstance(m, DropPath):
                 m.generator = generator
 
+    def _try_s_stage(self, i: int, x, c):
+        """Stage i in one ``fused_block.s_stage`` launch, the counterpart of
+        the JAX package's LeMeViT._try_s_stage: only with ``s_stage``, in
+        inference (eval mode, autograd off), for an "S" stage of two or more
+        blocks whose first block would run its kernel, and where
+        ``stage_takes`` holds. The blocks' CPEs always run inside. Returns
+        (x, c), or None for the per-block path."""
+        blocks = self.stages[i]
+        if (not self.s_stage or self.training or torch.is_grad_enabled()
+                or self.attn_type[i] != "S" or not blocks[0]._fusable(x)):
+            return None
+        b, h, w, ch = x.shape
+        heads = blocks[0].num_heads
+        try:
+            cpes = [blk.cpe_weights() for blk in blocks]
+        except LookupError:
+            return None
+        if all(cp is None for cp in cpes):
+            cpes = None
+        if not fused_block.stage_takes(h * w, c.shape[1], ch, heads,
+                                       len(blocks), cpes):
+            return None
+        dt = compute_dtype(x)
+        params_list = [[t.to(dt) for t in blk.fused_params()]
+                       for blk in blocks]
+        if cpes is not None:
+            cpes = [[t.to(dt) for t in cp] for cp in cpes]
+        xo, co = fused_block.s_stage(x.reshape(b, h * w, ch).to(dt),
+                                     c.to(dt), params_list, num_heads=heads,
+                                     cpes=cpes, img_w=w)
+        return xo.reshape(b, h, w, ch), co
+
     def forward(self, x):
         x = x.to(self.meta_tokens.dtype)
         c = self.meta_tokens[None].expand(x.shape[0], -1, -1)
@@ -375,7 +439,10 @@ class LeMeViT(nn.Module):
             c = self.meta_token_downsample[i](c)
             remat = (i in self.remat_stages and self.training
                      and torch.is_grad_enabled())
-            for blk in stage:
+            staged = self._try_s_stage(i, x, c)
+            if staged is not None:
+                x, c = staged
+            for blk in stage if staged is None else ():
                 if remat:
                     # the masks are drawn outside, so that the recomputed
                     # forward of the backward sees the same ones

@@ -5,8 +5,11 @@ package, so it runs on a GPU machine without flax:
 
   python -m pytest tests/test_torch_gpu.py -q -m gpu
 
-Tolerances: inference blocks and attention-only kernels fp32 1e-4, bf16
-3e-2 (against fp32 on the same bf16-cast inputs); training kernels (S, D,
+Tolerances: inference blocks (also with their in-kernel CPE), S stages and
+attention-only kernels fp32 1e-4, bf16 3e-2 (against fp32 on the same
+bf16-cast inputs; a bf16 stage of that of its largest element, since x is
+rounded to bf16 between its blocks, and elementwise against the chain of
+its S block kernels in bf16); training kernels (S, D,
 C) the same on outputs and, on gradients, 1e-3 (fp32) and 5e-2 (bf16) of
 each tensor's largest element; whole models 1e-3 (fp32 logits,
 gradients)."""
@@ -375,3 +378,133 @@ def test_upernet_kernel_path_matches_torch_path_on_gpu(cuda):
         == {"dca_attn": 4, "s_block": 10}
     torch.testing.assert_close(got, want, rtol=1e-3,
                                atol=1e-3 * max(1.0, want.abs().max().item()))
+
+
+def _cpe(rng, ch, scale=0.3):
+    return [(scale * rng.randn(9, ch)).astype(np.float32),
+            (0.1 * rng.randn(ch)).astype(np.float32)]
+
+
+def _block_call(kind, fn, x, c, params, n, ch, **kw):
+    kw["num_heads"] = ch // 32
+    if kind == "d":
+        kw["scale_x"], kw["scale_c"] = dca_scales(n, M, ch)
+    out = fn(x, c, params, **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("kind,n,img_w,ch", [
+    ("c", 3136, 56, 96), ("d", 3136, 56, 96), ("d", 784, 28, 192),
+    ("s", 196, 14, 384), ("s", 49, 7, 512), ("s", 192, 16, 192)])
+def test_block_cpe_kernel_matches_plain_on_gpu(cuda, kind, n, img_w, ch,
+                                               dtype, tol):
+    """Each block kernel's cpe mode (pre-CPE x, the 3x3 CPE inside) against
+    its plain version with cpe_plain; N = 192 is a 12 x 16 image."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(2, n, ch).astype(np.float32))
+    c = torch.from_numpy(rng.randn(2, M, ch).astype(np.float32))
+    params = [torch.from_numpy(a) for a in make_params(kind, rng, ch, 4 * ch)]
+    cpe = [torch.from_numpy(a).to(cuda, dtype) for a in _cpe(rng, ch)]
+    xd, cd = x.to(cuda, dtype), c.to(cuda, dtype)
+    pd = [p.to(cuda, dtype) for p in params]
+    name = {"c": "c_block", "d": "dca_block", "s": "s_block"}[kind]
+    before = fb.LAUNCHES[name]
+    got = _block_call(kind, getattr(fb, name), xd, cd, pd, n, ch, cpe=cpe,
+                      img_w=img_w)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES[name] == before + 1
+    want = _block_call(kind, PLAIN[name], xd.float(), cd.float(),
+                       [p.float() for p in pd], n, ch,
+                       cpe=[t.float() for t in cpe], img_w=img_w)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.float(), w_, rtol=tol, atol=tol)
+
+
+def _stage_inputs(rng, nb, n, ch, use_cpe):
+    """x, c, the blocks' parameter tuples (the proj and fc2 weights scaled
+    by (2 nb)^-1/2) and CPEs (taps 0.1 N(0, 1)), so x keeps its scale over
+    the stage."""
+    x = rng.randn(2, n, ch).astype(np.float32)
+    c = rng.randn(2, M, ch).astype(np.float32)
+    params = []
+    for _ in range(nb):
+        p = make_params("s", rng, ch, 4 * ch)
+        for i in (4, 10):
+            p[i] = p[i] * (2 * nb) ** -0.5
+        params.append(p)
+    cpes = [_cpe(rng, ch, 0.1) for _ in range(nb)] if use_cpe else None
+    return x, c, params, cpes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_cpe", [False, True], ids=["no_cpe", "cpe"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("nb,n,img_w,ch", [(3, 196, 14, 384),
+                                           (2, 49, 7, 512),
+                                           (2, 1024, 32, 192)])
+def test_s_stage_matches_plain_and_chain_on_gpu(cuda, nb, n, img_w, ch,
+                                                dtype, tol, use_cpe):
+    """s_stage (one launch) against s_stage_plain in fp32 on the same
+    inputs, and against the chain of s_block kernels in its own type."""
+    x, c, params, cpes = _stage_inputs(np.random.RandomState(12), nb, n, ch,
+                                       use_cpe)
+    dev = lambda a: torch.from_numpy(a).to(cuda, dtype)  # noqa: E731
+    xd, cd = dev(x), dev(c)
+    pd = [[dev(a) for a in p] for p in params]
+    cd_ = None if cpes is None else [[dev(a) for a in cp] for cp in cpes]
+    kw = dict(num_heads=ch // 32, img_w=img_w)
+    before = dict(fb.LAUNCHES)
+    got = fb.s_stage(xd, cd, pd, cpes=cd_, **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fb.LAUNCHES.items()
+            if v != before[k]} == {"s_stage": 1}
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    want = fb.s_stage_plain(xd.float(), cd.float(), [f32(p) for p in pd],
+                            cpes=None if cd_ is None else
+                            [f32(cp) for cp in cd_], **kw)
+    chain = (xd, cd)
+    for j, p in enumerate(pd):
+        chain = fb.s_block(*chain, p, cpe=None if cd_ is None else cd_[j],
+                           **kw)
+    for g_, w_, k_ in zip(got, want, chain):
+        assert torch.isfinite(g_).all()
+        scale = w_.abs().max().item() if dtype == torch.bfloat16 else 1.0
+        torch.testing.assert_close(g_.float(), w_, rtol=tol,
+                                   atol=tol * scale)
+        torch.testing.assert_close(g_.float(), k_.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+def test_s_stage_rejects_what_it_does_not_take_on_gpu(cuda):
+    rng = np.random.RandomState(13)
+    x, c, params, _ = _stage_inputs(rng, 2, 64, 64, False)
+    pd = [[torch.from_numpy(a).to(cuda) for a in p] for p in params]
+    xd = torch.from_numpy(x).to(cuda)
+    with pytest.raises(ValueError, match="stage_takes"):  # M % 8
+        fb.s_stage(xd, torch.randn(2, 12, 64, device=cuda), pd, num_heads=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        fb.s_stage(xd, torch.from_numpy(c).to(cuda), pd, num_heads=4)
+
+
+@pytest.mark.gpu
+def test_model_slice_path_matches_torch_path_on_gpu(cuda):
+    """lemevit_tiny at 224^2, fp32, with s_stage and cpe_in_kernel: one
+    s_stage launch per S stage, the C and D kernels with their CPE, no
+    s_block; logits against the plain path."""
+    m = lemevit_tpu_torch.create_model("lemevit_tiny", s_stage=True,
+                                       cpe_in_kernel=True).eval()
+    x = torch.randn(2, 224, 224, 3, device="cuda")
+    before = dict(fb.LAUNCHES)
+    with torch.no_grad():
+        got = m(x)
+        launched = {k: v - before[k] for k, v in fb.LAUNCHES.items()
+                    if v != before[k]}
+        m.set_attn_backend("torch")
+        want = m(x)
+    assert launched == {"c_block": 1, "dca_block": 4, "s_stage": 2}
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
