@@ -30,6 +30,17 @@ before it and read just after:
     block through the weight permutation, one fp32 train step on the kernel
     path against the plain path, cli.train as above, cli.benchmark --bench
     train, and a profile of one train step;
+  - training lemevit_tiny on the slice's path (train_cpe_in_kernel: each
+    block's 3x3 CPE inside its training kernels): the six C, D and S
+    training kernels in their CPE mode held against their plain versions
+    (the tap and bias gradients included) at lemevit_tiny's and base's
+    training shapes, timed beside the external placement (F.conv2d and its
+    autograd around the kernel without its CPE), the tap gradients bit for
+    bit over two runs, one fp32 train step with the switch against the
+    plain path, cli.train --train-cpe-in-kernel beside the default path's
+    img/s and peak memory, cli.benchmark --bench train
+    --train-cpe-in-kernel, and a profile of one train step (the same
+    launches, no convolution for the 15 block CPEs);
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
     6 classes): the attention-only kernels held against their plain
     versions (dca_attn at stages 1-2's shapes, through D2's aliasing and
@@ -84,6 +95,16 @@ TINY_SHAPES = [("c_block", 3136, 64, 1),
 # forward, mlp_bwd and attention backward once per train step
 TINY_TRAIN = [("c", 3136, 64, 1), ("dca", 3136, 64, 2), ("dca", 784, 128, 2),
               ("s", 196, 192, 8), ("s", 49, 320, 2)]
+# the training kernels in their CPE mode: (kind, N, image width, C, blocks
+# per lemevit_tiny step on the slice's path); base's C and D training
+# shapes are timed too (no main path trains base)
+TRAIN_CPE_SHAPES = [("c", 3136, 56, 64, 1), ("dca", 3136, 56, 64, 2),
+                    ("dca", 784, 28, 128, 2), ("s", 196, 14, 192, 8),
+                    ("s", 49, 7, 320, 2), ("c", 3136, 56, 96, 0),
+                    ("dca", 3136, 56, 96, 0), ("dca", 784, 28, 192, 0)]
+# the convolutions of one lemevit_tiny forward: stem 2, downsamples 3, the
+# blocks' CPEs 15
+TINY_CONVS, TINY_CPE_CONVS = 20, 15
 # vit_tiny at 224^2, stages 1-3 (stage 0, N = 3136, composes as in the JAX
 # package): S blocks, each launching s_block once per eval forward
 VIT_TRAIN = [("s", 784, 192, 2), ("s", 196, 320, 4), ("s", 49, 384, 2)]
@@ -246,12 +267,35 @@ def work(kind, b, n, ch, hidden, n_params_bytes, elt, cpe=False):
     return io + n_params_bytes, flops
 
 
-def train_work(phase, b, n, ch, elt=2):
+def train_work(phase, b, n, ch, elt=2, cpe=False):
     """(bytes, operations) of one training-kernel call at hidden = 4C:
     each input read once, each output written once (fp32 log-sum-exp rows
     and DropPath scales at 4 bytes); the operations include what the
     call's interface makes it recompute (qkv, q / kv, fc1). n is the image
-    tokens the call sees (0 for the C block's meta-only MLP backward)."""
+    tokens the call sees (0 for the C block's meta-only MLP backward). With
+    ``cpe`` (a forward or attention backward in its CPE mode) the taps and
+    the bias are read (and their gradients written by the backward), and
+    the 3x3 CPE's 9 multiply-adds per image-token element are done once in
+    the forward and three times in the backward (its recomputation, the tap
+    gradients, the transpose)."""
+    nbytes, ops = _train_work(phase, b, n, ch, elt)
+    if cpe:
+        fwd = phase.endswith("_fwd")
+        nbytes += 10 * ch * elt * (1 if fwd else 2)
+        ops += 18 * b * n * ch * (1 if fwd else 3)
+    return nbytes, ops
+
+
+def cpe_pass_bytes(phase, b, n, ch, elt=2):
+    """Bytes of a CPE-mode call's separate CPE passes (not part of its
+    bound: each is an intermediate): k_cpe_rows reads and writes x (2 elt per
+    element); the backward adds k_cpe_tap_grads (x and the fp32 du) and the
+    transpose (du, dx)."""
+    per = 2 * elt if phase.endswith("_fwd") else 2 * elt + 2 * (4 + elt)
+    return per * b * n * ch
+
+
+def _train_work(phase, b, n, ch, elt):
     rx, rc = b * n, b * M
     rows = rx + rc
     act = lambda r: r * ch * elt
@@ -541,7 +585,8 @@ def run_train_block(fn, x, c, params, dp, gx, gc, kw):
 def phase_calls(ft, kind, x, c, p, dp, gx, gc, kw):
     """{phase: (kernel call, plain call)} of one training block, each
     phase on the outputs of the one before (the C block's MLP backward on
-    an empty image stream)."""
+    an empty image stream). kw may carry a CPE (cpe=, img_w=) for the
+    forward and the attention backward."""
     w1, b1, w2 = p[-4], p[-3], p[-2]
     name = TRAIN_PHASES[kind]
     fwd = getattr(ft, name[0])(x, c, p, dp, **kw)
@@ -628,6 +673,117 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
     return rows
 
 
+def cpe_inputs(ch, g, dev, dtype):
+    """Seeded 3x3 CPE taps (9, C) and bias (C,)."""
+    return [(0.3 * torch.randn(9, ch, generator=g)).to(dev, dtype),
+            (0.1 * torch.randn(ch, generator=g)).to(dev, dtype)]
+
+
+def check_train_cpe(ft, fb, kind, n, img_w, ch, blocks, dev, g,
+                    profile=False, b_check=B_CHECK, b_main=B_MAIN):
+    """A training block in its CPE mode (pre-CPE x, a seeded 3x3 CPE inside
+    the kernels) against its autograd composition with the same CPE: fp32
+    at b_check, bf16 at b_main against fp32 on the same bf16-cast inputs
+    (TRAIN_TOL), the tap and bias gradients among the attention backward's;
+    dtaps and dbias of two attention-backward runs compared bit for bit;
+    then the forward and the attention backward timed at b_main in bf16
+    ("CPE in") beside their plain phases and the external placement ("ext":
+    cpe_plain's F.conv2d, and in the backward its autograd, around the
+    kernel without its CPE). With ``profile``, the attention backward's
+    device time by kernel."""
+    from lemevit_tpu_torch.attn.reference import dca_scales
+    kw = {"num_heads": ch // 32}
+    if kind == "dca":
+        kw["scale_x"], kw["scale_c"] = dca_scales(n, M, ch)
+    ckw = dict(kw, img_w=img_w)
+    fused = getattr(ft, f"{kind}_block_train")
+    plain = getattr(ft, f"{kind}_block_train_plain")
+
+    def with_cpe(fn):  # the CPE's taps and bias lead the parameter list
+        return lambda x_, c_, ps, dp_, **k: fn(x_, c_, ps[2:], dp_,
+                                               cpe=ps[:2], **k)
+    fwd_name, _, bwd_name = TRAIN_PHASES[kind]
+    errs = {}
+    for dtype, b in ((torch.float32, b_check), (torch.bfloat16, b_main)):
+        x, c, p, dp, gx, gc = train_inputs(ft, kind, b, n, ch, g, dev, dtype)
+        cpe = cpe_inputs(ch, g, dev, dtype)
+        reset()
+        got_o, got_g = run_train_block(with_cpe(fused), x, c, cpe + p, dp,
+                                       gx, gc, ckw)
+        torch.cuda.synchronize()
+        expect_launches(launch_counts(), {fwd_name: 1, "mlp_bwd": 1,
+                                          bwd_name: 1},
+                        f"{kind} block with its CPE")
+        want_o, want_g = run_train_block(
+            with_cpe(plain), x.float(), c.float(),
+            [t.float() for t in cpe + p], dp, gx.float(), gc.float(), ckw)
+        otol, gtol = TRAIN_TOL[dtype]
+        names = ["dx", "dc", "dtaps", "dbias"] + [
+            f"grad {i}" for i in range(len(p))]
+        errs[dtype] = {
+            fwd_name: max_err(got_o, want_o, otol),
+            "mlp_bwd": max_grad_err(got_g[-4:], want_g[-4:], gtol,
+                                    names[-4:]),
+            bwd_name: max_grad_err(got_g[:-4], want_g[:-4], gtol,
+                                   names[:-4]),
+            "cpe": max_grad_err(got_g[2:4], want_g[2:4], gtol,
+                                names[2:4]),
+            "scale": max(w.abs().max().item() for w in want_g)}
+        del got_o, got_g, want_o, want_g
+    # bf16, b_main, on the inputs of the last check
+    calls = phase_calls(ft, kind, x, c, p, dp, gx, gc, dict(ckw, cpe=cpe))
+    first, second = calls[bwd_name][0](), calls[bwd_name][0]()
+    repeatable = all(torch.equal(a, b) for a, b in zip(first[-2:],
+                                                      second[-2:]))
+    if not repeatable:
+        raise AssertionError(f"{kind} N={n} C={ch}: dtaps / dbias differ "
+                             "between two runs")
+    del first, second
+    xr = x.detach().clone().requires_grad_()
+    cr = [t.detach().clone().requires_grad_() for t in cpe]
+    y = fb.cpe_plain(xr, *cr, img_w)
+    ext = phase_calls(ft, kind, y.detach(), c, p, dp, gx, gc, kw)
+    fwd_kernel = getattr(ft, fwd_name)
+    ext_ms = {
+        fwd_name: cuda_ms(lambda: fwd_kernel(fb.cpe_plain(x, *cpe, img_w), c,
+                                             p, dp, **kw)),
+        bwd_name: cuda_ms(lambda: (ext[bwd_name][0](), torch.autograd.grad(
+            y, [xr, *cr], gx, retain_graph=True)))}
+    if profile:
+        profile_call(calls[bwd_name][0], f"{bwd_name} with its CPE N={n} "
+                     f"C={ch} B={b_main}", top=12)
+    rows = []
+    for name in (fwd_name, bwd_name):
+        kern, plain_fn = calls[name]
+        t_bound, by = bound(*train_work(name, b_main, n, ch, cpe=True))
+        rows.append(dict(
+            name=name, kind=kind, n=n, img_w=img_w, c=ch, batch=b_main,
+            per_step=blocks, err_fp32=errs[torch.float32][name],
+            err_bf16=errs[torch.bfloat16][name],
+            cpe_grad_err_fp32=errs[torch.float32]["cpe"],
+            cpe_grad_err_bf16=errs[torch.bfloat16]["cpe"],
+            grad_scale_bf16=errs[torch.bfloat16]["scale"],
+            ms=cuda_ms(kern), plain_ms=cuda_ms(plain_fn),
+            external_cpe_ms=ext_ms[name], bound_ms=t_bound, bound_by=by,
+            dtaps_bitwise_repeatable=repeatable))
+    e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+    pass_ms = {name: cpe_pass_bytes(name, b_main, n, ch) / HBM_BYTES_PER_S
+               * 1e3 for name in (fwd_name, bwd_name)}
+    say("train-cpe", f"{kind} N={n} ({n // img_w}x{img_w}) C={ch}: fp32 "
+        f"B={b_check} err out {e32[fwd_name]:.2e}, grads "
+        f"{max(e32['mlp_bwd'], e32[bwd_name]):.2e} (dtaps/dbias "
+        f"{e32['cpe']:.2e}) of max {e32['scale']:.3g}; bf16 B={b_main} err "
+        f"out {e16[fwd_name]:.2e}, grads "
+        f"{max(e16['mlp_bwd'], e16[bwd_name]):.2e} (dtaps/dbias "
+        f"{e16['cpe']:.2e}) of max {e16['scale']:.3g}; dtaps bitwise "
+        "repeatable | " + "; ".join(
+            f"{r['name']} CPE in {r['ms']:.3f} ms (ext "
+            f"{r['external_cpe_ms']:.3f}, plain {r['plain_ms']:.3f}, bound "
+            f"{r['bound_ms']:.4f} {r['bound_by']}, CPE passes' bytes "
+            f"{pass_ms[r['name']]:.4f})" for r in rows))
+    return rows
+
+
 def check_d2_train_block(ft, dev, g):
     """A train-mode D2 block (lemevit_tiny_v2's stage 1: N = 3136, C = 96)
     through the D training kernels by the weight permutation, against its
@@ -669,14 +825,16 @@ def check_d2_train_block(ft, dev, g):
         f"element (limit 1e-3); launches {launched}")
 
 
-def check_train_step(dev, name, expect):
-    """One fp32 train step's loss and gradients of ``name`` at 224^2, B=2,
-    drop-path 0.15 with the same masks: the kernel path against
-    --attn-backend torch. Limits: loss 1e-4 abs; each parameter's gradient
-    max |err| <= 1e-3 max|ref| + 1e-6."""
+def check_train_step(dev, name, expect, **model_kw):
+    """One fp32 train step's loss and gradients of ``name`` (with
+    ``model_kw``) at 224^2, B=2, drop-path 0.15 with the same masks: the
+    kernel path against --attn-backend torch. Limits: loss 1e-4 abs; each
+    parameter's gradient (pos_embed's among them) max |err| <= 1e-3
+    max|ref| + 1e-6."""
     from lemevit_tpu_torch import create_model
     from lemevit_tpu_torch.train.steps import cross_entropy_loss
-    kern = create_model(name, device=dev, drop_path_rate=0.15).train()
+    kern = create_model(name, device=dev, drop_path_rate=0.15,
+                        **model_kw).train()
     plain = copy.deepcopy(kern)
     plain.set_attn_backend("torch")
     g = torch.Generator().manual_seed(3)
@@ -704,18 +862,21 @@ def check_train_step(dev, name, expect):
             raise AssertionError(f"gradient of {pname}: max abs err {d:.3g} "
                                  f"of max {scale:.3g}")
         worst = max(worst, d / (1e-3 * scale + 1e-6))
-    say("train-step", f"{name} 224 fp32 B=2: loss {losses[0]:.6f} vs plain "
+    what = "".join(f", {k}={v}" for k, v in model_kw.items())
+    say("train-step", f"{name}{what} 224 fp32 B=2: loss {losses[0]:.6f} vs "
+        f"plain "
         f"{losses[1]:.6f} (|diff| {abs(losses[0] - losses[1]):.2e}, limit "
         f"1e-4); gradients within {100 * worst:.1f}% of their limits "
         f"(1e-3 max|ref| + 1e-6); launches {launched}")
 
 
-def train_main_path(model, per_step, per_eval):
+def train_main_path(model, per_step, per_eval, flags=()):
     """cli.train on synthetic data: ``model``, 224^2, bf16, B=64, the
     reference recipe (configs/lemevit.yaml: mixup, cutmix, erasing,
     smoothing, drop-path 0.15, EMA), 1 epoch of TRAIN_STEPS steps and one
-    eval of the live and EMA models, its launch counts set to 0 just before
-    and read just after. Returns (launches, result)."""
+    eval of the live and EMA models, with the extra CLI ``flags``, its
+    launch counts set to 0 just before and read just after. Returns
+    (launches, result)."""
     from lemevit_tpu_torch.cli import train as train_cli
     with tempfile.TemporaryDirectory() as out:
         reset()
@@ -725,7 +886,7 @@ def train_main_path(model, per_step, per_eval):
             "--batch-size", str(B_MAIN),
             "--config", str(REPO / "configs" / "lemevit.yaml"),
             "--epochs", "1", "--steps-per-epoch", str(TRAIN_STEPS),
-            "--output", out])
+            "--output", out, *flags])
         launches = launch_counts()
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         with open(Path(out) / model / "summary.csv") as f:
@@ -743,7 +904,8 @@ def train_main_path(model, per_step, per_eval):
     if not (loss == loss and abs(loss) < 1e3) or res["steps"] != TRAIN_STEPS \
             or len(ckpts) != 1:
         raise AssertionError(f"train: {res}, checkpoints {ckpts}")
-    say("train", f"{model} 224 bf16 B={B_MAIN}: {res['steps']} steps, "
+    say("train", f"{model} {' '.join(flags)} 224 bf16 B={B_MAIN}: "
+        f"{res['steps']} steps, "
         f"loss {loss:.4f}, {res['samples_per_sec']:.2f} img/s, "
         f"{res['step_ms']:.2f} ms/step (steps 2-{TRAIN_STEPS}), peak "
         f"{res['peak_gib']:.2f} GiB allocated; eval top1 "
@@ -754,13 +916,14 @@ def train_main_path(model, per_step, per_eval):
     return launches, res
 
 
-def profile_train_step(dev, name):
-    """torch.profiler table of one bf16 B=64 train step of ``name``."""
+def profile_train_step(dev, name, **model_kw):
+    """torch.profiler table of one bf16 B=64 train step of ``name`` (with
+    ``model_kw``)."""
     from lemevit_tpu_torch import create_model
     from lemevit_tpu_torch.train.optim import build_lr_schedule, build_optimizer
     from lemevit_tpu_torch.train.state import ModelEma, TrainState
     from lemevit_tpu_torch.train.steps import train_step
-    model = create_model(name, device=dev, drop_path_rate=0.15)
+    model = create_model(name, device=dev, drop_path_rate=0.15, **model_kw)
     model.set_generator(torch.Generator(device=dev).manual_seed(0))
     state = TrainState(model, build_optimizer(model), build_lr_schedule(),
                        ModelEma(model, 0.996))
@@ -769,7 +932,8 @@ def profile_train_step(dev, name):
     labels = torch.randint(0, 1000, (B_MAIN,), generator=g).to(dev)
     return profile_call(lambda: train_step(state, img, labels,
                                            autocast_dtype=torch.bfloat16),
-                        f"one {name} train step")
+                        f"one {name} train step"
+                        + "".join(f", {k}={v}" for k, v in model_kw.items()))
 
 
 def host_batch_ms(n: int = 3) -> float:
@@ -1278,6 +1442,46 @@ def main() -> None:
         f"{tr['samples_per_sec']} img/s, step {tr['step_time']} ms, fwd "
         f"{tr['fwd_time']} ms, bwd+opt {tr['bwd_opt_time']} ms")
     prof = profile_train_step(dev, "lemevit_tiny")
+
+    # 7b. the slice's path: lemevit_tiny trained with each block's 3x3 CPE
+    #     inside its training kernels
+    cpe_train_rows = []
+    for kind, n, w, ch, blocks in TRAIN_CPE_SHAPES:
+        cpe_train_rows += check_train_cpe(ft, fb, kind, n, w, ch, blocks, dev,
+                                          g, profile=(n, ch) == (3136, 64))
+    check_train_step(dev, "lemevit_tiny", TINY_STEP, train_cpe_in_kernel=True)
+    slice_train_launches, slice_train_res = train_main_path(
+        "lemevit_tiny", TINY_STEP, TINY_EVAL, ["--train-cpe-in-kernel"])
+    sres = benchmark.main(["--model", "lemevit_tiny", "--bench", "train",
+                           "--batch-size", str(B_MAIN),
+                           "--num-bench-iter", "5", "--train-cpe-in-kernel"])
+    st = sres["train"]
+    say("bench-train", f"lemevit_tiny --train-cpe-in-kernel 224 bf16 "
+        f"B={st['batch_size']}: {st['samples_per_sec']} img/s, step "
+        f"{st['step_time']} ms, fwd {st['fwd_time']} ms, bwd+opt "
+        f"{st['bwd_opt_time']} ms (default path: {tr['samples_per_sec']} "
+        f"img/s, step {tr['step_time']} ms)")
+    reset()
+    slice_prof = profile_train_step(dev, "lemevit_tiny",
+                                    train_cpe_in_kernel=True)
+    # profile_call runs the step twice (a warm-up and the profiled one)
+    expect_launches(launch_counts(), {k: 2 * v for k, v in TINY_STEP.items()},
+                    "two profiled lemevit_tiny steps with the CPE inside")
+    if not prof or not slice_prof:
+        raise AssertionError("the profiler recorded no device time")
+    convs = [pr["by_name"].get("aten::conv2d", 0) for pr in (prof,
+                                                             slice_prof)]
+    per = convs[0] // TINY_CONVS
+    if not (per >= 1 and convs[0] == TINY_CONVS * per
+            and convs[1] == (TINY_CONVS - TINY_CPE_CONVS) * per):
+        raise AssertionError(f"slice train profile: {convs[1]} convolutions "
+                             f"against the default path's {convs[0]}")
+    say("train-slice", f"profile: {convs[1]} aten::conv2d calls (the default "
+        f"path: {convs[0]}, its {TINY_CPE_CONVS} block CPEs among them); "
+        f"cli.train {slice_train_res['samples_per_sec']:.2f} img/s, peak "
+        f"{slice_train_res['peak_gib']:.2f} GiB (default path in this run: "
+        f"{tiny_res['samples_per_sec']:.2f} img/s, "
+        f"{tiny_res['peak_gib']:.2f} GiB)")
     say("train-summary", json.dumps({
         "model": "lemevit_tiny", "batch": B_MAIN, "dtype": "bf16",
         "img_per_s": tiny_res["samples_per_sec"],
@@ -1291,7 +1495,20 @@ def main() -> None:
         "device_busy_share": (prof["device_ms"] / prof["wall_ms"]
                               if prof else None),
         "port_kernel_share": (prof["port_ms"] / prof["device_ms"]
-                              if prof else None)}))
+                              if prof else None),
+        "slice": {
+            "flags": "--train-cpe-in-kernel",
+            "img_per_s": slice_train_res["samples_per_sec"],
+            "ms_per_step": slice_train_res["step_ms"],
+            "peak_gib": slice_train_res["peak_gib"],
+            "bench_train_step_ms": st["step_time"],
+            "device_ms_per_step": slice_prof["device_ms"],
+            "launches_per_step": slice_prof["launches"],
+            "device_busy_share": (slice_prof["device_ms"]
+                                  / slice_prof["wall_ms"]),
+            "port_kernel_share": (slice_prof["port_ms"]
+                                  / slice_prof["device_ms"]),
+            "conv2d_calls": convs[1]}}))
 
     # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
@@ -1354,6 +1571,10 @@ def main() -> None:
             extra.update(seg_launches=seg_launches[name],
                          seg_shapes=strip(r for r in seg_train_rows
                                           if r["name"] == name))
+        extra.update(slice_launches=slice_train_launches[name])
+        if name != "mlp_bwd":
+            extra["cpe_shapes"] = strip(r for r in cpe_train_rows
+                                        if r["name"] == name)
         kernels.append(kernel_entry(
             name, [r for r in train_rows if r["name"] == name],
             tiny_launches[name], "per_step", **extra))

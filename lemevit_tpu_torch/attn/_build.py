@@ -36,15 +36,18 @@ SIGNATURES = {
     "lm_s_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_s_stage": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                    _P],
-    "lm_s_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "lm_s_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_mlp_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _P],
-    "lm_s_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "lm_dca_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                         _P],
-    "lm_dca_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                        _P],
-    "lm_c_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "lm_c_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "lm_s_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                      _P],
+    "lm_dca_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                         _F, _P],
+    "lm_dca_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                        _F, _F, _P],
+    "lm_c_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                       _P],
+    "lm_c_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                      _P],
     "lm_dca_attn": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                     _F, _P],
     "lm_mhsa": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -22,6 +22,13 @@
 //   passes the block; autograd adds its identity gradient outside);
 //   k_wgrad gives dWkv, dbkv over the B N rows, dWq, dbq from (LN1(c), dq)
 //   and dWp from (o, s1c dt1c). dbp is a column sum left to the caller.
+// With a CPE (taps non-null), x is the image tokens before the 3x3 CPE,
+//   which feeds the k / v side only (the TPU's _c_train_fwd_kernel): the
+//   forward runs k_cpe_rows once into a workspace and kv = LN1(CPE(x))
+//   Wkv'^T + bkv'; the backward recomputes it, takes du = LN1'^T (dkv Wkv')
+//   in fp32 (still no residual), then k_cpe_tap_grads and the flipped-tap
+//   k_cpe_rows: dxt = CPE^T du, to which autograd adds x's identity
+//   gradient outside.
 // Bound on the H100: bytes. Each image row is read once and costs ~4 C^2
 // operations (the kv projection), 2 C operations per byte of bf16 input:
 // 128 at C = 64, below the card's bf16 line of ~295. kv (twice x) and dkv
@@ -34,20 +41,30 @@ namespace {
 // p: 0 x, 1 c, 2 ones, 3 zeros, 4 wq', 5 bq', 6 wkv', 7 bkv', 8 wp, 9 bp,
 //    10 w1', 11 b1', 12 w2, 13 b2, 14 dp (4, B) fp32 | 15 c_out, 16 t1c,
 //    17 o (B M, C), 18 lse (B H M) fp32 | workspace 19 q (B M, C),
-//    20 kv (B N, 2C), 21 pm, 22 pl (B H splits M), 23 pacc (x 32) fp32.
+//    20 kv (B N, 2C), 21 pm, 22 pl (B H splits M), 23 pacc (x 32) fp32 |
+//    the CPE or nulls: 24 taps (9, C), 25 bias (C,), workspace 26 the CPE'd
+//    x (B N, C). Images are img_w wide.
 template <typename T>
 int c_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
-                int hidden, int keys_per_split, float scale, float eps,
-                cudaStream_t s) {
+                int hidden, int keys_per_split, int img_w, float scale,
+                float eps, cudaStream_t s) {
+  const void* x = p[0];
+  int err;
+  if (p[24]) {
+    err = launch_cpe_rows<T, T>(p[0], p[24], p[25], mp<T>(p, 26), B * N, C,
+                                img_w, N, 0, s);
+    if (err) return err;
+    x = p[26];
+  }
   LinArgs la{};
   la.seg[0] = {p[1], p[4], p[5], mp<T>(p, 19), B * M, C};
-  la.seg[1] = {p[0], p[6], p[7], mp<T>(p, 20), B * N, 2 * C};
+  la.seg[1] = {x, p[6], p[7], mp<T>(p, 20), B * N, 2 * C};
   la.row_blocks0 = cdiv(B * M, kLinBM);
   la.ln_w = p[2];
   la.ln_b = p[3];
   la.K = C;
   la.eps = eps;
-  int err = launch_linear<T>(la, 2 * C, s);
+  err = launch_linear<T>(la, 2 * C, s);
   if (err) return err;
 
   AttnArgs aa{};
@@ -96,13 +113,27 @@ int c_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
 //    22 q (B M, C), 23 kv (B N, 2C), 24 dO (B M, C) fp32, 25 D (B H M) fp32,
 //    26 dq (B M, C), 27 dkv (B N, 2C), 28 da_x (B N, C) fp32,
 //    29 da_c (B M, C) fp32, 30 partials (splits, 2 C^2) fp32,
-//    31 bias partials (splits, 2C) fp32. rps_x / rps_c: k_wgrad's rows per
-//    split over the B N image rows and the B M meta rows.
+//    31 bias partials (splits, 2C) fp32 | the CPE or nulls: 32 taps (9, C),
+//    33 bias (C,), workspace 34 the CPE'd x (B N, C), 35 du (B N, C) fp32,
+//    36 partials (splits, 10, C) fp32, outputs 37 dtaps (9, C), 38 dbias
+//    (C,). rps_x / rps_c: k_wgrad's rows per split over the B N image rows
+//    and the B M meta rows; images are img_w wide; cpe_rps:
+//    k_cpe_tap_grads' rows per block.
 template <typename T>
 int c_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
-               int rps_x, int rps_c, float scale, float eps, cudaStream_t s) {
+               int rps_x, int rps_c, int img_w, int cpe_rps, float scale,
+               float eps, cudaStream_t s) {
   const int rx = B * N, rc = B * M;
-  int err = launch_ln_rows<T>(p[0], mp<T>(p, 20), rx, C, eps, s);
+  const TrainCpe cpe{p[32], p[33], img_w, N, cpe_rps};
+  const void* x = p[0];  // the rows LN1 reads
+  int err;
+  if (cpe.taps) {
+    err = launch_cpe_rows<T, T>(p[0], cpe.taps, cpe.bias, mp<T>(p, 34), rx,
+                                C, img_w, N, 0, s);
+    if (err) return err;
+    x = p[34];
+  }
+  err = launch_ln_rows<T>(x, mp<T>(p, 20), rx, C, eps, s);
   if (err) return err;
   err = launch_ln_rows<T>(p[1], mp<T>(p, 21), rc, C, eps, s);
   if (err) return err;
@@ -164,8 +195,16 @@ int c_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   if (err) return err;
   err = launch_ln_bwd<T>(p[1], fp(p, 29), p[2], mp<T>(p, 14), rc, C, eps, s);
   if (err) return err;
-  err = launch_ln_bwd<T>(p[0], fp(p, 28), nullptr, mp<T>(p, 13), rx, C, eps,
-                         s);
+  if (cpe.taps) {  // du in fp32, then the CPE's backward
+    err = launch_ln_bwd<T, float>(x, fp(p, 28), nullptr, fp(p, 35), rx, C,
+                                  eps, s);
+    if (!err)
+      err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 35), fp(p, 36), mp<T>(p, 37),
+                              mp<T>(p, 38), mp<T>(p, 13), rx, C, s);
+  } else {
+    err = launch_ln_bwd<T>(x, fp(p, 28), nullptr, mp<T>(p, 13), rx, C, eps,
+                           s);
+  }
   if (err) return err;
 
   WgradArgs wa{};
@@ -194,23 +233,24 @@ int c_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
 
 extern "C" int lm_c_train_fwd(int dtype, const void* const* p, int B, int N,
                               int M, int C, int H, int hidden,
-                              int keys_per_split, float scale, float eps,
-                              void* stream) {
+                              int keys_per_split, int img_w, float scale,
+                              float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return lm::c_train_fwd<float>(p, B, N, M, C, H, hidden, keys_per_split,
-                                  scale, eps, s);
+                                  img_w, scale, eps, s);
   return lm::c_train_fwd<__nv_bfloat16>(p, B, N, M, C, H, hidden,
-                                        keys_per_split, scale, eps, s);
+                                        keys_per_split, img_w, scale, eps, s);
 }
 
 extern "C" int lm_c_attn_bwd(int dtype, const void* const* p, int B, int N,
                              int M, int C, int H, int rps_x, int rps_c,
-                             float scale, float eps, void* stream) {
+                             int img_w, int cpe_rps, float scale, float eps,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::c_attn_bwd<float>(p, B, N, M, C, H, rps_x, rps_c, scale, eps,
-                                 s);
-  return lm::c_attn_bwd<__nv_bfloat16>(p, B, N, M, C, H, rps_x, rps_c, scale,
-                                       eps, s);
+    return lm::c_attn_bwd<float>(p, B, N, M, C, H, rps_x, rps_c, img_w,
+                                 cpe_rps, scale, eps, s);
+  return lm::c_attn_bwd<__nv_bfloat16>(p, B, N, M, C, H, rps_x, rps_c, img_w,
+                                       cpe_rps, scale, eps, s);
 }

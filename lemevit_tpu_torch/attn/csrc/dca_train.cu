@@ -26,6 +26,11 @@
 //   dWqkv1, dbqkv1 (B N rows), dWqkv2, dbqkv2 (B M rows), dWpx from
 //   (o_x, s1x dt1x) and dWpc from (o_c, s1c dt1c). dbpx / dbpc are column
 //   sums left to the caller, as the TPU wrapper leaves them to XLA.
+// With a CPE (taps non-null), x is the image tokens before the 3x3 CPE and
+//   both chains run it as s_train.cu's do: k_cpe_rows once into a workspace
+//   (the forward's residual is the CPE'd x), and in the backward du =
+//   dt1x + LN1'^T da_x in fp32, k_cpe_tap_grads and the flipped-tap
+//   k_cpe_rows (dx = CPE^T du). D2's weight permutation is unchanged.
 // Bound on the H100: operations. A row costs ~24 C^2 operations in the
 // qkv, proj and MLP products and ~4 M C in attention (16 keys or queries
 // each way). The products are block_common.cuh's tiled mma.sync (bf16) or
@@ -41,20 +46,30 @@ namespace {
 //    8 wpx, 9 bpx, 10 wpc, 11 bpc, 12 w1', 13 b1', 14 w2, 15 b2,
 //    16 dp (4, B) fp32 | 17 x_out, 18 c_out, 19 t1x, 20 t1c, 21 o_x, 22 o_c,
 //    23 lse_x (B H N), 24 lse_c (B H M) fp32 | workspace 25 qkv1 (B N, 3C),
-//    26 qkv2 (B M, 3C), 27 pm, 28 pl (B H splits M), 29 pacc (x 32) fp32.
+//    26 qkv2 (B M, 3C), 27 pm, 28 pl (B H splits M), 29 pacc (x 32) fp32 |
+//    the CPE or nulls: 30 taps (9, C), 31 bias (C,), workspace 32 the CPE'd
+//    x (B N, C). Images are img_w wide.
 template <typename T>
 int dca_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
-                  int hidden, int keys_per_split, float scale_x,
+                  int hidden, int keys_per_split, int img_w, float scale_x,
                   float scale_c, float eps, cudaStream_t s) {
+  const void* x = p[0];
+  int err;
+  if (p[30]) {
+    err = launch_cpe_rows<T, T>(p[0], p[30], p[31], mp<T>(p, 32), B * N, C,
+                                img_w, N, 0, s);
+    if (err) return err;
+    x = p[32];
+  }
   LinArgs la{};
-  la.seg[0] = {p[0], p[4], p[5], mp<T>(p, 25), B * N, 3 * C};
+  la.seg[0] = {x, p[4], p[5], mp<T>(p, 25), B * N, 3 * C};
   la.seg[1] = {p[1], p[6], p[7], mp<T>(p, 26), B * M, 3 * C};
   la.row_blocks0 = cdiv(B * N, kLinBM);
   la.ln_w = p[2];
   la.ln_b = p[3];
   la.K = C;
   la.eps = eps;
-  int err = launch_linear<T>(la, 3 * C, s);
+  err = launch_linear<T>(la, 3 * C, s);
   if (err) return err;
 
   const T* qkv1 = cp<T>(p, 25);
@@ -100,7 +115,7 @@ int dca_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
 
   const float* dp = static_cast<const float*>(p[16]);
   TailArgs ta{};
-  ta.seg[0] = {p[0], p[21], p[8], p[9], mp<T>(p, 17), B * N,
+  ta.seg[0] = {x, p[21], p[8], p[9], mp<T>(p, 17), B * N,
                dp, dp + B, N, mp<T>(p, 19)};
   ta.seg[1] = {p[1], p[22], p[10], p[11], mp<T>(p, 18), B * M,
                dp + 2 * B, dp + 3 * B, M, mp<T>(p, 20)};
@@ -125,16 +140,28 @@ int dca_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
 //    28 qkv1, 29 qkv2 (rows, 3C), 30 dO_x, 31 dO_c (rows, C) fp32,
 //    32 D_x (B H N), 33 D_c (B H M) fp32, 34 dqkv1, 35 dqkv2 (rows, 3C),
 //    36 da_x, 37 da_c (rows, C) fp32, 38 partials (splits, 3 C^2) fp32,
-//    39 bias partials (splits, 3C) fp32. rps_x / rps_c: k_wgrad's rows per
-//    split over the B N image rows and the B M meta rows.
+//    39 bias partials (splits, 3C) fp32 | the CPE or nulls: 40 taps (9, C),
+//    41 bias (C,), workspace 42 the CPE'd x (B N, C), 43 du (B N, C) fp32,
+//    44 partials (splits, 10, C) fp32, outputs 45 dtaps (9, C), 46 dbias
+//    (C,). rps_x / rps_c: k_wgrad's rows per split over the B N image rows
+//    and the B M meta rows; images are img_w wide; cpe_rps:
+//    k_cpe_tap_grads' rows per block.
 template <typename T>
 int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
-                 int rps_x, int rps_c, float scale_x, float scale_c,
-                 float eps, cudaStream_t s) {
+                 int rps_x, int rps_c, int img_w, int cpe_rps, float scale_x,
+                 float scale_c, float eps, cudaStream_t s) {
   const int rows[2] = {B * N, B * M};
+  const TrainCpe cpe{p[40], p[41], img_w, N, cpe_rps};
+  const void* xs[2] = {p[0], p[1]};  // the rows LN1 reads
   int err;
+  if (cpe.taps) {
+    err = launch_cpe_rows<T, T>(p[0], cpe.taps, cpe.bias, mp<T>(p, 42),
+                                rows[0], C, img_w, N, 0, s);
+    if (err) return err;
+    xs[0] = p[42];
+  }
   for (int si = 0; si < 2; ++si) {
-    err = launch_ln_rows<T>(p[si], mp<T>(p, 26 + si), rows[si], C, eps, s);
+    err = launch_ln_rows<T>(xs[si], mp<T>(p, 26 + si), rows[si], C, eps, s);
     if (err) return err;
   }
   LinArgs la{};  // qkv1 = LN1(x) Wqkv1'^T + b, qkv2 = LN1(c) Wqkv2'^T + b
@@ -208,8 +235,17 @@ int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   err = launch_linear<T>(ld, C, s);
   if (err) return err;
   for (int si = 0; si < 2; ++si) {
-    err = launch_ln_bwd<T>(p[si], fp(p, 36 + si), p[2 + si],
-                           mp<T>(p, 18 + si), rows[si], C, eps, s);
+    if (si == 0 && cpe.taps) {  // du in fp32, then the CPE's backward
+      err = launch_ln_bwd<T, float>(xs[0], fp(p, 36), p[2], fp(p, 43),
+                                    rows[0], C, eps, s);
+      if (!err)
+        err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 43), fp(p, 44),
+                                mp<T>(p, 45), mp<T>(p, 46), mp<T>(p, 18),
+                                rows[0], C, s);
+    } else {
+      err = launch_ln_bwd<T>(xs[si], fp(p, 36 + si), p[2 + si],
+                             mp<T>(p, 18 + si), rows[si], C, eps, s);
+    }
     if (err) return err;
   }
 
@@ -242,25 +278,26 @@ int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
 
 extern "C" int lm_dca_train_fwd(int dtype, const void* const* p, int B,
                                 int N, int M, int C, int H, int hidden,
-                                int keys_per_split, float scale_x,
+                                int keys_per_split, int img_w, float scale_x,
                                 float scale_c, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return lm::dca_train_fwd<float>(p, B, N, M, C, H, hidden, keys_per_split,
-                                    scale_x, scale_c, eps, s);
+                                    img_w, scale_x, scale_c, eps, s);
   return lm::dca_train_fwd<__nv_bfloat16>(p, B, N, M, C, H, hidden,
-                                          keys_per_split, scale_x, scale_c,
-                                          eps, s);
+                                          keys_per_split, img_w, scale_x,
+                                          scale_c, eps, s);
 }
 
 extern "C" int lm_dca_attn_bwd(int dtype, const void* const* p, int B, int N,
                                int M, int C, int H, int rps_x, int rps_c,
-                               float scale_x, float scale_c, float eps,
-                               void* stream) {
+                               int img_w, int cpe_rps, float scale_x,
+                               float scale_c, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::dca_attn_bwd<float>(p, B, N, M, C, H, rps_x, rps_c, scale_x,
-                                   scale_c, eps, s);
+    return lm::dca_attn_bwd<float>(p, B, N, M, C, H, rps_x, rps_c, img_w,
+                                   cpe_rps, scale_x, scale_c, eps, s);
   return lm::dca_attn_bwd<__nv_bfloat16>(p, B, N, M, C, H, rps_x, rps_c,
-                                         scale_x, scale_c, eps, s);
+                                         img_w, cpe_rps, scale_x, scale_c,
+                                         eps, s);
 }

@@ -21,6 +21,16 @@
 //   log-sum-exp and give dq, dk, dv; da = dqkv Wqkv'; k_ln_bwd gives
 //   dx = dt1 + LN1'^T da; k_wgrad gives dWqkv, dbqkv and dWp. dbp =
 //   colsum(dproj) is left to the caller.
+// With a CPE (taps non-null: the TPU kernels' use_cpe, JAX's
+//   PB_TRAIN_CPE=fused), x is the image tokens before the 3x3 CPE. The
+//   forward runs k_cpe_rows once into a workspace and the chain on the CPE'd
+//   rows (the residual is the CPE'd x, as on the TPU); the attention
+//   backward recomputes them the same way (only the pre-CPE x is saved),
+//   takes du = dt1x + LN1'^T da in fp32 from k_ln_bwd, then k_cpe_tap_grads
+//   (dtaps, dbias) and the flipped-tap k_cpe_rows (dx = CPE^T du). One
+//   k_cpe_rows per chain, rather than the inference kernels' CpeRows loader:
+//   that loader recomputes each element's neighbourhood in every product
+//   and LayerNorm pass that reads it (2.3-2.8x slower in serving).
 // Bound on the H100: operations for the products, bytes for the LayerNorm
 // and row kernels. Every product is a plain shared-memory tiled mma.sync
 // (bf16) or FMA (fp32) product; the attention backward is fp32 FMA with one
@@ -35,19 +45,29 @@ namespace {
 // p: 0 x, 1 c, 2 ones, 3 zeros, 4 wqkv', 5 bqkv', 6 wp, 7 bp, 8 w1', 9 b1',
 //    10 w2, 11 b2, 12 dp (4, B) fp32 | 13 x_out, 14 c_out, 15 t1x, 16 t1c,
 //    17 o_x, 18 o_c, 19 lse_x, 20 lse_c (fp32) | workspace 21 qkv_x,
-//    22 qkv_c.
+//    22 qkv_c | the CPE or nulls: 23 taps (9, C), 24 bias (C,), workspace
+//    25 the CPE'd x (B N, C). Images are img_w wide.
 template <typename T>
 int s_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
-                int hidden, float scale, float eps, cudaStream_t s) {
+                int hidden, int img_w, float scale, float eps,
+                cudaStream_t s) {
+  const void* x = p[0];
+  int err;
+  if (p[23]) {
+    err = launch_cpe_rows<T, T>(p[0], p[23], p[24], mp<T>(p, 25), B * N, C,
+                                img_w, N, 0, s);
+    if (err) return err;
+    x = p[25];
+  }
   LinArgs la{};
-  la.seg[0] = {p[0], p[4], p[5], mp<T>(p, 21), B * N, 3 * C};
+  la.seg[0] = {x, p[4], p[5], mp<T>(p, 21), B * N, 3 * C};
   la.seg[1] = {p[1], p[4], p[5], mp<T>(p, 22), B * M, 3 * C};
   la.row_blocks0 = cdiv(B * N, kLinBM);
   la.ln_w = p[2];
   la.ln_b = p[3];
   la.K = C;
   la.eps = eps;
-  int err = launch_linear<T>(la, 3 * C, s);
+  err = launch_linear<T>(la, 3 * C, s);
   if (err) return err;
 
   for (int si = 0; si < 2; ++si) {
@@ -75,7 +95,7 @@ int s_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
 
   const float* dp = static_cast<const float*>(p[12]);
   TailArgs ta{};
-  ta.seg[0] = {p[0], p[17], p[6], p[7], mp<T>(p, 13), B * N,
+  ta.seg[0] = {x, p[17], p[6], p[7], mp<T>(p, 13), B * N,
                dp, dp + B, N, mp<T>(p, 15)};
   ta.seg[1] = {p[1], p[18], p[6], p[7], mp<T>(p, 14), B * M,
                dp + 2 * B, dp + 3 * B, M, mp<T>(p, 16)};
@@ -141,14 +161,27 @@ int s_mlp_bwd(const void* const* p, int B, int N, int M, int C, int hidden,
 //    workspace 19 a_x, 20 a_c (rows, C), 21 qkv_x, 22 qkv_c (rows, 3C),
 //    23 dO_x, 24 dO_c (rows, C) fp32, 25 D_x, 26 D_c (B H n) fp32,
 //    27 dqkv_x, 28 dqkv_c (rows, 3C), 29 da_x, 30 da_c (rows, C) fp32,
-//    31 partials (splits, 3 C^2) fp32, 32 bias partials (splits, 3C).
+//    31 partials (splits, 3 C^2) fp32, 32 bias partials (splits, 3C) |
+//    the CPE or nulls: 33 taps (9, C), 34 bias (C,), workspace 35 the
+//    CPE'd x (B N, C), 36 du (B N, C) fp32, 37 partials (splits, 10, C)
+//    fp32, outputs 38 dtaps (9, C), 39 dbias (C,). Images are img_w wide;
+//    cpe_rps: k_cpe_tap_grads' rows per block.
 template <typename T>
 int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
-               int rows_per_split, float scale, float eps, cudaStream_t s) {
+               int rows_per_split, int img_w, int cpe_rps, float scale,
+               float eps, cudaStream_t s) {
   const int rows[2] = {B * N, B * M};
+  const TrainCpe cpe{p[33], p[34], img_w, N, cpe_rps};
+  const void* xs[2] = {p[0], p[1]};  // the rows LN1 reads
   int err;
+  if (cpe.taps) {
+    err = launch_cpe_rows<T, T>(p[0], cpe.taps, cpe.bias, mp<T>(p, 35),
+                                rows[0], C, img_w, N, 0, s);
+    if (err) return err;
+    xs[0] = p[35];
+  }
   for (int si = 0; si < 2; ++si) {
-    err = launch_ln_rows<T>(p[si], mp<T>(p, 19 + si), rows[si], C, eps, s);
+    err = launch_ln_rows<T>(xs[si], mp<T>(p, 19 + si), rows[si], C, eps, s);
     if (err) return err;
   }
   LinArgs la{};  // qkv = LN1(x) Wqkv'^T + bqkv'
@@ -206,8 +239,17 @@ int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   err = launch_linear<T>(ld, C, s);
   if (err) return err;
   for (int si = 0; si < 2; ++si) {
-    err = launch_ln_bwd<T>(p[si], fp(p, 29 + si), p[2 + si],
-                           mp<T>(p, 14 + si), rows[si], C, eps, s);
+    if (si == 0 && cpe.taps) {  // du in fp32, then the CPE's backward
+      err = launch_ln_bwd<T, float>(xs[0], fp(p, 29), p[2], fp(p, 36),
+                                    rows[0], C, eps, s);
+      if (!err)
+        err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 36), fp(p, 37),
+                                mp<T>(p, 38), mp<T>(p, 39), mp<T>(p, 14),
+                                rows[0], C, s);
+    } else {
+      err = launch_ln_bwd<T>(xs[si], fp(p, 29 + si), p[2 + si],
+                             mp<T>(p, 14 + si), rows[si], C, eps, s);
+    }
     if (err) return err;
   }
 
@@ -233,13 +275,14 @@ int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
 }  // namespace lm
 
 extern "C" int lm_s_train_fwd(int dtype, const void* const* p, int B, int N,
-                              int M, int C, int H, int hidden, float scale,
-                              float eps, void* stream) {
+                              int M, int C, int H, int hidden, int img_w,
+                              float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::s_train_fwd<float>(p, B, N, M, C, H, hidden, scale, eps, s);
-  return lm::s_train_fwd<__nv_bfloat16>(p, B, N, M, C, H, hidden, scale, eps,
-                                        s);
+    return lm::s_train_fwd<float>(p, B, N, M, C, H, hidden, img_w, scale, eps,
+                                  s);
+  return lm::s_train_fwd<__nv_bfloat16>(p, B, N, M, C, H, hidden, img_w,
+                                        scale, eps, s);
 }
 
 extern "C" int lm_mlp_bwd(int dtype, const void* const* p, int B, int N,
@@ -254,11 +297,12 @@ extern "C" int lm_mlp_bwd(int dtype, const void* const* p, int B, int N,
 
 extern "C" int lm_s_attn_bwd(int dtype, const void* const* p, int B, int N,
                              int M, int C, int H, int rows_per_split,
-                             float scale, float eps, void* stream) {
+                             int img_w, int cpe_rps, float scale, float eps,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::s_attn_bwd<float>(p, B, N, M, C, H, rows_per_split, scale, eps,
-                                 s);
+    return lm::s_attn_bwd<float>(p, B, N, M, C, H, rows_per_split, img_w,
+                                 cpe_rps, scale, eps, s);
   return lm::s_attn_bwd<__nv_bfloat16>(p, B, N, M, C, H, rows_per_split,
-                                       scale, eps, s);
+                                       img_w, cpe_rps, scale, eps, s);
 }

@@ -167,21 +167,27 @@ def stage_takes(n: int, m: int, ch: int, num_heads: int, n_blocks: int,
 # ---------------------------------------------------------------- CUDA
 
 
+def _check_cpe(name: str, x, cpe, img_w: int) -> None:
+    """Raise unless ``cpe`` is the (taps (9, C), bias (C,)) pair of x's
+    channels, and x's N tokens whole rows of images img_w wide."""
+    ch, n = x.shape[-1], x.shape[1]
+    taps, bias = cpe
+    if tuple(taps.shape) != (9, ch) or tuple(bias.shape) != (ch,):
+        raise ValueError(f"{name}: CPE taps (9, {ch}) and bias ({ch},) "
+                         f"expected, got {tuple(taps.shape)} and "
+                         f"{tuple(bias.shape)}")
+    if img_w <= 0 or n % img_w:
+        raise ValueError(f"{name}: N={n} tokens are not whole rows of an "
+                         f"image {img_w} wide")
+
+
 def _check(name: str, x, c, params: Sequence[torch.Tensor], num_heads: int,
            hidden: int, cpe=None, img_w: int = 0) -> None:
     """Raise on what the kernel does not take. ``cpe``: the (taps, bias)
     pair the kernel applies to x, images img_w wide."""
     if cpe is not None:
-        ch, n = x.shape[-1], x.shape[1]
-        taps, bias = cpe
-        if tuple(taps.shape) != (9, ch) or tuple(bias.shape) != (ch,):
-            raise ValueError(f"{name}: CPE taps (9, {ch}) and bias ({ch},) "
-                             f"expected, got {tuple(taps.shape)} and "
-                             f"{tuple(bias.shape)}")
-        if img_w <= 0 or n % img_w:
-            raise ValueError(f"{name}: N={n} tokens are not whole rows of "
-                             f"an image {img_w} wide")
-        params = [*params, taps, bias]
+        _check_cpe(name, x, cpe, img_w)
+        params = [*params, *cpe]
     if x.dim() != 3 or c.dim() != 3 or x.shape[0] != c.shape[0] \
             or x.shape[2] != c.shape[2]:
         raise ValueError(f"{name}: x (B,N,C) and c (B,M,C) expected, got "

@@ -2,14 +2,22 @@
 lemevit_tpu/attn/pallas_train.py's s_block_train, dca_block_train and
 c_block_train (custom VJPs around the Pallas training kernels).
 
-  s_block_train(x, c, params, dp, *, num_heads) -> (x_out, c_out)
-  dca_block_train(x, c, params, dp, *, num_heads, scale_x, scale_c)
+  s_block_train(x, c, params, dp, *, num_heads, cpe=None, img_w=0)
                                                 -> (x_out, c_out)
-  c_block_train(x, c, params, dp, *, num_heads) -> c_out
+  dca_block_train(x, c, params, dp, *, num_heads, scale_x, scale_c,
+                  cpe=None, img_w=0)            -> (x_out, c_out)
+  c_block_train(x, c, params, dp, *, num_heads, cpe=None, img_w=0) -> c_out
 
-x is (B, N, C) image tokens *after* the conditional position embedding (the
-CPE stays outside, a depthwise ``F.conv2d`` under autograd, as the JAX
-package's default); c is (B, M, C) meta tokens. ``params`` are LN-folded
+x is (B, N, C) image tokens and c (B, M, C) meta tokens. Without ``cpe``, x
+comes *after* the conditional position embedding (the CPE stays outside, a
+depthwise ``F.conv2d`` under autograd, as the JAX package's default
+``PB_TRAIN_CPE=ext``). With ``cpe = (taps (9, C) in (ky, kx) order, bias
+(C,))`` x comes *before* it, from images ``img_w`` wide, and the kernels
+apply the 3x3 CPE themselves (JAX's ``PB_TRAIN_CPE=fused``): the forward
+runs the block on x + b + sum_9 tap[ky, kx] x[i + (ky-1) W + (kx-1)] (the C
+block on its k / v side only), the backward recomputes it from the saved
+pre-CPE x, and the Functions also return the taps' and the bias's
+gradients. ``params`` are LN-folded
 tuples in torch ``nn.Linear`` layout: ``fold_ln`` folds norm1 into the
 attention's input projections and norm2 into fc1 *outside* the autograd
 Function, so autograd chains the LayerNorm gamma / beta gradients.
@@ -36,9 +44,13 @@ plain PyTorch version on CPU tensors:
   s_attn_bwd / dca_attn_bwd / c_attn_bwd
                (x, c, dt1, o, lse) -> the data and attention weight grads
 The weight gradients accumulate in fp32 and are returned in the parameters'
-dtype. ``*_block_train_plain`` is each block composed under autograd: the
-reference the phases are tested against. The plain phases take head_dim
-from the shapes; the kernels take head_dim 32.
+dtype. With a CPE the attention backward takes the gradient at the CPE's
+output in fp32 and gives the tap and bias gradients (cpe_tap_grads_plain)
+and dx through the CPE's transpose: the same CPE with the taps flipped
+(tap 8 - j for tap j) and no bias (cpe_rows_plain). ``*_block_train_plain``
+is each block composed under autograd: the reference the phases are tested
+against. The plain phases take head_dim from the shapes; the kernels take
+head_dim 32.
 
 ``LAUNCHES[name]`` counts kernel launches of each phase (one per call on CUDA
 tensors; the plain versions do not count).
@@ -59,6 +71,7 @@ LAUNCHES = {"s_train_fwd": 0, "mlp_bwd": 0, "s_attn_bwd": 0,
             "dca_train_fwd": 0, "dca_attn_bwd": 0, "c_train_fwd": 0,
             "c_attn_bwd": 0}
 WGRAD_TILE = 64         # k_wgrad's output tile edge
+CPE_GRAD_ROWS = 64      # least rows per k_cpe_tap_grads block
 
 
 def fold_ln(gamma, beta, w, b):
@@ -154,10 +167,14 @@ def _dproj(s1, dt1):
     return (_col(s1, dt1) * dt1.float()).to(dt1.dtype)
 
 
-def s_train_fwd_plain(x, c, params, dp, *, num_heads: int):
+def s_train_fwd_plain(x, c, params, dp, *, num_heads: int, cpe=None,
+                      img_w: int = 0):
     """Forward of both streams: (x_out, c_out, t1x, t1c, o_x, o_c, lse_x,
-    lse_c); lse is (B, H, n) fp32, the rest in x's dtype."""
+    lse_c); lse is (B, H, n) fp32, the rest in x's dtype. With ``cpe`` x is
+    the pre-CPE tokens."""
     wqkv, bqkv, wp, bp, w1, b1, w2, b2 = params
+    if cpe is not None:
+        x = cpe_rows_plain(x, *cpe, img_w)
     dt = x.dtype
     scale = (x.shape[-1] // num_heads) ** -0.5
 
@@ -202,36 +219,43 @@ def mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2):
 
 
 def s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x,
-                     lse_c, *, num_heads: int):
+                     lse_c, *, num_heads: int, cpe=None, img_w: int = 0):
     """Attention backward of both streams (the TPU's _s_attn_bwd_kernel):
-    returns (dx, dc, dWqkv, dbqkv, dWp, dbp). LN1 and qkv are recomputed,
-    P is rebuilt from the forward's log-sum-exp."""
+    returns (dx, dc, dWqkv, dbqkv, dWp, dbp, dtaps, dbias). LN1 and qkv are
+    recomputed (with ``cpe``, on the CPE of the pre-CPE x), P is rebuilt
+    from the forward's log-sum-exp; dtaps and dbias are None without a
+    CPE."""
     dt = x.dtype
     scale = (x.shape[-1] // num_heads) ** -0.5
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
     acc = [0.0, 0.0, 0.0, 0.0]
     grads = []
-    for t, dt1, s1, o, lse in ((x, dt1x, dp[0], ox, lse_x),
+    for t, dt1, s1, o, lse in ((xc, dt1x, dp[0], ox, lse_x),
                                (c, dt1c, dp[2], oc, lse_c)):
         dproj = _dproj(s1, dt1)
         a = _norm(t).to(dt)
         q, k, v = F.linear(a, wqkv, bqkv).chunk(3, -1)
         dqkv = torch.cat(_attn_bwd(q, k, v, o, dproj.float() @ wp.float(),
                                    lse, num_heads, scale), -1).to(dt)
-        grads.append((dt1.float() + _ln_bwd(dqkv.float() @ wqkv.float(), t)
-                      ).to(dt))
+        grads.append(dt1.float() + _ln_bwd(dqkv.float() @ wqkv.float(), t))
         for i, val in enumerate((_wgrad(dqkv, a), _colsum(dqkv),
                                  _wgrad(dproj, o), _colsum(dproj))):
             acc[i] = acc[i] + val
-    return (grads[0], grads[1], acc[0].to(wqkv.dtype), acc[1].to(bqkv.dtype),
-            acc[2].to(wp.dtype), acc[3].to(wp.dtype))
+    dx, dtaps, dbias = ((grads[0].to(dt), None, None) if cpe is None
+                        else _cpe_bwd_plain(x, grads[0], cpe, img_w))
+    return (dx, grads[1].to(dt), acc[0].to(wqkv.dtype),
+            acc[1].to(bqkv.dtype), acc[2].to(wp.dtype), acc[3].to(wp.dtype),
+            dtaps, dbias)
 
 
 def dca_train_fwd_plain(x, c, params, dp, *, num_heads: int, scale_x: float,
-                        scale_c: float):
+                        scale_c: float, cpe=None, img_w: int = 0):
     """D-block forward (the TPU's _dca_train_fwd_kernel): (x_out, c_out,
     t1x, t1c, o_x, o_c, lse_x, lse_c); lse is (B, H, n) fp32, the rest in
-    x's dtype."""
+    x's dtype. With ``cpe`` x is the pre-CPE tokens."""
     wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc, w1, b1, w2, b2 = params
+    if cpe is not None:
+        x = cpe_rows_plain(x, *cpe, img_w)
     dt = x.dtype
     q1, k1, v1 = F.linear(_norm(x).to(dt), wqkv1, bqkv1).chunk(3, -1)
     q2, k2, v2 = F.linear(_norm(c).to(dt), wqkv2, bqkv2).chunk(3, -1)
@@ -245,14 +269,17 @@ def dca_train_fwd_plain(x, c, params, dp, *, num_heads: int, scale_x: float,
 
 def dca_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2,
                        wpx, wpc, ox, oc, lse_x, lse_c, *, num_heads: int,
-                       scale_x: float, scale_c: float):
+                       scale_x: float, scale_c: float, cpe=None,
+                       img_w: int = 0):
     """D-block attention backward (the TPU's _dca_attn_bwd_kernel): returns
-    (dx, dc, dWqkv1, dbqkv1, dWqkv2, dbqkv2, dWpx, dbpx, dWpc, dbpc). The
-    x direction's dq lands in dqkv1, its dk / dv in dqkv2, and the c
-    direction's the other way round."""
+    (dx, dc, dWqkv1, dbqkv1, dWqkv2, dbqkv2, dWpx, dbpx, dWpc, dbpc, dtaps,
+    dbias). The x direction's dq lands in dqkv1, its dk / dv in dqkv2, and
+    the c direction's the other way round. With ``cpe`` x is the pre-CPE
+    tokens; dtaps and dbias are None without one."""
     dt = x.dtype
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
     dpx, dpc = _dproj(dp[0], dt1x), _dproj(dp[2], dt1c)
-    ax, ac = _norm(x).to(dt), _norm(c).to(dt)
+    ax, ac = _norm(xc).to(dt), _norm(c).to(dt)
     q1, k1, v1 = F.linear(ax, wqkv1, bqkv1).chunk(3, -1)
     q2, k2, v2 = F.linear(ac, wqkv2, bqkv2).chunk(3, -1)
     dq1, dk2, dv2 = _attn_bwd(q1, k2, v2, ox, dpx.float() @ wpx.float(),
@@ -261,24 +288,30 @@ def dca_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2,
                               lse_c, num_heads, scale_c)
     dqkv1 = torch.cat([dq1, dk1, dv1], -1).to(dt)
     dqkv2 = torch.cat([dq2, dk2, dv2], -1).to(dt)
-    dx = dt1x.float() + _ln_bwd(dqkv1.float() @ wqkv1.float(), x)
+    dx = dt1x.float() + _ln_bwd(dqkv1.float() @ wqkv1.float(), xc)
     dc = dt1c.float() + _ln_bwd(dqkv2.float() @ wqkv2.float(), c)
-    return (dx.to(dt), dc.to(dt),
+    dx, dtaps, dbias = ((dx.to(dt), None, None) if cpe is None
+                        else _cpe_bwd_plain(x, dx, cpe, img_w))
+    return (dx, dc.to(dt),
             _wgrad(dqkv1, ax).to(wqkv1.dtype),
             _colsum(dqkv1).to(bqkv1.dtype),
             _wgrad(dqkv2, ac).to(wqkv2.dtype),
             _colsum(dqkv2).to(bqkv2.dtype),
             _wgrad(dpx, ox).to(wpx.dtype), _colsum(dpx).to(wpx.dtype),
-            _wgrad(dpc, oc).to(wpc.dtype), _colsum(dpc).to(wpc.dtype))
+            _wgrad(dpc, oc).to(wpc.dtype), _colsum(dpc).to(wpc.dtype),
+            dtaps, dbias)
 
 
-def c_train_fwd_plain(x, c, params, dp, *, num_heads: int):
+def c_train_fwd_plain(x, c, params, dp, *, num_heads: int, cpe=None,
+                      img_w: int = 0):
     """C-block forward (the TPU's _c_train_fwd_kernel): (c_out, t1c, o,
-    lse); lse is (B, H, M) fp32, the rest in x's dtype."""
+    lse); lse is (B, H, M) fp32, the rest in x's dtype. With ``cpe`` x is
+    the pre-CPE tokens, whose CPE feeds k and v."""
     wq, bq, wkv, bkv, wp, bp, w1, b1, w2, b2 = params
     dt = x.dtype
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
     q = F.linear(_norm(c).to(dt), wq, bq)
-    k, v = F.linear(_norm(x).to(dt), wkv, bkv).chunk(2, -1)
+    k, v = F.linear(_norm(xc).to(dt), wkv, bkv).chunk(2, -1)
     o, lse = _attn_fwd(q, k, v, num_heads,
                        (x.shape[-1] // num_heads) ** -0.5)
     o = o.to(dt)
@@ -287,24 +320,60 @@ def c_train_fwd_plain(x, c, params, dp, *, num_heads: int):
 
 
 def c_attn_bwd_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
-                     num_heads: int):
+                     num_heads: int, cpe=None, img_w: int = 0):
     """C-block attention backward (the TPU's _c_attn_bwd_kernel): returns
-    (dxt, dc, dWq, dbq, dWkv, dbkv, dWp, dbp). dxt is the gradient through
-    k / v alone: x's identity path past the block is autograd's."""
+    (dxt, dc, dWq, dbq, dWkv, dbkv, dWp, dbp, dtaps, dbias). dxt is the
+    gradient through k / v alone (with ``cpe``, through the CPE too): x's
+    identity path past the block is autograd's. dtaps and dbias are None
+    without a CPE."""
     dt = x.dtype
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
     dpc = _dproj(dp[2], dt1c)
-    ax, ac = _norm(x).to(dt), _norm(c).to(dt)
+    ax, ac = _norm(xc).to(dt), _norm(c).to(dt)
     q = F.linear(ac, wq, bq)
     k, v = F.linear(ax, wkv, bkv).chunk(2, -1)
     dq, dk, dv = _attn_bwd(q, k, v, o, dpc.float() @ wp.float(), lse,
                            num_heads, (x.shape[-1] // num_heads) ** -0.5)
     dq, dkv = dq.to(dt), torch.cat([dk, dv], -1).to(dt)
-    dxt = _ln_bwd(dkv.float() @ wkv.float(), x)
+    dxt = _ln_bwd(dkv.float() @ wkv.float(), xc)
     dc = dt1c.float() + _ln_bwd(dq.float() @ wq.float(), c)
-    return (dxt.to(dt), dc.to(dt), _wgrad(dq, ac).to(wq.dtype),
+    dxt, dtaps, dbias = ((dxt.to(dt), None, None) if cpe is None
+                         else _cpe_bwd_plain(x, dxt, cpe, img_w))
+    return (dxt, dc.to(dt), _wgrad(dq, ac).to(wq.dtype),
             _colsum(dq).to(bq.dtype), _wgrad(dkv, ax).to(wkv.dtype),
             _colsum(dkv).to(bkv.dtype), _wgrad(dpc, o).to(wp.dtype),
-            _colsum(dpc).to(wp.dtype))
+            _colsum(dpc).to(wp.dtype), dtaps, dbias)
+
+
+def cpe_rows_plain(x, taps, bias, img_w: int, dtype=None) -> torch.Tensor:
+    """The 3x3 CPE of (B, N, C) tokens from images img_w wide
+    (``fused_block.cpe_plain``) computed in fp32 and rounded once to
+    ``dtype`` (x's by default). bias may be None. With the taps flipped
+    (``taps.flip(0)``) and no bias, the CPE's transpose. Differentiable."""
+    return fb.cpe_plain(x.float(), taps.float(),
+                        None if bias is None else bias.float(),
+                        img_w).to(dtype or x.dtype)
+
+
+def cpe_tap_grads_plain(x, du, img_w: int):
+    """The CPE's parameter gradients (dtaps (9, C), dbias (C,)) in fp32 from
+    x, its input, and du, the gradient at its output (both (B, N, C)): the
+    autograd of ``fused_block.cpe_plain``, which is linear in them."""
+    ch = x.shape[-1]
+    taps = torch.zeros(9, ch, device=x.device, requires_grad=True)
+    bias = torch.zeros(ch, device=x.device, requires_grad=True)
+    with torch.enable_grad():
+        y = fb.cpe_plain(x.detach().float(), taps, bias, img_w)
+        return torch.autograd.grad(y, (taps, bias), du.float())
+
+
+def _cpe_bwd_plain(x, du, cpe, img_w):
+    """The CPE's backward from the fp32 gradient du at its output: (dx =
+    CPE^T du in x's dtype, dtaps, dbias in the CPE's dtype)."""
+    taps, bias = cpe
+    dtaps, dbias = cpe_tap_grads_plain(x, du, img_w)
+    dx = cpe_rows_plain(du, taps.flip(0), None, img_w, x.dtype)
+    return dx, dtaps.to(taps.dtype), dbias.to(bias.dtype)
 
 
 def _ln(t):
@@ -319,11 +388,14 @@ def _tail_autograd(t, o, wp, bp, s1, s2, w1, b1, w2, b2):
     return t1 + _col(s2, t).to(t.dtype) * mlp
 
 
-def s_block_train_plain(x, c, params, dp, *, num_heads: int
+def s_block_train_plain(x, c, params, dp, *, num_heads: int, cpe=None,
+                        img_w: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The S block composed in PyTorch under autograd, with the LN-folded
-    params and branch scales of s_block_train."""
+    params, branch scales and CPE of s_block_train."""
     wqkv, bqkv, wp, bp, w1, b1, w2, b2 = params
+    if cpe is not None:
+        x = cpe_rows_plain(x, *cpe, img_w)
 
     def branch(t, s1, s2):
         b, n, ch = t.shape
@@ -337,11 +409,14 @@ def s_block_train_plain(x, c, params, dp, *, num_heads: int
 
 
 def dca_block_train_plain(x, c, params, dp, *, num_heads: int,
-                          scale_x: float, scale_c: float
+                          scale_x: float, scale_c: float, cpe=None,
+                          img_w: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The D block composed in PyTorch under autograd, with the LN-folded
-    params and branch scales of dca_block_train."""
+    params, branch scales and CPE of dca_block_train."""
     wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc, w1, b1, w2, b2 = params
+    if cpe is not None:
+        x = cpe_rows_plain(x, *cpe, img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -355,11 +430,14 @@ def dca_block_train_plain(x, c, params, dp, *, num_heads: int,
             _tail_autograd(c, oc, wpc, bpc, dp[2], dp[3], w1, b1, w2, b2))
 
 
-def c_block_train_plain(x, c, params, dp, *, num_heads: int
-                        ) -> torch.Tensor:
+def c_block_train_plain(x, c, params, dp, *, num_heads: int, cpe=None,
+                        img_w: int = 0) -> torch.Tensor:
     """The C block composed in PyTorch under autograd, with the LN-folded
-    params and branch scales of c_block_train. Returns the new c."""
+    params, branch scales and CPE (on the k / v side) of c_block_train.
+    Returns the new c."""
     wq, bq, wkv, bkv, wp, bp, w1, b1, w2, b2 = params
+    if cpe is not None:
+        x = cpe_rows_plain(x, *cpe, img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -383,10 +461,10 @@ def _param_shapes(kind: str, ch: int, hidden: int):
 
 
 def _check(name, kind, x, c, params: Sequence[torch.Tensor], dp,
-           num_heads: int):
+           num_heads: int, cpe=None, img_w: int = 0):
     b, n, ch = x.shape
     hidden = params[-4].shape[0]
-    fb._check(name, x, c, params, num_heads, hidden)
+    fb._check(name, x, c, params, num_heads, hidden, cpe, img_w)
     fb._check_shapes(name, params, _param_shapes(kind, ch, hidden))
     if (dp.dtype != torch.float32 or tuple(dp.shape) != (4, b)
             or dp.device != x.device or not dp.is_contiguous()):
@@ -414,12 +492,49 @@ def _wgrad_split(rows0: int, rows1: int, shapes, sms: int
     return rps, -(-rows0 // rps) + -(-rows1 // rps)
 
 
+def _cpe_split(rows: int, sms: int) -> Tuple[int, int]:
+    """(rows_per_split, splits) of k_cpe_tap_grads: one block per row range
+    (all channels), about four blocks on each of the device's ``sms``
+    multiprocessors, at least CPE_GRAD_ROWS rows (a multiple of 8) per
+    block."""
+    rps = max(CPE_GRAD_ROWS, -(-rows // (4 * sms)))
+    rps = -(-rps // 8) * 8
+    return rps, -(-rows // rps)
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _ws(shape, like, dtype=None):
     return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
+
+
+def _cpe_fwd_args(x, cpe):
+    """A forward's CPE pointers: taps, bias and the CPE'd-x workspace, or
+    three nulls."""
+    if cpe is None:
+        return [None] * 3
+    return [*cpe, torch.empty_like(x)]
+
+
+def _cpe_bwd_args(name, x, cpe, img_w):
+    """An attention backward's CPE pointers (taps, bias; workspaces: the
+    CPE'd x, du in fp32, the tap-gradient partials; outputs dtaps, dbias)
+    and k_cpe_tap_grads' rows per block; seven nulls and 0 without a CPE."""
+    if cpe is None:
+        return [None] * 7, 0
+    fb._check_cpe(name, x, cpe, img_w)
+    _check_tensors(name, x, cpe)
+    if any(t.data_ptr() % 16 for t in cpe):
+        raise ValueError(f"{name}: CPE taps and bias must be 16-byte "
+                         "aligned")
+    b, n, ch = x.shape
+    rps, splits = _cpe_split(b * n, _sms(x.device))
+    f32 = torch.float32
+    return [*cpe, torch.empty_like(x), _ws((b * n, ch), x, f32),
+            _ws((splits * 10 * ch,), x, f32), torch.empty_like(cpe[0]),
+            torch.empty_like(cpe[1])], rps
 
 
 def _ln_identity(x):
@@ -430,11 +545,13 @@ def _ln_identity(x):
             torch.zeros(ch, dtype=x.dtype, device=x.device))
 
 
-def s_train_fwd(x, c, params, dp, *, num_heads: int):
+def s_train_fwd(x, c, params, dp, *, num_heads: int, cpe=None,
+                img_w: int = 0):
     """The S forward phase; see s_train_fwd_plain."""
     if not x.is_cuda:
-        return s_train_fwd_plain(x, c, params, dp, num_heads=num_heads)
-    _check("s_train_fwd", "s", x, c, params, dp, num_heads)
+        return s_train_fwd_plain(x, c, params, dp, num_heads=num_heads,
+                                 cpe=cpe, img_w=img_w)
+    _check("s_train_fwd", "s", x, c, params, dp, num_heads, cpe, img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     hidden = params[4].shape[0]
@@ -444,9 +561,9 @@ def s_train_fwd(x, c, params, dp, *, num_heads: int):
             _ws((b, num_heads, n), x, f32), _ws((b, num_heads, m), x, f32)]
     work = [_ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x)]
     fb._launch("s_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
-                                  *outs, *work],
-               b, n, m, ch, num_heads, hidden, fb.HEAD_DIM ** -0.5, LN_EPS,
-               counts=LAUNCHES)
+                                  *outs, *work, *_cpe_fwd_args(x, cpe)],
+               b, n, m, ch, num_heads, hidden, img_w, fb.HEAD_DIM ** -0.5,
+               LN_EPS, counts=LAUNCHES)
     return tuple(outs)
 
 
@@ -480,11 +597,12 @@ def mlp_bwd(t1x, t1c, dxo, dco, dp, w1, b1, w2):
 
 
 def s_attn_bwd(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x, lse_c,
-               *, num_heads: int):
+               *, num_heads: int, cpe=None, img_w: int = 0):
     """The S attention-backward phase; see s_attn_bwd_plain."""
     if not x.is_cuda:
         return s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox,
-                                oc, lse_x, lse_c, num_heads=num_heads)
+                                oc, lse_x, lse_c, num_heads=num_heads,
+                                cpe=cpe, img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -506,19 +624,22 @@ def s_attn_bwd(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x, lse_c,
     tensors = [x, c, dt1x, dt1c, dpx, dpc, wqkv, bqkv, wqkv.t().contiguous(),
                wp.t().contiguous(), ox, oc]
     _check_tensors("s_attn_bwd", x, tensors)
-    fb._launch("s_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work],
-               b, n, m, ch, h, rps, fb.HEAD_DIM ** -0.5, LN_EPS,
-               counts=LAUNCHES)
-    return (*outs, dbp)
+    cpe_args, cpe_rps = _cpe_bwd_args("s_attn_bwd", x, cpe, img_w)
+    fb._launch("s_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work,
+                                 *cpe_args],
+               b, n, m, ch, h, rps, img_w, cpe_rps, fb.HEAD_DIM ** -0.5,
+               LN_EPS, counts=LAUNCHES)
+    return (*outs, dbp, *cpe_args[-2:])
 
 
 def dca_train_fwd(x, c, params, dp, *, num_heads: int, scale_x: float,
-                  scale_c: float):
+                  scale_c: float, cpe=None, img_w: int = 0):
     """The D forward phase; see dca_train_fwd_plain."""
     if not x.is_cuda:
         return dca_train_fwd_plain(x, c, params, dp, num_heads=num_heads,
-                                   scale_x=scale_x, scale_c=scale_c)
-    _check("dca_train_fwd", "dca", x, c, params, dp, num_heads)
+                                   scale_x=scale_x, scale_c=scale_c,
+                                   cpe=cpe, img_w=img_w)
+    _check("dca_train_fwd", "dca", x, c, params, dp, num_heads, cpe, img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -530,21 +651,21 @@ def dca_train_fwd(x, c, params, dp, *, num_heads: int, scale_x: float,
     work = [_ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
             *fb._partials(b, h, m, n, x.device)]
     fb._launch("dca_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
-                                    *outs, *work],
-               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT, scale_x, scale_c,
-               LN_EPS, counts=LAUNCHES)
+                                    *outs, *work, *_cpe_fwd_args(x, cpe)],
+               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT, img_w, scale_x,
+               scale_c, LN_EPS, counts=LAUNCHES)
     return tuple(outs)
 
 
 def dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
                  ox, oc, lse_x, lse_c, *, num_heads: int, scale_x: float,
-                 scale_c: float):
+                 scale_c: float, cpe=None, img_w: int = 0):
     """The D attention-backward phase; see dca_attn_bwd_plain."""
     if not x.is_cuda:
         return dca_attn_bwd_plain(
             x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc, ox,
             oc, lse_x, lse_c, num_heads=num_heads, scale_x=scale_x,
-            scale_c=scale_c)
+            scale_c=scale_c, cpe=cpe, img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -571,18 +692,23 @@ def dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
                wqkv1.t().contiguous(), wqkv2.t().contiguous(),
                wpx.t().contiguous(), wpc.t().contiguous(), ox, oc]
     _check_tensors("dca_attn_bwd", x, tensors)
-    fb._launch("dca_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work],
-               b, n, m, ch, h, rps_x, rps_c, scale_x, scale_c, LN_EPS,
-               counts=LAUNCHES)
+    cpe_args, cpe_rps = _cpe_bwd_args("dca_attn_bwd", x, cpe, img_w)
+    fb._launch("dca_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work,
+                                   *cpe_args],
+               b, n, m, ch, h, rps_x, rps_c, img_w, cpe_rps, scale_x,
+               scale_c, LN_EPS, counts=LAUNCHES)
     dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dwpc = outs
-    return (dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dbpx, dwpc, dbpc)
+    return (dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dbpx, dwpc, dbpc,
+            *cpe_args[-2:])
 
 
-def c_train_fwd(x, c, params, dp, *, num_heads: int):
+def c_train_fwd(x, c, params, dp, *, num_heads: int, cpe=None,
+                img_w: int = 0):
     """The C forward phase; see c_train_fwd_plain."""
     if not x.is_cuda:
-        return c_train_fwd_plain(x, c, params, dp, num_heads=num_heads)
-    _check("c_train_fwd", "c", x, c, params, dp, num_heads)
+        return c_train_fwd_plain(x, c, params, dp, num_heads=num_heads,
+                                 cpe=cpe, img_w=img_w)
+    _check("c_train_fwd", "c", x, c, params, dp, num_heads, cpe, img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -592,18 +718,18 @@ def c_train_fwd(x, c, params, dp, *, num_heads: int):
     work = [_ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
             *fb._partials(b, h, m, n, x.device)]
     fb._launch("c_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
-                                  *outs, *work],
-               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT,
+                                  *outs, *work, *_cpe_fwd_args(x, cpe)],
+               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT, img_w,
                fb.HEAD_DIM ** -0.5, LN_EPS, counts=LAUNCHES)
     return tuple(outs)
 
 
 def c_attn_bwd(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
-               num_heads: int):
+               num_heads: int, cpe=None, img_w: int = 0):
     """The C attention-backward phase; see c_attn_bwd_plain."""
     if not x.is_cuda:
         return c_attn_bwd_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse,
-                                num_heads=num_heads)
+                                num_heads=num_heads, cpe=cpe, img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -626,10 +752,11 @@ def c_attn_bwd(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
     tensors = [x, c, dt1c, dpc, wq, bq, wkv, bkv, wq.t().contiguous(),
                wkv.t().contiguous(), wp.t().contiguous(), o]
     _check_tensors("c_attn_bwd", x, tensors)
-    fb._launch("c_attn_bwd", x, [*tensors, lse, *outs, *work],
-               b, n, m, ch, h, rps_x, rps_c, fb.HEAD_DIM ** -0.5, LN_EPS,
-               counts=LAUNCHES)
-    return (*outs, dbp)
+    cpe_args, cpe_rps = _cpe_bwd_args("c_attn_bwd", x, cpe, img_w)
+    fb._launch("c_attn_bwd", x, [*tensors, lse, *outs, *work, *cpe_args],
+               b, n, m, ch, h, rps_x, rps_c, img_w, cpe_rps,
+               fb.HEAD_DIM ** -0.5, LN_EPS, counts=LAUNCHES)
+    return (*outs, dbp, *cpe_args[-2:])
 
 
 def _upstream(g, like):
@@ -639,56 +766,68 @@ def _upstream(g, like):
             else g.to(like.dtype).contiguous())
 
 
+def _cpe_pair(taps, bias):
+    return None if taps is None else (taps.contiguous(), bias.contiguous())
+
+
 class _STrain(torch.autograd.Function):
     """Forward and backward of s_block_train across both token streams."""
 
     @staticmethod
-    def forward(ctx, x, c, dp, num_heads, *params):
+    def forward(ctx, x, c, dp, num_heads, img_w, taps, bias, *params):
         x, c = x.contiguous(), c.contiguous()
         params = [p.contiguous() for p in params]
+        cpe = _cpe_pair(taps, bias)
         xo, co, t1x, t1c, ox, oc, lx, lc = s_train_fwd(
-            x, c, params, dp, num_heads=num_heads)
-        ctx.save_for_backward(x, c, dp, t1x, t1c, ox, oc, lx, lc, *params)
-        ctx.num_heads = num_heads
+            x, c, params, dp, num_heads=num_heads, cpe=cpe, img_w=img_w)
+        ctx.save_for_backward(x, c, dp, t1x, t1c, ox, oc, lx, lc,
+                              *(cpe or (None, None)), *params)
+        ctx.kw = dict(num_heads=num_heads, img_w=img_w)
         return xo, co
 
     @staticmethod
     def backward(ctx, dxo, dco):
-        x, c, dp, t1x, t1c, ox, oc, lx, lc, *params = ctx.saved_tensors
+        x, c, dp, t1x, t1c, ox, oc, lx, lc, taps, bias, *params = (
+            ctx.saved_tensors)
         wqkv, bqkv, wp, _, w1, b1, w2, _ = params
         dt1x, dt1c, dw1, db1, dw2, db2 = mlp_bwd(
             t1x, t1c, _upstream(dxo, x), _upstream(dco, c), dp, w1, b1, w2)
-        dx, dc, dwqkv, dbqkv, dwp, dbp = s_attn_bwd(
+        dx, dc, dwqkv, dbqkv, dwp, dbp, dtaps, dbias = s_attn_bwd(
             x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lx, lc,
-            num_heads=ctx.num_heads)
-        return (dx, dc, None, None, dwqkv, dbqkv, dwp, dbp, dw1, db1, dw2,
-                db2)
+            cpe=_cpe_pair(taps, bias), **ctx.kw)
+        return (dx, dc, None, None, None, dtaps, dbias, dwqkv, dbqkv, dwp,
+                dbp, dw1, db1, dw2, db2)
 
 
 class _DcaTrain(torch.autograd.Function):
     """Forward and backward of dca_block_train."""
 
     @staticmethod
-    def forward(ctx, x, c, dp, num_heads, scale_x, scale_c, *params):
+    def forward(ctx, x, c, dp, num_heads, scale_x, scale_c, img_w, taps,
+                bias, *params):
         x, c = x.contiguous(), c.contiguous()
         params = [p.contiguous() for p in params]
+        cpe = _cpe_pair(taps, bias)
+        ctx.kw = dict(num_heads=num_heads, scale_x=scale_x, scale_c=scale_c,
+                      img_w=img_w)
         xo, co, t1x, t1c, ox, oc, lx, lc = dca_train_fwd(
-            x, c, params, dp, num_heads=num_heads, scale_x=scale_x,
-            scale_c=scale_c)
-        ctx.save_for_backward(x, c, dp, t1x, t1c, ox, oc, lx, lc, *params)
-        ctx.kw = dict(num_heads=num_heads, scale_x=scale_x, scale_c=scale_c)
+            x, c, params, dp, cpe=cpe, **ctx.kw)
+        ctx.save_for_backward(x, c, dp, t1x, t1c, ox, oc, lx, lc,
+                              *(cpe or (None, None)), *params)
         return xo, co
 
     @staticmethod
     def backward(ctx, dxo, dco):
-        x, c, dp, t1x, t1c, ox, oc, lx, lc, *params = ctx.saved_tensors
+        x, c, dp, t1x, t1c, ox, oc, lx, lc, taps, bias, *params = (
+            ctx.saved_tensors)
         wqkv1, bqkv1, wqkv2, bqkv2, wpx, _, wpc, _, w1, b1, w2, _ = params
         dt1x, dt1c, dw1, db1, dw2, db2 = mlp_bwd(
             t1x, t1c, _upstream(dxo, x), _upstream(dco, c), dp, w1, b1, w2)
         g = dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2,
-                         wpx, wpc, ox, oc, lx, lc, **ctx.kw)
-        return (g[0], g[1], None, None, None, None, *g[2:], dw1, db1, dw2,
-                db2)
+                         wpx, wpc, ox, oc, lx, lc,
+                         cpe=_cpe_pair(taps, bias), **ctx.kw)
+        return (g[0], g[1], None, None, None, None, None, *g[-2:],
+                *g[2:-2], dw1, db1, dw2, db2)
 
 
 class _CTrain(torch.autograd.Function):
@@ -696,43 +835,54 @@ class _CTrain(torch.autograd.Function):
     meta stream alone (mlp_bwd with an empty image stream)."""
 
     @staticmethod
-    def forward(ctx, x, c, dp, num_heads, *params):
+    def forward(ctx, x, c, dp, num_heads, img_w, taps, bias, *params):
         x, c = x.contiguous(), c.contiguous()
         params = [p.contiguous() for p in params]
-        co, t1c, o, lse = c_train_fwd(x, c, params, dp, num_heads=num_heads)
-        ctx.save_for_backward(x, c, dp, t1c, o, lse, *params)
-        ctx.num_heads = num_heads
+        cpe = _cpe_pair(taps, bias)
+        co, t1c, o, lse = c_train_fwd(x, c, params, dp, num_heads=num_heads,
+                                      cpe=cpe, img_w=img_w)
+        ctx.save_for_backward(x, c, dp, t1c, o, lse, *(cpe or (None, None)),
+                              *params)
+        ctx.kw = dict(num_heads=num_heads, img_w=img_w)
         return co
 
     @staticmethod
     def backward(ctx, dco):
-        x, c, dp, t1c, o, lse, *params = ctx.saved_tensors
+        x, c, dp, t1c, o, lse, taps, bias, *params = ctx.saved_tensors
         wq, bq, wkv, bkv, wp, _, w1, b1, w2, _ = params
         none = x.new_empty((x.shape[0], 0, x.shape[2]))
         _, dt1c, dw1, db1, dw2, db2 = mlp_bwd(
             none, t1c, none, _upstream(dco, c), dp, w1, b1, w2)
-        dxt, dc, dwq, dbq, dwkv, dbkv, dwp, dbp = c_attn_bwd(
+        dxt, dc, dwq, dbq, dwkv, dbkv, dwp, dbp, dtaps, dbias = c_attn_bwd(
             x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse,
-            num_heads=ctx.num_heads)
-        return (dxt, dc, None, None, dwq, dbq, dwkv, dbkv, dwp, dbp, dw1,
-                db1, dw2, db2)
+            cpe=_cpe_pair(taps, bias), **ctx.kw)
+        return (dxt, dc, None, None, None, dtaps, dbias, dwq, dbq, dwkv,
+                dbkv, dwp, dbp, dw1, db1, dw2, db2)
 
 
-def s_block_train(x, c, params, dp, *, num_heads: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cpe_in(cpe):
+    """(taps, bias) as the Functions take them, None twice without a
+    CPE."""
+    return (None, None) if cpe is None else tuple(cpe)
+
+
+def s_block_train(x, c, params, dp, *, num_heads: int, cpe=None,
+                  img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable S block for training; see the module docstring."""
-    return _STrain.apply(x, c, dp, num_heads, *params)
+    return _STrain.apply(x, c, dp, num_heads, img_w, *_cpe_in(cpe), *params)
 
 
 def dca_block_train(x, c, params, dp, *, num_heads: int, scale_x: float,
-                    scale_c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                    scale_c: float, cpe=None, img_w: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable D (and D2) block for training; see the module
     docstring."""
     return _DcaTrain.apply(x, c, dp, num_heads, float(scale_x),
-                           float(scale_c), *params)
+                           float(scale_c), img_w, *_cpe_in(cpe), *params)
 
 
-def c_block_train(x, c, params, dp, *, num_heads: int) -> torch.Tensor:
+def c_block_train(x, c, params, dp, *, num_heads: int, cpe=None,
+                  img_w: int = 0) -> torch.Tensor:
     """Differentiable C block for training: returns the new c; see the
     module docstring."""
-    return _CTrain.apply(x, c, dp, num_heads, *params)
+    return _CTrain.apply(x, c, dp, num_heads, img_w, *_cpe_in(cpe), *params)

@@ -11,6 +11,7 @@ Usage:
   python -m lemevit_tpu_torch.cli.benchmark --model lemevit_base --bench inference
   python -m lemevit_tpu_torch.cli.benchmark --model lemevit_base --bench inference --s-stage --cpe-in-kernel
   python -m lemevit_tpu_torch.cli.benchmark --model lemevit_tiny --bench train --batch-size 64
+  python -m lemevit_tpu_torch.cli.benchmark --model lemevit_tiny --bench train --batch-size 64 --train-cpe-in-kernel
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpe-in-kernel", action="store_true",
                    help="inference: the block kernels apply the 3x3 CPE "
                         "to pre-CPE tokens (the JAX PB_{S,D,C}_CPE=1)")
+    p.add_argument("--train-cpe-in-kernel", action="store_true",
+                   help="training: the training kernels apply the 3x3 CPE "
+                        "to pre-CPE tokens (the JAX PB_TRAIN_CPE=fused)")
     p.add_argument("--bench", default="inference",
                    choices=["inference", "train", "both", "profile"])
     p.add_argument("--batch-size", type=int, default=256)
@@ -129,6 +133,8 @@ def benchmark(args) -> dict:
                                      attn_backend=args.attn_backend,
                                      s_stage=args.s_stage,
                                      cpe_in_kernel=args.cpe_in_kernel,
+                                     train_cpe_in_kernel=(
+                                         args.train_cpe_in_kernel),
                                      device=device, dtype=dt)
             g = torch.Generator().manual_seed(0)
             x = torch.randn(batch_size, args.img_size, args.img_size, 3,

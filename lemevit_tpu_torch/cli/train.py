@@ -21,6 +21,8 @@ Usage:
       --config configs/lemevit.yaml --epochs 1 --steps-per-epoch 6
   python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_micro \\
       --img-size 32 --batch-size 4 --device cpu --summary
+  python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_tiny \\
+      --train-cpe-in-kernel   # the 3x3 CPEs inside the training kernels
 """
 from __future__ import annotations
 
@@ -57,6 +59,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn-backend", default="auto", choices=list(BACKENDS),
                    help="block dispatch: 'torch' composes every block in "
                         "plain PyTorch instead of the CUDA kernels")
+    p.add_argument("--train-cpe-in-kernel", action="store_true",
+                   help="the training kernels apply each block's 3x3 CPE "
+                        "to pre-CPE tokens (the JAX PB_TRAIN_CPE=fused; "
+                        "off by default)")
     p.add_argument("--drop-path", type=float, default=0.15)
     p.add_argument("--remat-stages", type=int, nargs="*", default=[])
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction,
@@ -182,8 +188,9 @@ def train(args, args_text: str = "") -> dict:
     model = create_model(args.model, num_classes=args.num_classes,
                          drop_path_rate=args.drop_path,
                          remat_stages=tuple(args.remat_stages),
-                         attn_backend=args.attn_backend, device=device,
-                         seed=args.seed)
+                         attn_backend=args.attn_backend,
+                         train_cpe_in_kernel=args.train_cpe_in_kernel,
+                         device=device, seed=args.seed)
     if args.summary:
         from lemevit_tpu_torch.utils.profiling import (cost_analysis,
                                                        model_summary)

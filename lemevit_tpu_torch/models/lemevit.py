@@ -23,8 +23,10 @@ would run its kernel at that token count (``kernel_takes``):
     and D2 mapped onto the D kernels by the same weight permutation.
 By default the CPE stays outside the kernels as a depthwise conv; with
 ``cpe_in_kernel`` the inference kernels take the pre-CPE tokens and apply a
-3x3 CPE themselves (the JAX package's ``PB_{S,D,C}_CPE=1``; training keeps
-it outside, as its default ``PB_TRAIN_CPE=ext`` does). With ``s_stage`` an
+3x3 CPE themselves (the JAX package's ``PB_{S,D,C}_CPE=1``), and with
+``train_cpe_in_kernel`` the training kernels do (``PB_TRAIN_CPE=fused``;
+both off by default, as in the JAX package; a block whose CPE is not 3x3
+then composes, as JAX's _try_fused_train declines it). With ``s_stage`` an
 inference forward runs each "S" stage of two or more blocks as one
 ``fused_block.s_stage`` launch, its CPEs inside (``PB_S_STAGE=1``). Any
 other block (post-norm, layer-scale, MLP dwconv, or above the token counts:
@@ -102,7 +104,8 @@ class LeMeBlock(nn.Module):
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  layer_scale_init_value: float = -1.0, cpe_ks: int = 3,
                  pre_norm: bool = True, mlp_dwconv: bool = False,
-                 attn_backend: str = "auto", cpe_in_kernel: bool = False):
+                 attn_backend: str = "auto", cpe_in_kernel: bool = False,
+                 train_cpe_in_kernel: bool = False):
         super().__init__()
         if attn_type not in _ATTN:
             raise ValueError(f"unknown attn_type {attn_type!r}")
@@ -110,8 +113,9 @@ class LeMeBlock(nn.Module):
             raise ValueError(f"attn_backend must be one of {BACKENDS}")
         self.attn_type = attn_type
         self.num_heads = num_heads
-        # the inference kernels apply a 3x3 CPE to pre-CPE tokens
+        # the inference / training kernels apply a 3x3 CPE to pre-CPE tokens
         self.cpe_in_kernel = cpe_in_kernel
+        self.train_cpe_in_kernel = train_cpe_in_kernel
         self.pre_norm = pre_norm
         self.mlp_dwconv = mlp_dwconv
         self.pos_embed = DWConv(dim, cpe_ks) if cpe_ks > 0 else None
@@ -218,24 +222,25 @@ class LeMeBlock(nn.Module):
         out += fused_train.fold_ln(*tail[:4])
         return out + list(tail[4:])
 
-    def _train_kernels(self, xt, c, dp, n: int):
-        """The block through its training kernels, weights cast to the
-        compute type. Returns (x_out, c_out); the C block's x_out is None
-        (x passes it unchanged)."""
+    def _train_kernels(self, xt, c, dp, n: int, cpe=None, img_w: int = 0):
+        """The block through its training kernels, weights (and ``cpe``,
+        which they then apply to the pre-CPE xt) cast to the compute type.
+        Returns (x_out, c_out); the C block's x_out is None (x passes it
+        unchanged)."""
         dt = compute_dtype(xt)
         params = [t.to(dt) for t in self.train_params()]
         if dp is None:
             dp = torch.ones(4, xt.shape[0], device=xt.device)
         xt, c, dp = xt.to(dt), c.to(dt), dp.contiguous()
-        h = self.num_heads
+        kw = dict(num_heads=self.num_heads, img_w=img_w,
+                  cpe=None if cpe is None else [t.to(dt) for t in cpe])
         if self.attn_type == "S":
-            return fused_train.s_block_train(xt, c, params, dp, num_heads=h)
+            return fused_train.s_block_train(xt, c, params, dp, **kw)
         if self.attn_type == "C":
-            return None, fused_train.c_block_train(xt, c, params, dp,
-                                                   num_heads=h)
+            return None, fused_train.c_block_train(xt, c, params, dp, **kw)
         scale_x, scale_c = ref.dca_scales(n, c.shape[1], xt.shape[-1])
-        return fused_train.dca_block_train(xt, c, params, dp, num_heads=h,
-                                           scale_x=scale_x, scale_c=scale_c)
+        return fused_train.dca_block_train(xt, c, params, dp, scale_x=scale_x,
+                                           scale_c=scale_c, **kw)
 
     def fused_params(self) -> tuple:
         """The parameter tuple of this block's fused kernel (fused_block's
@@ -281,10 +286,17 @@ class LeMeBlock(nn.Module):
         if train and dp is None:
             dp = self.dp_scales(b, x.device)
         s1x, s2x, s1c, s2c = (None,) * 4 if dp is None else dp
-        cpe = self._kernel_cpe() if fused and infer else None
+        cpe = None
+        if fused and infer:
+            cpe = self._kernel_cpe()
+        elif fused and self.train_cpe_in_kernel:
+            try:
+                cpe = self.cpe_weights()
+            except LookupError:  # not 3x3: the block composes
+                fused = False
         xt = (x if cpe is not None else self._cpe(x)).reshape(b, h * w, ch)
         if fused and train:
-            xo, co = self._train_kernels(xt, c, dp, h * w)
+            xo, co = self._train_kernels(xt, c, dp, h * w, cpe, w)
             # the C block passes x (before the CPE) through unchanged
             return (x if xo is None else xo.reshape(b, h, w, ch)), co
         if fused:
@@ -336,7 +348,8 @@ class LeMeViT(nn.Module):
                  out_indices: Sequence[int] = (1, 2, 3, 4),
                  remat_stages: Sequence[int] = (),
                  attn_backend: str = "auto", s_stage: bool = False,
-                 cpe_in_kernel: bool = False):
+                 cpe_in_kernel: bool = False,
+                 train_cpe_in_kernel: bool = False):
         super().__init__()
         dims = list(embed_dim)
         self.s_stage = s_stage
@@ -372,7 +385,8 @@ class LeMeViT(nn.Module):
                           layer_scale_init_value=layer_scale_init_value,
                           cpe_ks=cpe_ks, pre_norm=pre_norm,
                           mlp_dwconv=mlp_dwconv, attn_backend=attn_backend,
-                          cpe_in_kernel=cpe_in_kernel)
+                          cpe_in_kernel=cpe_in_kernel,
+                          train_cpe_in_kernel=train_cpe_in_kernel)
                 for j in range(depth[i])]))
             cur += depth[i]
 

@@ -43,10 +43,14 @@ def train_step(state: TrainState, images: torch.Tensor,
     targets (hard labels or soft rows, smoothing already folded in),
     backward, and every ``grad_accum_steps`` steps the optimizer update at
     the schedule's LR (the mean of the accumulated gradients, clipped to
-    ``clip_grad`` global norm as optax.clip_by_global_norm does). The EMA
-    follows the parameters after every step. Returns {"loss",
-    "grad_norm"} as device tensors (the norm of this step's gradients,
-    before clipping); reading them waits for the device."""
+    ``clip_grad`` global norm as optax.clip_by_global_norm does). The norm
+    and the clip cover every parameter that takes a gradient, frozen ones
+    (left out of the optimizer's groups) included, as the JAX package
+    clips before its freeze mask zeroes their updates; the frozen ones are
+    never updated. The EMA follows the parameters after every step.
+    Returns {"loss", "grad_norm"} as device tensors (the norm of this
+    step's gradients of every parameter, before clipping); reading them
+    waits for the device."""
     model = state.model
     model.train()
     k = state.grad_accum_steps
@@ -55,7 +59,7 @@ def train_step(state: TrainState, images: torch.Tensor,
     with ctx:
         logits = model(images)
     loss = cross_entropy_loss(logits, targets)
-    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    params = [p for p in model.parameters() if p.requires_grad]
     # a parameter the forward does not reach gets zeros, as under jax.grad
     grads = torch.autograd.grad(loss, params, allow_unused=True,
                                 materialize_grads=True)
@@ -74,7 +78,8 @@ def train_step(state: TrainState, images: torch.Tensor,
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
+        for p in params:  # frozen ones too: the optimizer does not hold them
+            p.grad = None
     if state.ema is not None:
         state.ema.update(model)
     return {"loss": loss.detach(), "grad_norm": gnorm.detach()}

@@ -10,9 +10,10 @@ attention-only kernels fp32 1e-4, bf16 3e-2 (against fp32 on the same
 bf16-cast inputs; a bf16 stage of that of its largest element, since x is
 rounded to bf16 between its blocks, and elementwise against the chain of
 its S block kernels in bf16); training kernels (S, D,
-C) the same on outputs and, on gradients, 1e-3 (fp32) and 5e-2 (bf16) of
-each tensor's largest element; whole models 1e-3 (fp32 logits,
-gradients)."""
+C, also with the 3x3 CPE inside) the same on outputs and, on gradients
+(the CPE's tap and bias gradients among them), 1e-3 (fp32) and 5e-2 (bf16)
+of each tensor's largest element, the tap gradients bit for bit between two
+runs; whole models 1e-3 (fp32 logits, gradients)."""
 import numpy as np
 import pytest
 import torch
@@ -268,6 +269,118 @@ def test_lemevit_train_kernel_path_matches_torch_path_on_gpu(cuda, name,
         torch.testing.assert_close(
             a.grad, b.grad, rtol=0,
             atol=1e-3 * b.grad.abs().max().item() + 1e-6)
+
+
+# the training kernels' CPE mode: lemevit_tiny's shapes and two non-square
+# images, (kind, N, image width, C)
+TRAIN_CPE = [("c", 3136, 56, 64), ("dca", 3136, 56, 64), ("dca", 784, 28, 128),
+             ("s", 196, 14, 192), ("s", 49, 7, 320), ("s", 48, 8, 64),
+             ("c", 35, 7, 64)]
+
+
+def _train_cpe_case(rng, kind, n, ch, b=2):
+    """x, c, taps, bias and the LN-folded parameters (float32 numpy), the
+    DropPath scales on the card and the kernels' keywords of one block."""
+    arrays = [rng.randn(b, n, ch), rng.randn(b, M, ch),
+              0.3 * rng.randn(9, ch), 0.1 * rng.randn(ch)]
+    for shape in ft._param_shapes(kind, ch, 4 * ch):
+        arrays.append(rng.randn(*shape) / np.sqrt(shape[-1])
+                      if len(shape) == 2 else 0.1 * rng.randn(*shape))
+    dp = torch.from_numpy(((rng.rand(4, b) < 0.7) / 0.7).astype(
+        np.float32)).to("cuda")
+    kw = {"num_heads": ch // 32}
+    if kind == "dca":
+        kw["scale_x"], kw["scale_c"] = dca_scales(n, M, ch)
+    return [a.astype(np.float32) for a in arrays], dp, kw
+
+
+def _run_train_cpe(fn, arrays, dp, kw, img_w, dtype, dt):
+    """Outputs, then the gradients of x, c, the taps, the bias and every
+    parameter, of fn with the CPE inside, inputs cast to ``dtype`` and run
+    in ``dt``."""
+    ts = [torch.tensor(a, device="cuda", dtype=dtype).to(dt)
+          .requires_grad_() for a in arrays]
+    out = fn(ts[0], ts[1], ts[4:], dp, cpe=ts[2:4], img_w=img_w, **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    sum((o.float() * (i + 0.5)).square().sum() * 1e-2
+        for i, o in enumerate(out)).backward()
+    return [o.float() for o in out] + [t.grad.float() for t in ts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,otol,gtol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 3e-2, 5e-2)])
+@pytest.mark.parametrize("kind,n,img_w,ch", TRAIN_CPE)
+def test_train_cpe_kernels_match_plain_on_gpu(cuda, kind, n, img_w, ch, dtype,
+                                              otol, gtol):
+    """s / dca / c_block_train with cpe= (pre-CPE x, the 3x3 CPE inside the
+    forward and the attention backward) against their autograd
+    compositions with the same CPE: the outputs and the gradients of x, c,
+    the taps, the bias and every parameter; each kernel launched once."""
+    arrays, dp, kw = _train_cpe_case(np.random.RandomState(6), kind, n, ch)
+    fused = getattr(ft, f"{kind}_block_train")
+    plain = getattr(ft, f"{kind}_block_train_plain")
+    before = dict(ft.LAUNCHES)
+    got = _run_train_cpe(fused, arrays, dp, kw, img_w, dtype, dtype)
+    torch.cuda.synchronize()
+    assert _launched(before) == {f"{kind}_train_fwd": 1,
+                                 f"{kind}_attn_bwd": 1, "mlp_bwd": 1}
+    want = _run_train_cpe(plain, arrays, dp, kw, img_w, dtype, torch.float32)
+    n_out = 2 if kind in ("s", "dca") else 1
+    assert len(got) == len(want) == n_out + len(arrays)
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        tol = otol if i < n_out else gtol
+        scale = max(1.0, w_.abs().max().item())
+        torch.testing.assert_close(g_, w_, rtol=tol, atol=tol * scale,
+                                   msg=f"output/gradient {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,img_w,ch", TRAIN_CPE[:4])
+def test_train_cpe_grads_are_deterministic_on_gpu(cuda, kind, n, img_w, ch):
+    """Two bf16 runs of a block with its CPE inside give the same bits for
+    the tap and bias gradients (fixed-order fp32 partials, no atomics)
+    and for dx."""
+    arrays, dp, kw = _train_cpe_case(np.random.RandomState(7), kind, n, ch,
+                                     b=8)
+    fused = getattr(ft, f"{kind}_block_train")
+    runs = [_run_train_cpe(fused, arrays, dp, kw, img_w, torch.bfloat16,
+                           torch.bfloat16) for _ in range(2)]
+    n_out = 2 if kind in ("s", "dca") else 1
+    for i in (n_out, n_out + 2, n_out + 3):  # dx, dtaps, dbias
+        assert torch.equal(runs[0][i], runs[1][i]), i
+
+
+@pytest.mark.gpu
+def test_lemevit_train_cpe_kernel_path_matches_torch_path_on_gpu(cuda):
+    """lemevit_tiny at 64^2 in train mode, fp32, with train_cpe_in_kernel:
+    loss and every gradient (pos_embed's included) against the composition,
+    each training kernel launched once per block, no block CPE convolved."""
+    kern = lemevit_tpu_torch.create_model(
+        "lemevit_tiny", drop_path_rate=0.2, train_cpe_in_kernel=True).train()
+    plain = lemevit_tpu_torch.create_model(
+        "lemevit_tiny", drop_path_rate=0.2, attn_backend="torch").train()
+    convs = []
+    for blk in (b for stage in kern.stages for b in stage):
+        blk.pos_embed.register_forward_hook(lambda *a: convs.append(1))
+    x = torch.randn(2, 64, 64, 3, device="cuda")
+    before = dict(ft.LAUNCHES)
+    losses = []
+    for m in (kern, plain):
+        m.set_generator(torch.Generator(device="cuda").manual_seed(1))
+        loss = m(x).square().mean()
+        loss.backward()
+        losses.append(loss.item())
+    assert _launched(before) == {
+        "c_train_fwd": 1, "c_attn_bwd": 1, "dca_train_fwd": 4,
+        "dca_attn_bwd": 4, "s_train_fwd": 10, "s_attn_bwd": 10,
+        "mlp_bwd": 15}
+    assert convs == []
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    for (name, a), b in zip(kern.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(
+            a.grad, b.grad, rtol=0,
+            atol=1e-3 * b.grad.abs().max().item() + 1e-6, msg=name)
 
 
 def _attn_counts():

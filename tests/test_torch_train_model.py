@@ -13,7 +13,9 @@ against the JAX package:
   - the repairs: BatchNorm's train-mode running variance (flax's biased
     one), DropPath's explicit generator, the JAX package's token-count
     limits of the block kernels; C / D / D2 blocks training on the kernel
-    path; remat.
+    path; remat; the gradient norm and its clip over every parameter under
+    frozen prefixes (a lemevit_micro step against JAX's
+    build_optimizer(frozen_prefixes=..., clip_grad=...)).
 All fp32."""
 import functools
 import re
@@ -53,13 +55,19 @@ MICRO_CD = dict(depth=(1, 1, 1, 1, 1), embed_dim=(32, 32, 64, 64, 64),
                 attn_type=("C", "D", "D", "S", "S"), queries_len=16,
                 num_classes=10)
 CONFIGS = {"S": MICRO, "CD": MICRO_CD,
-           "CD2": dict(MICRO_CD, attn_type=("C", "D2", "D2", "S", "S"))}
+           "CD2": dict(MICRO_CD, attn_type=("C", "D2", "D2", "S", "S")),
+           # the registry's lemevit_micro (C, D, D, S, S at head_dim 8)
+           "micro": dict(depth=(1, 1, 1, 1, 1),
+                         embed_dim=(16, 16, 32, 32, 32), head_dim=8,
+                         mlp_ratios=(2, 2, 2, 2, 2),
+                         attn_type=("C", "D", "D", "S", "S"), queries_len=4,
+                         num_classes=10)}
 # Below this share of its tensor's largest gradient, an element's gradient
 # lies within fp32 rounding of zero (the C/D models have such elements by
 # chance, e.g. 3e-7 of 0.27 in CD's stage-2 downsample conv), and Adam's
 # first step, g / (|g| + 1e-8), turns its relative error into an update
 # error of order one; such elements are held to the +-LR bound.
-NOISE_FLOOR = {"S": 0.0, "CD": 1e-5, "CD2": 1e-5}
+NOISE_FLOOR = {"S": 0.0, "CD": 1e-5, "CD2": 1e-5, "micro": 1e-5}
 LR = 0.1
 WD = 0.05
 EMA_DECAY = 0.996
@@ -167,17 +175,20 @@ def test_block_train_matches_jax(monkeypatch, request, attn_type, path):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_train_step(config):
+def _jax_train_step(config, frozen=(), clip=None, backend="xla"):
     """Inputs, the state before and after one JAX train step, its metrics
     and, where NOISE_FLOOR[config] is set, the gradients of its loss (as
     variables, for from_jax_params; else None), all numpy, for a micro
-    model of CONFIGS at 32^2, B = 4."""
+    model of CONFIGS at 32^2, B = 4, with the optimizer's frozen prefixes
+    and clip and the model's attn_backend (its Pallas kernels run as the
+    caller has set them: interpret mode, PB_TRAIN_CPE)."""
     rng = np.random.RandomState(1)
     x = rng.rand(4, 32, 32, 3).astype(np.float32)
     labels = rng.randint(0, 10, 4)
     targets = np.eye(10, dtype=np.float32)[labels] * 0.9 + 0.01
-    jm = JLeMeViT(**CONFIGS[config], attn_backend="xla")
-    tx = j_build_optimizer(lambda s: LR, weight_decay=WD)
+    jm = JLeMeViT(**CONFIGS[config], attn_backend=backend)
+    tx = j_build_optimizer(lambda s: LR, weight_decay=WD, clip_grad=clip,
+                           frozen_prefixes=frozen)
     st = create_train_state(jm, jax.random.PRNGKey(0), (2, 32, 32, 3), tx,
                             ema_decay=EMA_DECAY)
     stats = jax.tree.map(
@@ -213,16 +224,29 @@ def _jax_train_step(config):
 def test_train_step_matches_jax(request, config, path):
     if path == "kernel":
         request.getfixturevalue("kernel_path")
-    x, targets, v0, v1, ema1, jmetrics, jgrads = _jax_train_step(config)
-    tm = tmod.LeMeViT(**CONFIGS[config])
+    check_train_step(config, _jax_train_step(config))
+
+
+def check_train_step(config, jax_step, frozen=(), clip=None, **model_kw):
+    """One port train step of CONFIGS[config] (LeMeViT(**model_kw)) against
+    ``jax_step`` (_jax_train_step's output for the same config, frozen
+    prefixes and clip): loss, grad norm, every parameter's update and the
+    EMA's, the BatchNorm running statistics. Returns the port's metrics."""
+    x, targets, v0, v1, ema1, jmetrics, jgrads = jax_step
+    tm = tmod.LeMeViT(**CONFIGS[config], **model_kw)
     sd0 = from_jax_params(v0, tm)
     tm.load_state_dict(sd0, strict=True)
     floor = NOISE_FLOOR[config]
+    if clip:
+        # Adam sees the gradients scaled by the clip, closer to its eps by
+        # that factor: the floor rises by it
+        floor /= min(1.0, clip / jmetrics["grad_norm"])
     # the noise floor is read off the reference's gradients, so that the
     # port's own cannot exempt an element
     grads = from_jax_params(jgrads, tm) if floor else {}
-    state = TrainState(tm, build_optimizer(tm, weight_decay=WD),
-                       lambda u: LR, ModelEma(tm, EMA_DECAY))
+    state = TrainState(tm, build_optimizer(tm, weight_decay=WD,
+                                           frozen_prefixes=frozen),
+                       lambda u: LR, ModelEma(tm, EMA_DECAY), clip_grad=clip)
     metrics = train_step(state, torch.from_numpy(x),
                          torch.from_numpy(targets))
     assert state.step == 1
@@ -260,9 +284,31 @@ def test_train_step_matches_jax(request, config, path):
         else:  # BatchNorm running statistics
             np.testing.assert_allclose(t.numpy(), want[name].numpy(),
                                        **GRAD_TOL, err_msg=name)
+    return metrics
 
 
 # ---------------------------------------------------------------- repairs
+
+
+@pytest.mark.parametrize("path", ["composed", "kernel"])
+def test_grad_norm_and_clip_cover_frozen_params(request, path):
+    """With a frozen head and clip_grad 1.0, the reported norm and the clip
+    are over every parameter's gradient, as JAX's optax_global_norm(grads)
+    and its clip_by_global_norm before the freeze mask: lemevit_micro at
+    32^2 against JAX's build_optimizer(frozen_prefixes=("head",),
+    clip_grad=1.0) step. The head's parameters stay as they were."""
+    if path == "kernel":
+        request.getfixturevalue("kernel_path")
+    frozen, clip = ("head",), 1.0
+    jstep = _jax_train_step("micro", frozen, clip)
+    assert jstep[5]["grad_norm"] > clip  # the clip is active
+    metrics = check_train_step("micro", jstep, frozen, clip)
+    # the norm of the frozen head's gradient is part of the reported one
+    unfrozen = _jax_train_step("micro", (), clip)[5]["grad_norm"]
+    np.testing.assert_allclose(metrics["grad_norm"].item(), unfrozen,
+                               rtol=5e-3)
+    v0, v1 = jstep[2]["params"]["head"], jstep[3]["params"]["head"]
+    np.testing.assert_array_equal(v0["kernel"], v1["kernel"])
 
 
 def test_batchnorm_running_var_is_flax_biased():
