@@ -49,7 +49,21 @@ before it and read just after:
     forward's kernel path against its plain path (fp32 at batch 1, bf16 at
     batch 8) with its launches, slide inference of a 1024^2 image (9
     windows), cli.train_seg on synthetic data (batch 8, bf16, 6 steps and
-    a slide-inference eval) and a profile of one seg train step.
+    a slide-inference eval) and a profile of one seg train step;
+  - the toolchain probes (lemevit_tpu_torch/probes, built into their own
+    library): the per-op probe k_ew_probe held against its plain version
+    for all 12 ops at K = 1 and at vpu_probe's K on each of its three
+    (R, C) tiles x 64; then the probe path, python -m
+    lemevit_tpu_torch.cli.probes --ew (each construct probe, erff against
+    JAX's polynomial erf, an atomicAdd scatter, 16-byte row-shifted loads,
+    the C = 320 fold and thread-block clusters of 1-16, against its plain
+    version in its own process; the per-op slope table at the three
+    shapes; the A/B rows of s_stage, the inference and the training CPE
+    placements) in a fresh process whose counts start at 0 and which
+    reports its launches, and the training paths' A/B row: vit_tiny and
+    cli.train_seg with --train-cpe-in-kernel beside the default runs
+    above, decided by each path's bare train step's device time with the
+    switch off and on in alternating pairs.
 Every phase prints one line; any failure raises and exits non-zero. The
 last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -63,16 +77,18 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from lemevit_tpu_torch.utils.profiling import (BF16_FLOPS, FP32_FLOPS,
+                                               HBM_BYTES_PER_S)
+
 B_CHECK = 8          # batch of the fp32 kernel checks
 B_MAIN = 64          # batch of the served and trained main paths (bf16)
 M = 16               # meta tokens of every released variant
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 TRAIN_STEPS = 6             # steps of each cli.train run
 REPO = Path(__file__).resolve().parent
 
@@ -156,6 +172,18 @@ KERNELS = {
                  "lemevit_tpu/attn/pallas_dca.py:185"),
     "mhsa": ("lemevit_tpu_torch/attn/csrc/mhsa.cu",
              "lemevit_tpu/attn/pallas_mhsa.py:95"),
+}
+# the probe kernels: the per-op probe per op (k_ew_probe<Op, K>) and the
+# construct probes, by the construct probe (cli.probes' row) that runs them
+PROBE_SRC = "lemevit_tpu_torch/probes/csrc/"
+CONSTRUCT_KERNELS = {
+    "erf_prim": ("erf_probe", "scripts/mosaic_probes.py:57"),
+    "scatter": ("scatter_add_probe", "scripts/mosaic_probes.py:78"),
+    "pltpu_roll": ("roll_rows_probe", "scripts/mosaic_probes.py:93"),
+    "reshape_c320": ("fold_probe", "scripts/mosaic_probes.py:108"),
+    # the construct of s_stage's cluster (s_stage.cu); no TPU kernel
+    # counterpart (s_stage's TPU kernel is replaced by k_s_stage)
+    "cluster": ("cluster_probe", None),
 }
 # launches per train step and per eval forward of each trained model
 VIT_STEP = {"s_train_fwd": 8, "mlp_bwd": 8, "s_attn_bwd": 8, "mhsa": 2}
@@ -1151,18 +1179,18 @@ def seg_serving(dev, g) -> dict:
     return res
 
 
-def seg_main_path() -> tuple:
+def seg_main_path(flags=()) -> tuple:
     """cli.train_seg on synthetic data with its defaults (lemevit_tiny,
-    512^2, batch 8, bf16), 6 steps and one slide-inference eval of the 8
-    validation images, its launch counts set to 0 just before and read
-    just after. Returns (launches, result)."""
+    512^2, batch 8, bf16) and the extra CLI ``flags``, 6 steps and one
+    slide-inference eval of the 8 validation images, its launch counts set
+    to 0 just before and read just after. Returns (launches, result)."""
     from lemevit_tpu_torch.cli import train_seg
     steps = TRAIN_STEPS
     with tempfile.TemporaryDirectory() as out:
         reset()
         res = train_seg.main(["--synthetic", "--iters", str(steps),
                               "--eval-interval", str(steps), "--output",
-                              out])
+                              out, *flags])
         launches = launch_counts()
         ckpts = list((Path(out) / "checkpoints").glob("checkpoint-*.pth"))
     windows = SEG_B  # 8 validation images of one 512^2 window each
@@ -1176,7 +1204,8 @@ def seg_main_path() -> tuple:
             and abs(res["loss"]) < 1e3 and set(m) == {"mIoU", "OA", "mF1"}
             and all(0 <= v <= 100 for v in m.values())):
         raise AssertionError(f"train_seg: {res}, checkpoints {ckpts}")
-    say("train-seg", f"UperNet lemevit_tiny {SEG_CROP}^2 bf16 B={SEG_B}: "
+    say("train-seg", f"UperNet lemevit_tiny {' '.join(flags)} {SEG_CROP}^2 "
+        f"bf16 B={SEG_B}: "
         f"{steps} steps, loss {res['loss']:.4f}, "
         f"{res['samples_per_sec']:.2f} img/s, {res['step_ms']:.2f} ms/step "
         f"(steps 2-{steps}), peak {res['peak_gib']:.2f} GiB allocated; eval "
@@ -1280,6 +1309,85 @@ def serve_slice(dev, g, default_res, prof_default) -> tuple:
                       "convolutions": convs[1]}
 
 
+def check_ew_probes(dev) -> list:
+    """k_ew_probe against ew_probe_plain for every op at K = 1 and at
+    vpu_probe's K on each of its three (R, C) tiles x 64 (within
+    ew.max_ulps bf16 steps, ew.ATOL near zero; at C = 384 and 784 a warp's
+    lanes hold unequal counts of 16-byte vectors, so the masked loads,
+    stores and row reductions run), and the K = 0 copy exact; each timed
+    at K = 1 beside its plain version, the one PyTorch call computing it
+    where there is one, and its bound. One row per op and shape."""
+    from lemevit_tpu_torch.probes import ew
+    rows = []
+    for r, c in ew.SHAPES:
+        x = ew.probe_input(r, c, dev)
+        if not torch.equal(ew.ew_probe(x, "fma", 0), x):
+            raise AssertionError(f"ew_probe K=0 ({r}, {c}): not a copy")
+        for op in ew.OPS:
+            k = ew.jax_k(op)
+            got1, want1 = ew.ew_probe(x, op, 1), ew.ew_probe_plain(x, op, 1)
+            m1 = ew.mismatches(got1, want1, 1)
+            mk = ew.mismatches(ew.ew_probe(x, op, k),
+                               ew.ew_probe_plain(x, op, k), k)
+            if m1["bad"] or mk["bad"]:
+                raise AssertionError(f"ew_probe {op} ({r}, {c}): K=1 {m1}, "
+                                     f"K={k} {mk}")
+            lib = ew.LIBRARY.get(op)
+            t_bytes = ew.pass_bytes(*x.shape) / HBM_BYTES_PER_S * 1e3
+            t_ops = x.numel() * ew.OP_FLOPS[op] / FP32_FLOPS * 1e3
+            rows.append({
+                "name": f"ew_probe.{op}", "shape": list(x.shape),
+                "max_ulp_k1": m1["max_ulp"], f"max_ulp_k{k}": mk["max_ulp"],
+                "err_bf16": (got1.float() - want1.float()).abs().max().item(),
+                "ms": cuda_ms(lambda: ew.ew_probe(x, op, 1), 30),
+                "plain_ms": cuda_ms(lambda: ew.ew_probe_plain(x, op, 1), 30),
+                "library_ms": cuda_ms(lambda: lib(x), 30) if lib else None,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            q = rows[-1]
+            say("probe", f"ew_probe {op} {x.shape[0]}x{c} bf16: K=1 "
+                f"{q['max_ulp_k1']} / K={k} {mk['max_ulp']} bf16 steps from "
+                f"plain (limits {ew.max_ulps(1)} / {ew.max_ulps(k)}); K=1 "
+                f"{q['ms']:.4f} ms (plain {q['plain_ms']:.4f}, library "
+                f"{q['library_ms'] if lib else 'none'}, bound "
+                f"{q['bound_ms']:.4f} {q['bound_by']})")
+    return rows
+
+
+def probes_main_path() -> dict:
+    """The probe path, ``python -m lemevit_tpu_torch.cli.probes --ew
+    --train-paths none`` (the training paths' A/B row is built here from
+    this script's own runs), in a fresh process: its kernel counts start at
+    0 and its JSON reports every launch it made. Returns that JSON."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "HOPPER_PROBES.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "lemevit_tpu_torch.cli.probes", "--ew",
+             "--train-paths", "none", "--out", str(out)], cwd=REPO,
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.probes exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        table = json.loads(out.read_text())
+    for name, (kernel, _) in CONSTRUCT_KERNELS.items():
+        row = table[name]
+        if not (row["ok"] and row["route"] == "cuda"
+                and row["verdict"].startswith(("keep", "FLIP"))):
+            raise AssertionError(f"cli.probes {name}: {row}")
+        say("probe", f"{name}: {row['verdict']}; {row['ms']:.4f} ms "
+            f"(plain {row['plain_ms']:.4f}, library {row['library_ms']}, "
+            f"bound {row['bound_ms']:.6f})")
+    missing = [k for k in ["erf_probe", "scatter_add_probe",
+                           "roll_rows_probe", "fold_probe", "cluster_probe"]
+               + [f"ew_probe.{op}" for op in table["ew"][0]["us_per_pass"]]
+               if not table["launches"].get(k)]
+    if missing or len(table["ew"]) != 3:
+        raise AssertionError(f"cli.probes: no launch of {missing}, "
+                             f"{len(table['ew'])} slope rows")
+    return table
+
+
 def kernel_entry(name, rows, launches, weight_key, **extra):
     """The per-kernel JSON entry: launch-weighted means over the main
     path's shapes."""
@@ -1316,6 +1424,9 @@ def main() -> None:
     from lemevit_tpu_torch.attn import fused_train as ft
     from lemevit_tpu_torch.cli import benchmark, validate
     from lemevit_tpu_torch.models.lemevit import LeMeBlock
+    from lemevit_tpu_torch import probes
+    from lemevit_tpu_torch.cli import probes as probes_cli
+    from lemevit_tpu_torch.probes import ew
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1331,11 +1442,15 @@ def main() -> None:
     say("card", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {kind_name} x{torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build the model kernels and, beside them, the probes' library
     t0 = time.time()
-    lib_path = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        built = [pool.submit(_build.build), pool.submit(probes.build)]
+        lib_path, probe_path = [f.result() for f in built]
     _build.library()
-    say("build", f"{lib_path.name} in {time.time() - t0:.1f} s")
+    probes.library()
+    say("build", f"{lib_path.name} and {probe_path.name} in "
+        f"{time.time() - t0:.1f} s")
 
     # 3. inference kernels against their plain versions
     g = torch.Generator().manual_seed(0)
@@ -1418,7 +1533,7 @@ def main() -> None:
     for kind, n, ch, blocks in VIT_TRAIN:
         vit_rows += check_train_kernels(ft, kind, n, ch, blocks, dev, g)
     check_train_step(dev, "vit_tiny", VIT_STEP)
-    vit_launches, _ = train_main_path("vit_tiny", VIT_STEP, VIT_EVAL)
+    vit_launches, vit_res = train_main_path("vit_tiny", VIT_STEP, VIT_EVAL)
     profile_train_step(dev, "vit_tiny")
 
     # 7. training lemevit_tiny (C, D, S): inference kernels at its shapes,
@@ -1544,6 +1659,39 @@ def main() -> None:
         "port_kernel_share": (seg_prof["port_ms"] / seg_prof["device_ms"]
                               if seg_prof else None)}))
 
+    # 8b. the probes: the per-op kernel against its plain version here,
+    #     then the probe path (cli.probes: each construct probe against
+    #     its plain version, timed, in a process of its own) and the
+    #     training paths' A/B row, the CLI runs of lemevit_tiny, vit_tiny
+    #     and train_seg reused from above, decided by the bare steps'
+    #     device time in alternating pairs
+    ew_rows = check_ew_probes(dev)
+    t0 = time.time()
+    table = probes_main_path()
+    say("probes", f"cli.probes --ew in {time.time() - t0:.0f} s, launches "
+        + json.dumps(table["launches"]))
+    for row in table["ew"]:
+        say("ew-slope", ew.format_row(row))
+    _, vit_sw = train_main_path("vit_tiny", VIT_STEP, VIT_EVAL,
+                                ["--train-cpe-in-kernel"])
+    _, seg_sw = seg_main_path(["--train-cpe-in-kernel"])
+
+    def ab(res):
+        return {"img_per_s": res["samples_per_sec"],
+                "ms_per_step": res["step_ms"], "peak_gib": res["peak_gib"]}
+    table["pb_train_paths"] = {
+        name: probes_cli.train_path_row(
+            ab(default), ab(switch), probes_cli.step_device_ms(name, dev))
+        for name, default, switch in (
+            ("lemevit_tiny", tiny_res, slice_train_res),
+            ("vit_tiny", vit_res, vit_sw), ("train_seg", seg_res, seg_sw))}
+    say("probes-ab", json.dumps({
+        k: (v["verdict"] if "verdict" in v else
+            {kk: vv["verdict"] for kk, vv in v.items()})
+        for k, v in table.items()
+        if isinstance(v, dict) and k not in ("launches",)}))
+    say("probes-train-paths", json.dumps(table["pb_train_paths"]))
+
     # 9. per-kernel numbers: per-launch means over each main path's mix
     kernels = []
     for name in ("c_block", "dca_block", "s_block"):
@@ -1589,8 +1737,43 @@ def main() -> None:
     kernels.append(kernel_entry(
         "mhsa", mhsa_rows, vit_launches["mhsa"], "per_step",
         vit_tiny_per_eval_forward=VIT_EVAL["mhsa"]))
+    slopes = {f"{r['r']}x{r['c']}": r["us_per_pass"] for r in table["ew"]}
+    for op in ew.OPS:
+        # the slope table launches each shape alike: plain means over them
+        rows = [r for r in ew_rows if r["name"] == f"ew_probe.{op}"]
+
+        def mean(key):
+            if rows[0][key] is None:
+                return None
+            return sum(r[key] for r in rows) / len(rows)
+        kernels.append({
+            "name": f"ew_probe.{op}", "route": "cuda",
+            "source": PROBE_SRC + "ew_probe.cu",
+            "replaces": "scripts/vpu_probe.py:59",
+            "launches": table["launches"][f"ew_probe.{op}"],
+            "max_abs_err": max(r["err_bf16"] for r in rows),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": mean("library_ms"), "shapes": strip(rows),
+            "us_per_pass_per_tile": {shape: per[op]
+                                     for shape, per in slopes.items()}})
+    for name, (kernel, replaces) in CONSTRUCT_KERNELS.items():
+        row = table[name]  # cli.probes' row: run, checked and timed there
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": PROBE_SRC + "constructs.cu", "replaces": replaces,
+            "launches": table["launches"][kernel],
+            "max_abs_err": row.get("err_vs_plain", row["err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"], "verdict": row["verdict"],
+            "probe": {k: v for k, v in row.items()
+                      if k not in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms", "verdict", "route",
+                                   "launches")}})
     say("done", f"{time.time() - t_start:.0f} s")
-    print(f"kernels: {json.dumps(list(KERNELS))}")
+    print(f"kernels: {json.dumps([k['name'] for k in kernels])}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

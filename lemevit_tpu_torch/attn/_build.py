@@ -1,12 +1,21 @@
-"""Build and load the hand-written CUDA kernels under ``attn/csrc``.
+"""Build and load the hand-written CUDA kernels of a source directory.
 
-At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process
+At first use every ``<csrc>/*.cu`` is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a`` and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The
 library's name carries a hash of the sources and flags, so an edited source
 builds anew and a stale library is never loaded. Builds go to
 ``lemevit_tpu_torch/_build/`` (git-ignored). Nothing but the repository's own
 sources is compiled.
+
+Two libraries are built this way: the model kernels, ``attn/csrc`` ->
+``lemevit_kernels_<hash>.so`` (``library()``, entry points ``SIGNATURES``),
+and the toolchain probes, ``probes/csrc`` -> ``lemevit_probes_<hash>.so``
+(``lemevit_tpu_torch/probes/__init__.py``). Each hashes only its own
+sources, so editing a probe does not rebuild the model kernels, and a probe
+that does not compile does not stop them from building. Every entry point
+returns a ``cudaError_t`` code, and every library exports
+``lm_error_string`` for ``check``.
 """
 from __future__ import annotations
 
@@ -19,7 +28,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
+STEM = "lemevit_kernels"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -63,23 +75,23 @@ def find_nvcc() -> str:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels are built from attn/csrc at first use")
+                       "the CUDA kernels are built from csrc/ at first use")
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = None) -> list:
+    return sorted((csrc or CSRC).glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted((csrc or CSRC).glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"lemevit_kernels_{source_hash()}.so"
+def library_path(csrc: Path = None, stem: str = STEM) -> Path:
+    return BUILD_DIR / f"{stem}_{source_hash(csrc)}.so"
 
 
 def _run_all(cmds, what: str) -> None:
@@ -95,18 +107,21 @@ def _run_all(cmds, what: str) -> None:
         raise RuntimeError(f"{what} failed:\n" + "\n".join(failed))
 
 
-def build() -> Path:
-    """Compile csrc/ into the hashed library unless it already exists."""
-    so = library_path()
+def build(csrc: Path = None, stem: str = STEM) -> Path:
+    """Compile csrc (default: attn/csrc) into the hashed library ``stem``
+    unless it already exists."""
+    csrc = csrc or CSRC
+    so = library_path(csrc, stem)
     if so.exists():
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        objs = [tmp / (src.stem + ".o") for src in sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
-                   "-o", str(obj)] for src, obj in zip(sources(), objs)],
+        srcs = sources(csrc)
+        objs = [tmp / (src.stem + ".o") for src in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
+                   "-o", str(obj)] for src, obj in zip(srcs, objs)],
                  "nvcc compile")
         tmp_so = tmp / so.name
         _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp_so),
@@ -117,11 +132,10 @@ def build() -> Path:
     return so
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+def load(so: Path, signatures: dict) -> ctypes.CDLL:
+    """Load a built library and give each entry point its argtypes."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -130,8 +144,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded model-kernel library (built on first call)."""
+    return load(build(), SIGNATURES)
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if an entry point returned a CUDA error code."""
     if code != 0:
         msg = lib.lm_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args,
+           counts: dict, key: str = None) -> None:
+    """Run entry point lm_<name>(*args, stream) of ``lib`` on ``device`` and
+    its current stream, raise on a CUDA error, and add one to
+    counts[key or name]."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, f"lm_{name}")(*args, ctypes.c_void_p(stream))
+    check(lib, code, name)
+    counts[key or name] += 1

@@ -229,12 +229,8 @@ def _launch(name: str, x: torch.Tensor, tensors, *scalars,
     lib = _build.library()
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[0 if t is None else t.data_ptr() for t in tensors])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, f"lm_{name}")(_DTYPES[x.dtype], ptrs, *scalars,
-                                          ctypes.c_void_p(stream))
-    _build.check(lib, code, name)
-    counts[name] += 1
+    _build.launch(lib, name, x.device, _DTYPES[x.dtype], ptrs, *scalars,
+                  counts=counts)
 
 
 def _partials(b, h, m, n, device):

@@ -15,6 +15,8 @@ kernels (attn/dca.py); stages 3-4 run the S block kernels.
 Usage:
   python -m lemevit_tpu_torch.cli.train_seg --synthetic --iters 6 \\
       --eval-interval 6
+  python -m lemevit_tpu_torch.cli.train_seg --synthetic --iters 6 \\
+      --eval-interval 6 --train-cpe-in-kernel   # the CPEs in the kernels
   python -m lemevit_tpu_torch.cli.train_seg --synthetic --device cpu \\
       --backbone lemevit_micro --crop-size 32 --batch-size 2 --channels 16 \\
       --iters 2
@@ -60,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "loader builds batches in one thread")
     p.add_argument("--initial-checkpoint", default="")
     p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--train-cpe-in-kernel", action="store_true",
+                   help="the backbone's training kernels apply the 3x3 "
+                        "CPEs (the JAX PB_TRAIN_CPE=fused)")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="bf16 compute under autocast (default on CUDA)")
@@ -255,7 +260,8 @@ def train(args, args_text: str = "") -> dict:
 
     model = create_upernet(args.backbone, args.num_classes,
                            channels=args.channels, device=device,
-                           seed=args.seed)
+                           seed=args.seed,
+                           train_cpe_in_kernel=args.train_cpe_in_kernel)
     if args.initial_checkpoint:
         _load_backbone(model.backbone, args.initial_checkpoint)
     sched = warmup_poly_schedule(args.lr, args.iters, power=1.0,

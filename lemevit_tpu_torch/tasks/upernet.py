@@ -186,14 +186,18 @@ class UperNet(nn.Module):
 
 
 def create_upernet(backbone: str, num_classes: int, *, channels: int = 512,
-                   device: Optional[object] = None, seed: int = 0) -> UperNet:
+                   device: Optional[object] = None, seed: int = 0,
+                   train_cpe_in_kernel: bool = False) -> UperNet:
     """UperNet on the registry's ``backbone`` (features_only), the backbone
     initialised as ``create_model`` does from ``seed`` and the heads from
     ``seed + 1`` (convs torch's default, BatchNorm one and zero), moved to
-    ``device`` (CUDA by default; see models.registry.resolve_device)."""
+    ``device`` (CUDA by default; see models.registry.resolve_device).
+    ``train_cpe_in_kernel``: the backbone's training kernels apply the 3x3
+    CPEs (``create_model``'s switch; JAX's ``PB_TRAIN_CPE=fused``)."""
     from lemevit_tpu_torch.models.registry import create_model, resolve_device
     dev = resolve_device(device)
-    bb = create_model(backbone, device="cpu", seed=seed, features_only=True)
+    bb = create_model(backbone, device="cpu", seed=seed, features_only=True,
+                      train_cpe_in_kernel=train_cpe_in_kernel)
     model = UperNet(bb, num_classes, channels)
     g = torch.Generator().manual_seed(seed + 1)
     init_weights(model.decode_head, g)

@@ -5,6 +5,11 @@ lemevit_tpu/utils/profiling.py.
     Chrome trace (chrome://tracing, Perfetto)
   - StepTimer: host timing of step windows, synchronising the device at the
     end of each, so a window covers the device's work
+  - cuda_ms(): the device time of a call, by CUDA events over warm calls
+  - kernel_ms(): the time a call's CUDA kernels take on the device, by
+    torch.profiler (no host gaps)
+  - HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS: the H100 SXM's rates, for the
+    least time a piece of work could take on the card (its bound)
   - cost_analysis(): multiply-adds of one forward by
     torch.utils.flop_counter (the JAX package reads XLA's cost analysis)
   - model_summary(): parameter table grouped by module path prefix
@@ -19,6 +24,10 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 
 
 @contextlib.contextmanager
@@ -62,6 +71,45 @@ class StepTimer:
     @property
     def mean_ms(self) -> float:
         return 1000 * sum(self.times) / len(self.times) if self.times else 0.0
+
+
+def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
+    """Mean device time in ms of fn() over ``iters`` back-to-back calls
+    (CUDA events on the current device, after ``warm`` calls)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 1, warm: int = 1) -> Optional[float]:
+    """Mean time per call of fn()'s CUDA kernels on the device, summed by
+    torch.profiler over ``iters`` calls after ``warm``: the device's work
+    without the gaps where it waits for the host. Only device activity is
+    recorded (host operators would multiply the profiler's cost). None
+    when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    # device activity only; a user annotation's range on the device spans
+    # kernels counted already
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_time_total > 0
+             and str(getattr(e, "device_type", "")).endswith("CUDA")
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / iters if us else None
 
 
 def cost_analysis(model, img_size: int, device=None,

@@ -13,7 +13,9 @@ its S block kernels in bf16); training kernels (S, D,
 C, also with the 3x3 CPE inside) the same on outputs and, on gradients
 (the CPE's tap and bias gradients among them), 1e-3 (fp32) and 5e-2 (bf16)
 of each tensor's largest element, the tap gradients bit for bit between two
-runs; whole models 1e-3 (fp32 logits, gradients)."""
+runs; whole models 1e-3 (fp32 logits, gradients); the per-op probe within
+1 bf16 step of its plain version at K = 1 and 2 at vpu_probe's K
+(probes/ew.py::max_ulps), the construct probes exact (erf within 1e-6)."""
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ import lemevit_tpu_torch
 from lemevit_tpu_torch.attn import fused_block as fb
 from lemevit_tpu_torch.attn import fused_train as ft
 from lemevit_tpu_torch.attn.reference import dca_scales
+from lemevit_tpu_torch.probes import constructs, ew
 
 M = 16
 S_TRAIN = ("s_train_fwd", "mlp_bwd", "s_attn_bwd")
@@ -621,3 +624,91 @@ def test_model_slice_path_matches_torch_path_on_gpu(cuda):
         want = m(x)
     assert launched == {"c_block": 1, "dca_block": 4, "s_stage": 2}
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------------------------ the probes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ew.SHAPES)
+@pytest.mark.parametrize("k", ["1", "jax"])
+@pytest.mark.parametrize("op", list(ew.OPS))
+def test_ew_probe_matches_plain_on_gpu(cuda, op, k, shape):
+    """k_ew_probe<op, K> on each of vpu_probe's (R, C) tiles x 64 against
+    ew_probe_plain on the card: within ew.max_ulps(K) bf16 steps (ATOL
+    near zero), at K = 1 and at vpu_probe's K. At C = 384 and 784 a warp's
+    lanes hold unequal counts of 16-byte vectors (48 and 98), so the
+    masked loads, stores and row reductions run."""
+    k = ew.jax_k(op) if k == "jax" else int(k)
+    x = ew.probe_input(*shape, cuda)
+    before = ew.LAUNCHES[f"ew_probe.{op}"]
+    got = ew.ew_probe(x, op, k)
+    torch.cuda.synchronize()
+    assert ew.LAUNCHES[f"ew_probe.{op}"] == before + 1
+    m = ew.mismatches(got, ew.ew_probe_plain(x, op, k), k)
+    assert m["bad"] == 0, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(constructs.PROBES))
+def test_construct_probe_on_gpu(cuda, name):
+    """Each construct probe's kernel against its plain version on the card,
+    with a keep / FLIP verdict."""
+    row = constructs.PROBES[name](cuda)
+    assert row["ok"], row
+    assert row["route"] == "cuda"
+    assert row["verdict"].startswith(("keep", "FLIP")), row["verdict"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("csize", [1, 2, 4, 8])
+def test_cluster_probe_matches_plain_on_gpu(cuda, csize):
+    got = constructs.cluster_probe(csize, constructs.CLUSTERS, cuda)
+    assert torch.equal(got.cpu(), constructs.cluster_probe_plain(
+        csize, constructs.CLUSTERS))
+    assert constructs.cluster_occupancy(csize, cuda) > 0
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_reject_on_gpu(cuda):
+    x = ew.probe_input(8, 128, cuda)
+    with pytest.raises(TypeError):
+        ew.ew_probe(x.float(), "exp", 1)
+    with pytest.raises(ValueError, match="K in"):
+        ew.ew_probe(x, "exp", 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ew.ew_probe(torch.zeros(8, 2056, dtype=torch.bfloat16,
+                                device=cuda), "exp", 1)
+    with pytest.raises(ValueError, match="out of range"):
+        constructs.scatter_add_probe(
+            torch.ones(4, 8, device=cuda),
+            torch.tensor([0, 1, 2, 9], dtype=torch.int32, device=cuda), 4)
+    with pytest.raises(TypeError):
+        constructs.fold_probe(torch.ones(2, 3, 8, device=cuda))
+
+
+@pytest.mark.gpu
+def test_kbench_clis_on_gpu(cuda):
+    """cli.kbench and cli.train_kbench on the card at a small batch: kernel
+    and plain rows, s_stage against the chain."""
+    from lemevit_tpu_torch.cli import kbench, train_kbench
+    rows = kbench.main(["--stages", "4", "--batch-size", "8", "--reps", "2"])
+    assert [r["impl"] for r in rows] == ["kernel", "plain"]
+    staged = kbench.main(["--stages", "4", "--batch-size", "8", "--reps",
+                          "2", "--s-stage", "--impls", "kernel"])
+    assert [(r["impl"], r["form"]) for r in staged] == [
+        ("kernel", "s_stage"), ("kernel", "chain")]
+    rows = train_kbench.main(["--stages", "1", "--batch-size", "4",
+                              "--reps", "2", "--cpe"])
+    assert [r["impl"] for r in rows] == ["kernel", "plain"]
+    assert all(r["grad_ms"] > 0 for r in rows)
+
+
+@pytest.mark.gpu
+def test_train_path_step_device_ms_on_gpu(cuda):
+    """The training paths' A/B measure: the kernels' device ms per bare
+    lemevit_tiny step with the switch off and on, in one pair."""
+    from lemevit_tpu_torch.cli import probes as probes_cli
+    d = probes_cli.step_device_ms("lemevit_tiny", cuda, pairs=1, steps=1)
+    assert d["default_ms"] > 0 and d["switch_ms"] > 0, d
+    assert all(v > 0 for v in d["elapsed_ms"].values()), d

@@ -1,5 +1,6 @@
 """PyTorch port, entry points and packaging: the package imports without
-JAX, imports nothing of JAX or lemevit_tpu, refuses to carry on on the CPU
+JAX, imports nothing of JAX, lemevit_tpu or the repository's JAX scripts
+(scripts/, which import JAX at module level), refuses to carry on on the CPU
 unless asked, and its CLIs run on the CPU at a micro size."""
 import json
 import os
@@ -18,7 +19,8 @@ from lemevit_tpu_torch.cli import benchmark, train, validate
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "lemevit_tpu_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|lemevit_tpu(?!_torch))\b",
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|lemevit_tpu(?!_torch)"
+    r"|scripts|kbench|vpu_probe|mosaic_probes|train_kbench)\b",
     re.MULTILINE)
 
 
@@ -32,7 +34,7 @@ def test_imports_without_jax():
             "").parts).replace(".__init__", "")
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys, importlib\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'lemevit_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'lemevit_tpu', 'scripts'):\n"
             "    sys.modules[m] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -56,6 +58,18 @@ def test_forbidden_pattern():
     assert FORBIDDEN.search("    import flax")
     assert not FORBIDDEN.search("from lemevit_tpu_torch.attn import x")
     assert not FORBIDDEN.search("import jaxtyping_free_name_ok")
+    assert FORBIDDEN.search("from scripts import kbench")
+    assert FORBIDDEN.search("import scripts.vpu_probe as vp")
+    assert FORBIDDEN.search("from scripts.mosaic_probes import main")
+    assert FORBIDDEN.search("import kbench")
+    assert FORBIDDEN.search("    from kbench import STAGES, B")
+    assert FORBIDDEN.search("import vpu_probe")
+    assert FORBIDDEN.search("import mosaic_probes")
+    assert FORBIDDEN.search("from train_kbench import run_stage")
+    assert not FORBIDDEN.search("from lemevit_tpu_torch.cli import kbench")
+    assert not FORBIDDEN.search(
+        "from lemevit_tpu_torch.cli.kbench import STAGES")
+    assert not FORBIDDEN.search("import kbench_results")
 
 
 @pytest.fixture
