@@ -42,10 +42,14 @@ before it and read just after:
     --train-cpe-in-kernel, and a profile of one train step (the same
     launches, no convolution for the 15 block CPEs);
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
-    6 classes): the attention-only kernels held against their plain
-    versions (dca_attn at stages 1-2's shapes, through D2's aliasing and
-    one backward; mhsa at three shapes) beside SDPA's time on the same
-    inputs, the S kernels at stages 3-4's shapes (N = 1024, 256), the crop
+    6 classes): what ptxas reports for the attention-only kernels'
+    sources, the kernels held against their plain versions and, in bf16,
+    against their order of work in PyTorch (*_tiles_plain) (dca_attn at
+    stages 1-2's shapes, at N = 1000 and with 128 meta tokens, through
+    D2's aliasing and one backward, two runs bit for bit; mhsa at three
+    shapes and at N = 200 and 1) beside SDPA's time on the same inputs,
+    with the profiler's device time beside the events' time, the S
+    kernels at stages 3-4's shapes (N = 1024, 256), the crop
     forward's kernel path against its plain path (fp32 at batch 1, bf16 at
     batch 8) with its launches, slide inference of a 1024^2 image (9
     windows), cli.train_seg on synthetic data (batch 8, bf16, 6 steps and
@@ -73,6 +77,8 @@ from __future__ import annotations
 import copy
 import csv
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -84,7 +90,7 @@ import torch
 import torch.nn.functional as F
 
 from lemevit_tpu_torch.utils.profiling import (BF16_FLOPS, FP32_FLOPS,
-                                               HBM_BYTES_PER_S)
+                                               HBM_BYTES_PER_S, kernel_ms)
 
 B_CHECK = 8          # batch of the fp32 kernel checks
 B_MAIN = 64          # batch of the served and trained main paths (bf16)
@@ -136,12 +142,27 @@ STAGE_SHAPES = [("base stage 3", 18, 196, 14, 384, B_CHECK, B_MAIN, 1),
 # stages 1-2 compose (N > 3136): each D block's attention is one dca_attn
 # call, (N, C, blocks)
 SEG_DCA = [(16384, 64, 2), (4096, 128, 2)]
+# dca_attn's shapes on no main path, (N, C, blocks, M): a ragged last tile
+# (1000 - 7 * 128 = 104 rows) and LeMeViT's default 128 meta tokens (eight
+# tiles of 16)
+DCA_OFF_PATH = [(1000, 64, 0, 16), (4096, 128, 0, 128)]
 # stages 3-4 run the S kernels at new token counts, (kind, N, C, blocks)
 SEG_S = [("s", 1024, 192, 8), ("s", 256, 320, 2)]
 # mhsa: (N, C, fp32 batch, bf16 batch): vit_tiny's stage-0 meta stream,
 # an S block that composes at N = 196 and at the kernel's largest N
 MHSA_SHAPES = [(16, 96, B_CHECK, B_MAIN), (196, 320, B_CHECK, B_MAIN),
                (1024, 192, SEG_B_CHECK, SEG_B)]
+# mhsa's ragged shapes: a last key and query tile of 8 rows, one token
+MHSA_RAGGED = [(200, 192, B_CHECK, B_MAIN), (1, 96, B_CHECK, B_MAIN)]
+# tolerance of the bf16 kernels against their order of work in PyTorch
+# (mhsa_tiles_plain, dca_tiles_plain) on the same inputs, and, so that an
+# output of small values (dca_attn's c_out, ~0.01) is held at its own
+# scale, bf16 steps of each output's largest element: against the tile
+# models and against the fp32 plain versions
+TILES_TOL = 1e-2
+TILES_STEPS = 2
+PLAIN_STEPS = 4
+BF16_STEP = 2.0 ** -7  # bf16's spacing at 1
 TRAIN_PHASES = {"s": ("s_train_fwd", "mlp_bwd", "s_attn_bwd"),
                 "dca": ("dca_train_fwd", "mlp_bwd", "dca_attn_bwd"),
                 "c": ("c_train_fwd", "mlp_bwd", "c_attn_bwd")}
@@ -353,12 +374,13 @@ def _train_work(phase, b, n, ch, elt):
             22 * rows * ch * ch + 10 * pairs * ch)
 
 
-def max_err(got, want, tol):
-    """Max abs error; raises where |err| > tol (1 + |ref|) or a value is
-    not finite."""
+def max_err(got, want, tol, steps=None):
+    """Max abs error; raises where |err| > tol (1 + |ref|), where steps is
+    given also where |err| > steps bf16 steps of the tensor's largest |ref|,
+    or where a value is not finite."""
     err = 0.0
     for a, r in zip(got, want):
-        a = a.float()
+        a, r = a.float(), r.float()
         if not torch.isfinite(a).all():
             raise AssertionError("kernel output is not finite")
         d = (a - r).abs()
@@ -366,6 +388,12 @@ def max_err(got, want, tol):
         if bad:
             raise AssertionError(f"{bad} elements beyond tol {tol}, "
                                  f"max abs err {d.max().item():.3g}")
+        if steps is not None:
+            scale = r.abs().max().item()
+            if d.max().item() > steps * BF16_STEP * scale:
+                raise AssertionError(
+                    f"max abs err {d.max().item():.3g} beyond {steps} bf16 "
+                    f"steps of the largest |ref| {scale:.3g}")
         err = max(err, d.max().item())
     return err
 
@@ -976,47 +1004,51 @@ def host_batch_ms(n: int = 3) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def attn_work(name, b, n, ch, elt=2):
+def attn_work(name, b, n, ch, elt=2, m=M):
     """(bytes, operations) of one attention-only call: each input read
     once, each output written once, multiply-adds counted as two. dca_attn:
-    q1, k1, v1, x_out (B, N, C) and q2, k2, v2, c_out (B, M, C); two
-    products of B N M C per direction. mhsa: q, k, v, out (B, N, C); two
+    q1, k1, v1, x_out (B, N, C) and q2, k2, v2, c_out (B, m, C); two
+    products of B N m C per direction. mhsa: q, k, v, out (B, N, C); two
     products of B N^2 C."""
     if name == "dca_attn":
-        return 4 * b * (n + M) * ch * elt, 8 * b * n * M * ch
+        return 4 * b * (n + m) * ch * elt, 8 * b * n * m * ch
     return 4 * b * n * ch * elt, 4 * b * n * n * ch
 
 
-def sdpa_ms(groups) -> float:
-    """Time of F.scaled_dot_product_attention over each (q, k, v, scale)
-    of ``groups``, in (B, H, L, d) layout (copied into it beforehand):
-    the library's time for the same attention, for the table only."""
+def sdpa_ms(groups) -> tuple:
+    """Times of F.scaled_dot_product_attention over each (q, k, v, scale)
+    of ``groups``, in (B, H, L, d) layout (copied into it beforehand): the
+    library's time for the same attention, for the table only, as (CUDA
+    events ms, the profiler's device ms)."""
     lib = [(*[t.unflatten(-1, (t.shape[-1] // 32, 32)).transpose(1, 2)
               .contiguous() for t in qkv], scale) for *qkv, scale in groups]
 
     def run():
         for q, k, v, scale in lib:
             F.scaled_dot_product_attention(q, k, v, scale=scale)
-    return cuda_ms(run)
+    return cuda_ms(run), device_ms(run)
 
 
-def check_dca_attn(n, ch, blocks, dev, g):
-    """dca_attn at one of UperNet's stage 1-2 shapes against dca_plain, on
-    column views of projection outputs as the D module passes them: fp32
-    at SEG_B_CHECK (1e-4), bf16 at SEG_B (3e-2 against fp32 on the same
-    bf16-cast inputs); D2's dca(q, q, v1, k, k, v2) on qv / kv views in
-    fp32, its outputs and, through the Function (kernel forward, plain
-    backward), the gradients of both projections against plain autograd
-    (1e-4 of each one's largest element); then times at SEG_B in bf16
+def check_dca_attn(n, ch, blocks, dev, g, m=M):
+    """dca_attn with m meta tokens at one of UperNet's stage 1-2 shapes (or
+    one of DCA_OFF_PATH) against dca_plain, on column views of projection
+    outputs as the D module passes them: fp32 at SEG_B_CHECK (1e-4), bf16
+    at SEG_B (3e-2 and PLAIN_STEPS against fp32 on the same bf16-cast
+    inputs, TILES_TOL and TILES_STEPS against dca_tiles_plain on the same
+    bf16 inputs), two bf16 runs bit for bit equal; D2's dca(q, q, v1, k, k,
+    v2) on qv / kv views in fp32, its outputs and, through the Function
+    (kernel forward, plain backward), the gradients of both projections
+    against plain autograd (1e-4 of each one's largest element); then
+    times at SEG_B in bf16 (CUDA events and the profiler's device time)
     beside the plain version and SDPA's two calls."""
     from lemevit_tpu_torch.attn import dca as dm
     from lemevit_tpu_torch.attn.reference import dca_scales
-    sx, sc = dca_scales(n, M, ch)
+    sx, sc = dca_scales(n, m, ch)
     kw = dict(scale_x=sx, scale_c=sc, num_heads=ch // 32)
 
     def views(b, dtype, parts=3):
         lin1 = torch.randn(b, n, parts * ch, generator=g).to(dev, dtype)
-        lin2 = torch.randn(b, M, parts * ch, generator=g).to(dev, dtype)
+        lin2 = torch.randn(b, m, parts * ch, generator=g).to(dev, dtype)
         return lin1, lin2
 
     l1, l2 = views(SEG_B_CHECK, torch.float32)
@@ -1025,14 +1057,20 @@ def check_dca_attn(n, ch, blocks, dev, g):
                     1e-4)
     l1, l2 = views(SEG_B, torch.bfloat16)
     a16 = (*l1.split(ch, -1), *l2.split(ch, -1))
-    err16 = max_err(dm.dca_kernel(*a16, **kw),
-                    dm.dca_plain(*[t.float() for t in a16], **kw), 3e-2)
+    got = dm.dca_kernel(*a16, **kw)
+    err16 = max_err(got, dm.dca_plain(*[t.float() for t in a16], **kw),
+                    3e-2, PLAIN_STEPS)
+    err_tiles = max_err(got, dm.dca_tiles_plain(*a16, **kw), TILES_TOL,
+                        TILES_STEPS)
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, dm.dca_kernel(*a16, **kw))):
+        raise AssertionError(f"dca_attn N={n}: two runs differ")
 
     # D2: q and k passed twice, one backward through the Function
     lin1, lin2 = (t.requires_grad_() for t in views(SEG_B_CHECK,
                                                     torch.float32, 2))
     wx = torch.randn(SEG_B_CHECK, n, ch, generator=g).to(dev)
-    wc = torch.randn(SEG_B_CHECK, M, ch, generator=g).to(dev)
+    wc = torch.randn(SEG_B_CHECK, m, ch, generator=g).to(dev)
 
     def run(fn):
         lin1.grad = lin2.grad = None
@@ -1041,8 +1079,11 @@ def check_dca_attn(n, ch, blocks, dev, g):
         xo, co = fn(q, q, v1, k, k, v2, **kw)
         ((xo * wx).sum() + (co * wc).sum()).backward()
         return [xo.detach(), co.detach()], [lin1.grad, lin2.grad]
+    def function(*args, scale_x, scale_c, num_heads):
+        # the Function itself where the JAX package declines N (ragged)
+        return dm._Dca.apply(*args, scale_x, scale_c, num_heads)
     before = launch_counts()
-    got_o, got_g = run(dm.dca)
+    got_o, got_g = run(dm.dca if dm.pick_tile(n) else function)
     if launched_since(before) != {"dca_attn": 1}:
         raise AssertionError(f"dca D2 launches {launched_since(before)}")
     want_o, want_g = run(dm.dca_plain)
@@ -1051,48 +1092,117 @@ def check_dca_attn(n, ch, blocks, dev, g):
     del lin1, lin2, got_g, want_g
 
     ms = cuda_ms(lambda: dm.dca_kernel(*a16, **kw))
+    dev_ms = device_ms(lambda: dm.dca_kernel(*a16, **kw))
+    # one call's two launches (the tiles, the merge) by name
+    profile_call(lambda: dm.dca_kernel(*a16, **kw), f"dca_attn N={n}",
+                 top=2)
     plain_ms = cuda_ms(lambda: dm.dca_plain(*a16, **kw))
-    lib_ms = sdpa_ms([(a16[0], a16[4], a16[5], sx),
+    lib_ms, lib_dev = sdpa_ms([(a16[0], a16[4], a16[5], sx),
                       (a16[3], a16[1], a16[2], sc)])
-    t_bound, by = bound(*attn_work("dca_attn", SEG_B, n, ch))
-    row = dict(name="dca_attn", n=n, c=ch, batch=SEG_B, per_step=blocks,
-               err_fp32=err32, err_bf16=err16, err_d2_fp32=err_d2, ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=t_bound,
-               bound_by=by)
-    say("attn-kernel", f"dca_attn N={n} C={ch} M={M}: fp32 err {err32:.2e} "
-        f"(B={SEG_B_CHECK}), bf16 err {err16:.2e} (B={SEG_B}), D2 aliasing "
-        f"out / grads err {err_d2:.2e}; {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms, SDPA x2 {lib_ms:.4f} ms; bound "
+    t_bound, by = bound(*attn_work("dca_attn", SEG_B, n, ch, m=m))
+    row = dict(name="dca_attn", n=n, c=ch, m=m, batch=SEG_B,
+               per_step=blocks, tile=dm.TILE[torch.bfloat16],
+               err_fp32=err32, err_bf16=err16, err_tiles_bf16=err_tiles,
+               err_d2_fp32=err_d2, ms=ms, kernel_ms=dev_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_kernel_ms=lib_dev,
+               bound_ms=t_bound, bound_by=by)
+    say("attn-kernel", f"dca_attn N={n} C={ch} M={m}: fp32 err {err32:.2e} "
+        f"(B={SEG_B_CHECK}), bf16 err {err16:.2e} (B={SEG_B}), against "
+        f"dca_tiles_plain {err_tiles:.2e}, two runs equal; D2 aliasing "
+        f"out / grads err {err_d2:.2e}; {ms:.4f} ms (device "
+        f"{fmt_ms(dev_ms)}) vs plain {plain_ms:.4f} ms, SDPA x2 "
+        f"{lib_ms:.4f} ms (device "
+        f"{fmt_ms(lib_dev)}); bound "
         f"{t_bound:.4f} ms ({by})")
     return row
 
 
 def check_mhsa(n, ch, b_check, b_main, dev, g):
     """mhsa at one shape against mhsa_plain, on column views of a qkv
-    projection: fp32 at b_check (1e-4), bf16 at b_main (3e-2 against fp32
-    on the same bf16-cast inputs); then times at b_main in bf16 beside the
-    plain version and one SDPA call."""
+    projection: fp32 at b_check (1e-4), bf16 at b_main (3e-2 and
+    PLAIN_STEPS against fp32 on the same bf16-cast inputs, TILES_TOL and
+    TILES_STEPS against mhsa_tiles_plain on the same bf16 inputs); then times at b_main in bf16 (CUDA events and
+    the profiler's device time) beside the plain version and one SDPA
+    call."""
     from lemevit_tpu_torch.attn import mhsa as mm
     kw = dict(scale=32 ** -0.5, num_heads=ch // 32)
     errs = []
-    for b, dtype, tol in ((b_check, torch.float32, 1e-4),
-                          (b_main, torch.bfloat16, 3e-2)):
+    for b, dtype, tol, steps in ((b_check, torch.float32, 1e-4, None),
+                                 (b_main, torch.bfloat16, 3e-2, PLAIN_STEPS)):
         qkv = torch.randn(b, n, 3 * ch, generator=g).to(dev, dtype)
         args = qkv.split(ch, -1)
-        errs.append(max_err([mm.mhsa_kernel(*args, **kw)],
-                            [mm.mhsa_plain(*[t.float() for t in args],
-                                           **kw)], tol))
+        got = mm.mhsa_kernel(*args, **kw)
+        errs.append(max_err([got], [mm.mhsa_plain(
+            *[t.float() for t in args], **kw)], tol, steps))
+    err_tiles = max_err([got], [mm.mhsa_tiles_plain(*args, **kw)],
+                        TILES_TOL, TILES_STEPS)
     ms = cuda_ms(lambda: mm.mhsa_kernel(*args, **kw))
+    dev_ms = device_ms(lambda: mm.mhsa_kernel(*args, **kw))
     plain_ms = cuda_ms(lambda: mm.mhsa_plain(*args, **kw))
-    lib_ms = sdpa_ms([(*args, kw["scale"])])
+    lib_ms, lib_dev = sdpa_ms([(*args, kw["scale"])])
     t_bound, by = bound(*attn_work("mhsa", b_main, n, ch))
     say("attn-kernel", f"mhsa N={n} C={ch}: fp32 err {errs[0]:.2e} "
-        f"(B={b_check}), bf16 err {errs[1]:.2e} (B={b_main}); {ms:.4f} ms "
-        f"vs plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound "
-        f"{t_bound:.4f} ms ({by})")
+        f"(B={b_check}), bf16 err {errs[1]:.2e} (B={b_main}), against "
+        f"mhsa_tiles_plain {err_tiles:.2e}; {ms:.4f} ms (device "
+        f"{fmt_ms(dev_ms)}) vs plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+        f"(device {fmt_ms(lib_dev)}); bound {t_bound:.4f} ms ({by})")
     return dict(name="mhsa", n=n, c=ch, batch=b_main, err_fp32=errs[0],
-                err_bf16=errs[1], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=t_bound, bound_by=by)
+                err_bf16=errs[1], err_tiles_bf16=err_tiles, ms=ms,
+                kernel_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_kernel_ms=lib_dev, bound_ms=t_bound, bound_by=by)
+
+
+def device_ms(fn) -> float | None:
+    """The profiler's device ms per call of fn() over 20 calls
+    (utils/profiling.py::kernel_ms), asked twice where the first trace
+    records no device time; None if neither does."""
+    ms = kernel_ms(fn, iters=20, warm=3)
+    return ms if ms is not None else kernel_ms(fn, iters=20, warm=3)
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def ptxas_report(src: Path) -> str:
+    """What ptxas reports for each kernel of one source compiled with the
+    library's flags (``-Xptxas -v``: registers, shared memory, spills),
+    one kernel per line, names demangled by ``cu++filt`` where it exists."""
+    from lemevit_tpu_torch.attn import _build
+    nvcc = _build.find_nvcc()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+    try:
+        out = subprocess.run(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(_build.CSRC), "-c", str(src), "-o", str(tmp / "report.o")],
+            capture_output=True, text=True, check=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows, name = [], ""
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("Used" in line or "spill" in line):
+            rows.append((name, line.split("info    :")[-1].strip()))
+    names = sorted({n for n, _ in rows})
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if names and os.path.isfile(filt):
+        plain = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True).stdout.split(
+                                   "\n")
+        if len(plain) >= len(names):
+            rename = dict(zip(names, plain))
+            rows = [(rename[n], what) for n, what in rows]
+    return "\n".join(f"{n}: {what}" for n, what in rows)
+
+
+def attn_ptxas() -> dict:
+    """What ptxas reports (registers, shared memory, spills) for the
+    attention-only kernels' sources, built with the library's flags."""
+    from lemevit_tpu_torch.attn import _build
+    return {src: ptxas_report(_build.CSRC / src)
+            for src in ("mhsa.cu", "dca_attn.cu")}
 
 
 def expect_launches(launched: dict, want: dict, what: str) -> None:
@@ -1629,12 +1739,19 @@ def main() -> None:
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
     #    the S kernels at stages 3-4's, the crop forward and slide
     #    inference, then its main path cli.train_seg and a profile
+    ptxas = attn_ptxas()
+    for src, report in ptxas.items():
+        for line in report.splitlines():
+            say("ptxas", f"{src}: {line}")
     dca_rows = [check_dca_attn(n, ch, blocks, dev, g)
-                for n, ch, blocks in SEG_DCA]
+                for n, ch, blocks in SEG_DCA] + [
+        check_dca_attn(n, ch, blocks, dev, g, m=m)
+        for n, ch, blocks, m in DCA_OFF_PATH]
     mhsa_rows = [check_mhsa(n, ch, bc, bm, dev, g)
-                 for n, ch, bc, bm in MHSA_SHAPES]
-    for row, per in zip(mhsa_rows, (VIT_STEP["mhsa"], 0, 0)):
-        row["per_step"] = per  # only N = 16 runs on a main path (vit_tiny)
+                 for n, ch, bc, bm in MHSA_SHAPES + MHSA_RAGGED]
+    for row in mhsa_rows:
+        # only N = 16 runs on a main path (vit_tiny)
+        row["per_step"] = VIT_STEP["mhsa"] if row["n"] == 16 else 0
     seg_eval_rows = [check_block_kernel(fb, "s_block", n, ch, blocks, dev, g,
                                         b_check=SEG_B_CHECK, b_main=SEG_B)
                      for _, n, ch, blocks in SEG_S]
@@ -1733,10 +1850,12 @@ def main() -> None:
         slice_serving=slice_res))
     kernels.append(kernel_entry(
         "dca_attn", dca_rows, seg_launches["dca_attn"], "per_step",
-        per_crop_forward=SEG_CROP_FWD["dca_attn"]))
+        per_crop_forward=SEG_CROP_FWD["dca_attn"],
+        ptxas=ptxas["dca_attn.cu"]))
     kernels.append(kernel_entry(
         "mhsa", mhsa_rows, vit_launches["mhsa"], "per_step",
-        vit_tiny_per_eval_forward=VIT_EVAL["mhsa"]))
+        vit_tiny_per_eval_forward=VIT_EVAL["mhsa"],
+        ptxas=ptxas["mhsa.cu"]))
     slopes = {f"{r['r']}x{r['c']}": r["us_per_pass"] for r in table["ew"]}
     for op in ew.OPS:
         # the slope table launches each shape alike: plain means over them

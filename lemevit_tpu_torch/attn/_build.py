@@ -60,8 +60,8 @@ SIGNATURES = {
                        _P],
     "lm_c_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                       _P],
-    "lm_dca_attn": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                    _F, _P],
+    "lm_dca_attn": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                    _P],
     "lm_mhsa": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
@@ -161,9 +161,16 @@ def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args,
            counts: dict, key: str = None) -> None:
     """Run entry point lm_<name>(*args, stream) of ``lib`` on ``device`` and
     its current stream, raise on a CUDA error, and add one to
-    counts[key or name]."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, f"lm_{name}")(*args, ctypes.c_void_p(stream))
+    counts[key or name]. The device is switched only when it is not the
+    current one, and the stream is passed as its raw handle: the host paces
+    the short kernels, so each call's host time counts."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    fn = getattr(lib, f"lm_{name}")
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     check(lib, code, name)
     counts[key or name] += 1

@@ -16,9 +16,19 @@ q, k and v may be column views of the qkv projection (``qkv.split(C,
 hand-written kernel ``csrc/mhsa.cu`` (``mhsa_kernel``, entry ``lm_mhsa``)
 or raises; for CPU tensors it runs ``mhsa_plain``, through the same
 autograd Function, whose backward recomputes ``mhsa_plain`` under autograd
-(the JAX package's ``_mhsa_bwd``). The kernel takes head_dim 32, as every
-released variant has: on CUDA tensors another head_dim raises, it does not
-compose.
+(the JAX package's ``_mhsa_bwd``).
+
+The kernel replaces pallas_mhsa.py's ``_mhsa_op``. On the H100 it is bound
+by operations from N ~ 600 on (and, at head_dim 32, by the exponentials
+nearly as much), by bytes below. Its design is FlashAttention-2's: 128
+queries of one (image, head) per CTA in bf16 (64 in fp32), 64-key tiles in
+flight by cp.async, the products on mma.sync, the online softmax in
+registers in steps of 32 keys with P rounded to the input type before
+P v (``mhsa_tiles_plain`` follows that order of work in PyTorch, for the
+tests); at N <= 16 each warp takes a whole (image, head). Both types take
+that kernel: bf16 on the tensor cores, fp32 on FMA products of the same
+tiles. It takes head_dim 32, as every released variant has: on CUDA
+tensors another head_dim raises, it does not compose.
 
 ``LAUNCHES["mhsa"]`` counts kernel launches (one per call on CUDA tensors;
 the plain version does not count).
@@ -30,7 +40,7 @@ from typing import Optional
 import torch
 
 from lemevit_tpu_torch.attn import fused_block as fb
-from lemevit_tpu_torch.attn.dca import (check_inputs, key_rows,
+from lemevit_tpu_torch.attn.dca import (LOG2E, check_inputs, key_rows,
                                         recompute_vjp, rows)
 from lemevit_tpu_torch.attn.reference import sdpa_bnhd
 
@@ -42,6 +52,7 @@ MAX_N = 1024
 MAX_BYTES = 12 * 1024 * 1024
 
 LAUNCHES = {"mhsa": 0}
+KEY_STEP = 32  # keys per online-softmax step of csrc/mhsa.cu
 
 
 def takes(n: int, c: int, num_heads: int, itemsize: int) -> bool:
@@ -59,6 +70,33 @@ def mhsa_plain(q, k, v, *, scale: float, num_heads: int) -> torch.Tensor:
         return t.reshape(b, n, num_heads, c // num_heads)
     return sdpa_bnhd(split(q), split(k), split(v), scale=scale).reshape(
         b, n, c)
+
+
+def mhsa_tiles_plain(q, k, v, *, scale: float, num_heads: int
+                     ) -> torch.Tensor:
+    """Self-attention in csrc/mhsa.cu's order of work, in PyTorch (used by
+    the tests only): keys in steps of KEY_STEP, an online softmax in exp2
+    with the scale folded in, P rounded to the input type before P v, one
+    division at the end."""
+    b, n, c = q.shape
+    d = c // num_heads
+
+    def heads(t):  # (B, H, N, d) in fp32
+        return t.reshape(b, n, num_heads, d).transpose(1, 2).float()
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    sl2 = scale * LOG2E
+    mx = qh.new_full((b, num_heads, n, 1), -float("inf"))
+    l = qh.new_zeros(b, num_heads, n, 1)
+    o = qh.new_zeros(b, num_heads, n, d)
+    for k0 in range(0, n, KEY_STEP):
+        s = qh @ kh[:, :, k0:k0 + KEY_STEP].transpose(-1, -2)
+        m_new = torch.maximum(mx, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((mx - m_new) * sl2)
+        p = torch.exp2(s * sl2 - m_new * sl2)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(v.dtype).float() @ vh[:, :, k0:k0 + KEY_STEP]
+        mx = m_new
+    return (o / l).transpose(1, 2).reshape(b, n, c).to(q.dtype)
 
 
 def mhsa_kernel(q, k, v, *, scale: float, num_heads: int) -> torch.Tensor:

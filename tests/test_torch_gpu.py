@@ -15,7 +15,12 @@ C, also with the 3x3 CPE inside) the same on outputs and, on gradients
 of each tensor's largest element, the tap gradients bit for bit between two
 runs; whole models 1e-3 (fp32 logits, gradients); the per-op probe within
 1 bf16 step of its plain version at K = 1 and 2 at vpu_probe's K
-(probes/ew.py::max_ulps), the construct probes exact (erf within 1e-6)."""
+(probes/ew.py::max_ulps), the construct probes exact (erf within 1e-6).
+The attention-only kernels are also held in bf16 against their order of
+work in PyTorch (*_tiles_plain) at 1e-2 and within 2 bf16 steps of each
+output's largest element (so that dca_attn's c_out, of values ~0.01, is
+held at its own scale), dca_attn with 32 to MAX_META meta tokens against
+dca_plain, and dca_attn bit for bit between two runs."""
 import numpy as np
 import pytest
 import torch
@@ -450,8 +455,12 @@ def test_dca_aliased_grads_on_gpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("n,ch", [(16, 96), (196, 320), (1024, 192)])
+@pytest.mark.parametrize("n,ch", [(16, 96), (196, 320), (1024, 192),
+                                  (200, 192), (1, 96)])
 def test_mhsa_matches_plain_on_gpu(cuda, n, ch, dtype, tol):
+    """mhsa on column views of a qkv projection against mhsa_plain in fp32
+    on the same inputs; N = 200 leaves a ragged last key and query tile,
+    N = 1 and 16 take one warp per (image, head)."""
     from lemevit_tpu_torch.attn import mhsa
     g = torch.Generator().manual_seed(9)
     qkv = torch.randn(2, n, 3 * ch, generator=g).to(cuda, dtype)
@@ -463,6 +472,111 @@ def test_mhsa_matches_plain_on_gpu(cuda, n, ch, dtype, tol):
     assert _attn_launched(before) == {"mhsa": 1}
     want = mhsa.mhsa_plain(*[t.float() for t in args], **kw)
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+BF16_STEP = 2.0 ** -7  # bf16's spacing at 1
+
+
+def _close_at_scale(got, want, tol, steps):
+    """assert_close at rtol = atol = tol, and the largest error within
+    ``steps`` bf16 steps of the reference's largest element."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    err = (got - want).abs().max().item()
+    assert err <= steps * BF16_STEP * want.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch", [(16, 96), (200, 192), (1024, 192)])
+def test_mhsa_matches_tiles_model_on_gpu(cuda, n, ch):
+    """bf16 mhsa against mhsa_tiles_plain, its order of work in PyTorch,
+    on the same inputs (1e-2, and 2 bf16 steps of the largest output)."""
+    from lemevit_tpu_torch.attn import mhsa
+    g = torch.Generator().manual_seed(10)
+    qkv = torch.randn(2, n, 3 * ch, generator=g).to(cuda, torch.bfloat16)
+    args = qkv.split(ch, -1)
+    kw = dict(scale=32 ** -0.5, num_heads=ch // 32)
+    got = mhsa.mhsa_kernel(*args, **kw)
+    want = mhsa.mhsa_tiles_plain(*args, **kw)
+    _close_at_scale(got, want, 1e-2, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,m", [(1000, 64, 16), (4096, 128, 16),
+                                    (16384, 64, 16), (1000, 64, 32),
+                                    (4096, 128, 128)])
+def test_dca_attn_matches_tiles_model_on_gpu(cuda, n, ch, m):
+    """bf16 dca_attn with m meta tokens against dca_tiles_plain, its order
+    of work in PyTorch, on the same inputs (1e-2, and 2 bf16 steps of
+    each output's largest element: c_out's values are ~0.01 at N =
+    16384)."""
+    from lemevit_tpu_torch.attn import dca
+    g = torch.Generator().manual_seed(11)
+    lin1 = torch.randn(2, n, 3 * ch, generator=g).to(cuda, torch.bfloat16)
+    lin2 = torch.randn(2, m, 3 * ch, generator=g).to(cuda, torch.bfloat16)
+    args = (*lin1.split(ch, -1), *lin2.split(ch, -1))
+    sx, sc = dca_scales(n, m, ch)
+    kw = dict(scale_x=sx, scale_c=sc, num_heads=ch // 32)
+    got = dca.dca_kernel(*args, **kw)
+    want = dca.dca_tiles_plain(*args, **kw)
+    for g_, w_ in zip(got, want):
+        _close_at_scale(g_, w_, 1e-2, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,m", [(1000, 32), (4096, 128), (1000, "max")])
+def test_dca_attn_more_meta_tokens_on_gpu(cuda, n, m, dtype, tol):
+    """dca_attn with more than one tile of 16 meta tokens (128 is
+    LeMeViT's default queries_len; "max" is MAX_META[dtype], the most
+    whose rows fit in shared memory) against dca_plain in fp32 on the same
+    inputs, D2's aliased form too; bf16 also within 4 bf16 steps of each
+    output's largest element. One tile more raises."""
+    from lemevit_tpu_torch.attn import dca
+    m = dca.MAX_META[dtype] if m == "max" else m
+    ch = 64
+    g = torch.Generator().manual_seed(13)
+    lin1 = torch.randn(2, n, 3 * ch, generator=g).to(cuda, dtype)
+    lin2 = torch.randn(2, m, 3 * ch, generator=g).to(cuda, dtype)
+    q1, k1, v1 = lin1.split(ch, -1)
+    q2, k2, v2 = lin2.split(ch, -1)
+    sx, sc = dca_scales(n, m, ch)
+    kw = dict(scale_x=sx, scale_c=sc, num_heads=ch // 32)
+    for args in ((q1, k1, v1, q2, k2, v2), (q1, q1, v1, k2, k2, v2)):
+        got = dca.dca_kernel(*args, **kw)
+        want = dca.dca_plain(*[t.float() for t in args], **kw)
+        for g_, w_ in zip(got, want):
+            if dtype == torch.bfloat16:
+                _close_at_scale(g_, w_, tol, 4)
+            else:
+                torch.testing.assert_close(g_, w_, rtol=tol, atol=tol)
+    more = torch.randn(2, dca.MAX_META[dtype] + 16, ch,
+                       generator=g).to(cuda, dtype)
+    with pytest.raises(ValueError, match="meta tokens"):
+        dca.dca_kernel(q1, k1, v1, more, more, more, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dca_attn_is_deterministic_on_gpu(cuda, dtype):
+    """Two runs of dca_attn on the same inputs give the same bits (the c
+    direction's partials merge in a fixed order, no atomics), D2's
+    aliased form too."""
+    from lemevit_tpu_torch.attn import dca
+    g = torch.Generator().manual_seed(12)
+    n, ch = 4096, 128
+    lin1 = torch.randn(2, n, 3 * ch, generator=g).to(cuda, dtype)
+    lin2 = torch.randn(2, M, 3 * ch, generator=g).to(cuda, dtype)
+    q1, k1, v1 = lin1.split(ch, -1)
+    q2, k2, v2 = lin2.split(ch, -1)
+    sx, sc = dca_scales(n, M, ch)
+    kw = dict(scale_x=sx, scale_c=sc, num_heads=ch // 32)
+    for args in ((q1, k1, v1, q2, k2, v2), (q1, q1, v1, k2, k2, v2)):
+        first = dca.dca_kernel(*args, **kw)
+        second = dca.dca_kernel(*args, **kw)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
