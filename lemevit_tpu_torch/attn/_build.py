@@ -43,8 +43,7 @@ _PTRS = ctypes.POINTER(ctypes.c_void_p)
 # entry point -> argtypes (every entry returns a cudaError_t code)
 SIGNATURES = {
     "lm_c_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "lm_dca_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                     _P],
+    "lm_dca_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "lm_s_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_s_stage": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                    _P],

@@ -29,6 +29,13 @@ LayerNorm affine by folding it into the next matmul's weights; here the
 kernels apply LayerNorm (statistics and affine) in the prologue of the
 product it feeds, so nothing is folded and the weights are used as given.
 
+The S and D kernels run on the tensor cores (``csrc/block_tc.cuh`` for the
+qkv product and the tail, ``csrc/attn_tc.cuh`` for the attention);
+``s_block_tiles_plain`` and ``dca_block_tiles_plain`` follow their order of
+work in PyTorch, rounding where they round, for the tests. The D kernel
+takes at most ``attn/dca.py``'s ``MAX_META`` meta tokens (a head's meta
+rows sit in shared memory); on CUDA tensors more raise.
+
 ``LAUNCHES[name]`` counts kernel launches of each block (one per call on
 CUDA tensors; the plain versions do not count).
 """
@@ -45,7 +52,11 @@ from lemevit_tpu_torch.attn.reference import sdpa_bnhd
 LN_EPS = 1e-6          # the blocks' norm1 / norm2
 HEAD_DIM = 32          # the kernels assign one lane per head channel
 KEYS_PER_SPLIT = 256   # image keys per block in the meta-query direction
-MAX_DIM = 640          # the tail keeps (32, C) rows on chip
+MAX_DIM = 640          # the tails keep their rows of t1 and LN2(t1) on
+                       # chip: 64 (block_tc.cuh, C <= 512) or 32
+                       # (block_common.cuh) rows at a time
+HIDDEN_CHUNK = 128     # hidden columns of one MLP chunk (both headers'
+                       # tails)
 MAX_N_STAGE = 1024     # lemevit_tpu/attn/pallas_block.py:38 _MAX_N_SBLOCK
 
 LAUNCHES = {"c_block": 0, "dca_block": 0, "s_block": 0, "s_stage": 0}
@@ -141,6 +152,87 @@ def s_block_plain(x, c, params, *, num_heads: int, cpe=None,
     return branch(x), branch(c)
 
 
+def _ln_rounded(t, w, b, dt):
+    """LayerNorm in fp32 of t, rounded to dt (the A operand of the next
+    product), as fp32."""
+    return _ln(t.float(), w.float(), b.float()).to(dt).float()
+
+
+def _qkv_tiles(t, ln_w, ln_b, w, b, dt):
+    """block_tc.cuh's k_qkv_wg: LN1(t) rounded to dt, its product in fp32
+    plus the bias, rounded to dt."""
+    return (_ln_rounded(t, ln_w, ln_b, dt) @ w.float().t()
+            + b.float()).to(dt)
+
+
+def _tail_tiles(t, o, wp, bp, ln_w, ln_b, w1, b1, w2, b2, dt):
+    """block_tc.cuh's k_tail_wg (and block_common.cuh's k_block_tail past
+    C = 512, which rounds in the same places): t1 = t + o Wp^T + bp in
+    fp32, LN2(t1) rounded to dt, then per HIDDEN_CHUNK hidden columns
+    GELU(fc1) in fp32 rounded to dt and its fc2 added to t1 + b2 in fp32;
+    the sum rounded to dt."""
+    t1 = o.float() @ wp.float().t() + bp.float() + t.float()
+    a = _ln_rounded(t1, ln_w, ln_b, dt)
+    acc = t1 + b2.float()
+    for j0 in range(0, w1.shape[0], HIDDEN_CHUNK):
+        j1 = j0 + HIDDEN_CHUNK
+        h = F.gelu(a @ w1[j0:j1].float().t() + b1[j0:j1].float())
+        acc = acc + h.to(dt).float() @ w2[:, j0:j1].float().t()
+    return acc.to(dt)
+
+
+def _cpe_rounded(x, cpe, img_w):
+    """x's CPE in fp32 rounded to x's type, as the kernels stage it."""
+    if cpe is None:
+        return x
+    return cpe_plain(x.float(), *[t.float() for t in cpe], img_w).to(x.dtype)
+
+
+def s_block_tiles_plain(x, c, params, *, num_heads: int, cpe=None,
+                        img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The S kernel's order of work in PyTorch (used by the tests only):
+    LN1 rounded to the input type before the qkv product, qkv rounded,
+    attention as ``attn/mhsa.py::mhsa_tiles_plain`` (32-key online-softmax
+    steps, P rounded before P v), then the tail as k_tail_wg (LN2 rounded,
+    each hidden chunk rounded after its GELU, fp32 sums, one rounding of
+    the output). In fp32 nothing rounds."""
+    from lemevit_tpu_torch.attn.mhsa import mhsa_tiles_plain
+    dt = x.dtype
+    x = _cpe_rounded(x, cpe, img_w)
+    (ln1w, ln1b, wqkv, bqkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2) = params
+    ch = x.shape[-1]
+
+    def branch(t):
+        q, k, v = _qkv_tiles(t, ln1w, ln1b, wqkv, bqkv, dt).split(ch, -1)
+        o = mhsa_tiles_plain(q, k, v, scale=HEAD_DIM ** -0.5,
+                             num_heads=num_heads)
+        return _tail_tiles(t, o, wp, bp, ln2w, ln2b, w1, b1, w2, b2, dt)
+
+    return branch(x), branch(c)
+
+
+def dca_block_tiles_plain(x, c, params, *, num_heads: int, scale_x: float,
+                          scale_c: float, cpe=None, img_w: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The D kernel's order of work in PyTorch (used by the tests only):
+    the qkv products and the tails as ``s_block_tiles_plain``'s, both
+    attention directions as ``attn/dca.py::dca_tiles_plain`` (the c
+    direction's partials per tile of image rows merged in the merge
+    launch's fixed order)."""
+    from lemevit_tpu_torch.attn.dca import dca_tiles_plain
+    dt = x.dtype
+    x = _cpe_rounded(x, cpe, img_w)
+    (ln1w, ln1b, wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc,
+     ln2w, ln2b, w1, b1, w2, b2) = params
+    ch = x.shape[-1]
+    q1, k1, v1 = _qkv_tiles(x, ln1w, ln1b, wqkv1, bqkv1, dt).split(ch, -1)
+    q2, k2, v2 = _qkv_tiles(c, ln1w, ln1b, wqkv2, bqkv2, dt).split(ch, -1)
+    ax, ac = dca_tiles_plain(q1, k1, v1, q2, k2, v2, scale_x=scale_x,
+                             scale_c=scale_c, num_heads=num_heads)
+    return (_tail_tiles(x, ax, wpx, bpx, ln2w, ln2b, w1, b1, w2, b2, dt),
+            _tail_tiles(c, ac, wpc, bpc, ln2w, ln2b, w1, b1, w2, b2, dt))
+
+
 def s_stage_plain(x, c, params_list, *, num_heads: int, cpes=None,
                   img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """A stage of S blocks: ``s_block_plain`` with each block's parameters
@@ -234,6 +326,8 @@ def _launch(name: str, x: torch.Tensor, tensors, *scalars,
 
 
 def _partials(b, h, m, n, device):
+    """c_block's and the training kernels' split-softmax partials over
+    KEYS_PER_SPLIT image keys (block_common.cuh's k_attention)."""
     splits = -(-n // KEYS_PER_SPLIT)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(b * h * splits * m, **f32),
@@ -271,6 +365,12 @@ def _cpe_ptrs(cpe):
     return (None, None) if cpe is None else cpe
 
 
+def _cpe_work(x, cpe):
+    """The S / D kernels' workspace for x's CPE (the tail's residual), or
+    a null without the CPE."""
+    return None if cpe is None else torch.empty_like(x)
+
+
 def dca_block(x, c, params, *, num_heads: int, scale_x: float,
               scale_c: float, cpe=None, img_w: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -289,15 +389,23 @@ def dca_block(x, c, params, *, num_heads: int, scale_x: float,
         (ch,), (ch,), (3 * ch, ch), (3 * ch,), (3 * ch, ch), (3 * ch,),
         (ch, ch), (ch,), (ch, ch), (ch,), (ch,), (ch,), (hidden, ch),
         (hidden,), (ch, hidden), (ch,)])
+    from lemevit_tpu_torch.attn import dca
+    if m > dca.MAX_META[x.dtype]:
+        raise ValueError(f"dca_block: the kernel takes at most "
+                         f"{dca.MAX_META[x.dtype]} meta tokens in {x.dtype} "
+                         f"(attn/dca.py MAX_META), got {m}")
     ws = dict(dtype=x.dtype, device=x.device)
     xo = torch.empty_like(x)
     co = torch.empty_like(c)
+    tile = dca.TILE[x.dtype]
+    part = dca.workspace(b, num_heads, m, n, tile, x.device)
+    rows = dca.workspace_rows(b, num_heads, m, n, tile)
     work = [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
             torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws),
-            *_partials(b, num_heads, m, n, x.device)]
-    _launch("dca_block", x, [x, c, *params, xo, co, *work, *_cpe_ptrs(cpe)],
-            b, n, m, ch, num_heads, hidden, KEYS_PER_SPLIT, img_w, scale_x,
-            scale_c, LN_EPS)
+            part[:rows], part[rows:2 * rows], part[2 * rows:]]
+    _launch("dca_block", x, [x, c, *params, xo, co, *work, *_cpe_ptrs(cpe),
+                             _cpe_work(x, cpe)],
+            b, n, m, ch, num_heads, hidden, img_w, scale_x, scale_c, LN_EPS)
     return xo, co
 
 
@@ -328,7 +436,7 @@ def s_block(x, c, params, *, num_heads: int, cpe=None, img_w: int = 0
     xo = torch.empty_like(x)
     co = torch.empty_like(c)
     _launch("s_block", x, [x, c, *params, xo, co, *_s_work(b, n, m, ch, x),
-                           *_cpe_ptrs(cpe)],
+                           *_cpe_ptrs(cpe), _cpe_work(x, cpe)],
             b, n, m, ch, num_heads, hidden, img_w, HEAD_DIM ** -0.5, LN_EPS)
     return xo, co
 

@@ -20,7 +20,10 @@ The attention-only kernels are also held in bf16 against their order of
 work in PyTorch (*_tiles_plain) at 1e-2 and within 2 bf16 steps of each
 output's largest element (so that dca_attn's c_out, of values ~0.01, is
 held at its own scale), dca_attn with 32 to MAX_META meta tokens against
-dca_plain, and dca_attn bit for bit between two runs."""
+dca_plain, and dca_attn bit for bit between two runs. The S and D block
+kernels are held in bf16 against their tile models (*_block_tiles_plain),
+with their cpe mode and D2, within 2 bf16 steps of each output's largest
+element, and bit for bit between two runs."""
 import numpy as np
 import pytest
 import torch
@@ -478,10 +481,12 @@ BF16_STEP = 2.0 ** -7  # bf16's spacing at 1
 
 
 def _close_at_scale(got, want, tol, steps):
-    """assert_close at rtol = atol = tol, and the largest error within
-    ``steps`` bf16 steps of the reference's largest element."""
+    """assert_close at rtol = atol = tol (unless tol is None), and the
+    largest error within ``steps`` bf16 steps of the reference's largest
+    element."""
     got, want = got.float(), want.float()
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if tol is not None:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     err = (got - want).abs().max().item()
     assert err <= steps * BF16_STEP * want.abs().max().item(), err
 
@@ -651,6 +656,115 @@ def test_block_cpe_kernel_matches_plain_on_gpu(cuda, kind, n, img_w, ch,
                        cpe=[t.float() for t in cpe], img_w=img_w)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_.float(), w_, rtol=tol, atol=tol)
+
+
+# S and D kernels (block_tc.cuh): (kind, N, C, M). Base's and
+# lemevit_tiny's shapes, a ragged N, 32 and 128 meta tokens, and widths
+# that the tail's accumulator rounds up to a tier (32, 160, 448) or that
+# reach MAX_DIM (640). fp32 runs the same kernels as bf16 (FMA products),
+# block_common.cuh's tail past C = 512.
+TILE_CASES = [("s", 196, 384, 16), ("s", 49, 512, 16), ("s", 200, 192, 16),
+              ("s", 196, 384, 32), ("s", 49, 512, 128), ("s", 64, 640, 16),
+              ("s", 49, 448, 16), ("s", 16, 32, 16), ("d", 784, 192, 16),
+              ("d", 3136, 96, 16), ("d", 1000, 96, 16), ("d", 784, 192, 32),
+              ("d", 784, 192, 128), ("d", 256, 160, 16), ("d", 64, 640, 16)]
+TILES = {"s": fb.s_block_tiles_plain, "d": fb.dca_block_tiles_plain}
+# bf16 against the tile models: within TILES_STEPS bf16 steps of each
+# output's largest element, as chip_smoke.py holds them (a fp32 sum taken
+# in another order can flip one of the model's roundings, and an output
+# that cancels terms of the size of the largest then differs by a step of
+# those terms)
+TILES_STEPS = 2
+
+
+def _tile_call(kind, fn, x, c, params, **kw):
+    n, m, ch = x.shape[1], c.shape[1], x.shape[2]
+    kw["num_heads"] = ch // 32
+    if kind == "d":
+        kw["scale_x"], kw["scale_c"] = dca_scales(n, m, ch)
+    return fn(x, c, params, **kw)
+
+
+def _tile_inputs(kind, n, ch, m, seed, cpe_w=0):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(2, n, ch).astype(np.float32))
+    c = torch.from_numpy(rng.randn(2, m, ch).astype(np.float32))
+    params = [torch.from_numpy(a) for a in make_params(kind, rng, ch, 4 * ch)]
+    cpe = [torch.from_numpy(a) for a in _cpe(rng, ch)] if cpe_w else None
+    return x, c, params, cpe
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,ch,m", TILE_CASES)
+def test_block_tc_kernel_matches_plain_and_tiles_model_on_gpu(cuda, kind, n,
+                                                              ch, m):
+    """The S / D kernel in fp32 against its plain version (1e-4); in bf16
+    against its order of work in PyTorch (*_block_tiles_plain) on the same
+    inputs (TILES_STEPS), and bit for bit between two runs."""
+    x, c, params, _ = _tile_inputs(kind, n, ch, m, 21)
+    name = {"s": "s_block", "d": "dca_block"}[kind]
+    xd, cd, pd = x.to(cuda), c.to(cuda), [p.to(cuda) for p in params]
+    before = fb.LAUNCHES[name]
+    got = _tile_call(kind, getattr(fb, name), xd, cd, pd)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES[name] == before + 1
+    want = _tile_call(kind, PLAIN[name], xd, cd, pd)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+    bf = torch.bfloat16
+    xb, cb, pb = xd.to(bf), cd.to(bf), [p.to(bf) for p in pd]
+    got = _tile_call(kind, getattr(fb, name), xb, cb, pb)
+    again = _tile_call(kind, getattr(fb, name), xb, cb, pb)
+    want = _tile_call(kind, TILES[kind], xb, cb, pb)
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,img_w,ch", [("s", 196, 14, 384),
+                                             ("d", 784, 28, 192),
+                                             ("d", 3136, 56, 96)])
+def test_block_tc_cpe_matches_tiles_model_on_gpu(cuda, kind, n, img_w, ch):
+    """The cpe mode in bf16 against the tile model with the same CPE."""
+    x, c, params, cpe = _tile_inputs(kind, n, ch, M, 22, img_w)
+    bf = torch.bfloat16
+    xb, cb = x.to(cuda, bf), c.to(cuda, bf)
+    pb, cpb = [p.to(cuda, bf) for p in params], [t.to(cuda, bf) for t in cpe]
+    name = {"s": "s_block", "d": "dca_block"}[kind]
+    got = _tile_call(kind, getattr(fb, name), xb, cb, pb, cpe=cpb,
+                     img_w=img_w)
+    want = _tile_call(kind, TILES[kind], xb, cb, pb, cpe=cpb, img_w=img_w)
+    for g_, w_ in zip(got, want):
+        _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+def test_dca_block_d2_matches_tiles_model_on_gpu(cuda):
+    """D2 through LeMeBlock's weight permutation: the kernel in bf16
+    against the tile model on the permuted weights."""
+    from lemevit_tpu_torch.models.lemevit import LeMeBlock
+    torch.manual_seed(23)
+    blk = LeMeBlock(192, 6, "D2").to(cuda).eval()
+    params = [t.detach().to(torch.bfloat16) for t in blk.fused_params()]
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn(2, 784, 192, generator=g).to(cuda, torch.bfloat16)
+    c = torch.randn(2, M, 192, generator=g).to(cuda, torch.bfloat16)
+    got = _tile_call("d", fb.dca_block, x, c, params)
+    want = _tile_call("d", fb.dca_block_tiles_plain, x, c, params)
+    for g_, w_ in zip(got, want):
+        _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+def test_dca_block_rejects_more_meta_tokens_than_it_takes_on_gpu(cuda):
+    from lemevit_tpu_torch.attn import dca
+    for dtype in (torch.float32, torch.bfloat16):
+        m = dca.MAX_META[dtype] + 16
+        x, c, params, _ = _tile_inputs("d", 64, 64, m, 25)
+        with pytest.raises(ValueError, match="MAX_META"):
+            _tile_call("d", fb.dca_block, x.to(cuda, dtype),
+                       c.to(cuda, dtype), [p.to(cuda, dtype) for p in params])
 
 
 def _stage_inputs(rng, nb, n, ch, use_cpe):
