@@ -36,6 +36,14 @@ before it and read just after:
     block through the weight permutation, one fp32 train step on the kernel
     path against the plain path, cli.train as above, cli.benchmark --bench
     train, and a profile of one train step;
+  - at every training shape above and below (and in the CPE mode), rows
+    10-11, lm_s_attn_bwd (S blocks) and lm_mlp_bwd (every block kind) of
+    train_tc.cuh, phase by phase: fp32 against the plain phases at 1e-4,
+    bf16 against their tile models (mlp_bwd_tiles_plain,
+    s_attn_bwd_tiles_plain) within 2 bf16 steps of each tensor's largest
+    element, every output bit for bit over two calls, the profiler's
+    device time split by kernel, and SDPA's backward on the same q, k, v
+    and dO timed beside the attention tiles;
   - training lemevit_tiny on the slice's path (train_cpe_in_kernel: each
     block's 3x3 CPE inside its training kernels): the six C, D and S
     training kernels in their CPE mode held against their plain versions
@@ -474,7 +482,8 @@ def profile_call(fn, what: str, top: int = 16) -> dict:
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         say("profile", f"{ms:8.3f} ms  {count:4d}x  {key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": busy, "port_ms": ours,
-            "launches": launches, "by_name": by_name}
+            "launches": launches, "by_name": by_name,
+            "ms_by_name": {key: ms for key, ms, _ in rows}}
 
 
 def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g, b_check=B_CHECK,
@@ -836,6 +845,8 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
                                    names[:-4]),
             "scale": max(w.abs().max().item() for w in want_g)}
         del got_o, got_g, want_o, want_g
+    # rows 10-11 against their tile models and plain phases, two calls
+    tc_errs = check_bwd_tc(ft, kind, n, ch, dev, g, b_check, b_main)
     # times per kernel, bf16, b_main, on the inputs of the last check
     rows = []
     for name, (kern, plain_fn) in phase_calls(ft, kind, x, c, p, dp, gx, gc,
@@ -844,14 +855,39 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
         plain_ms = cuda_ms(plain_fn)
         n_seen = 0 if (kind == "c" and name == "mlp_bwd") else n
         t_bound, by = bound(*train_work(name, b_main, n_seen, ch))
-        if profile and name == bwd_name:
+        extra = {}
+        if name in tc_errs:  # rows 10-11: device time, split by kernel
+            prof = profile_call(kern, f"{name} {kind} N={n} C={ch} "
+                                f"B={b_main}", top=10)
+            extra = dict(device_ms=device_ms(kern),
+                         launches_per_call=prof.get("launches"),
+                         err_fp32_phase=tc_errs[name][0],
+                         err_tiles_bf16=tc_errs[name][1],
+                         kernels_ms={k.split("(")[0]: v for k, v in
+                                     prof.get("ms_by_name", {}).items()})
+            if name == "s_attn_bwd":
+                attn_ms = sum(v for k, v in prof.get("ms_by_name",
+                                                     {}).items()
+                              if "k_attn_bwd_" in k)
+                mlp_out = phase_calls(ft, kind, x, c, p, dp, gx, gc,
+                                      kw)["mlp_bwd"][0]()
+                sdpa_ms, sdpa_dev = sdpa_bwd_device_ms(
+                    ft, x, c, p, dp, mlp_out[0], mlp_out[1], ch // 32)
+                extra.update(attn_part_device_ms=attn_ms,
+                             sdpa_bwd_ms=sdpa_ms,
+                             sdpa_bwd_device_ms=sdpa_dev)
+                say("train-kernel", f"{name} N={n} C={ch}: the attention "
+                    f"tiles {attn_ms:.4f} ms on the device; SDPA's backward "
+                    f"on the same q, k, v, dO {sdpa_ms:.4f} ms (device "
+                    f"{fmt_ms(sdpa_dev)})")
+        elif profile and name == bwd_name:
             profile_call(kern, f"{name} N={n} C={ch} B={b_main}", top=10)
         rows.append(dict(
             name=name, kind=kind, n=n, c=ch, batch=b_main, per_step=blocks,
             err_fp32=errs[torch.float32][name],
             err_bf16=errs[torch.bfloat16][name],
             grad_scale_bf16=errs[torch.bfloat16]["scale"], ms=ms,
-            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by))
+            plain_ms=plain_ms, bound_ms=t_bound, bound_by=by, **extra))
     e32, e16 = errs[torch.float32], errs[torch.bfloat16]
     say("train-kernel", f"{kind} N={n} C={ch}: fp32 B={b_check} err out "
         f"{e32[fwd_name]:.2e}, grads {max(e32['mlp_bwd'], e32[bwd_name]):.2e}"
@@ -859,9 +895,105 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
         f"{e16[fwd_name]:.2e}, "
         f"grads {max(e16['mlp_bwd'], e16[bwd_name]):.2e} of max "
         f"{e16['scale']:.3g} | " + "; ".join(
-            f"{r['name']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+            f"{r['name']} {r['ms']:.4f} ms" + (
+                f" (device {fmt_ms(r['device_ms'])})" if "device_ms" in r
+                else "") + f" (plain {r['plain_ms']:.3f}, "
             f"bound {r['bound_ms']:.4f} {r['bound_by']})" for r in rows))
     return rows
+
+
+def bwd_tc_args(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
+    """(mlp_bwd args, s_attn_bwd args or None) on the kernel forward's t1,
+    o and lse; the C block's MLP backward on its meta stream alone."""
+    w1, b1, w2 = p[-4], p[-3], p[-2]
+    ckw = dict(kw, cpe=cpe) if cpe is not None else kw
+    if kind == "c":
+        fwd = ft.c_train_fwd(x, c, p, dp, **ckw)
+        none = x[:, :0]
+        return (none, fwd[1], none, gc, dp, w1, b1, w2), None
+    fwd = getattr(ft, TRAIN_PHASES[kind][0])(x, c, p, dp, **ckw)
+    mlp = (fwd[2], fwd[3], gx, gc, dp, w1, b1, w2)
+    if kind != "s":
+        return mlp, None
+    dt1x, dt1c = ft.mlp_bwd(*mlp)[:2]
+    return mlp, (x, c, dt1x, dt1c, dp, *p[:3], *fwd[4:])
+
+
+def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
+                 img_w=0):
+    """Rows 10-11 (lm_mlp_bwd at every block kind, lm_s_attn_bwd at S; with
+    img_w in its cpe mode) phase by phase: fp32 at b_check against the
+    plain phases (TRAIN_TOL: 1e-4 of (max|ref| + |ref|) per tensor), bf16 at
+    b_main against their tile models (mlp_bwd_tiles_plain,
+    s_attn_bwd_tiles_plain) within TILES_STEPS bf16 steps of each tensor's
+    largest element, and every gradient bit for bit over two bf16 calls.
+    Returns {phase: (fp32 err, bf16 err against the tile model)}."""
+    kw = {"num_heads": ch // 32}
+    if kind == "dca":
+        from lemevit_tpu_torch.attn.reference import dca_scales
+        kw["scale_x"], kw["scale_c"] = dca_scales(n, M, ch)
+    if img_w:
+        kw["img_w"] = img_w
+    errs = {}
+    for dtype, b in ((torch.float32, b_check), (torch.bfloat16, b_main)):
+        x, c, p, dp, gx, gc = train_inputs(ft, kind, b, n, ch, g, dev, dtype)
+        cpe = cpe_inputs(ch, g, dev, dtype) if img_w else None
+        mlp, attn = bwd_tc_args(ft, kind, x, c, p, dp, gx, gc, kw, cpe)
+        akw = {"num_heads": ch // 32}
+        if img_w:
+            akw.update(cpe=cpe, img_w=img_w)
+        phases = {"mlp_bwd": (mlp, {})}
+        if attn is not None:
+            phases["s_attn_bwd"] = (attn, akw)
+        for name, (args, pkw) in phases.items():
+            got = [t for t in getattr(ft, name)(*args, **pkw)
+                   if t is not None and t.numel()]
+            again = [t for t in getattr(ft, name)(*args, **pkw)
+                     if t is not None and t.numel()]
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise AssertionError(f"{name} {kind} N={n} C={ch} {dtype}: "
+                                     "two calls differ")
+            if dtype == torch.float32:
+                ref = getattr(ft, name + "_plain")(*args, **pkw)
+                names = [f"{name} out {i}" for i in range(len(got))]
+                err = max_grad_err(
+                    got, [t.float() for t in ref if t is not None
+                          and t.numel()], TRAIN_TOL[dtype][1], names)
+                errs[name] = [err]
+            else:
+                ref = getattr(ft, name + "_tiles_plain")(*args, **pkw)
+                errs[name].append(max_err(
+                    got, [t for t in ref if t is not None and t.numel()],
+                    None, TILES_STEPS))
+        del x, c, p, gx, gc, mlp, attn
+    say("bwd-tc", f"{kind} N={n} C={ch}{f' cpe {img_w} wide' if img_w else ''}"
+        ": " + "; ".join(
+            f"{name} fp32 B={b_check} err {e[0]:.2e} (plain), bf16 "
+            f"B={b_main} err {e[1]:.2e} (tile model, {TILES_STEPS} steps)"
+            for name, e in errs.items()) + "; two calls bit for bit")
+    return errs
+
+
+def sdpa_bwd_device_ms(ft, x, c, p, dp, dt1x, dt1c, heads) -> tuple:
+    """(events ms, device ms) of SDPA's backward (PyTorch's fused kernel)
+    on row 10's attention inputs: both streams' q, k, v recomputed and dO =
+    s1 dt1 Wp, rounded as the kernels round them; for this table only."""
+    grads = []
+    for t, dt1, s1 in ((x, dt1x, dp[0]), (c, dt1c, dp[2])):
+        dt = t.dtype
+        a = ft._norm(t).to(dt)
+        qkv = (a.float() @ p[0].float().t() + p[1].float()).to(dt)
+        q, k, v = (u.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+                   .requires_grad_() for u in qkv.chunk(3, -1))
+        d_o = (ft._dproj(s1, dt1).float() @ p[2].float()).to(dt)
+        d_o = d_o.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+        out = F.scaled_dot_product_attention(q, k, v)
+        grads.append((out, (q, k, v), d_o))
+
+    def run():
+        for out, ins, d_o in grads:
+            torch.autograd.grad(out, ins, d_o, retain_graph=True)
+    return cuda_ms(run), device_ms(run)
 
 
 def cpe_inputs(ch, g, dev, dtype):
@@ -921,6 +1053,7 @@ def check_train_cpe(ft, fb, kind, n, img_w, ch, blocks, dev, g,
                                 names[2:4]),
             "scale": max(w.abs().max().item() for w in want_g)}
         del got_o, got_g, want_o, want_g
+    check_bwd_tc(ft, kind, n, ch, dev, g, b_check, b_main, img_w=img_w)
     # bf16, b_main, on the inputs of the last check
     calls = phase_calls(ft, kind, x, c, p, dp, gx, gc, dict(ckw, cpe=cpe))
     first, second = calls[bwd_name][0](), calls[bwd_name][0]()
@@ -1344,7 +1477,8 @@ def ptxas_report(src: Path) -> str:
     return "\n".join(f"{n}: {what}" for n, what in rows)
 
 
-PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu")
+PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu",
+                 "s_train.cu")
 
 
 def kernels_ptxas() -> dict:
@@ -1357,7 +1491,7 @@ def kernels_ptxas() -> dict:
         reports = pool.map(lambda src: ptxas_report(_build.CSRC / src),
                            PTXAS_SOURCES)
         out = dict(zip(PTXAS_SOURCES, reports))
-    for src in ("s_block.cu", "dca_block.cu"):
+    for src in ("s_block.cu", "dca_block.cu", "s_train.cu"):
         out[src] = "\n".join(
             line for line in out[src].splitlines()
             if any(k in line for k in ("_tc", "_wg", "k_dca_merge")))

@@ -22,7 +22,9 @@
 //              column tile leaves + bias by direct stores. Where the row
 //              blocks are few, the columns are split over a few CTAs per
 //              row block (each repeats the LN, not the product). bf16: 2
-//              CTAs an SM up to C = 384.
+//              CTAs an SM up to C = 384. With ln_out set (train_tc.cuh's
+//              attention backward, its own instances) the LN1 rows are
+//              also written out, the operand of dWqkv.
 //   k_tail_wg  (C <= 512) a CTA takes 64 rows of one stream through the
 //              whole tail. o is staged for proj; t1 = t + proj lives in the
 //              fp32 accumulators, which then take fc2, so the fc2 sum never
@@ -598,6 +600,8 @@ struct QkvArgs {
   int tiles_per_cta;  // 128-column tiles per CTA (gridDim.y splits them)
   Cpe cpe;   // where cpe.taps is set: seg[0] is LayerNormed after its CPE,
   void* xc;  // which is also written here (rows, C) for the tail
+  void* ln_out[2];  // where set (the training backward's recompute): each
+                    // stream's LN1 rows, rounded to T, written here too
 };
 
 // Rows [row0, row0 + rows) of stream si (their 3x3 CPE in the cpe mode, also
@@ -671,7 +675,7 @@ struct QkvWg {
   }
 };
 
-template <typename T, bool kCpe>
+template <typename T, bool kCpe, bool kLnOut = false>
 __global__ void __launch_bounds__(256, 2)
     k_qkv_wg(const QkvArgs a, const __grid_constant__ QkvMaps maps) {
   using L = QkvWg<T>;
@@ -718,6 +722,18 @@ __global__ void __launch_bounds__(256, 2)
   T* out = static_cast<T*>(sg.out) + (size_t)row0 * ncols;
   fence_async_smem();  // LN1(x), written by the threads, for the tensor
   __syncthreads();     // cores
+  if constexpr (kLnOut) {
+    if (blockIdx.y == 0) {  // LN1(x) rows out, 16 bytes a thread
+      constexpr int V = 16 / sizeof(T);
+      T* ln = static_cast<T*>(a.ln_out[si]) + (size_t)row0 * C;
+      const int cv = C / V;
+      for (int e = tid; e < rows * cv; e += 256) {
+        const int r = e / cv, k = (e % cv) * V;
+        *reinterpret_cast<uint4*>(ln + (size_t)r * C + k) =
+            *reinterpret_cast<const uint4*>(sA + swz<T>(RB, r, k));
+      }
+    }
+  }
   // bf16: tile i's products stay in flight across the barrier that frees
   // tile i - 1's stage for tile i + S - 1; only a column tile's last step
   // waits for its own.
@@ -763,17 +779,18 @@ __global__ void __launch_bounds__(256, 2)
 // CTAs per row block (each repeats the LN, not the product).
 constexpr int kQkvFill = 2 * 132;
 
-template <typename T, bool kCpe>
+template <typename T, bool kCpe, bool kLnOut = false>
 int launch_qkv_inst(const QkvArgs& a, dim3 grid, cudaStream_t s) {
   static size_t attr = 0;
   const size_t bytes = QkvWg<T>::smem_bytes(a.C);
-  if (const int err = grant_smem(k_qkv_wg<T, kCpe>, bytes, attr)) return err;
+  if (const int err = grant_smem(k_qkv_wg<T, kCpe, kLnOut>, bytes, attr))
+    return err;
   QkvMaps maps;
   for (int i = 0; i < 2; ++i)
     if (const int err = tma_map<T>(&maps.w[i], a.seg[i].w, 3 * a.C, a.C,
                                    QkvWg<T>::kBN))
       return err;
-  k_qkv_wg<T, kCpe><<<grid, 256, bytes, s>>>(a, maps);
+  k_qkv_wg<T, kCpe, kLnOut><<<grid, 256, bytes, s>>>(a, maps);
   return (int)cudaGetLastError();
 }
 
@@ -787,6 +804,10 @@ int launch_qkv_tc(QkvArgs a, cudaStream_t s) {
   const int groups = min(tiles, max(1, cdiv(kQkvFill, rb)));
   a.tiles_per_cta = cdiv(tiles, groups);
   const dim3 grid(rb, cdiv(tiles, a.tiles_per_cta));
+  if (a.ln_out[0]) {  // the training backward's recompute
+    if (a.cpe.taps) return launch_qkv_inst<T, true, true>(a, grid, s);
+    return launch_qkv_inst<T, false, true>(a, grid, s);
+  }
   if (a.cpe.taps) return launch_qkv_inst<T, true>(a, grid, s);
   return launch_qkv_inst<T, false>(a, grid, s);
 }
@@ -1109,7 +1130,23 @@ int launch_tail_wg(const TailArgs& a, cudaStream_t s) {
 // of o and LN2(t1) and a proj tile outgrow a CTA's shared memory in this
 // layout (fp32's already at 640 x 64 rows), so those widths, which no
 // released model has, run block_common.cuh's k_block_tail (32 rows a CTA,
-// the same order of work and roundings).
+// the same order of work and roundings). by_tier runs
+// launch(std::integral_constant<int, CP>()) at C's tier CP (also for
+// train_tc.cuh's row kernels, which have no path past C = 512: their
+// wrappers refuse it, attn/fused_train.py MAX_TRAIN_DIM).
+template <typename Launch>
+int by_tier(int C, Launch launch) {
+  if (C % 32 || C < 32 || C > 512) return (int)cudaErrorInvalidValue;
+  if (C <= 64) return launch(std::integral_constant<int, 64>());
+  if (C <= 96) return launch(std::integral_constant<int, 96>());
+  if (C <= 128) return launch(std::integral_constant<int, 128>());
+  if (C <= 192) return launch(std::integral_constant<int, 192>());
+  if (C <= 256) return launch(std::integral_constant<int, 256>());
+  if (C <= 320) return launch(std::integral_constant<int, 320>());
+  if (C <= 384) return launch(std::integral_constant<int, 384>());
+  return launch(std::integral_constant<int, 512>());
+}
+
 template <typename T>
 int launch_tail_tc(TailArgs a, cudaStream_t s) {
   const int C = a.C;
@@ -1120,14 +1157,9 @@ int launch_tail_tc(TailArgs a, cudaStream_t s) {
     return launch_tail<T>(a, s);
   }
   a.row_blocks0 = cdiv(a.seg[0].rows, TailWg<T, 64>::kRows);
-  if (C <= 64) return launch_tail_wg<T, 64>(a, s);
-  if (C <= 96) return launch_tail_wg<T, 96>(a, s);
-  if (C <= 128) return launch_tail_wg<T, 128>(a, s);
-  if (C <= 192) return launch_tail_wg<T, 192>(a, s);
-  if (C <= 256) return launch_tail_wg<T, 256>(a, s);
-  if (C <= 320) return launch_tail_wg<T, 320>(a, s);
-  if (C <= 384) return launch_tail_wg<T, 384>(a, s);
-  return launch_tail_wg<T, 512>(a, s);
+  return by_tier(C, [&](auto cp) {
+    return launch_tail_wg<T, decltype(cp)::value>(a, s);
+  });
 }
 
 // ---------------------------------------------------------------- attention

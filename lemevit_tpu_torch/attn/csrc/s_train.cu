@@ -12,32 +12,40 @@
 // lm_s_train_fwd (row 9 of the TPU kernel table): k_linear_ln (qkv, both
 //   streams) -> k_attention per stream, also writing o and each query's
 //   log-sum-exp -> k_block_tail with branch scales s1 / s2, also writing t1.
-// lm_mlp_bwd (row 11): k_mlp_bwd recomputes LN2 / fc1 / GELU from t1 and
-//   gives dt1; k_wgrad gives dW1, db1 (from dy, LN2(t1)) and dW2 (from
-//   dz = s2 dout, GELU(y)). db2 = colsum(dz) is left to the caller, as the
-//   TPU wrapper leaves it to XLA.
-// lm_s_attn_bwd (row 10): LN1 and qkv recomputed (k_ln_rows, k_linear_ln);
-//   dO = dproj Wp (dproj = s1 dt1); k_attn_bwd_* rebuild P from the saved
-//   log-sum-exp and give dq, dk, dv; da = dqkv Wqkv'; k_ln_bwd gives
-//   dx = dt1 + LN1'^T da; k_wgrad gives dWqkv, dbqkv and dWp. dbp =
-//   colsum(dproj) is left to the caller.
+// lm_mlp_bwd (row 11): train_tc.cuh's k_mlp_bwd_wg recomputes LN2 / fc1 /
+//   GELU from t1 on wgmma and gives dt1, writing LN2(t1), GELU(y) and dy;
+//   k_wgrad_tc gives dW1, db1 (from dy, LN2(t1)) and dW2 (from dz = s2
+//   dout, GELU(y)) and db2 = colsum(dz) (the TPU wrapper leaves it to XLA)
+//   in one launch, k_wgrad_tc_reduce sums their row ranges. 3 launches.
+// lm_s_attn_bwd (row 10): block_tc.cuh's k_qkv_wg recomputes LN1 (of the
+//   CPE'd x in the cpe mode) and qkv, also writing the LN1 rows;
+//   k_rowmm_wg gives dO = dproj Wp (dproj = s1 dt1) and D = rowsum(dO . o);
+//   train_tc.cuh's attention tiles rebuild P from the saved log-sum-exp and
+//   give dq, dk, dv (two launches for the image stream, one for the meta
+//   stream); k_rowmm_wg gives da = dqkv Wqkv' with dx = dt1 + LN1'^T da in
+//   its epilogue; k_wgrad_tc gives dWqkv, dbqkv, dWp and dbp =
+//   colsum(dproj) (left to XLA on the TPU). 8 launches.
 // With a CPE (taps non-null: the TPU kernels' use_cpe, JAX's
 //   PB_TRAIN_CPE=fused), x is the image tokens before the 3x3 CPE. The
 //   forward runs k_cpe_rows once into a workspace and the chain on the CPE'd
 //   rows (the residual is the CPE'd x, as on the TPU); the attention
-//   backward recomputes them the same way (only the pre-CPE x is saved),
-//   takes du = dt1x + LN1'^T da in fp32 from k_ln_bwd, then k_cpe_tap_grads
-//   (dtaps, dbias) and the flipped-tap k_cpe_rows (dx = CPE^T du). One
-//   k_cpe_rows per chain, rather than the inference kernels' CpeRows loader:
-//   that loader recomputes each element's neighbourhood in every product
-//   and LayerNorm pass that reads it (2.3-2.8x slower in serving).
+//   backward recomputes them in k_qkv_wg's cpe mode (only the pre-CPE x is
+//   saved), takes du = dt1x + LN1'^T da in fp32 from k_rowmm_wg (a launch
+//   of its own for the image stream), then k_cpe_tap_grads (dtaps, dbias)
+//   and the flipped-tap k_cpe_rows (dx = CPE^T du). One k_cpe_rows per
+//   forward chain, rather than the inference kernels' CpeRows loader: that
+//   loader recomputes each element's neighbourhood in every product and
+//   LayerNorm pass that reads it (2.3-2.8x slower in serving).
 // Bound on the H100: operations for the products, bytes for the LayerNorm
-// and row kernels. Every product is a plain shared-memory tiled mma.sync
-// (bf16) or FMA (fp32) product; the attention backward is fp32 FMA with one
-// lane per head channel, which is what bounds it today (wgmma and tensor-
-// core attention are later work). The weight gradients are split over row
-// ranges into fp32 partials (no atomics: deterministic) and reduced.
-#include "train_common.cuh"
+// and row kernels. The forward's products are plain shared-memory tiled
+// mma.sync (bf16) or FMA (fp32) products and its attention fp32 FMA with
+// one lane per head channel (row 9, later work); the backward's kernels
+// and their designs are train_tc.cuh's. The weight gradients are split over
+// row ranges into fp32 partials (no atomics: deterministic) and reduced.
+// The backward's row kernels take C <= 512 (block_tc.cuh::by_tier; the
+// wrappers refuse more, attn/fused_train.py MAX_TRAIN_DIM), the forward
+// C <= 640.
+#include "train_tc.cuh"
 
 namespace lm {
 namespace {
@@ -116,159 +124,145 @@ int s_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
 //    8 w2^T (hidden, C), 9 w1'^T (C, hidden) | 10 dt1x, 11 dt1c,
 //    12 dw1 (hidden, C), 13 db1, 14 dw2 (C, hidden) | workspace 15 mm_x,
 //    16 mm_c (rows, C), 17 gg_x, 18 gg_c, 19 dy_x, 20 dy_c (rows, hidden),
-//    21 partials (splits, max(O I)) fp32, 22 bias partials (splits, hidden).
+//    21 partials (splits, 2 hidden C) fp32, 22 bias partials (splits,
+//    hidden + C) | 23 db2 (C,). The image stream may have no rows (the C
+//    block's MLP).
 template <typename T>
 int s_mlp_bwd(const void* const* p, int B, int N, int M, int C, int hidden,
               int rows_per_split, float eps, cudaStream_t s) {
-  MlpBwdArgs ma{};
-  ma.seg[0] = {p[0], p[2], p[4], mp<T>(p, 10), mp<T>(p, 15), mp<T>(p, 17),
-               mp<T>(p, 19), B * N};
-  ma.seg[1] = {p[1], p[3], p[5], mp<T>(p, 11), mp<T>(p, 16), mp<T>(p, 18),
-               mp<T>(p, 20), B * M};
-  ma.row_blocks0 = cdiv(B * N, kMbBM);
-  ma.w1 = p[6];
+  const int rows[2] = {B * N, B * M};
+  MlpTcArgs ma{};
+  for (int si = 0; si < 2; ++si)
+    ma.seg[si] = {p[si], p[2 + si], mp<T>(p, 10 + si), mp<T>(p, 15 + si),
+                  mp<T>(p, 17 + si), mp<T>(p, 19 + si), rows[si]};
   ma.b1 = p[7];
-  ma.w2t = p[8];
-  ma.w1t = p[9];
   ma.C = C;
   ma.hidden = hidden;
   ma.eps = eps;
-  int err = launch_mlp_bwd<T>(ma, s);
+  const void* const dz[2] = {p[4], p[5]};
+  int err = launch_mlp_bwd_tc<T>(ma, dz, p[6], p[8], p[9], s);
   if (err) return err;
 
-  WgradArgs wa{};
-  wa.seg[0] = {p[19], p[15], B * N};  // dW1 = dy^T LN2(t1)
-  wa.seg[1] = {p[20], p[16], B * M};
+  WgTcArgs wa{};
+  wa.nprod = 2;
+  wa.rows[0] = rows[0];
+  wa.rows[1] = rows[1];
   wa.rows_per_split = rows_per_split;
-  wa.splits0 = cdiv(B * N, rows_per_split);
-  wa.O = hidden;
-  wa.I = C;
-  wa.part = fp(p, 21);
-  wa.part_bias = fp(p, 22);
-  err = launch_wgrad<T>(wa, mp<T>(p, 12), mp<T>(p, 13), s);
-  if (err) return err;
-  wa.seg[0] = {p[4], p[17], B * N};  // dW2 = dz^T GELU(y)
-  wa.seg[1] = {p[5], p[18], B * M};
-  wa.O = C;
-  wa.I = hidden;
-  wa.part_bias = nullptr;
-  return launch_wgrad<T>(wa, mp<T>(p, 14), nullptr, s);
+  const int splits =
+      cdiv(rows[0], rows_per_split) + cdiv(rows[1], rows_per_split);
+  float* part = fp(p, 21);
+  float* part_b = fp(p, 22);
+  // dW1 = dy^T LN2(t1), db1 = colsum(dy); dW2 = dz^T GELU(y), db2 =
+  // colsum(dz)
+  wa.prod[0] = {{p[19], p[20]}, {p[15], p[16]}, hidden, C, part, part_b,
+                mp<T>(p, 12), mp<T>(p, 13)};
+  wa.prod[1] = {{p[4], p[5]}, {p[17], p[18]}, C, hidden,
+                part + (size_t)splits * hidden * C,
+                part_b + (size_t)splits * hidden, mp<T>(p, 14),
+                mp<T>(p, 23)};
+  return launch_wgrad_tc<T>(wa, s);
 }
 
 // p: 0 x, 1 c, 2 dt1x, 3 dt1c, 4 dprojx, 5 dprojc (= s1 dt1), 6 wqkv',
 //    7 bqkv', 8 wqkv'^T (C, 3C), 9 wp^T (C, C), 10 o_x, 11 o_c, 12 lse_x,
 //    13 lse_c | 14 dx, 15 dc, 16 dwqkv (3C, C), 17 dbqkv, 18 dwp (C, C) |
-//    workspace 19 a_x, 20 a_c (rows, C), 21 qkv_x, 22 qkv_c (rows, 3C),
-//    23 dO_x, 24 dO_c (rows, C) fp32, 25 D_x, 26 D_c (B H n) fp32,
-//    27 dqkv_x, 28 dqkv_c (rows, 3C), 29 da_x, 30 da_c (rows, C) fp32,
-//    31 partials (splits, 3 C^2) fp32, 32 bias partials (splits, 3C) |
-//    the CPE or nulls: 33 taps (9, C), 34 bias (C,), workspace 35 the
-//    CPE'd x (B N, C), 36 du (B N, C) fp32, 37 partials (splits, 10, C)
-//    fp32, outputs 38 dtaps (9, C), 39 dbias (C,). Images are img_w wide;
-//    cpe_rps: k_cpe_tap_grads' rows per block.
+//    workspace 19 a_x, 20 a_c (rows, C) the LN1 rows, 21 qkv_x, 22 qkv_c
+//    (rows, 3C), 23 dO_x, 24 dO_c (rows, C), 25 D_x, 26 D_c (B H n) fp32,
+//    27 dqkv_x, 28 dqkv_c (rows, 3C), 29 partials (splits, 4 C^2) fp32,
+//    30 bias partials (splits, 4C) | the CPE or nulls: 31 taps (9, C),
+//    32 bias (C,), workspace 33 the CPE'd x (B N, C), 34 du (B N, C) fp32,
+//    35 partials (splits, 10, C) fp32, outputs 36 dtaps (9, C), 37 dbias
+//    (C,) | 38 ones, 39 zeros (C,): LN1's affine (the weights come folded)
+//    | 40 dbp (C,).
+//    Images are img_w wide; cpe_rps: k_cpe_tap_grads' rows per block.
 template <typename T>
 int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
                int rows_per_split, int img_w, int cpe_rps, float scale,
                float eps, cudaStream_t s) {
-  const int rows[2] = {B * N, B * M};
-  const TrainCpe cpe{p[33], p[34], img_w, N, cpe_rps};
-  const void* xs[2] = {p[0], p[1]};  // the rows LN1 reads
-  int err;
+  const int rows[2] = {B * N, B * M}, n[2] = {N, M};
+  const TrainCpe cpe{p[31], p[32], img_w, N, cpe_rps};
+  // LN1 (of the CPE'd x in the cpe mode) and qkv recomputed, the LN1 rows
+  // written for dWqkv
+  QkvArgs qa{};
+  qa.seg[0] = {p[0], p[6], p[7], mp<T>(p, 21), rows[0]};
+  qa.seg[1] = {p[1], p[6], p[7], mp<T>(p, 22), rows[1]};
+  qa.ln_w = p[38];
+  qa.ln_b = p[39];
+  qa.C = C;
+  qa.eps = eps;
+  qa.cpe = Cpe{cpe.taps, cpe.bias, img_w, N};
+  qa.xc = mp<T>(p, 33);
+  qa.ln_out[0] = mp<T>(p, 19);
+  qa.ln_out[1] = mp<T>(p, 20);
+  if (cpe.taps && !qa.xc) return (int)cudaErrorInvalidValue;
+  int err = launch_qkv_tc<T>(qa, s);
+  if (err) return err;
+
+  // dO = dproj Wp in T, D = rowsum(dO . o) per head
+  RowMmArgs ro{};
+  for (int si = 0; si < 2; ++si)
+    ro.seg[si] = {mp<T>(p, 23 + si), nullptr, nullptr, p[10 + si],
+                  fp(p, 25 + si), rows[si], n[si]};
+  ro.K = C;
+  ro.C = C;
+  ro.heads = H;
+  ro.eps = eps;
+  const void* const dproj[2] = {p[4], p[5]};
+  err = launch_rowmm<T, kRowDo>(ro, dproj, p[9], s);
+  if (err) return err;
+
+  for (int si = 0; si < 2; ++si) {  // dq / dk / dv: the thirds of dqkv
+    const AttnBwdTc ab{p[21 + si], p[23 + si], fp(p, 12 + si),
+                       fp(p, 25 + si), mp<T>(p, 27 + si), C, B, H, n[si],
+                       scale};
+    err = launch_attn_bwd_tc<T>(ab, s);
+    if (err) return err;
+  }
+
+  // da = dqkv Wqkv' with the LN1 backward and dt1: dx, dc; in the cpe mode
+  // du (fp32, at the CPE's output), then the CPE's backward
+  RowMmArgs rl{};
+  rl.seg[0] = {const_cast<void*>(cpe.taps ? p[34] : p[14]),
+               cpe.taps ? p[33] : p[0], p[2], nullptr, nullptr, rows[0], N};
+  rl.seg[1] = {const_cast<void*>(p[15]), p[1], p[3], nullptr, nullptr,
+               rows[1], M};
+  rl.K = 3 * C;
+  rl.C = C;
+  rl.heads = H;
+  rl.eps = eps;
+  const void* const dqkv[2] = {p[27], p[28]};
   if (cpe.taps) {
-    err = launch_cpe_rows<T, T>(p[0], cpe.taps, cpe.bias, mp<T>(p, 35),
-                                rows[0], C, img_w, N, 0, s);
-    if (err) return err;
-    xs[0] = p[35];
+    RowMmArgs rx = rl, rc = rl;
+    rx.seg[1].rows = 0;
+    rc.seg[0].rows = 0;
+    err = launch_rowmm<T, kRowLnF32>(rx, dqkv, p[8], s);
+    if (!err) err = launch_rowmm<T, kRowLn>(rc, dqkv, p[8], s);
+    if (!err)
+      err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 34), fp(p, 35), mp<T>(p, 36),
+                              mp<T>(p, 37), mp<T>(p, 14), rows[0], C, s);
+  } else {
+    err = launch_rowmm<T, kRowLn>(rl, dqkv, p[8], s);
   }
-  for (int si = 0; si < 2; ++si) {
-    err = launch_ln_rows<T>(xs[si], mp<T>(p, 19 + si), rows[si], C, eps, s);
-    if (err) return err;
-  }
-  LinArgs la{};  // qkv = LN1(x) Wqkv'^T + bqkv'
-  la.seg[0] = {p[19], p[6], p[7], mp<T>(p, 21), rows[0], 3 * C};
-  la.seg[1] = {p[20], p[6], p[7], mp<T>(p, 22), rows[1], 3 * C};
-  la.row_blocks0 = cdiv(rows[0], kLinBM);
-  la.K = C;
-  la.eps = eps;
-  la.plain_a = 1;
-  err = launch_linear<T>(la, 3 * C, s);
   if (err) return err;
 
-  LinArgs lo{};  // dO = dproj Wp, fp32
-  lo.seg[0] = {p[4], p[9], nullptr, fp(p, 23), rows[0], C};
-  lo.seg[1] = {p[5], p[9], nullptr, fp(p, 24), rows[1], C};
-  lo.row_blocks0 = cdiv(rows[0], kLinBM);
-  lo.K = C;
-  lo.plain_a = 1;
-  lo.out_f32 = 1;
-  err = launch_linear<T>(lo, C, s);
-  if (err) return err;
-
-  for (int si = 0; si < 2; ++si) {  // q / k / v: the thirds of qkv
-    const T* qkv = cp<T>(p, 21 + si);
-    T* dqkv = mp<T>(p, 27 + si);
-    AttnBwdArgs ab{};
-    ab.q = qkv;
-    ab.k = qkv + C;
-    ab.v = qkv + 2 * C;
-    ab.o = p[10 + si];
-    ab.dO = fp(p, 23 + si);
-    ab.lse = fp(p, 12 + si);
-    ab.D = fp(p, 25 + si);
-    ab.dq = dqkv;
-    ab.dk = dqkv + C;
-    ab.dv = dqkv + 2 * C;
-    ab.ldq = ab.ldkv = ab.lddq = ab.lddkv = 3 * C;
-    ab.ldo = C;
-    ab.batch = B;
-    ab.heads = H;
-    ab.nq = ab.nk = si == 0 ? N : M;
-    ab.C = C;
-    ab.scale = scale;
-    err = launch_attn_bwd<T>(ab, s);
-    if (err) return err;
-  }
-
-  LinArgs ld{};  // da = dqkv Wqkv', fp32
-  ld.seg[0] = {p[27], p[8], nullptr, fp(p, 29), rows[0], C};
-  ld.seg[1] = {p[28], p[8], nullptr, fp(p, 30), rows[1], C};
-  ld.row_blocks0 = cdiv(rows[0], kLinBM);
-  ld.K = 3 * C;
-  ld.plain_a = 1;
-  ld.out_f32 = 1;
-  err = launch_linear<T>(ld, C, s);
-  if (err) return err;
-  for (int si = 0; si < 2; ++si) {
-    if (si == 0 && cpe.taps) {  // du in fp32, then the CPE's backward
-      err = launch_ln_bwd<T, float>(xs[0], fp(p, 29), p[2], fp(p, 36),
-                                    rows[0], C, eps, s);
-      if (!err)
-        err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 36), fp(p, 37),
-                                mp<T>(p, 38), mp<T>(p, 39), mp<T>(p, 14),
-                                rows[0], C, s);
-    } else {
-      err = launch_ln_bwd<T>(xs[si], fp(p, 29 + si), p[2 + si],
-                             mp<T>(p, 14 + si), rows[si], C, eps, s);
-    }
-    if (err) return err;
-  }
-
-  WgradArgs wa{};
-  wa.seg[0] = {p[27], p[19], rows[0]};  // dWqkv' = dqkv^T LN1(x)
-  wa.seg[1] = {p[28], p[20], rows[1]};
+  WgTcArgs wa{};
+  wa.nprod = 2;
+  wa.rows[0] = rows[0];
+  wa.rows[1] = rows[1];
   wa.rows_per_split = rows_per_split;
-  wa.splits0 = cdiv(rows[0], rows_per_split);
-  wa.O = 3 * C;
-  wa.I = C;
-  wa.part = fp(p, 31);
-  wa.part_bias = fp(p, 32);
-  err = launch_wgrad<T>(wa, mp<T>(p, 16), mp<T>(p, 17), s);
-  if (err) return err;
-  wa.seg[0] = {p[4], p[10], rows[0]};  // dWp = dproj^T o
-  wa.seg[1] = {p[5], p[11], rows[1]};
-  wa.O = C;
-  wa.part_bias = nullptr;
-  return launch_wgrad<T>(wa, mp<T>(p, 18), nullptr, s);
+  const int splits =
+      cdiv(rows[0], rows_per_split) + cdiv(rows[1], rows_per_split);
+  float* part = fp(p, 29);
+  float* part_b = fp(p, 30);
+  // dWqkv' = dqkv^T LN1(x), dbqkv = colsum(dqkv); dWp = dproj^T o, dbp =
+  // colsum(dproj)
+  wa.prod[0] = {{p[27], p[28]}, {p[19], p[20]}, 3 * C, C, part, part_b,
+                mp<T>(p, 16), mp<T>(p, 17)};
+  wa.prod[1] = {{p[4], p[5]}, {p[10], p[11]}, C, C,
+                part + (size_t)splits * 3 * C * C,
+                part_b + (size_t)splits * 3 * C, mp<T>(p, 18),
+                mp<T>(p, 40)};
+  return launch_wgrad_tc<T>(wa, s);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
-// Device building blocks of the block training kernels (s_train.cu,
-// dca_train.cu, c_train.cu), on top of block_common.cuh. The MLP backward
-// and the weight-gradient product are the same for every block kind.
+// Device building blocks of the D and C block training kernels
+// (dca_train.cu, c_train.cu: rows 12-15 of the TPU kernel table), on top
+// of block_common.cuh; the S block's backward (rows 10-11, the MLP
+// backward of every block kind too) runs train_tc.cuh's tensor-core
+// kernels, which use only the CPE passes below.
 //   k_ln_rows          a = LN(x) without affine, one warp per row
 //   k_ln_bwd           dx = dres + LN'(x)^T da (LayerNorm without affine;
 //                      dres may be null), in T or, for the CPE's backward,
@@ -12,10 +14,6 @@
 //                      (kx-1), c] and dbias[c] = sum_i du[i, c], split over
 //                      row ranges into fp32 partials; k_cpe_grads_reduce
 //                      sums them in a fixed order
-//   k_mlp_bwd          per 32-row block: recompute LN2 / fc1 / GELU from t1
-//                      and dt1 = dout + LN'(t1)^T ((dz W2 . GELU'(y)) W1);
-//                      writes mm = LN2(t1), gg = GELU(y), dy = dz W2 . GELU'(y)
-//                      for the weight gradients
 //   k_attn_bwd_rowdot  D = rowsum(dO . o) per (row, head)
 //   k_attn_bwd_dq      dq = scale dS K over key chunks
 //   k_attn_bwd_dkv     dk = scale dS^T Q, dv = P^T dO over query chunks
@@ -26,8 +24,8 @@
 //   k_wgrad            dW = G^T A over token rows (and colsum G), split over
 //                      row ranges into fp32 partials; k_wgrad_reduce sums
 //                      the partials and writes dW (and db) in T
-// All reductions and products accumulate in fp32; LayerNorm and GELU
-// derivatives are exact (erf form). The attention kernels are plain fp32
+// All reductions and products accumulate in fp32; the LayerNorm
+// derivative is exact. The attention kernels are plain fp32
 // FMA, one lane per head channel, as k_attention is.
 #pragma once
 
@@ -35,11 +33,6 @@
 
 namespace lm {
 namespace {
-
-__device__ __forceinline__ float gelu_erf_grad(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * expf(-0.5f * v * v) * 0.39894228040143268f;
-}
 
 inline float* fp(const void* const* p, int i) {
   return static_cast<float*>(const_cast<void*>(p[i]));
@@ -338,165 +331,6 @@ int launch_cpe_bwd(const TrainCpe& cpe, const void* x, const float* du,
   if (err) return err;
   return launch_cpe_rows<float, T>(du, cpe.taps, nullptr, dx, rows, C,
                                    cpe.img_w, cpe.img_n, 1, s);
-}
-
-// ---------------------------------------------------------------- MLP bwd
-
-// One token stream of the MLP backward. dz = s2 dout (the DropPath-scaled
-// upstream gradient) comes in; mm (rows, C), gg and dy (rows, hidden) go
-// out for the weight gradients.
-struct MlpBwdSeg {
-  const void* t1;
-  const void* dout;
-  const void* dz;
-  void* dt1;
-  void* mm;
-  void* gg;
-  void* dy;
-  int rows;
-};
-
-struct MlpBwdArgs {
-  MlpBwdSeg seg[2];
-  int row_blocks0;
-  const void* w1;   // (hidden, C)
-  const void* b1;   // (hidden,)
-  const void* w2t;  // (hidden, C) = W2^T
-  const void* w1t;  // (C, hidden) = W1^T
-  int C, hidden;
-  float eps;
-};
-
-constexpr int kMbBM = 32, kMbBN = 128, kMbBH = 128;
-
-// fp32 d(LN2 output) accumulator, LN2(t1) in T, one fc1 chunk in fp32 and
-// its dy in T, the staging tiles, the row statistics.
-inline size_t mlp_bwd_smem_bytes(int C, size_t elt) {
-  return align16(4 * (size_t)kMbBM * C) + align16(elt * kMbBM * C) +
-         align16(4 * (size_t)kMbBM * kMbBH) + align16(elt * kMbBM * kMbBH) +
-         align16(4 * kBK * (kMbBM + 1)) + align16(4 * kBK * (kMbBN + 1)) +
-         8 * kMbBM;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) k_mlp_bwd(const MlpBwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = a.C, Hd = a.hidden;
-  unsigned char* q = smem;
-  float* sAcc = reinterpret_cast<float*>(q);
-  q += align16(4 * (size_t)kMbBM * C);
-  T* sLN = reinterpret_cast<T*>(q);
-  q += align16(sizeof(T) * kMbBM * C);
-  float* sY = reinterpret_cast<float*>(q);
-  q += align16(4 * (size_t)kMbBM * kMbBH);
-  T* sH = reinterpret_cast<T*>(q);
-  q += align16(sizeof(T) * kMbBM * kMbBH);
-  float* sA = reinterpret_cast<float*>(q);
-  q += align16(4 * kBK * (kMbBM + 1));
-  float* sW = reinterpret_cast<float*>(q);
-  q += align16(4 * kBK * (kMbBN + 1));
-  float* s_mean = reinterpret_cast<float*>(q);
-  float* s_rstd = s_mean + kMbBM;
-
-  int rb = blockIdx.x, si = 0;
-  if (rb >= a.row_blocks0) {
-    rb -= a.row_blocks0;
-    si = 1;
-  }
-  const MlpBwdSeg sg = a.seg[si];
-  const int row0 = rb * kMbBM;
-  const int rows = min(kMbBM, sg.rows - row0);
-  const size_t oc = (size_t)row0 * C, oh = (size_t)row0 * Hd;
-  const T* __restrict__ t1 = static_cast<const T*>(sg.t1) + oc;
-  const T* __restrict__ dout = static_cast<const T*>(sg.dout) + oc;
-  const T* __restrict__ dz = static_cast<const T*>(sg.dz) + oc;
-  T* __restrict__ dt1 = static_cast<T*>(sg.dt1) + oc;
-  T* __restrict__ mm = static_cast<T*>(sg.mm) + oc;
-  T* __restrict__ gg = static_cast<T*>(sg.gg) + oh;
-  T* __restrict__ dy = static_cast<T*>(sg.dy) + oh;
-  const T* __restrict__ w1 = static_cast<const T*>(a.w1);
-  const T* __restrict__ b1 = static_cast<const T*>(a.b1);
-  const T* __restrict__ w2t = static_cast<const T*>(a.w2t);
-  const T* __restrict__ w1t = static_cast<const T*>(a.w1t);
-
-  // 1. mm = LN2(t1) (no affine: W1 is folded) into sLN and device memory
-  row_stats([&](int r, int k) {
-              return r < rows ? to_f(t1[(size_t)r * C + k]) : 0.f;
-            },
-            kMbBM, C, a.eps, s_mean, s_rstd);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kMbBM * C; e += kThreads) {
-    const int r = e / C;
-    const T v =
-        from_f<T>(r < rows ? (to_f(t1[e]) - s_mean[r]) * s_rstd[r] : 0.f);
-    sLN[e] = v;
-    sAcc[e] = 0.f;
-    if (r < rows) mm[e] = v;
-  }
-
-  // 2. per kMbBH-wide hidden chunk: y = mm W1c^T + b1c; dy = (dz W2c) .
-  //    GELU'(y); d(mm) += dy W1c. The barriers at the top of every
-  //    tile_gemm order each epilogue's shared writes before the next reads.
-  for (int j0 = 0; j0 < Hd; j0 += kMbBH) {
-    const int kc = min(kMbBH, Hd - j0);
-    tile_gemm<kMbBM, kMbBH>(Rows<T>{sLN, C, kMbBM}, w1, C, C, j0, Hd, sA, sW,
-                            [&](int r, int n, float v) {
-                              sY[r * kMbBH + (n - j0)] = v + to_f(b1[n]);
-                            });
-    tile_gemm<kMbBM, kMbBH>(
-        Rows<T>{dz, C, rows}, w2t, C, C, j0, Hd, sA, sW,
-        [&](int r, int n, float v) {
-          const float y = sY[r * kMbBH + (n - j0)];
-          const T d = from_f<T>(v * gelu_erf_grad(y));
-          sH[r * kMbBH + (n - j0)] = d;
-          if (r < rows) {
-            dy[(size_t)r * Hd + n] = d;
-            gg[(size_t)r * Hd + n] = from_f<T>(gelu_erf(y));
-          }
-        });
-    for (int n0 = 0; n0 < C; n0 += kMbBN)
-      tile_gemm<kMbBM, kMbBN>(Rows<T>{sH, kMbBH, kMbBM}, w1t + j0, Hd, kc, n0,
-                              C, sA, sW, [&](int r, int n, float v) {
-                                sAcc[r * C + n] += v;
-                              });
-  }
-  __syncthreads();
-
-  // 3. dt1 = dout + LN2 backward of d(mm), one warp per row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kWarps) {
-    const float mean = s_mean[r], rstd = s_rstd[r];
-    const float* g = sAcc + r * C;
-    const T* t = t1 + (size_t)r * C;
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = lane; k < C; k += 32) {
-      const float th = (to_f(t[k]) - mean) * rstd;
-      s1 += g[k];
-      s2 += g[k] * th;
-    }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-    for (int k = lane; k < C; k += 32) {
-      const float th = (to_f(t[k]) - mean) * rstd;
-      dt1[(size_t)r * C + k] = from_f<T>(to_f(dout[(size_t)r * C + k]) +
-                                         rstd * (g[k] - m1 - th * m2));
-    }
-  }
-}
-
-template <typename T>
-int launch_mlp_bwd(const MlpBwdArgs& a, cudaStream_t s) {
-  static size_t attr_bytes = 0;  // largest dynamic size granted so far
-  const size_t bytes = mlp_bwd_smem_bytes(a.C, sizeof(T));
-  if (bytes > attr_bytes) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k_mlp_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    attr_bytes = bytes;
-  }
-  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kMbBM);
-  k_mlp_bwd<T><<<blocks, kThreads, bytes, s>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- wgrad

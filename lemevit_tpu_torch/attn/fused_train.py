@@ -50,13 +50,17 @@ and dx through the CPE's transpose: the same CPE with the taps flipped
 (tap 8 - j for tap j) and no bias (cpe_rows_plain). ``*_block_train_plain``
 is each block composed under autograd: the reference the phases are tested
 against. The plain phases take head_dim from the shapes; the kernels take
-head_dim 32.
+head_dim 32. ``mlp_bwd_tiles_plain`` and ``s_attn_bwd_tiles_plain`` are the
+S block's backward kernels' order of work (csrc/train_tc.cuh: their
+roundings, the weight gradients over the launch's row ranges), which the
+tests hold the bf16 kernels against.
 
 ``LAUNCHES[name]`` counts kernel launches of each phase (one per call on CUDA
 tensors; the plain versions do not count).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -70,8 +74,13 @@ LN_EPS = fb.LN_EPS
 LAUNCHES = {"s_train_fwd": 0, "mlp_bwd": 0, "s_attn_bwd": 0,
             "dca_train_fwd": 0, "dca_attn_bwd": 0, "c_train_fwd": 0,
             "c_attn_bwd": 0}
-WGRAD_TILE = 64         # k_wgrad's output tile edge
+WGRAD_TILE = 64         # k_wgrad's output tile edge (the D and C blocks)
+WGRAD_TC_TILE = 128     # k_wgrad_tc's (the S block and every MLP backward)
 CPE_GRAD_ROWS = 64      # least rows per k_cpe_tap_grads block
+MAX_TRAIN_DIM = 512     # the row kernels of every MLP backward and of the S
+                        # attention backward (csrc/train_tc.cuh) keep a
+                        # (64 x C) fp32 sum in registers at C's accumulator
+                        # tier (block_tc.cuh::by_tier, C <= 512)
 
 
 def fold_ln(gamma, beta, w, b):
@@ -163,8 +172,8 @@ def _colsum(g):
 
 def _dproj(s1, dt1):
     """s1 dt1: the gradient of a DropPath-scaled projection, in dt1's
-    dtype."""
-    return (_col(s1, dt1) * dt1.float()).to(dt1.dtype)
+    dtype (the product in fp32, rounded once: one elementwise kernel)."""
+    return torch.mul(dt1, _col(s1, dt1), out=torch.empty_like(dt1))
 
 
 def s_train_fwd_plain(x, c, params, dp, *, num_heads: int, cpe=None,
@@ -189,33 +198,42 @@ def s_train_fwd_plain(x, c, params, dp, *, num_heads: int, cpe=None,
     return xo, co, t1x, t1c, ox, oc, lx, lc
 
 
-def mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2):
-    """MLP backward of both streams (the TPU's _mlp_bwd_call): returns
-    (dt1x, dt1c, dW1, db1, dW2, db2), weight gradients summed over both
-    streams in fp32 and returned in the weights' dtype."""
+def _mlp_bwd_streams(t1x, t1c, dxo, dco, dp, w1, b1, w2):
+    """Both streams of the MLP backward, rounded where the kernels round:
+    (dt1x, dt1c, [(dy, LN2(t1)), ...], [(dz, GELU(y)), ...]), the pairs
+    being the weight gradients' operands of each non-empty stream (dz = s2
+    dout, LN2(t1), dy and GELU(y) in t1's dtype, the sums in fp32)."""
     dt = t1x.dtype
     w1f, w2f = w1.float(), w2.float()
-    acc = [0.0, 0.0, 0.0, 0.0]
-    dt1s = []
+    dt1s, p1, p2 = [], [], []
     for t1, dout, s2 in ((t1x, dxo, dp[1]), (t1c, dco, dp[3])):
         if not t1.numel():  # an empty stream (the C block's image tokens)
             dt1s.append(torch.empty_like(t1))
             continue
         ch = t1.shape[-1]
-        dz = (_col(s2, dout) * dout.float()).to(dt).reshape(-1, ch)
+        dz = _dproj(s2, dout).reshape(-1, ch)
         t1f = t1.reshape(-1, ch)
         mm = _norm(t1f).to(dt)
         y = mm.float() @ w1f.t() + b1.float()
         dy = ((dz.float() @ w2f) * _gelu_grad(y)).to(dt)
-        gg = F.gelu(y).to(dt)
-        dmm = dy.float() @ w1f
-        dt1 = dout.reshape(-1, ch).float() + _ln_bwd(dmm, t1f)
+        dt1 = dout.reshape(-1, ch).float() + _ln_bwd(dy.float() @ w1f, t1f)
         dt1s.append(dt1.to(dt).reshape(t1.shape))
-        for i, v in enumerate((_wgrad(dy, mm), _colsum(dy), _wgrad(dz, gg),
-                               _colsum(dz))):
-            acc[i] = acc[i] + v
-    return (dt1s[0], dt1s[1], acc[0].to(w1.dtype), acc[1].to(b1.dtype),
-            acc[2].to(w2.dtype), acc[3].to(w2.dtype))
+        p1.append((dy, mm))
+        p2.append((dz, F.gelu(y).to(dt)))
+    return dt1s[0], dt1s[1], p1, p2
+
+
+def mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2):
+    """MLP backward of both streams (the TPU's _mlp_bwd_call): returns
+    (dt1x, dt1c, dW1, db1, dW2, db2), weight gradients summed over both
+    streams in fp32 and returned in the weights' dtype."""
+    dt1x, dt1c, p1, p2 = _mlp_bwd_streams(t1x, t1c, dxo, dco, dp, w1, b1, w2)
+    dw1 = sum(_wgrad(g, a) for g, a in p1)
+    dw2 = sum(_wgrad(g, a) for g, a in p2)
+    db1 = sum(_colsum(g) for g, _ in p1)
+    db2 = sum(_colsum(g) for g, _ in p2)
+    return (dt1x, dt1c, dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(w2.dtype))
 
 
 def s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x,
@@ -246,6 +264,106 @@ def s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x,
     return (dx, grads[1].to(dt), acc[0].to(wqkv.dtype),
             acc[1].to(bqkv.dtype), acc[2].to(wp.dtype), acc[3].to(wp.dtype),
             dtaps, dbias)
+
+
+def _tiles_rows(x, rows0: int, rows1: int, shapes) -> int:
+    """A tile model's rows per weight-gradient range: k_wgrad_tc's split on
+    CUDA tensor x's device."""
+    if not x.is_cuda:
+        raise ValueError("rows_per_split is required for CPU tensors")
+    return _wgrad_tc_split(rows0, rows1, shapes, _sms(x.device))[0]
+
+
+def _wgrad_ranges(pairs, rows_per_split: int):
+    """(sum of G^T A, sum of colsum G) in fp32 over consecutive ranges of
+    rows_per_split rows of each (G, A) stream pair in turn, added in that
+    order from zero: k_wgrad_tc's partials as k_wgrad_tc_reduce sums
+    them."""
+    dw = db = 0.0
+    for g, a in pairs:
+        for r in range(0, g.shape[0], rows_per_split):
+            gr, ar = g[r:r + rows_per_split], a[r:r + rows_per_split]
+            dw = dw + _wgrad(gr, ar)
+            db = db + _colsum(gr)
+    return dw, db
+
+
+def mlp_bwd_tiles_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2, *,
+                        rows_per_split: int = 0):
+    """lm_mlp_bwd's order of work in PyTorch (used by the tests only): per
+    stream LN2(t1) rounded to t1's dtype; y = LN2(t1) W1'^T + b1' and dgg =
+    dz W2 (dz = s2 dout, rounded) in fp32; dy = dgg GELU'(y) and GELU(y)
+    rounded (k_mlp_bwd_wg takes the hidden width 64 columns at a time; the
+    roundings are per element, so the chunks need no loop here); d(LN2) =
+    dy W1' in fp32 and dt1 = dout + LN2'(t1)^T d(LN2) rounded, as
+    mlp_bwd_plain rounds them. The weight gradients sum in fp32 over row
+    ranges of ``rows_per_split`` rows (on CUDA tensors by default the
+    launch's split on their device; required on the CPU), the image
+    stream's first, and are rounded once. In fp32 nothing rounds."""
+    b, n, ch = t1x.shape
+    hidden = w1.shape[0]
+    rps = rows_per_split or _tiles_rows(
+        t1x, b * n, b * t1c.shape[1], [(hidden, ch), (ch, hidden)])
+    dt1x, dt1c, p1, p2 = _mlp_bwd_streams(t1x, t1c, dxo, dco, dp, w1, b1, w2)
+    dw1, db1 = _wgrad_ranges(p1, rps)
+    dw2, db2 = _wgrad_ranges(p2, rps)
+    return (dt1x, dt1c, dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(w2.dtype))
+
+
+def _attn_bwd_tiles(q, k, v, o, d_o, lse, h, scale, dt):
+    """train_tc.cuh's attention backward: P = exp(q k^T scale - lse) in
+    fp32, D = rowsum(dO . o) from the rounded dO, dS = P (dO v^T - D) scale
+    rounded to dt, dq = dS k, dk = dS^T q, dv = P^T dO with P rounded; fp32
+    sums, (dq, dk, dv) fp32 shaped as q, k, v."""
+    q, k, v, o, d_o = (_heads(t, h) for t in (q, k, v, o, d_o))
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+                  - lse[..., None])
+    rowdot = (d_o * o).sum(-1).permute(0, 2, 1)
+    ds = (p * (torch.einsum("bnhd,bmhd->bhnm", d_o, v) - rowdot[..., None])
+          * scale).to(dt).float()
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(dt).float(), d_o)
+    return dq.flatten(2), dk.flatten(2), dv.flatten(2)
+
+
+def s_attn_bwd_tiles_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc,
+                           lse_x, lse_c, *, num_heads: int, cpe=None,
+                           img_w: int = 0, rows_per_split: int = 0):
+    """lm_s_attn_bwd's order of work in PyTorch (used by the tests only):
+    LN1 (of the CPE'd x, rounded once, with ``cpe``) rounded to x's dtype,
+    qkv rounded, dO = dproj Wp rounded, the attention backward as
+    _attn_bwd_tiles (head_dim 32, as the kernels), dqkv rounded, dx = dt1 +
+    LN1'^T (dqkv Wqkv') from fp32 sums (with ``cpe`` kept in fp32 for the
+    CPE's backward, _cpe_bwd_plain), and the weight gradients over row
+    ranges as mlp_bwd_tiles_plain's. In fp32 nothing rounds."""
+    dt = x.dtype
+    b, n, ch = x.shape
+    m = c.shape[1]
+    rps = rows_per_split or _tiles_rows(x, b * n, b * m,
+                                        [(3 * ch, ch), (ch, ch)])
+    scale = fb.HEAD_DIM ** -0.5
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
+    grads, pq, pp = [], [], []
+    for t, dt1, s1, o, lse in ((xc, dt1x, dp[0], ox, lse_x),
+                               (c, dt1c, dp[2], oc, lse_c)):
+        dproj = _dproj(s1, dt1)
+        a = _norm(t).to(dt)
+        q, k, v = (a.float() @ wqkv.float().t()
+                   + bqkv.float()).to(dt).chunk(3, -1)
+        d_o = (dproj.float() @ wp.float()).to(dt)
+        dqkv = torch.cat(_attn_bwd_tiles(q, k, v, o, d_o, lse, num_heads,
+                                         scale, dt), -1).to(dt)
+        grads.append(dt1.float() + _ln_bwd(dqkv.float() @ wqkv.float(), t))
+        pq.append((dqkv.reshape(-1, 3 * ch), a.reshape(-1, ch)))
+        pp.append((dproj.reshape(-1, ch), o.reshape(-1, ch)))
+    dwqkv, dbqkv = _wgrad_ranges(pq, rps)
+    dwp, dbp = _wgrad_ranges(pp, rps)
+    dx, dtaps, dbias = ((grads[0].to(dt), None, None) if cpe is None
+                        else _cpe_bwd_plain(x, grads[0], cpe, img_w))
+    return (dx, grads[1].to(dt), dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),
+            dwp.to(wp.dtype), dbp.to(wp.dtype), dtaps, dbias)
 
 
 def dca_train_fwd_plain(x, c, params, dp, *, num_heads: int, scale_x: float,
@@ -464,6 +582,7 @@ def _check(name, kind, x, c, params: Sequence[torch.Tensor], dp,
            num_heads: int, cpe=None, img_w: int = 0):
     b, n, ch = x.shape
     hidden = params[-4].shape[0]
+    _check_train_dim(name, ch)
     fb._check(name, x, c, params, num_heads, hidden, cpe, img_w)
     fb._check_shapes(name, params, _param_shapes(kind, ch, hidden))
     if (dp.dtype != torch.float32 or tuple(dp.shape) != (4, b)
@@ -490,6 +609,30 @@ def _wgrad_split(rows0: int, rows1: int, shapes, sms: int
     rps = max(128, -(-(rows0 + rows1) // want))
     rps = -(-rps // 32) * 32
     return rps, -(-rows0 // rps) + -(-rows1 // rps)
+
+
+def _wgrad_tc_split(rows0: int, rows1: int, shapes, sms: int
+                    ) -> Tuple[int, int]:
+    """(rows_per_split, splits) of k_wgrad_tc (the S block's and every MLP
+    backward: 128 x 128 tiles, all (O, I) products of a call in one
+    launch): enough row ranges that the products together launch about two
+    blocks on each of the device's ``sms`` multiprocessors, at least 128
+    rows, a multiple of 64, per range; each stream's rows split on their
+    own."""
+    tiles = sum(-(-o // WGRAD_TC_TILE) * -(-i // WGRAD_TC_TILE)
+                for o, i in shapes)
+    want = max(1, -(-2 * sms // tiles))
+    rps = max(128, -(-(rows0 + rows1) // want))
+    rps = -(-rps // 64) * 64
+    return rps, -(-rows0 // rps) + -(-rows1 // rps)
+
+
+def _check_train_dim(name: str, ch: int) -> None:
+    """Raise for a width past the training row kernels' MAX_TRAIN_DIM (every
+    block's backward runs mlp_bwd, so its forward refuses it too)."""
+    if ch > MAX_TRAIN_DIM:
+        raise ValueError(f"{name}: C={ch} exceeds the training kernels' "
+                         f"{MAX_TRAIN_DIM} (fused_train.MAX_TRAIN_DIM)")
 
 
 def _cpe_split(rows: int, sms: int) -> Tuple[int, int]:
@@ -539,10 +682,14 @@ def _cpe_bwd_args(name, x, cpe, img_w):
 
 def _ln_identity(x):
     """The ones / zeros a training kernel takes for LN1's and LN2's affine
-    (the weights come folded)."""
-    ch = x.shape[-1]
-    return (torch.ones(ch, dtype=x.dtype, device=x.device),
-            torch.zeros(ch, dtype=x.dtype, device=x.device))
+    (the weights come folded), made once per width, dtype and device."""
+    return _identity(x.shape[-1], x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _identity(ch, dtype, device):
+    return (torch.ones(ch, dtype=dtype, device=device),
+            torch.zeros(ch, dtype=dtype, device=device))
 
 
 def s_train_fwd(x, c, params, dp, *, num_heads: int, cpe=None,
@@ -567,38 +714,48 @@ def s_train_fwd(x, c, params, dp, *, num_heads: int, cpe=None,
     return tuple(outs)
 
 
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    tensor-core kernels read rows by TMA and 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def mlp_bwd(t1x, t1c, dxo, dco, dp, w1, b1, w2):
-    """The MLP-backward phase; see mlp_bwd_plain. The image stream (t1x,
-    dxo) may hold no tokens."""
+    """The MLP-backward phase; see mlp_bwd_plain (bf16 rounding:
+    mlp_bwd_tiles_plain). The image stream (t1x, dxo) may hold no
+    tokens."""
     if not t1x.is_cuda:
         return mlp_bwd_plain(t1x, t1c, dxo, dco, dp, w1, b1, w2)
     b, n, ch = t1x.shape
     m = t1c.shape[1]
     hidden = w1.shape[0]
+    _check_train_dim("mlp_bwd", ch)
     dzx = _dproj(dp[1], dxo)
     dzc = _dproj(dp[3], dco)
-    db2 = (_colsum(dzx) + _colsum(dzc)).to(w2.dtype)
-    rps, splits = _wgrad_split(b * n, b * m, [(hidden, ch), (ch, hidden)],
-                               _sms(t1x.device))
+    rps, splits = _wgrad_tc_split(b * n, b * m,
+                                  [(hidden, ch), (ch, hidden)],
+                                  _sms(t1x.device))
     f32 = torch.float32
     outs = [torch.empty_like(t1x), torch.empty_like(t1c),
             torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2)]
+    db2 = w2.new_empty(ch)
     work = [_ws((b * n, ch), t1x), _ws((b * m, ch), t1x),
             _ws((b * n, hidden), t1x), _ws((b * m, hidden), t1x),
             _ws((b * n, hidden), t1x), _ws((b * m, hidden), t1x),
-            _ws((splits * hidden * ch,), t1x, f32),
-            _ws((splits * hidden,), t1x, f32)]
-    tensors = [t1x, t1c, dxo, dco, dzx, dzc, w1, b1, w2.t().contiguous(),
-               w1.t().contiguous()]
+            _ws((splits * 2 * hidden * ch,), t1x, f32),
+            _ws((splits * (hidden + ch),), t1x, f32)]
+    tensors = [_aligned(t) for t in (t1x, t1c, dxo, dco, dzx, dzc, w1, b1)]
+    tensors += [w2.t().contiguous(), w1.t().contiguous()]
     _check_tensors("mlp_bwd", t1x, tensors)
-    fb._launch("mlp_bwd", t1x, [*tensors, *outs, *work], b, n, m, ch, hidden,
-               rps, LN_EPS, counts=LAUNCHES)
+    fb._launch("mlp_bwd", t1x, [*tensors, *outs, *work, db2], b, n, m, ch,
+               hidden, rps, LN_EPS, counts=LAUNCHES)
     return (*outs, db2)
 
 
 def s_attn_bwd(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x, lse_c,
                *, num_heads: int, cpe=None, img_w: int = 0):
-    """The S attention-backward phase; see s_attn_bwd_plain."""
+    """The S attention-backward phase; see s_attn_bwd_plain (bf16 rounding:
+    s_attn_bwd_tiles_plain)."""
     if not x.is_cuda:
         return s_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox,
                                 oc, lse_x, lse_c, num_heads=num_heads,
@@ -606,27 +763,28 @@ def s_attn_bwd(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc, lse_x, lse_c,
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
+    _check_train_dim("s_attn_bwd", ch)
     dpx, dpc = _dproj(dp[0], dt1x), _dproj(dp[2], dt1c)
-    dbp = (_colsum(dpx) + _colsum(dpc)).to(wp.dtype)
-    rps, splits = _wgrad_split(b * n, b * m, [(3 * ch, ch), (ch, ch)],
-                               _sms(x.device))
+    dbp = wp.new_empty(ch)
+    rps, splits = _wgrad_tc_split(b * n, b * m, [(3 * ch, ch), (ch, ch)],
+                                  _sms(x.device))
     f32 = torch.float32
     outs = [torch.empty_like(x), torch.empty_like(c), torch.empty_like(wqkv),
             torch.empty_like(bqkv), torch.empty_like(wp)]
     work = [_ws((b * n, ch), x), _ws((b * m, ch), x),
             _ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
-            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
+            _ws((b * n, ch), x), _ws((b * m, ch), x),
             _ws((b * h * n,), x, f32), _ws((b * h * m,), x, f32),
             _ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
-            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
-            _ws((splits * 3 * ch * ch,), x, f32),
-            _ws((splits * 3 * ch,), x, f32)]
-    tensors = [x, c, dt1x, dt1c, dpx, dpc, wqkv, bqkv, wqkv.t().contiguous(),
-               wp.t().contiguous(), ox, oc]
+            _ws((splits * 4 * ch * ch,), x, f32),
+            _ws((splits * 4 * ch,), x, f32)]
+    tensors = [_aligned(t) for t in (x, c, dt1x, dt1c, dpx, dpc, wqkv, bqkv)]
+    tensors += [wqkv.t().contiguous(), wp.t().contiguous(), _aligned(ox),
+                _aligned(oc)]
     _check_tensors("s_attn_bwd", x, tensors)
     cpe_args, cpe_rps = _cpe_bwd_args("s_attn_bwd", x, cpe, img_w)
     fb._launch("s_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work,
-                                 *cpe_args],
+                                 *cpe_args, *_ln_identity(x), dbp],
                b, n, m, ch, h, rps, img_w, cpe_rps, fb.HEAD_DIM ** -0.5,
                LN_EPS, counts=LAUNCHES)
     return (*outs, dbp, *cpe_args[-2:])

@@ -23,7 +23,10 @@ held at its own scale), dca_attn with 32 to MAX_META meta tokens against
 dca_plain, and dca_attn bit for bit between two runs. The S and D block
 kernels are held in bf16 against their tile models (*_block_tiles_plain),
 with their cpe mode and D2, within 2 bf16 steps of each output's largest
-element, and bit for bit between two runs."""
+element, and bit for bit between two runs; so are the S block's attention
+backward and the MLP backward (train_tc.cuh) against
+mlp_bwd_tiles_plain / s_attn_bwd_tiles_plain, and against their plain
+phases in fp32 at 1e-4 of each tensor's largest element."""
 import numpy as np
 import pytest
 import torch
@@ -940,3 +943,152 @@ def test_train_path_step_device_ms_on_gpu(cuda):
     d = probes_cli.step_device_ms("lemevit_tiny", cuda, pairs=1, steps=1)
     assert d["default_ms"] > 0 and d["switch_ms"] > 0, d
     assert all(v > 0 for v in d["elapsed_ms"].values()), d
+
+
+# Rows 10-11 (train_tc.cuh): (N, C, batch) at lemevit_tiny's, vit_tiny's and
+# the seg path's S shapes, and a ragged N past a 64-row tile
+BWD_TC_SHAPES = [(196, 192, 4), (49, 320, 4), (784, 192, 2), (196, 320, 2),
+                 (49, 384, 4), (1024, 192, 2), (256, 320, 2), (200, 192, 2)]
+
+
+def _bwd_inputs(cuda, n, ch, b, dtype, seed, cpe_w=0):
+    """x, c, the S block's folded params, DropPath scales, the upstream
+    gradients and, with cpe_w, a CPE pair, then the plain forward's t1, o
+    and lse in dtype (inputs rounded to dtype first)."""
+    rng = np.random.RandomState(seed)
+    hid = 4 * ch
+    arrays = ([rng.randn(b, n, ch), rng.randn(b, M, ch)]
+              + _lin(rng, 3 * ch, ch) + _lin(rng, ch, ch)
+              + _lin(rng, hid, ch) + _lin(rng, ch, hid)
+              + [rng.randn(b, n, ch), rng.randn(b, M, ch)])
+    ts = [torch.tensor(a.astype(np.float32), device=cuda).to(dtype)
+          for a in arrays]
+    x, c, params, gx, gc = ts[0], ts[1], ts[2:10], ts[10], ts[11]
+    dp = torch.from_numpy(((rng.rand(4, b) < 0.7) / 0.7).astype(
+        np.float32)).to(cuda)
+    cpe = ([torch.tensor(a, device=cuda).to(dtype) for a in _cpe(rng, ch)]
+           if cpe_w else None)
+    kw = {"num_heads": ch // 32}
+    if cpe_w:
+        kw.update(cpe=cpe, img_w=cpe_w)
+    fwd = ft.s_train_fwd_plain(x, c, params, dp, **kw)
+    return x, c, params, dp, gx, gc, fwd, kw
+
+
+def _bwd_calls(x, c, params, dp, gx, gc, fwd, kw, mlp, attn):
+    """(mlp_bwd outputs, s_attn_bwd outputs) of the given phase functions,
+    the attention backward on the MLP backward's dt1."""
+    wqkv, bqkv, wp, _, w1, b1, w2, _ = params
+    _, _, t1x, t1c, ox, oc, lx, lc = fwd
+    m_out = mlp(t1x, t1c, gx, gc, dp, w1, b1, w2)
+    a_out = attn(x, c, m_out[0], m_out[1], dp, wqkv, bqkv, wp, ox, oc, lx,
+                 lc, **kw)
+    return list(m_out), [t for t in a_out if t is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b", BWD_TC_SHAPES)
+def test_bwd_tc_kernels_match_plain_and_tiles_models_on_gpu(cuda, n, ch, b):
+    """lm_mlp_bwd and lm_s_attn_bwd: fp32 against mlp_bwd_plain /
+    s_attn_bwd_plain at 1e-4 of each tensor's largest element; bf16 against
+    their tile models (mlp_bwd_tiles_plain, s_attn_bwd_tiles_plain) on the
+    same inputs within TILES_STEPS bf16 steps of each tensor's largest
+    element; each launched once (3 and 8 kernels on the card)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _bwd_inputs(cuda, n, ch, b, dtype, 7)
+        before = dict(ft.LAUNCHES)
+        got_m, got_a = _bwd_calls(*args, ft.mlp_bwd, ft.s_attn_bwd)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"mlp_bwd": 1, "s_attn_bwd": 1}
+        if dtype == torch.float32:
+            want_m, want_a = _bwd_calls(*args, ft.mlp_bwd_plain,
+                                        ft.s_attn_bwd_plain)
+        else:
+            want_m, want_a = _bwd_calls(*args, ft.mlp_bwd_tiles_plain,
+                                        ft.s_attn_bwd_tiles_plain)
+        for i, (g_, w_) in enumerate(zip(got_m + got_a, want_m + want_a)):
+            g_, w_ = g_.float(), w_.float()
+            assert torch.isfinite(g_).all(), i
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item(),
+                    msg=f"tensor {i}")
+            else:
+                _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_tc_cpe_matches_plain_and_tiles_model_on_gpu(cuda, dtype):
+    """lm_s_attn_bwd in its cpe mode (lemevit_tiny's stage 3, 14 x 14): fp32
+    against s_attn_bwd_plain, bf16 against s_attn_bwd_tiles_plain, the tap
+    and bias gradients included."""
+    args = _bwd_inputs(cuda, 196, 192, 4, dtype, 8, cpe_w=14)
+    got_m, got_a = _bwd_calls(*args, ft.mlp_bwd, ft.s_attn_bwd)
+    plain = ((ft.mlp_bwd_plain, ft.s_attn_bwd_plain)
+             if dtype == torch.float32 else
+             (ft.mlp_bwd_tiles_plain, ft.s_attn_bwd_tiles_plain))
+    want_m, want_a = _bwd_calls(*args, *plain)
+    assert len(got_a) == len(want_a) == 8
+    for i, (g_, w_) in enumerate(zip(got_a, want_a)):
+        g_, w_ = g_.float(), w_.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item(),
+                msg=f"tensor {i}")
+        else:
+            _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b", [(784, 192, 2), (200, 192, 2),
+                                    (49, 384, 4)])
+def test_bwd_tc_weight_grads_are_deterministic_on_gpu(cuda, n, ch, b):
+    """Two calls of lm_mlp_bwd and lm_s_attn_bwd give the same bits (bf16):
+    the weight gradients sum their row ranges in a fixed order."""
+    args = _bwd_inputs(cuda, n, ch, b, torch.bfloat16, 9)
+    runs = [_bwd_calls(*args, ft.mlp_bwd, ft.s_attn_bwd) for _ in range(2)]
+    for g_, w_ in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.gpu
+def test_bwd_tc_mlp_empty_image_stream_on_gpu(cuda):
+    """The C block's MLP backward: lm_mlp_bwd with no image tokens against
+    its plain phase (fp32) and tile model (bf16)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c, params, dp, gx, gc, fwd, kw = _bwd_inputs(cuda, 16, 64, 8,
+                                                        dtype, 10)
+        none = x[:, :0]
+        w1, b1, w2 = params[4], params[5], params[6]
+        got = ft.mlp_bwd(none, fwd[3], none, gc, dp, w1, b1, w2)
+        ref = (ft.mlp_bwd_plain if dtype == torch.float32
+               else ft.mlp_bwd_tiles_plain)
+        want = ref(none, fwd[3], none, gc, dp, w1, b1, w2)
+        for g_, w_ in list(zip(got, want))[1:]:
+            g_, w_ = g_.float(), w_.float()
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item())
+            else:
+                _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+def test_bwd_tc_refuses_past_max_train_dim_on_gpu(cuda):
+    """At C = 544 (under fused_block.MAX_DIM, over MAX_TRAIN_DIM) the S
+    forward phase, lm_mlp_bwd and lm_s_attn_bwd raise a ValueError naming
+    the limit and launch nothing."""
+    ch = ft.MAX_TRAIN_DIM + 32
+    x, c, params, dp, gx, gc, fwd, kw = _bwd_inputs(cuda, 16, ch, 1,
+                                                    torch.float32, 11)
+    before = dict(ft.LAUNCHES)
+    with pytest.raises(ValueError, match="MAX_TRAIN_DIM"):
+        ft.s_train_fwd(x, c, params, dp, **kw)
+    with pytest.raises(ValueError, match="MAX_TRAIN_DIM"):
+        _bwd_calls(x, c, params, dp, gx, gc, fwd, kw, ft.mlp_bwd,
+                   ft.s_attn_bwd)
+    wqkv, bqkv, wp = params[:3]
+    with pytest.raises(ValueError, match="MAX_TRAIN_DIM"):
+        ft.s_attn_bwd(x, c, gx, gc, dp, wqkv, bqkv, wp, *fwd[4:], **kw)
+    assert _launched(before) == {}

@@ -123,3 +123,47 @@ def test_wgrad_split_covers_rows():
         rps, splits = ft._wgrad_split(rows0, rows1, shapes, 132)
         assert rps % 32 == 0 and rps >= 128
         assert splits == -(-rows0 // rps) + -(-rows1 // rps)
+
+
+def test_wgrad_tc_split_covers_rows():
+    """The row ranges of k_wgrad_tc (the S block's and every MLP backward,
+    all products in one launch) cover each stream's rows, aligned to its
+    64-row step, at least 128 rows each, about two CTAs an SM over the
+    products and not far past it."""
+    for rows0, rows1, shapes in [(12544, 1024, [(1536, 384), (384, 1536)]),
+                                 (128, 64, [(96, 32)]),
+                                 (50176, 1024, [(576, 192), (192, 192)]),
+                                 (0, 1024, [(256, 64), (64, 256)])]:
+        rps, splits = ft._wgrad_tc_split(rows0, rows1, shapes, 132)
+        assert rps % 64 == 0 and rps >= 128
+        assert splits == -(-rows0 // rps) + -(-rows1 // rps)
+        tiles = sum(-(-o // ft.WGRAD_TC_TILE) * -(-i // ft.WGRAD_TC_TILE)
+                    for o, i in shapes)
+        assert rps == 128 or tiles * (splits - 2) <= 2 * 132
+
+
+@pytest.mark.parametrize("ch", [544, 640])
+@pytest.mark.parametrize("name,kind", [("s_train_fwd", "s"),
+                                       ("dca_train_fwd", "dca"),
+                                       ("c_train_fwd", "c")])
+def test_training_forward_refuses_past_max_train_dim(name, kind, ch):
+    """Widths that the inference kernels take (up to fused_block.MAX_DIM)
+    but the training backward's row kernels do not are refused by each
+    forward phase's check, before anything runs: every block's backward
+    runs mlp_bwd."""
+    x = torch.zeros(1, 1, ch)
+    params = [torch.zeros(s) for s in ft._param_shapes(kind, ch, 4 * ch)]
+    with pytest.raises(ValueError, match="MAX_TRAIN_DIM"):
+        ft._check(name, kind, x, x, params, torch.ones(4, 1), ch // 32)
+
+
+def test_max_train_dim_takes_every_registered_width():
+    """MAX_TRAIN_DIM admits every stage width of the registry's variants and
+    stays under the inference kernels' MAX_DIM."""
+    from lemevit_tpu_torch.models.registry import list_models, variant_config
+    assert ft.fb.MAX_DIM > ft.MAX_TRAIN_DIM == 512
+    widths = {ch for name in list_models()
+              for ch in variant_config(name)["embed_dim"]}
+    assert max(widths) <= ft.MAX_TRAIN_DIM
+    for ch in sorted(widths):
+        ft._check_train_dim("s_train_fwd", ch)
