@@ -36,14 +36,24 @@ before it and read just after:
     block through the weight permutation, one fp32 train step on the kernel
     path against the plain path, cli.train as above, cli.benchmark --bench
     train, and a profile of one train step;
-  - at every training shape above and below (and in the CPE mode), rows
-    10-11, lm_s_attn_bwd (S blocks) and lm_mlp_bwd (every block kind) of
-    train_tc.cuh, phase by phase: fp32 against the plain phases at 1e-4,
-    bf16 against their tile models (mlp_bwd_tiles_plain,
-    s_attn_bwd_tiles_plain) within 2 bf16 steps of each tensor's largest
-    element, every output bit for bit over two calls, the profiler's
-    device time split by kernel, and SDPA's backward on the same q, k, v
-    and dO timed beside the attention tiles;
+  - at every training shape above and below (and in the CPE mode), the
+    phases on the tensor-core kernels: row 9, lm_s_train_fwd (S blocks:
+    k_qkv_wg, k_mhsa_tc with the log-sum-exp, k_tail_wg's training
+    instance), rows 10-11, lm_s_attn_bwd (S blocks) and lm_mlp_bwd (every
+    block kind) of train_tc.cuh, and row 13, lm_dca_attn_bwd (D blocks:
+    k_qkv_wg, k_rowmm_wg, the cross-attention backward k_dca_bwd_tc and
+    k_wgrad_tc), phase by phase: fp32 against the plain phases at 1e-4,
+    bf16 against their tile models (*_tiles_plain) within 2 bf16 steps of
+    each tensor's largest element, every output bit for bit over two
+    calls, the profiler's device time split by kernel with each phase's
+    port launches read (never more than PORT_LAUNCHES) and none of the
+    parent's chain kernels in rows 9 and 13, and SDPA's forward (row 9)
+    or backward (rows 10, 13, both directions) on the same q, k, v (and
+    dO) timed beside the attention tiles;
+  - LeMeViT() with its constructor defaults (head_dim 64, 128 meta
+    tokens) at 64^2 under attn_backend="auto": its blocks decline by shape
+    and compose, a forward and a training step match "torch" with no
+    kernel launched;
   - training lemevit_tiny on the slice's path (train_cpe_in_kernel: each
     block's 3x3 CPE inside its training kernels): the six C, D and S
     training kernels in their CPE mode held against their plain versions
@@ -856,30 +866,41 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
         n_seen = 0 if (kind == "c" and name == "mlp_bwd") else n
         t_bound, by = bound(*train_work(name, b_main, n_seen, ch))
         extra = {}
-        if name in tc_errs:  # rows 10-11: device time, split by kernel
+        if name in tc_errs:  # rows 9-11, 13: device time, split by kernel
             prof = profile_call(kern, f"{name} {kind} N={n} C={ch} "
                                 f"B={b_main}", top=10)
+            port = port_kernels(prof, name)
             extra = dict(device_ms=device_ms(kern),
                          launches_per_call=prof.get("launches"),
+                         port_launches_per_call=port,
                          err_fp32_phase=tc_errs[name][0],
                          err_tiles_bf16=tc_errs[name][1],
                          kernels_ms={k.split("(")[0]: v for k, v in
                                      prof.get("ms_by_name", {}).items()})
-            if name == "s_attn_bwd":
+            if name in ATTN_PART:  # the attention's share beside SDPA's
+                key, sdpa_key, what = ATTN_PART[name]
                 attn_ms = sum(v for k, v in prof.get("ms_by_name",
                                                      {}).items()
-                              if "k_attn_bwd_" in k)
-                mlp_out = phase_calls(ft, kind, x, c, p, dp, gx, gc,
-                                      kw)["mlp_bwd"][0]()
-                sdpa_ms, sdpa_dev = sdpa_bwd_device_ms(
-                    ft, x, c, p, dp, mlp_out[0], mlp_out[1], ch // 32)
-                extra.update(attn_part_device_ms=attn_ms,
-                             sdpa_bwd_ms=sdpa_ms,
-                             sdpa_bwd_device_ms=sdpa_dev)
-                say("train-kernel", f"{name} N={n} C={ch}: the attention "
-                    f"tiles {attn_ms:.4f} ms on the device; SDPA's backward "
-                    f"on the same q, k, v, dO {sdpa_ms:.4f} ms (device "
-                    f"{fmt_ms(sdpa_dev)})")
+                              if key in k) or None  # none: dropped
+                if name == "s_train_fwd":
+                    sdpa = sdpa_fwd_device_ms(ft, x, c, p, ch // 32)
+                elif name == "dca_attn_bwd":
+                    sdpa = sdpa_dca_bwd_device_ms(
+                        ft, tc_phases(ft, kind, x, c, p, dp, gx, gc,
+                                      kw)[name][0], ch // 32,
+                        kw["scale_x"], kw["scale_c"])
+                else:
+                    mlp_out = phase_calls(ft, kind, x, c, p, dp, gx, gc,
+                                          kw)["mlp_bwd"][0]()
+                    sdpa = sdpa_bwd_device_ms(ft, x, c, p, dp, mlp_out[0],
+                                              mlp_out[1], ch // 32)
+                extra.update({"attn_part_device_ms": attn_ms,
+                              f"{sdpa_key}_ms": sdpa[0],
+                              f"{sdpa_key}_device_ms": sdpa[1]})
+                way = "forward" if sdpa_key == "sdpa_fwd" else "backward"
+                say("train-kernel", f"{name} N={n} C={ch}: {what}, device "
+                    f"ms {fmt_ms(attn_ms)}; SDPA's {way} on the same inputs "
+                    f"{sdpa[0]:.4f} ms (device {fmt_ms(sdpa[1])})")
         elif profile and name == bwd_name:
             profile_call(kern, f"{name} N={n} C={ch} B={b_main}", top=10)
         rows.append(dict(
@@ -902,32 +923,39 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
     return rows
 
 
-def bwd_tc_args(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
-    """(mlp_bwd args, s_attn_bwd args or None) on the kernel forward's t1,
-    o and lse; the C block's MLP backward on its meta stream alone."""
+def tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
+    """{phase: (args, keywords)} of one block kind's phases on the
+    tensor-core kernels, each on the kernel outputs of the phase before:
+    row 9 (s_train_fwd) and row 10 (s_attn_bwd) at S, row 11 (mlp_bwd) at
+    every kind (the C block's on its meta stream alone), row 13
+    (dca_attn_bwd) at D. kw carries num_heads, the D scales and, with the
+    CPE pair ``cpe``, img_w."""
     w1, b1, w2 = p[-4], p[-3], p[-2]
-    ckw = dict(kw, cpe=cpe) if cpe is not None else kw
+    pkw = dict(kw, cpe=cpe) if cpe is not None else dict(kw)
+    fwd = getattr(ft, TRAIN_PHASES[kind][0])(x, c, p, dp, **pkw)
     if kind == "c":
-        fwd = ft.c_train_fwd(x, c, p, dp, **ckw)
         none = x[:, :0]
-        return (none, fwd[1], none, gc, dp, w1, b1, w2), None
-    fwd = getattr(ft, TRAIN_PHASES[kind][0])(x, c, p, dp, **ckw)
+        return {"mlp_bwd": ((none, fwd[1], none, gc, dp, w1, b1, w2), {})}
     mlp = (fwd[2], fwd[3], gx, gc, dp, w1, b1, w2)
-    if kind != "s":
-        return mlp, None
     dt1x, dt1c = ft.mlp_bwd(*mlp)[:2]
-    return mlp, (x, c, dt1x, dt1c, dp, *p[:3], *fwd[4:])
+    if kind == "s":
+        return {"s_train_fwd": ((x, c, p, dp), pkw), "mlp_bwd": (mlp, {}),
+                "s_attn_bwd": ((x, c, dt1x, dt1c, dp, *p[:3], *fwd[4:]),
+                               pkw)}
+    return {"mlp_bwd": (mlp, {}),
+            "dca_attn_bwd": ((x, c, dt1x, dt1c, dp, *p[:5], p[6],
+                              *fwd[4:]), pkw)}
 
 
 def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
                  img_w=0):
-    """Rows 10-11 (lm_mlp_bwd at every block kind, lm_s_attn_bwd at S; with
-    img_w in its cpe mode) phase by phase: fp32 at b_check against the
-    plain phases (TRAIN_TOL: 1e-4 of (max|ref| + |ref|) per tensor), bf16 at
-    b_main against their tile models (mlp_bwd_tiles_plain,
-    s_attn_bwd_tiles_plain) within TILES_STEPS bf16 steps of each tensor's
-    largest element, and every gradient bit for bit over two bf16 calls.
-    Returns {phase: (fp32 err, bf16 err against the tile model)}."""
+    """Rows 9-11 and 13 (lm_s_train_fwd, lm_s_attn_bwd at S, lm_mlp_bwd at
+    every block kind, lm_dca_attn_bwd at D; with img_w in their cpe mode)
+    phase by phase: fp32 at b_check against the plain phases (TRAIN_TOL:
+    1e-4 of (max|ref| + |ref|) per tensor), bf16 at b_main against their
+    tile models (*_tiles_plain) within TILES_STEPS bf16 steps of each
+    tensor's largest element, and every output bit for bit over two bf16
+    calls. Returns {phase: (fp32 err, bf16 err against the tile model)}."""
     kw = {"num_heads": ch // 32}
     if kind == "dca":
         from lemevit_tpu_torch.attn.reference import dca_scales
@@ -938,13 +966,7 @@ def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
     for dtype, b in ((torch.float32, b_check), (torch.bfloat16, b_main)):
         x, c, p, dp, gx, gc = train_inputs(ft, kind, b, n, ch, g, dev, dtype)
         cpe = cpe_inputs(ch, g, dev, dtype) if img_w else None
-        mlp, attn = bwd_tc_args(ft, kind, x, c, p, dp, gx, gc, kw, cpe)
-        akw = {"num_heads": ch // 32}
-        if img_w:
-            akw.update(cpe=cpe, img_w=img_w)
-        phases = {"mlp_bwd": (mlp, {})}
-        if attn is not None:
-            phases["s_attn_bwd"] = (attn, akw)
+        phases = tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe)
         for name, (args, pkw) in phases.items():
             got = [t for t in getattr(ft, name)(*args, **pkw)
                    if t is not None and t.numel()]
@@ -965,7 +987,7 @@ def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
                 errs[name].append(max_err(
                     got, [t for t in ref if t is not None and t.numel()],
                     None, TILES_STEPS))
-        del x, c, p, gx, gc, mlp, attn
+        del x, c, p, gx, gc, phases
     say("bwd-tc", f"{kind} N={n} C={ch}{f' cpe {img_w} wide' if img_w else ''}"
         ": " + "; ".join(
             f"{name} fp32 B={b_check} err {e[0]:.2e} (plain), bf16 "
@@ -974,21 +996,66 @@ def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
     return errs
 
 
+def _heads(u, heads):
+    """(B, n, C) -> (B, heads, n, C / heads), contiguous."""
+    return u.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+
+
+def _qkv_rows(ft, t, w, bias):
+    """q, k, v of one stream as k_qkv_wg computes them (LN1 rounded, the
+    product in fp32 + bias, rounded)."""
+    dt = t.dtype
+    return (ft._norm(t).to(dt).float() @ w.float().t()
+            + bias.float()).to(dt).chunk(3, -1)
+
+
+def sdpa_fwd_device_ms(ft, x, c, p, heads) -> tuple:
+    """(events ms, device ms) of SDPA's forward (PyTorch's fused kernel) on
+    row 9's attention inputs, both streams' q, k, v; for this table
+    only."""
+    qkvs = [[_heads(u, heads) for u in _qkv_rows(ft, t, p[0], p[1])]
+            for t in (x, c)]
+
+    def run():
+        for q, k, v in qkvs:
+            F.scaled_dot_product_attention(q, k, v)
+    return cuda_ms(run), device_ms(run)
+
+
 def sdpa_bwd_device_ms(ft, x, c, p, dp, dt1x, dt1c, heads) -> tuple:
     """(events ms, device ms) of SDPA's backward (PyTorch's fused kernel)
     on row 10's attention inputs: both streams' q, k, v recomputed and dO =
     s1 dt1 Wp, rounded as the kernels round them; for this table only."""
     grads = []
     for t, dt1, s1 in ((x, dt1x, dp[0]), (c, dt1c, dp[2])):
-        dt = t.dtype
-        a = ft._norm(t).to(dt)
-        qkv = (a.float() @ p[0].float().t() + p[1].float()).to(dt)
-        q, k, v = (u.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
-                   .requires_grad_() for u in qkv.chunk(3, -1))
-        d_o = (ft._dproj(s1, dt1).float() @ p[2].float()).to(dt)
-        d_o = d_o.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+        q, k, v = (_heads(u, heads).requires_grad_()
+                   for u in _qkv_rows(ft, t, p[0], p[1]))
+        d_o = (ft._dproj(s1, dt1).float() @ p[2].float()).to(t.dtype)
         out = F.scaled_dot_product_attention(q, k, v)
-        grads.append((out, (q, k, v), d_o))
+        grads.append((out, (q, k, v), _heads(d_o, heads)))
+
+    def run():
+        for out, ins, d_o in grads:
+            torch.autograd.grad(out, ins, d_o, retain_graph=True)
+    return cuda_ms(run), device_ms(run)
+
+
+def sdpa_dca_bwd_device_ms(ft, args, heads, scale_x, scale_c) -> tuple:
+    """(events ms, device ms) of SDPA's backward on row 13's attention
+    inputs: the x direction (q1 over k2 / v2, scale_x) and the c direction
+    (q2 over k1 / v1, scale_c), q, k, v and dO = s1 dt1 Wp rounded as the
+    kernels round them; for this table only."""
+    x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc = args[:11]
+    q1, k1, v1 = _qkv_rows(ft, x, wqkv1, bqkv1)
+    q2, k2, v2 = _qkv_rows(ft, c, wqkv2, bqkv2)
+    grads = []
+    for q, k, v, s1, dt1, wp, sc in ((q1, k2, v2, dp[0], dt1x, wpx, scale_x),
+                                     (q2, k1, v1, dp[2], dt1c, wpc,
+                                      scale_c)):
+        ins = [_heads(u, heads).requires_grad_() for u in (q, k, v)]
+        d_o = (ft._dproj(s1, dt1).float() @ wp.float()).to(dt1.dtype)
+        out = F.scaled_dot_product_attention(*ins, scale=sc)
+        grads.append((out, ins, _heads(d_o, heads)))
 
     def run():
         for out, ins, d_o in grads:
@@ -1147,6 +1214,50 @@ def check_d2_train_block(ft, dev, g):
     say("train-kernel", f"D2 permutation N=3136 C=96 fp32 B=8: out err "
         f"{e_out:.2e}; gradients within {e_grad:.2e} of their largest "
         f"element (limit 1e-3); launches {launched}")
+
+
+def check_defaults_model(dev):
+    """LeMeViT() with its constructor defaults (head_dim 64, 128 meta
+    tokens) at 64^2, fp32, B=2, under attn_backend="auto": every block
+    declines by shape (fused_block.block_takes, fused_train.train_takes)
+    and composes, as the JAX package's kernels return None there, so a
+    forward and one training step run with no kernel launched and match
+    attn_backend="torch" (logits within 1e-4 of (max|ref| + |ref|), each
+    gradient within 1e-4 of its largest element + 1e-6: a conv bias before
+    a BatchNorm has a gradient of ~1e-8, all rounding)."""
+    from lemevit_tpu_torch.models.lemevit import LeMeViT
+    torch.manual_seed(0)
+    auto = LeMeViT(num_classes=10).to(dev)
+    plain = copy.deepcopy(auto)
+    plain.set_attn_backend("torch")
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator()
+                    .manual_seed(9)).to(dev)
+    out = []
+    reset()
+    for m in (auto, plain):
+        m.train()
+        m(x).square().mean().backward()
+        m.eval()
+        with torch.no_grad():
+            out.append((m(x), [q.grad for q in m.parameters()]))
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {}, "LeMeViT() under auto")
+    err = max_grad_err([out[0][0]], [out[1][0]], 1e-4, ["logits"])
+    worst = 0.0  # the largest gradient error as a share of its limit
+    for (pname, _), a, b in zip(plain.named_parameters(), out[0][1],
+                                out[1][1]):
+        if b is None:
+            continue
+        lim = 1e-4 * b.abs().max().item() + 1e-6
+        d = (a - b).abs().max().item()
+        if not d <= lim:
+            raise AssertionError(f"LeMeViT() gradient of {pname}: max abs "
+                                 f"err {d:.3g} beyond {lim:.3g}")
+        worst = max(worst, d / lim)
+    say("defaults", f"LeMeViT() head_dim 64, 128 meta tokens, 64^2 fp32 "
+        f"B=2 under auto: composes (no kernel launched); logits err "
+        f"{err:.2e}; gradients within {100 * worst:.1f}% of their limits "
+        f"(1e-4 max|ref| + 1e-6) against attn_backend=torch")
 
 
 def check_train_step(dev, name, expect, **model_kw):
@@ -1498,11 +1609,76 @@ def kernels_ptxas() -> dict:
     return out
 
 
+def profile_kernels(fn, what: str, want: dict) -> tuple:
+    """(profile_call's table of fn(), the launches of each kernel of
+    ``want`` in it), the table showing every kernel of ``want`` exactly as
+    often. The profiler can leave the first kernels of a window out of its
+    table (PERF.md section 7), so a table short of ``want`` is taken again,
+    up to three times in all; a count above ``want`` raises at once, as
+    does a table still short after the third."""
+    for _ in range(3):
+        prof = profile_call(fn, what)
+        if not prof:
+            raise AssertionError("the profiler recorded no device time")
+        got = {k: kernel_count(prof, k) for k in want}
+        if any(got[k] > want[k] for k in want):
+            raise AssertionError(f"{what}: kernels {got}, expected {want}")
+        if got == want:
+            return prof, got
+        say("profile", f"{what}: the table holds {got}, short of {want} "
+            "(kernels dropped by the profiler); profiled again")
+    raise AssertionError(f"{what}: kernels {got} in three tables, expected "
+                         f"{want}")
+
+
 def kernel_count(prof: dict, name: str) -> int:
     """Launches of the CUDA kernel ``name`` (a template's instances
     summed) in a profile_call table."""
     return sum(v for k, v in prof["by_name"].items()
                if f"{name}<" in k or k.endswith(name))
+
+
+# the attention kernels of rows 9, 10 and 13 by name, the SDPA call timed
+# beside them (forward, or backward of the same q, k, v and dO; both
+# directions for row 13) and what the line calls them
+ATTN_PART = {"s_train_fwd": ("k_mhsa_tc", "sdpa_fwd", "the attention tiles"),
+             "s_attn_bwd": ("k_attn_bwd_", "sdpa_bwd", "the attention tiles"),
+             "dca_attn_bwd": ("k_dca_bwd_", "sdpa_bwd",
+                              "the attention backward of both directions")}
+# the port's kernel launches of one call of each phase on the tensor-core
+# kernels (no CPE), and the kernels of the parent's chains that must not
+# run in rows 9 and 13 any more. The profiler may drop a kernel from its
+# table (PERF.md section 6), so a count short of PORT_LAUNCHES is reported,
+# not raised; a retired kernel in the table raises.
+PORT_LAUNCHES = {"s_train_fwd": 4, "mlp_bwd": 3, "s_attn_bwd": 8,
+                 "dca_attn_bwd": 9}
+RETIRED = {"s_train_fwd": ("k_linear_ln", "k_attention", "k_attn_combine",
+                           "k_block_tail"),
+           "dca_attn_bwd": ("k_attn_bwd_dq", "k_attn_bwd_dkv",
+                            "k_attn_bwd_rowdot", "k_wgrad", "k_wgrad_reduce",
+                            "k_linear_ln", "k_ln_rows", "k_ln_bwd")}
+
+
+def port_kernels(prof: dict, name: str) -> int | None:
+    """The port's kernel launches (lm::) in one profiled call of phase
+    ``name``; raises where they exceed PORT_LAUNCHES[name] or where a
+    kernel of RETIRED[name] ran, says so where the table holds fewer.
+    None where the profiler recorded nothing."""
+    if not prof:
+        return None
+    ours = {k: v for k, v in prof["by_name"].items() if "lm::" in k}
+    got = sum(ours.values())
+    old = [k for k in ours for r in RETIRED.get(name, ())
+           if f"::{r}<" in k]
+    if old or got > PORT_LAUNCHES[name]:
+        raise AssertionError(f"{name}: {got} port kernel launches a call "
+                             f"(expected {PORT_LAUNCHES[name]}), retired "
+                             f"kernels {old}")
+    if got < PORT_LAUNCHES[name]:
+        say("profile", f"{name}: the table holds {got} of the call's "
+            f"{PORT_LAUNCHES[name]} port kernel launches (the profiler "
+            "dropped the rest)")
+    return got
 
 
 def expect_launches(launched: dict, want: dict, what: str) -> None:
@@ -1694,14 +1870,14 @@ def serve_slice(dev, g, default_res, prof_default) -> tuple:
         f"{err:.2e} (limit 1e-3); launches per forward " + ", ".join(
             f"{k} {launches[k] // n_fwd}" for k in SLICE_FWD))
     with torch.inference_mode():
-        prof = profile_call(lambda: model(x), "one forward on the slice path")
+        prof, got = profile_kernels(lambda: model(x),
+                                    "one forward on the slice path",
+                                    {"k_s_stage": SLICE_FWD["s_stage"]})
     del model
-    if not prof or not prof_default:
-        raise AssertionError("the profiler recorded no device time")
-    stages = sum(v for k, v in prof["by_name"].items() if "k_s_stage" in k)
+    stages = got["k_s_stage"]
     convs = [p["by_name"].get("aten::conv2d", 0)
              for p in (prof_default, prof)]
-    if stages != SLICE_FWD["s_stage"] or convs[0] - convs[1] != 32:
+    if convs[0] - convs[1] != 32:
         raise AssertionError(f"slice profile: {stages} k_s_stage launches, "
                              f"{convs[1]} convolutions against the default "
                              f"path's {convs[0]}")
@@ -1935,14 +2111,9 @@ def main() -> None:
         f"launches per forward " + ", ".join(
             f"{k} {launches[k] // n_fwd}" for k in expect))
     with torch.inference_mode():
-        prof_default = profile_call(lambda: model(x), "one forward")
+        prof_default, fwd_kernels = profile_kernels(
+            lambda: model(x), "one forward", BASE_FWD_KERNELS)
     del model
-    if not prof_default:
-        raise AssertionError("the profiler recorded no device time")
-    fwd_kernels = {k: kernel_count(prof_default, k) for k in BASE_FWD_KERNELS}
-    if fwd_kernels != BASE_FWD_KERNELS:
-        raise AssertionError(f"base forward's kernels {fwd_kernels}, "
-                             f"expected {BASE_FWD_KERNELS}")
     say("serve", "profile: kernels per forward " + json.dumps(fwd_kernels))
 
     # 5. validate on synthetic data
@@ -1983,6 +2154,7 @@ def main() -> None:
         train_rows += check_train_kernels(ft, kind, n, ch, blocks, dev, g,
                                           profile=n == 3136)
     check_d2_train_block(ft, dev, g)
+    check_defaults_model(dev)
     check_train_step(dev, "lemevit_tiny", TINY_STEP)
     tiny_launches, tiny_res = train_main_path("lemevit_tiny", TINY_STEP,
                                               TINY_EVAL)

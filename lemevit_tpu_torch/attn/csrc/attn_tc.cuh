@@ -1,5 +1,6 @@
 // Attention tiles on Hopper's tensor cores, fed by asynchronous copies
-// (mhsa.cu, dca_attn.cu).
+// (mhsa.cu, dca_attn.cu, the S and D block kernels; train_tc.cuh's
+// attention backwards use its fragments).
 //
 // Every product here is made of a warp's 16-row m tiles: S = A B^T over
 // 32 head channels (qk_tiles) and O += P V over 16-key steps (pv_tiles),
@@ -443,14 +444,35 @@ __device__ __forceinline__ void attend_tiles(Online (&st)[MT],
   pv_tiles<MT, NT / 2>(o, s, sV);
 }
 
+// kLse (the training forward's instance): rows g and g + 8 of a warp's
+// m tile, whose online softmax ended at raw maxima m0 / m1 and sums l0 /
+// l1 (of 2^((s - m) scale log2(e)) = e^((s - m) scale)), get their
+// log-sum-exp in natural-log units, m scale + ln(l), at a.lse[bh nq + q]
+// (train_tc.cuh's attention backward multiplies it by log2(e)); queries
+// at or past nq are not written.
+template <bool kLse>
+__device__ __forceinline__ void store_lse(const AttnArgs& a, int bh, int q,
+                                          const Online& st, float l0,
+                                          float l1) {
+  if constexpr (kLse) {
+    if ((threadIdx.x & 3) == 0) {
+      q += (threadIdx.x & 31) >> 2;
+      float* L = a.lse + (size_t)bh * a.nq;
+      if (q < a.nq) L[q] = fmaf(st.m[0], a.scale, logf(l0));
+      if (q + 8 < a.nq) L[q + 8] = fmaf(st.m[1], a.scale, logf(l1));
+    }
+  }
+}
+
 // Queries q0 .. q0 + MhsaTile<T>::kQ - 1 of (image, head) bh against all
 // a.nk keys; smem holds MhsaTile<T>::kSmemBytes. Warp w owns kMT m tiles
 // of 16 queries. Q is copied once; 64-key K / V tiles stream through a
 // two-stage ring, tile kt + 2 in flight while tile kt computes, in online
 // softmax steps of 32 keys (half the score registers of a 64-key step). A
 // warp past the last query only copies and waits; a ragged last step
-// computes 16 keys where those hold the rest.
-template <typename T>
+// computes 16 keys where those hold the rest. kLse also writes each
+// query's log-sum-exp (store_lse).
+template <typename T, bool kLse = false>
 __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
                                                int q0, T* smem) {
   constexpr int P = TcRows<T>::kPitch, MT = MhsaTile<T>::kMT;
@@ -528,13 +550,14 @@ __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
     T* out = static_cast<T*>(a.out) +
              ((size_t)b * a.nq + q0 + r) * a.ldo + h * kHeadDim;
     store_tile(out, a.ldo, a.nq - q0 - r, sQ + r * P, o[i], l0, l1);
+    store_lse<kLse>(a, bh, q0 + r, st[i], l0, l1);
   }
 }
 
 // Warp w takes (image, head) bh0 + w whole: its nq <= 16 queries against
 // its nk <= 16 keys (N = 16 is the meta-token stream); smem holds
-// 4 x 48 rows.
-template <typename T>
+// 4 x 48 rows. kLse as mhsa_rows_tile's.
+template <typename T, bool kLse = false>
 __device__ __forceinline__ void mhsa_small_tile(const AttnArgs& a, int bh0,
                                                 T* smem) {
   constexpr int P = TcRows<T>::kPitch;
@@ -566,25 +589,29 @@ __device__ __forceinline__ void mhsa_small_tile(const AttnArgs& a, int bh0,
   const float l0 = quad_sum(st[0].l[0]), l1 = quad_sum(st[0].l[1]);
   T* out = static_cast<T*>(a.out) + (size_t)b * a.nq * a.ldo + h * kHeadDim;
   store_tile(out, a.ldo, live ? a.nq : 0, sQ, o[0], l0, l1);
+  if (live) store_lse<kLse>(a, bh, 0, st[0], l0, l1);
 }
 
 // The explicit minimum of one CTA an SM lets ptxas keep more registers in
 // flight for the two m tiles (159 against 140 without it in bf16), which
 // measured faster on the H100 (PERF.md, section 6); occupancy is three
-// CTAs an SM either way.
-template <typename T>
+// CTAs an SM either way. kLse: the training forward's instance, which
+// also writes the log-sum-exp (the inference instances compile without
+// it).
+template <typename T, bool kLse = false>
 __global__ void __launch_bounds__(kTcThreads, 1) k_mhsa_tc(const AttnArgs a) {
   __shared__ __align__(16) unsigned char smem[MhsaTile<T>::kSmemBytes];
-  mhsa_rows_tile<T>(a, blockIdx.x, blockIdx.y * MhsaTile<T>::kQ,
-                    reinterpret_cast<T*>(smem));
+  mhsa_rows_tile<T, kLse>(a, blockIdx.x, blockIdx.y * MhsaTile<T>::kQ,
+                          reinterpret_cast<T*>(smem));
 }
 
-template <typename T>
+template <typename T, bool kLse = false>
 __global__ void __launch_bounds__(kTcThreads)
     k_mhsa_tc_small(const AttnArgs a) {
   __shared__ __align__(16) unsigned char
       smem[kTcWarps * 48 * TcRows<T>::kPitch * sizeof(T)];
-  mhsa_small_tile<T>(a, blockIdx.x * kTcWarps, reinterpret_cast<T*>(smem));
+  mhsa_small_tile<T, kLse>(a, blockIdx.x * kTcWarps,
+                           reinterpret_cast<T*>(smem));
 }
 
 // ---------------------------------------------------------------- DCA

@@ -539,7 +539,8 @@ struct AttnArgs {
   float scale;
   float* lse;  // where set: each query's log-sum-exp of its scaled scores,
                // at [(b * heads + h) * nq + query] (written by k_attention
-               // with one split, else by k_attn_combine)
+               // with one split, else by k_attn_combine; by attn_tc.cuh's
+               // k_mhsa_tc / k_mhsa_tc_small in their kLse instances)
 };
 
 constexpr int kQPW = 4;                 // queries per warp

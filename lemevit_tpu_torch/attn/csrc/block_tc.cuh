@@ -1,8 +1,11 @@
 // The qkv product and the tail of the inference S and D block kernels
 // (s_block.cu, dca_block.cu), which run attn_tc.cuh's attention tiles in
-// between. Replaces, with those, lemevit_tpu/attn/pallas_block.py's
-// _s_block_kernel and _dca_rows_kernel / _dca_block_kernel bodies: LN1 +
-// qkv, proj + residual + LN2 + fc1 + exact-erf GELU + fc2 + residual.
+// between; the S block's training forward (s_train.cu) runs the same
+// kernels, the tail in its training instance (kTrain), and the training
+// backwards (train_tc.cuh) k_qkv_wg's LN1-rows instance. Replaces, with
+// those, lemevit_tpu/attn/pallas_block.py's _s_block_kernel and
+// _dca_rows_kernel / _dca_block_kernel bodies: LN1 + qkv, proj + residual
+// + LN2 + fc1 + exact-erf GELU + fc2 + residual.
 //
 // Bound on the H100: operations (a row costs ~24 C^2 multiply-adds against
 // ~4 C bytes in and out). Every CTA owns a block of rows and streams the
@@ -814,9 +817,16 @@ int launch_qkv_tc(QkvArgs a, cudaStream_t s) {
 
 // ---------------------------------------------------------------- tail
 
-// One launch takes two streams' tails (block_common.cuh's TailArgs; s1, s2,
-// seq, t1 and cpe stay unset): out = t1 + MLP(LN2(t1)), t1 = t + o Wp^T +
-// bp, the streams sharing norm2 + MLP.
+// One launch takes two streams' tails (block_common.cuh's TailArgs; cpe
+// stays unset): out = t1 + MLP(LN2(t1)), t1 = t + o Wp^T + bp, the streams
+// sharing norm2 + MLP. The inference instances leave s1, s2, seq and t1
+// unset. kTrain (the training forward, s_train.cu, where seg[0].s1 is set)
+// takes each row's DropPath branch scales s1 / s2 of its image (row /
+// seq: the image stream's seq is N, the meta stream's M), t1 = t + s1 (o
+// Wp^T + bp), writes t1 rounded to T (mlp_bwd's input) from the
+// accumulators, starts the fc2 sum at t1 + s2 b2 and scales each GELU
+// chunk by s2 before its rounding to T, so out = t1 + s2 (b2 + MLP) with
+// the fc2 sum still in the same registers.
 
 // The tail at CP <= 512: two warpgroups split the columns (each an m64 x
 // CP/2 product for proj and fc2, m64 x 64 for fc1); proj and fc2 tiles (CP
@@ -872,7 +882,7 @@ struct TailWg {
                 "wgmma tiers");
 };
 
-template <typename T, int CP>
+template <typename T, int CP, bool kTrain = false>
 __global__ void __launch_bounds__(256, 1)
     k_tail_wg(const TailArgs a, const __grid_constant__ TailMaps maps) {
   using L = TailWg<T, CP>;
@@ -905,6 +915,15 @@ __global__ void __launch_bounds__(256, 1)
   __syncthreads();
   const int r0 = 16 * wq + g;               // rows r0, r0 + 8
   const CUtensorMap* wp_map = &maps.wp[si];
+  float dp1[2] = {1.f, 1.f}, dp2[2] = {1.f, 1.f};  // rows r0, r0 + 8
+  if constexpr (kTrain) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int img = min(row0 + r0 + 8 * h, sg.rows - 1) / sg.seq;
+      dp1[h] = sg.s1[img];
+      dp2[h] = sg.s2[img];
+    }
+  }
 
   const int nk = cdiv(C, KS), nf = cdiv(C, L::kFD);
   constexpr int nh = HID / KS;
@@ -1003,10 +1022,23 @@ __global__ void __launch_bounds__(256, 1)
           const float2 x1 = r0 + 8 < rows
                                 ? ld2(tres + (size_t)(r0 + 8) * C + n)
                                 : make_float2(0.f, 0.f);
-          acc[4 * j] += b.x + x0.x;
-          acc[4 * j + 1] += b.y + x0.y;
-          acc[4 * j + 2] += b.x + x1.x;
-          acc[4 * j + 3] += b.y + x1.y;
+          if constexpr (!kTrain) {
+            acc[4 * j] += b.x + x0.x;
+            acc[4 * j + 1] += b.y + x0.y;
+            acc[4 * j + 2] += b.x + x1.x;
+            acc[4 * j + 3] += b.y + x1.y;
+          } else {  // t1 = t + s1 (o Wp^T + bp), out rounded to T
+            acc[4 * j] = fmaf(dp1[0], acc[4 * j] + b.x, x0.x);
+            acc[4 * j + 1] = fmaf(dp1[0], acc[4 * j + 1] + b.y, x0.y);
+            acc[4 * j + 2] = fmaf(dp1[1], acc[4 * j + 2] + b.x, x1.x);
+            acc[4 * j + 3] = fmaf(dp1[1], acc[4 * j + 3] + b.y, x1.y);
+            T* t1 = static_cast<T*>(sg.t1) + (size_t)row0 * C + n;
+            if (r0 < rows)
+              store2(t1 + (size_t)r0 * C, acc[4 * j], acc[4 * j + 1]);
+            if (r0 + 8 < rows)
+              store2(t1 + (size_t)(r0 + 8) * C, acc[4 * j + 2],
+                     acc[4 * j + 3]);
+          }
           s0 += acc[4 * j] + acc[4 * j + 1];
           s1 += acc[4 * j + 2] + acc[4 * j + 3];
         }
@@ -1058,10 +1090,10 @@ __global__ void __launch_bounds__(256, 1)
         store2(reinterpret_cast<T*>(sA + swz<T>(RB, r0 + 8, n)),
                ok ? (acc[4 * j + 2] - m1) * rs1 * gg.x + bb.x : 0.f,
                ok ? (acc[4 * j + 3] - m1) * rs1 * gg.y + bb.y : 0.f);
-        acc[4 * j] += c2.x;
-        acc[4 * j + 1] += c2.y;
-        acc[4 * j + 2] += c2.x;
-        acc[4 * j + 3] += c2.y;
+        acc[4 * j] = fmaf(dp2[0], c2.x, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(dp2[0], c2.y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(dp2[1], c2.x, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(dp2[1], c2.y, acc[4 * j + 3]);
       }
     } else if (tl.kind == 1 && tl.last) {
       // h = GELU(LN2(t1) W1c^T + b1c), rounded to T, into sH (zero past
@@ -1073,11 +1105,11 @@ __global__ void __launch_bounds__(256, 1)
         const bool ok = gn < hidden;
         const float2 b = ok ? ld2(b1 + gn) : make_float2(0.f, 0.f);
         store2(reinterpret_cast<T*>(sH + swz<T>(RB, r0, n)),
-               ok ? gelu_erf(hacc[4 * j] + b.x) : 0.f,
-               ok ? gelu_erf(hacc[4 * j + 1] + b.y) : 0.f);
+               ok ? dp2[0] * gelu_erf(hacc[4 * j] + b.x) : 0.f,
+               ok ? dp2[0] * gelu_erf(hacc[4 * j + 1] + b.y) : 0.f);
         store2(reinterpret_cast<T*>(sH + swz<T>(RB, r0 + 8, n)),
-               ok ? gelu_erf(hacc[4 * j + 2] + b.x) : 0.f,
-               ok ? gelu_erf(hacc[4 * j + 3] + b.y) : 0.f);
+               ok ? dp2[1] * gelu_erf(hacc[4 * j + 2] + b.x) : 0.f,
+               ok ? dp2[1] * gelu_erf(hacc[4 * j + 3] + b.y) : 0.f);
         hacc[4 * j] = hacc[4 * j + 1] = hacc[4 * j + 2] = hacc[4 * j + 3] =
             0.f;
       }
@@ -1105,13 +1137,14 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <typename T, int CP>
+template <typename T, int CP, bool kTrain>
 int launch_tail_wg(const TailArgs& a, cudaStream_t s) {
   using L = TailWg<T, CP>;
   static size_t attr = 0;
   constexpr size_t bytes = L::kSmem;
   static_assert(bytes <= 232448, "tail shared memory");
-  if (const int err = grant_smem(k_tail_wg<T, CP>, bytes, attr)) return err;
+  if (const int err = grant_smem(k_tail_wg<T, CP, kTrain>, bytes, attr))
+    return err;
   TailMaps maps;
   int err = 0;
   for (int i = 0; i < 2 && !err; ++i)
@@ -1120,7 +1153,7 @@ int launch_tail_wg(const TailArgs& a, cudaStream_t s) {
   if (!err) err = tma_map<T>(&maps.w2, a.w2, a.C, a.hidden, L::kBoxP);
   if (err) return err;
   const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, L::kRows);
-  k_tail_wg<T, CP><<<blocks, L::kThreads, bytes, s>>>(a, maps);
+  k_tail_wg<T, CP, kTrain><<<blocks, L::kThreads, bytes, s>>>(a, maps);
   return (int)cudaGetLastError();
 }
 
@@ -1147,18 +1180,30 @@ int by_tier(int C, Launch launch) {
   return launch(std::integral_constant<int, 512>());
 }
 
+// seg[0].s1 set: the training instance (kTrain), which takes C <= 512
+// (attn/fused_train.py MAX_TRAIN_DIM) and both streams' s1, s2, seq, t1.
 template <typename T>
 int launch_tail_tc(TailArgs a, cudaStream_t s) {
   const int C = a.C;
+  const bool train = a.seg[0].s1 != nullptr;
   if (C % 32 || C > 640 || a.hidden % 32 || a.hidden < 32)
     return (int)cudaErrorInvalidValue;
+  if (train) {
+    for (int i = 0; i < 2; ++i) {
+      const TailSeg& g = a.seg[i];
+      if (!g.s1 || !g.s2 || !g.t1 || g.seq < 1)
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (C > 512) {
+    if (train) return (int)cudaErrorInvalidValue;
     a.row_blocks0 = cdiv(a.seg[0].rows, kTailBM);
     return launch_tail<T>(a, s);
   }
   a.row_blocks0 = cdiv(a.seg[0].rows, TailWg<T, 64>::kRows);
   return by_tier(C, [&](auto cp) {
-    return launch_tail_wg<T, decltype(cp)::value>(a, s);
+    if (train) return launch_tail_wg<T, decltype(cp)::value, true>(a, s);
+    return launch_tail_wg<T, decltype(cp)::value, false>(a, s);
   });
 }
 
@@ -1166,16 +1211,25 @@ int launch_tail_tc(TailArgs a, cudaStream_t s) {
 
 // Self-attention of one stream on attn_tc.cuh's tiles (mhsa.cu's choice:
 // a warp per (image, head) at N <= 16).
-template <typename T>
-int launch_mhsa_tc(const AttnArgs& a, cudaStream_t s) {
+template <typename T, bool kLse>
+int launch_mhsa_inst(const AttnArgs& a, cudaStream_t s) {
   if (a.nq <= kTcSmall) {
-    k_mhsa_tc_small<T><<<cdiv(a.batch * a.heads, kTcWarps), kTcThreads, 0,
-                         s>>>(a);
+    k_mhsa_tc_small<T, kLse><<<cdiv(a.batch * a.heads, kTcWarps),
+                               kTcThreads, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
-  k_mhsa_tc<T><<<dim3(a.batch * a.heads, cdiv(a.nq, MhsaTile<T>::kQ)),
-                 kTcThreads, 0, s>>>(a);
+  k_mhsa_tc<T, kLse><<<dim3(a.batch * a.heads, cdiv(a.nq, MhsaTile<T>::kQ)),
+                       kTcThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// a.lse set (the training forward): the instances that also write each
+// query's log-sum-exp.
+template <typename T>
+int launch_mhsa_tc(const AttnArgs& a, cudaStream_t s) {
+  if (a.nq != a.nk) return (int)cudaErrorInvalidValue;
+  if (a.lse) return launch_mhsa_inst<T, true>(a, s);
+  return launch_mhsa_inst<T, false>(a, s);
 }
 
 // Both DCA directions on attn_tc.cuh's tiles plus the fixed-order merge

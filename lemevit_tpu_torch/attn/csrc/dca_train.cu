@@ -17,27 +17,34 @@
 //   keys, split over blocks and merged by k_attn_combine) writes o_c and
 //   its log-sum-exp; k_block_tail applies proj_x / proj_c per stream, the
 //   branch scales s1 / s2 and the shared MLP, and writes t1x / t1c.
-// lm_dca_attn_bwd (row 13): LN1, qkv1 and qkv2 recomputed; dO_x =
-//   (s1x dt1x) Wpx and dO_c = (s1c dt1c) Wpc; the x-direction backward
-//   writes dq1 into dqkv1's q third and dk2 / dv2 into dqkv2's k / v
-//   thirds, the c direction dq2 into dqkv2 and dk1 / dv1 into dqkv1, so
-//   each third is written once; da = dqkv Wqkv' per stream; k_ln_bwd gives
-//   dx = dt1x + LN1'^T da_x and dc = dt1c + LN1'^T da_c; k_wgrad gives
-//   dWqkv1, dbqkv1 (B N rows), dWqkv2, dbqkv2 (B M rows), dWpx from
-//   (o_x, s1x dt1x) and dWpc from (o_c, s1c dt1c). dbpx / dbpc are column
-//   sums left to the caller, as the TPU wrapper leaves them to XLA.
-// With a CPE (taps non-null), x is the image tokens before the 3x3 CPE and
-//   both chains run it as s_train.cu's do: k_cpe_rows once into a workspace
-//   (the forward's residual is the CPE'd x), and in the backward du =
-//   dt1x + LN1'^T da_x in fp32, k_cpe_tap_grads and the flipped-tap
-//   k_cpe_rows (dx = CPE^T du). D2's weight permutation is unchanged.
-// Bound on the H100: operations. A row costs ~24 C^2 operations in the
-// qkv, proj and MLP products and ~4 M C in attention (16 keys or queries
-// each way). The products are block_common.cuh's tiled mma.sync (bf16) or
-// FMA (fp32); the attention backward is fp32 FMA, one lane per head
-// channel. The x direction's dk2 / dv2 (16 keys, each a sum over N
-// queries) runs as B H blocks that each walk all N queries.
-#include "train_common.cuh"
+// lm_dca_attn_bwd (row 13), on the tensor cores: block_tc.cuh's k_qkv_wg
+//   (its LN1-rows instance, each stream with its own weights) recomputes
+//   LN1, qkv1 and qkv2 and writes the LN1 rows; train_tc.cuh's k_rowmm_wg
+//   (per-stream W maps) gives dO_x = (s1x dt1x) Wpx and dO_c = (s1c dt1c)
+//   Wpc rounded to T with D = rowsum(dO . o) per head; k_dca_bwd_tc takes
+//   both directions on mma.sync fragments (P rebuilt from the forward's
+//   log-sum-exp, dO, P and dS rounded to T before their products): a CTA
+//   per (image, head, range of image rows) writes dq1 / dk1 / dv1 of its
+//   rows into dqkv1 and fp32 partials of dq2 / dk2 / dv2 (sums over N),
+//   which k_dca_bwd_reduce adds in range order into dqkv2; k_rowmm_wg gives
+//   da = dqkv Wqkv' per stream with dx = dt1x + LN1'^T da_x and dc = dt1c +
+//   LN1'^T da_c in its epilogue; k_wgrad_tc + k_wgrad_tc_reduce, once per
+//   stream, give dWqkv', dbqkv, dWp and dbp = colsum(s1 dt1) (left to XLA
+//   on the TPU). 9 launches; no atomics, so two calls give the same bits.
+// With a CPE (taps non-null), x is the image tokens before the 3x3 CPE:
+//   the forward runs k_cpe_rows once into a workspace (its residual is the
+//   CPE'd x); the backward recomputes the CPE'd rows in k_qkv_wg's cpe mode,
+//   takes du = dt1x + LN1'^T da_x in fp32 from k_rowmm_wg, then
+//   k_cpe_tap_grads and the flipped-tap k_cpe_rows (dx = CPE^T du). D2's
+//   weight permutation is unchanged.
+// Bound on the H100: operations in the products (~24 C^2 a row in the
+//   qkv, proj and MLP products), bytes in the attention backward (~4 M C
+//   operations a row each way against its q, k, v, dO rows in and dq, dk,
+//   dv rows out). The forward's products are block_common.cuh's tiled
+//   mma.sync (bf16) or FMA (fp32); the backward's kernels and their designs
+//   are train_tc.cuh's and block_tc.cuh's, fp32 on FMA products of the
+//   same tiles.
+#include "train_tc.cuh"
 
 namespace lm {
 namespace {
@@ -136,138 +143,127 @@ int dca_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
 //    7 bqkv1', 8 wqkv2', 9 bqkv2', 10 wqkv1'^T (C, 3C), 11 wqkv2'^T,
 //    12 wpx^T (C, C), 13 wpc^T, 14 o_x, 15 o_c, 16 lse_x, 17 lse_c |
 //    18 dx, 19 dc, 20 dwqkv1 (3C, C), 21 dbqkv1, 22 dwqkv2, 23 dbqkv2,
-//    24 dwpx (C, C), 25 dwpc | workspace 26 a_x, 27 a_c (rows, C),
-//    28 qkv1, 29 qkv2 (rows, 3C), 30 dO_x, 31 dO_c (rows, C) fp32,
-//    32 D_x (B H N), 33 D_c (B H M) fp32, 34 dqkv1, 35 dqkv2 (rows, 3C),
-//    36 da_x, 37 da_c (rows, C) fp32, 38 partials (splits, 3 C^2) fp32,
-//    39 bias partials (splits, 3C) fp32 | the CPE or nulls: 40 taps (9, C),
-//    41 bias (C,), workspace 42 the CPE'd x (B N, C), 43 du (B N, C) fp32,
-//    44 partials (splits, 10, C) fp32, outputs 45 dtaps (9, C), 46 dbias
-//    (C,). rps_x / rps_c: k_wgrad's rows per split over the B N image rows
-//    and the B M meta rows; images are img_w wide; cpe_rps:
+//    24 dwpx (C, C), 25 dbpx, 26 dwpc, 27 dbpc | workspace 28 a_x, 29 a_c
+//    (rows, C) the LN1 rows, 30 qkv1, 31 qkv2 (rows, 3C), 32 dO_x, 33 dO_c
+//    (rows, C), 34 D_x (B H N), 35 D_c (B H M) fp32, 36 dqkv1, 37 dqkv2
+//    (rows, 3C), 38 the attention's partials (B H ranges Mp, 96) fp32,
+//    39 weight partials (splits, 4 C^2) fp32, 40 bias partials (splits,
+//    4C) | the CPE or nulls: 41 taps (9, C), 42 bias (C,), workspace 43 the
+//    CPE'd x (B N, C), 44 du (B N, C) fp32, 45 partials (splits, 10, C)
+//    fp32, outputs 46 dtaps (9, C), 47 dbias (C,) | 48 ones, 49 zeros (C,):
+//    LN1's affine (the weights come folded). rps_x / rps_c: k_wgrad_tc's
+//    rows per split over the B N image rows and the B M meta rows; chunks:
+//    k_dca_bwd_tc's row chunks per range; images are img_w wide; cpe_rps:
 //    k_cpe_tap_grads' rows per block.
 template <typename T>
 int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
-                 int rps_x, int rps_c, int img_w, int cpe_rps, float scale_x,
-                 float scale_c, float eps, cudaStream_t s) {
-  const int rows[2] = {B * N, B * M};
-  const TrainCpe cpe{p[40], p[41], img_w, N, cpe_rps};
-  const void* xs[2] = {p[0], p[1]};  // the rows LN1 reads
-  int err;
-  if (cpe.taps) {
-    err = launch_cpe_rows<T, T>(p[0], cpe.taps, cpe.bias, mp<T>(p, 42),
-                                rows[0], C, img_w, N, 0, s);
-    if (err) return err;
-    xs[0] = p[42];
-  }
-  for (int si = 0; si < 2; ++si) {
-    err = launch_ln_rows<T>(xs[si], mp<T>(p, 26 + si), rows[si], C, eps, s);
-    if (err) return err;
-  }
-  LinArgs la{};  // qkv1 = LN1(x) Wqkv1'^T + b, qkv2 = LN1(c) Wqkv2'^T + b
-  la.seg[0] = {p[26], p[6], p[7], mp<T>(p, 28), rows[0], 3 * C};
-  la.seg[1] = {p[27], p[8], p[9], mp<T>(p, 29), rows[1], 3 * C};
-  la.row_blocks0 = cdiv(rows[0], kLinBM);
-  la.K = C;
-  la.eps = eps;
-  la.plain_a = 1;
-  err = launch_linear<T>(la, 3 * C, s);
+                 int rps_x, int rps_c, int chunks, int img_w, int cpe_rps,
+                 float scale_x, float scale_c, float eps, cudaStream_t s) {
+  const int rows[2] = {B * N, B * M}, n[2] = {N, M};
+  const TrainCpe cpe{p[41], p[42], img_w, N, cpe_rps};
+  // LN1 (of the CPE'd x in the cpe mode) and qkv1 / qkv2 recomputed, each
+  // stream with its own weights, the LN1 rows written for dWqkv
+  QkvArgs qa{};
+  qa.seg[0] = {p[0], p[6], p[7], mp<T>(p, 30), rows[0]};
+  qa.seg[1] = {p[1], p[8], p[9], mp<T>(p, 31), rows[1]};
+  qa.ln_w = p[48];
+  qa.ln_b = p[49];
+  qa.C = C;
+  qa.eps = eps;
+  qa.cpe = Cpe{cpe.taps, cpe.bias, img_w, N};
+  qa.xc = mp<T>(p, 43);
+  qa.ln_out[0] = mp<T>(p, 28);
+  qa.ln_out[1] = mp<T>(p, 29);
+  if (cpe.taps && !qa.xc) return (int)cudaErrorInvalidValue;
+  int err = launch_qkv_tc<T>(qa, s);
   if (err) return err;
 
-  LinArgs lo{};  // dO = dproj Wp per stream, fp32
-  lo.seg[0] = {p[4], p[12], nullptr, fp(p, 30), rows[0], C};
-  lo.seg[1] = {p[5], p[13], nullptr, fp(p, 31), rows[1], C};
-  lo.row_blocks0 = cdiv(rows[0], kLinBM);
-  lo.K = C;
-  lo.plain_a = 1;
-  lo.out_f32 = 1;
-  err = launch_linear<T>(lo, C, s);
+  // dO = dproj Wp per stream in T, D = rowsum(dO . o) per head
+  RowMmArgs ro{};
+  for (int si = 0; si < 2; ++si)
+    ro.seg[si] = {mp<T>(p, 32 + si), nullptr, nullptr, p[14 + si],
+                  fp(p, 34 + si), rows[si], n[si]};
+  ro.K = C;
+  ro.C = C;
+  ro.heads = H;
+  ro.eps = eps;
+  const void* const dproj[2] = {p[4], p[5]};
+  const void* const wp_t[2] = {p[12], p[13]};
+  err = launch_rowmm<T, kRowDo>(ro, dproj, wp_t, s);
   if (err) return err;
 
-  const T* qkv1 = cp<T>(p, 28);
-  const T* qkv2 = cp<T>(p, 29);
-  T* dqkv1 = mp<T>(p, 34);
-  T* dqkv2 = mp<T>(p, 35);
-  AttnBwdArgs ab{};  // x direction: q1 against k2 / v2
-  ab.q = qkv1;
-  ab.k = qkv2 + C;
-  ab.v = qkv2 + 2 * C;
-  ab.o = p[14];
-  ab.dO = fp(p, 30);
-  ab.lse = fp(p, 16);
-  ab.D = fp(p, 32);
-  ab.dq = dqkv1;
-  ab.dk = dqkv2 + C;
-  ab.dv = dqkv2 + 2 * C;
-  ab.ldq = ab.ldkv = ab.lddq = ab.lddkv = 3 * C;
-  ab.ldo = C;
+  // both directions: dq1 / dk1 / dv1 into dqkv1, dq2 / dk2 / dv2 into
+  // dqkv2 through the ranges' partials
+  DcaBwdTc ab{};
+  ab.qkv1 = p[30];
+  ab.qkv2 = p[31];
+  ab.dO1 = p[32];
+  ab.dO2 = p[33];
+  ab.lse1 = fp(p, 16);
+  ab.D1 = fp(p, 34);
+  ab.lse2 = fp(p, 17);
+  ab.D2 = fp(p, 35);
+  ab.dqkv1 = mp<T>(p, 36);
+  ab.dqkv2 = mp<T>(p, 37);
+  ab.part = fp(p, 38);
+  ab.C = C;
   ab.batch = B;
   ab.heads = H;
-  ab.nq = N;
-  ab.nk = M;
-  ab.C = C;
-  ab.scale = scale_x;
-  err = launch_attn_bwd<T>(ab, s);
-  if (err) return err;
-  ab.q = qkv2;  // c direction: q2 against k1 / v1
-  ab.k = qkv1 + C;
-  ab.v = qkv1 + 2 * C;
-  ab.o = p[15];
-  ab.dO = fp(p, 31);
-  ab.lse = fp(p, 17);
-  ab.D = fp(p, 33);
-  ab.dq = dqkv2;
-  ab.dk = dqkv1 + C;
-  ab.dv = dqkv1 + 2 * C;
-  ab.nq = M;
-  ab.nk = N;
-  ab.scale = scale_c;
-  err = launch_attn_bwd<T>(ab, s);
+  ab.n = N;
+  ab.m = M;
+  ab.chunks = chunks;
+  ab.ranges = cdiv(cdiv(N, DcaBwdTile<T>::kRows), chunks);
+  ab.scale_x = scale_x;
+  ab.scale_c = scale_c;
+  err = launch_dca_bwd_tc<T>(ab, s);
   if (err) return err;
 
-  LinArgs ld{};  // da = dqkv Wqkv' per stream, fp32
-  ld.seg[0] = {p[34], p[10], nullptr, fp(p, 36), rows[0], C};
-  ld.seg[1] = {p[35], p[11], nullptr, fp(p, 37), rows[1], C};
-  ld.row_blocks0 = cdiv(rows[0], kLinBM);
-  ld.K = 3 * C;
-  ld.plain_a = 1;
-  ld.out_f32 = 1;
-  err = launch_linear<T>(ld, C, s);
-  if (err) return err;
-  for (int si = 0; si < 2; ++si) {
-    if (si == 0 && cpe.taps) {  // du in fp32, then the CPE's backward
-      err = launch_ln_bwd<T, float>(xs[0], fp(p, 36), p[2], fp(p, 43),
-                                    rows[0], C, eps, s);
-      if (!err)
-        err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 43), fp(p, 44),
-                                mp<T>(p, 45), mp<T>(p, 46), mp<T>(p, 18),
-                                rows[0], C, s);
-    } else {
-      err = launch_ln_bwd<T>(xs[si], fp(p, 36 + si), p[2 + si],
-                             mp<T>(p, 18 + si), rows[si], C, eps, s);
-    }
-    if (err) return err;
+  // da = dqkv Wqkv' per stream with the LN1 backward and dt1: dx, dc; in
+  // the cpe mode du (fp32, at the CPE's output), then the CPE's backward
+  RowMmArgs rl{};
+  rl.seg[0] = {const_cast<void*>(cpe.taps ? p[44] : p[18]),
+               cpe.taps ? p[43] : p[0], p[2], nullptr, nullptr, rows[0], N};
+  rl.seg[1] = {const_cast<void*>(p[19]), p[1], p[3], nullptr, nullptr,
+               rows[1], M};
+  rl.K = 3 * C;
+  rl.C = C;
+  rl.heads = H;
+  rl.eps = eps;
+  const void* const dqkv[2] = {p[36], p[37]};
+  const void* const wqkv_t[2] = {p[10], p[11]};
+  if (cpe.taps) {
+    RowMmArgs rx = rl, rc = rl;
+    rx.seg[1].rows = 0;
+    rc.seg[0].rows = 0;
+    err = launch_rowmm<T, kRowLnF32>(rx, dqkv, wqkv_t, s);
+    if (!err) err = launch_rowmm<T, kRowLn>(rc, dqkv, wqkv_t, s);
+    if (!err)
+      err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 44), fp(p, 45), mp<T>(p, 46),
+                              mp<T>(p, 47), mp<T>(p, 18), rows[0], C, s);
+  } else {
+    err = launch_rowmm<T, kRowLn>(rl, dqkv, wqkv_t, s);
   }
+  if (err) return err;
 
-  // The two streams have their own projection weights, so each weight
-  // gradient is one stream's product (a single segment).
+  // The streams have their own weights: one k_wgrad_tc launch per stream,
+  // each with dWqkv' = dqkv^T LN1(t), dbqkv = colsum(dqkv), dWp = dproj^T
+  // o and dbp = colsum(dproj) (left to XLA on the TPU).
   const int rps[2] = {rps_x, rps_c};
   for (int si = 0; si < 2; ++si) {
-    WgradArgs wa{};
-    wa.seg[0] = {p[34 + si], p[26 + si], rows[si]};  // dWqkv' = dqkv^T LN1
+    WgTcArgs wa{};
+    wa.nprod = 2;
+    wa.rows[0] = rows[si];
     wa.rows_per_split = rps[si];
-    wa.splits0 = cdiv(rows[si], rps[si]);
-    wa.O = 3 * C;
-    wa.I = C;
-    wa.part = fp(p, 38);
-    wa.part_bias = fp(p, 39);
-    err = launch_wgrad<T>(wa, mp<T>(p, 20 + 2 * si), mp<T>(p, 21 + 2 * si),
-                          s);
-    if (err) return err;
-    wa.seg[0] = {p[4 + si], p[14 + si], rows[si]};  // dWp = dproj^T o
-    wa.O = C;
-    wa.part_bias = nullptr;
-    err = launch_wgrad<T>(wa, mp<T>(p, 24 + si), nullptr, s);
+    const int splits = cdiv(rows[si], rps[si]);
+    float* part = fp(p, 39);
+    float* part_b = fp(p, 40);
+    wa.prod[0] = {{p[36 + si], nullptr}, {p[28 + si], nullptr}, 3 * C, C,
+                  part, part_b, mp<T>(p, 20 + 2 * si), mp<T>(p, 21 + 2 * si)};
+    wa.prod[1] = {{p[4 + si], nullptr}, {p[14 + si], nullptr}, C, C,
+                  part + (size_t)splits * 3 * C * C,
+                  part_b + (size_t)splits * 3 * C, mp<T>(p, 24 + 2 * si),
+                  mp<T>(p, 25 + 2 * si)};
+    err = launch_wgrad_tc<T>(wa, s);
     if (err) return err;
   }
   return 0;
@@ -291,13 +287,14 @@ extern "C" int lm_dca_train_fwd(int dtype, const void* const* p, int B,
 
 extern "C" int lm_dca_attn_bwd(int dtype, const void* const* p, int B, int N,
                                int M, int C, int H, int rps_x, int rps_c,
-                               int img_w, int cpe_rps, float scale_x,
-                               float scale_c, float eps, void* stream) {
+                               int chunks, int img_w, int cpe_rps,
+                               float scale_x, float scale_c, float eps,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::dca_attn_bwd<float>(p, B, N, M, C, H, rps_x, rps_c, img_w,
-                                   cpe_rps, scale_x, scale_c, eps, s);
+    return lm::dca_attn_bwd<float>(p, B, N, M, C, H, rps_x, rps_c, chunks,
+                                   img_w, cpe_rps, scale_x, scale_c, eps, s);
   return lm::dca_attn_bwd<__nv_bfloat16>(p, B, N, M, C, H, rps_x, rps_c,
-                                         img_w, cpe_rps, scale_x, scale_c,
-                                         eps, s);
+                                         chunks, img_w, cpe_rps, scale_x,
+                                         scale_c, eps, s);
 }

@@ -9,9 +9,15 @@
 // (ones / zeros are passed where the inference launches take gamma / beta)
 // and autograd outside the kernels chains the gamma / beta gradients.
 //
-// lm_s_train_fwd (row 9 of the TPU kernel table): k_linear_ln (qkv, both
-//   streams) -> k_attention per stream, also writing o and each query's
-//   log-sum-exp -> k_block_tail with branch scales s1 / s2, also writing t1.
+// lm_s_train_fwd (row 9 of the TPU kernel table), on the inference S
+//   block's tensor-core kernels: block_tc.cuh's k_qkv_wg (LN1 + qkv of both
+//   streams, its inference instance) -> attn_tc.cuh's k_mhsa_tc (k_mhsa_tc_
+//   small at n <= 16) per stream in the instance that also writes each
+//   query's log-sum-exp, in natural-log units, beside o -> k_tail_wg's
+//   training instance: per-image branch scales s1 / s2, t1 = t + s1 (o Wp^T
+//   + bp) written rounded to T for lm_mlp_bwd, out = t1 + s2 (b2 + MLP)
+//   with s2 applied to each GELU chunk before its rounding. 4 launches
+//   (5 in the cpe mode).
 // lm_mlp_bwd (row 11): train_tc.cuh's k_mlp_bwd_wg recomputes LN2 / fc1 /
 //   GELU from t1 on wgmma and gives dt1, writing LN2(t1), GELU(y) and dy;
 //   k_wgrad_tc gives dW1, db1 (from dy, LN2(t1)) and dW2 (from dz = s2
@@ -37,14 +43,13 @@
 //   loader recomputes each element's neighbourhood in every product and
 //   LayerNorm pass that reads it (2.3-2.8x slower in serving).
 // Bound on the H100: operations for the products, bytes for the LayerNorm
-// and row kernels. The forward's products are plain shared-memory tiled
-// mma.sync (bf16) or FMA (fp32) products and its attention fp32 FMA with
-// one lane per head channel (row 9, later work); the backward's kernels
-// and their designs are train_tc.cuh's. The weight gradients are split over
-// row ranges into fp32 partials (no atomics: deterministic) and reduced.
-// The backward's row kernels take C <= 512 (block_tc.cuh::by_tier; the
-// wrappers refuse more, attn/fused_train.py MAX_TRAIN_DIM), the forward
-// C <= 640.
+// and row kernels. The forward's designs are block_tc.cuh's and
+// attn_tc.cuh's (wgmma from TMA-fed weight tiles, mma.sync attention
+// tiles; fp32 on FMA products of the same tiles), the backward's
+// train_tc.cuh's. The weight gradients are split over row ranges into
+// fp32 partials (no atomics: deterministic) and reduced. Every kernel here
+// takes C <= 512 (block_tc.cuh::by_tier; the wrappers refuse more,
+// attn/fused_train.py MAX_TRAIN_DIM).
 #include "train_tc.cuh"
 
 namespace lm {
@@ -67,18 +72,17 @@ int s_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
     if (err) return err;
     x = p[25];
   }
-  LinArgs la{};
-  la.seg[0] = {x, p[4], p[5], mp<T>(p, 21), B * N, 3 * C};
-  la.seg[1] = {p[1], p[4], p[5], mp<T>(p, 22), B * M, 3 * C};
-  la.row_blocks0 = cdiv(B * N, kLinBM);
-  la.ln_w = p[2];
-  la.ln_b = p[3];
-  la.K = C;
-  la.eps = eps;
-  err = launch_linear<T>(la, 3 * C, s);
+  QkvArgs qa{};  // LN1 + qkv of both streams (the inference instance)
+  qa.seg[0] = {x, p[4], p[5], mp<T>(p, 21), B * N};
+  qa.seg[1] = {p[1], p[4], p[5], mp<T>(p, 22), B * M};
+  qa.ln_w = p[2];
+  qa.ln_b = p[3];
+  qa.C = C;
+  qa.eps = eps;
+  err = launch_qkv_tc<T>(qa, s);
   if (err) return err;
 
-  for (int si = 0; si < 2; ++si) {
+  for (int si = 0; si < 2; ++si) {  // o and its log-sum-exp per stream
     const int n = si == 0 ? N : M;
     const T* qkv = cp<T>(p, 21 + si);
     AttnArgs aa{};
@@ -94,20 +98,17 @@ int s_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
     aa.heads = H;
     aa.nq = n;
     aa.nk = n;
-    aa.keys_per_split = n;
-    aa.splits = 1;
     aa.scale = scale;
-    err = launch_attention<T>(aa, s);
+    err = launch_mhsa_tc<T>(aa, s);
     if (err) return err;
   }
 
   const float* dp = static_cast<const float*>(p[12]);
-  TailArgs ta{};
+  TailArgs ta{};  // the training instance: s1 / s2, t1 out
   ta.seg[0] = {x, p[17], p[6], p[7], mp<T>(p, 13), B * N,
                dp, dp + B, N, mp<T>(p, 15)};
   ta.seg[1] = {p[1], p[18], p[6], p[7], mp<T>(p, 14), B * M,
                dp + 2 * B, dp + 3 * B, M, mp<T>(p, 16)};
-  ta.row_blocks0 = cdiv(B * N, kTailBM);
   ta.ln_w = p[2];
   ta.ln_b = p[3];
   ta.w1 = p[8];
@@ -117,7 +118,7 @@ int s_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
   ta.C = C;
   ta.hidden = hidden;
   ta.eps = eps;
-  return launch_tail<T>(ta, s);
+  return launch_tail_tc<T>(ta, s);
 }
 
 // p: 0 t1x, 1 t1c, 2 dxo, 3 dco, 4 dzx, 5 dzc (= s2 dout), 6 w1', 7 b1',
@@ -208,7 +209,8 @@ int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   ro.heads = H;
   ro.eps = eps;
   const void* const dproj[2] = {p[4], p[5]};
-  err = launch_rowmm<T, kRowDo>(ro, dproj, p[9], s);
+  const void* const wp_t[2] = {p[9], p[9]};
+  err = launch_rowmm<T, kRowDo>(ro, dproj, wp_t, s);
   if (err) return err;
 
   for (int si = 0; si < 2; ++si) {  // dq / dk / dv: the thirds of dqkv
@@ -231,17 +233,18 @@ int s_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   rl.heads = H;
   rl.eps = eps;
   const void* const dqkv[2] = {p[27], p[28]};
+  const void* const wqkv_t[2] = {p[8], p[8]};
   if (cpe.taps) {
     RowMmArgs rx = rl, rc = rl;
     rx.seg[1].rows = 0;
     rc.seg[0].rows = 0;
-    err = launch_rowmm<T, kRowLnF32>(rx, dqkv, p[8], s);
-    if (!err) err = launch_rowmm<T, kRowLn>(rc, dqkv, p[8], s);
+    err = launch_rowmm<T, kRowLnF32>(rx, dqkv, wqkv_t, s);
+    if (!err) err = launch_rowmm<T, kRowLn>(rc, dqkv, wqkv_t, s);
     if (!err)
       err = launch_cpe_bwd<T>(cpe, p[0], fp(p, 34), fp(p, 35), mp<T>(p, 36),
                               mp<T>(p, 37), mp<T>(p, 14), rows[0], C, s);
   } else {
-    err = launch_rowmm<T, kRowLn>(rl, dqkv, p[8], s);
+    err = launch_rowmm<T, kRowLn>(rl, dqkv, wqkv_t, s);
   }
   if (err) return err;
 

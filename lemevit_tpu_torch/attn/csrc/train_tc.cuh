@@ -1,11 +1,13 @@
-// The S block's MLP backward and attention backward on Hopper's tensor
-// cores (s_train.cu's lm_mlp_bwd and lm_s_attn_bwd). Replaces, with
+// The S block's MLP backward and attention backward and the D block's
+// attention backward on Hopper's tensor cores (s_train.cu's lm_mlp_bwd and
+// lm_s_attn_bwd, dca_train.cu's lm_dca_attn_bwd). Replaces, with
 // block_tc.cuh's k_qkv_wg, lemevit_tpu/attn/pallas_train.py's
-// _mlp_bwd_kernel (_mlp_bwd_call) and _s_attn_bwd_kernel
-// (_s_train_bwd_call): the TPU kernels recompute LN / fc1 / GELU and LN1 /
-// qkv / P in VMEM and accumulate the weight gradients in resident fp32
-// blocks across their sequential grid; here the row kernels write the
-// rounded operands of the weight gradients once, and a grouped
+// _mlp_bwd_kernel (_mlp_bwd_call), _s_attn_bwd_kernel (_s_train_bwd_call)
+// and _dca_attn_bwd_kernel (_dca_train_bwd_call): the TPU kernels
+// recompute LN / fc1 / GELU and LN1 / qkv / P in VMEM and accumulate the
+// weight gradients in resident fp32 blocks across their sequential grid;
+// here the row kernels write the rounded operands of the weight gradients
+// once, and a grouped
 // weight-gradient product sums them over row ranges into fp32 partials
 // that a fixed-order reduce adds (no atomics: two calls give the same
 // bits).
@@ -26,7 +28,9 @@
 //                  LN2 backward + dout runs in the epilogue from those
 //                  registers, its row sums meeting in shared memory.
 //   k_rowmm_wg     out = A W^T over 64 rows a CTA, A and W sub-tiles by TMA
-//                  into a ring, the (64 x C) sum in registers: dO = dproj Wp
+//                  into a ring (each stream its own W: the D block's
+//                  proj_x / proj_c, qkv1 / qkv2), the (64 x C) sum in
+//                  registers: dO = dproj Wp
 //                  rounded to T with D = rowsum(dO . o) per head in its
 //                  epilogue, or da = dqkv Wqkv' with the LN1 backward and
 //                  the dt1 residual in its epilogue (dx in T, or du in fp32
@@ -42,6 +46,15 @@
 //                  rebuilt from the forward's log-sum-exp; dO, P and dS =
 //                  P (dP - D) scale are rounded to T before their products
 //                  (pallas_train.py::_attn_grp_bwd), D stays fp32.
+//   k_dca_bwd_tc / k_dca_bwd_reduce
+//                  the D block's cross-attention backward, both directions
+//                  on the same fragments: a CTA per (image, head, range of
+//                  image rows) walks its chunks of 128 rows (64 in fp32)
+//                  with the image's meta rows staged once, writes dq1, dk1,
+//                  dv1 of its rows and, for the sums over N (dq2, dk2, dv2:
+//                  the 16 meta rows are one m tile, so no CTA walks all N),
+//                  an fp32 partial per range, which the reduce adds in range
+//                  order.
 //   k_wgrad_tc     dW = G^T A over token rows for up to two products in one
 //                  launch: both operands arrive row-major with K = rows, so
 //                  128 x 128 tiles of G and A are copied 64 rows deep by
@@ -387,6 +400,296 @@ int launch_attn_bwd_tc(const AttnBwdTc& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- DCA bwd
+
+// The D block's attention backward, both directions (dca_train.cu's
+// lm_dca_attn_bwd): the x direction's N image queries q1 over the M meta
+// keys k2 / v2, the c direction's M meta queries q2 over the N image keys
+// k1 / v1. qkv1 / dqkv1 are (B N, 3C) image rows, qkv2 / dqkv2 (B M, 3C)
+// meta rows, dO1 / dO2 (rows, C) in T; lse1 / D1 at [(b heads + h) N + i],
+// lse2 / D2 at [(b heads + h) M + j], fp32. dq1, dk1 and dv1 (one image
+// row's) are written by k_dca_bwd_tc; dq2, dk2 and dv2 (sums over the N
+// image rows) leave each range of image rows as an fp32 partial (part:
+// [((b heads + h) ranges + range) Mp + j][dq2 32 | dk2 32 | dv2 32], Mp =
+// M rounded up to 16), which k_dca_bwd_reduce adds in range order.
+struct DcaBwdTc {
+  const void* qkv1;
+  const void* qkv2;
+  const void* dO1;
+  const void* dO2;
+  const float* lse1;
+  const float* D1;
+  const float* lse2;
+  const float* D2;
+  void* dqkv1;
+  void* dqkv2;
+  float* part;
+  int C, batch, heads, n, m;
+  int ranges, chunks;  // ranges of `chunks` row chunks per (image, head)
+  float scale_x, scale_c;
+};
+
+// Image rows of one chunk, 16 a warp: 128 in bf16, 64 in fp32 (whose rows
+// take twice the shared memory).
+template <typename T>
+struct DcaBwdTile {
+  static constexpr int kRows = sizeof(T) == 2 ? 128 : 64;
+  static constexpr int kWarps = kRows / 16;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kPart = 3 * kHeadDim;  // floats of a partial row
+  // two stages of a chunk's q1, k1, v1, dO1 rows, the meta rows q2, k2,
+  // v2, dO2 (mp of each), the chunk stages' L1 / D1, the meta L2 / D2, one
+  // meta tile's partial (16 rows)
+  static size_t smem_bytes(int mp) {
+    return (size_t)(2 * 4 * kRows + 4 * mp) * TcRows<T>::kPitch * sizeof(T) +
+           (size_t)(2 * 2 * kRows + 2 * mp + 16 * kPart) * sizeof(float);
+  }
+};
+
+// One warp's 16 image rows of a chunk against one meta tile of 16 (rows
+// mt0 .. mt0 + 15 of the staged meta rows), every product on attn_tc.cuh's
+// fragments, P rebuilt from the log-sum-exps (L = lse log2(e), +inf for a
+// padded row, so its P is 0) and P, dS rounded to T before their
+// products:
+//   x: S = Q1 K2^T, dP = dO1 V2^T (meta keys past m masked), dS; dq1 +=
+//      dS K2; then S^T = K2 Q1^T, dP^T = V2 dO1^T: pv2 += P^T dO1, pk2 +=
+//      dS^T Q1 (the warp's part of the sums over image rows);
+//   c: S^T = K1 Q2^T, dP^T = V1 dO2^T: dv1 += P^T dO2, dk1 += dS^T Q2;
+//      then S = Q2 K1^T, dP = dO2 V1^T (image keys past the chunk's valid
+//      rows masked): pq2 += dS K1.
+// The transposed products are recomputed rather than moved between
+// fragments: head_dim 32 and 16 meta tokens make them a few mma.sync each.
+template <typename T>
+__device__ __forceinline__ void dca_bwd_warp(
+    const DcaBwdTc& a, const T* sQ1, const T* sK1, const T* sV1,
+    const T* sdO1, const float* L1, const float* D1, const T* sQ2,
+    const T* sK2, const T* sV2, const T* sdO2, const float* L2,
+    const float* D2, int m_valid, int n_valid, float (&dq1)[4][4],
+    float (&dk1)[4][4], float (&dv1)[4][4], float (&pq2)[4][4],
+    float (&pk2)[4][4], float (&pv2)[4][4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const float slx = a.scale_x * kLog2e, slc = a.scale_c * kLog2e;
+  ARows<T> A0, A1;
+  float s[2][4], dp[2][4];
+  // x direction, rows = image queries
+  A0.load(sQ1);
+  A1.load(sdO1);
+  qk_tile<2>(s, A0, sK2);
+  qk_tile<2>(dp, A1, sV2);
+  {
+    const float L[2] = {L1[g], L1[g + 8]}, D[2] = {D1[g], D1[g + 8]};
+    bwd_scores<2, true, true>(s, dp, L, D, slx, a.scale_x, m_valid);
+  }
+  pv_tile<1>(dq1, dp, sK2);
+  // x direction, rows = meta keys (columns: the warp's image rows)
+  A0.load(sK2);
+  A1.load(sV2);
+  qk_tile<2>(s, A0, sQ1);
+  qk_tile<2>(dp, A1, sdO1);
+  bwd_scores<2, false, false>(s, dp, L1, D1, slx, a.scale_x, 16);
+  pv_tile<1>(pv2, s, sdO1);
+  pv_tile<1>(pk2, dp, sQ1);
+  // c direction, rows = image keys (columns: the meta queries)
+  A0.load(sK1);
+  A1.load(sV1);
+  qk_tile<2>(s, A0, sQ2);
+  qk_tile<2>(dp, A1, sdO2);
+  bwd_scores<2, false, false>(s, dp, L2, D2, slc, a.scale_c, 16);
+  pv_tile<1>(dv1, s, sdO2);
+  pv_tile<1>(dk1, dp, sQ2);
+  // c direction, rows = meta queries
+  A0.load(sQ2);
+  A1.load(sdO2);
+  qk_tile<2>(s, A0, sK1);
+  qk_tile<2>(dp, A1, sV1);
+  {
+    const float L[2] = {L2[g], L2[g + 8]}, D[2] = {D2[g], D2[g + 8]};
+    bwd_scores<2, true, true>(s, dp, L, D, slc, a.scale_c, n_valid);
+  }
+  pv_tile<1>(pq2, dp, sK1);
+}
+
+// CTA (image, head) blockIdx.x, range blockIdx.y: the range's chunks of
+// DcaBwdTile<T>::kRows image rows in turn through a two-stage cp.async
+// ring (chunk c + 2 in flight while chunk c computes), the image's meta
+// rows staged once. Warp w owns rows 16 w .. 16 w + 15 of each chunk:
+// their dq1 / dk1 / dv1 sum over the meta tiles in registers and leave
+// rounded to T; the meta sums pq2 / pk2 / pv2 stay in registers across the
+// range's chunks (more than one meta tile: one chunk a range, the host's
+// choice) and meet in shared memory in warp order, one meta tile at a
+// time, before the range's partial goes out. No atomics: two calls give
+// the same bits.
+template <typename T>
+__global__ void __launch_bounds__(DcaBwdTile<T>::kThreads, 1)
+    k_dca_bwd_tc(const DcaBwdTc a) {
+  using L = DcaBwdTile<T>;
+  constexpr int P = TcRows<T>::kPitch, R = L::kRows, NTH = L::kThreads;
+  constexpr int kStage = 4 * R * P;  // q1, k1, v1, dO1 rows of one chunk
+  extern __shared__ __align__(16) unsigned char dbw_smem[];
+  const int mp = cdiv(a.m, kMetaTile) * kMetaTile, mtiles = mp / kMetaTile;
+  T* st0 = reinterpret_cast<T*>(dbw_smem);
+  T* sQ2 = st0 + 2 * kStage;
+  T* sK2 = sQ2 + mp * P;
+  T* sV2 = sK2 + mp * P;
+  T* sdO2 = sV2 + mp * P;
+  float* sLD1 = reinterpret_cast<float*>(sdO2 + mp * P);  // [2][L1 | D1]
+  float* sL2 = sLD1 + 2 * 2 * R;
+  float* sD2 = sL2 + mp;
+  float* sRed = sD2 + mp;  // one meta tile's partial, [16][kPart]
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int warp = threadIdx.x >> 5, tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ld = 3 * a.C;
+  const T* Q1 = static_cast<const T*>(a.qkv1) + (size_t)b * a.n * ld +
+                h * kHeadDim;
+  const T* dO1 = static_cast<const T*>(a.dO1) + (size_t)b * a.n * a.C +
+                 h * kHeadDim;
+  const T* Q2 = static_cast<const T*>(a.qkv2) + (size_t)b * a.m * ld +
+                h * kHeadDim;
+  const T* dO2 = static_cast<const T*>(a.dO2) + (size_t)b * a.m * a.C +
+                 h * kHeadDim;
+  T* dQ1 = static_cast<T*>(a.dqkv1) + (size_t)b * a.n * ld + h * kHeadDim;
+  const float* lse1 = a.lse1 + (size_t)bh * a.n;
+  const float* D1g = a.D1 + (size_t)bh * a.n;
+  const int c0 = blockIdx.y * a.chunks;
+  const int c1 = min(cdiv(a.n, R), c0 + a.chunks);
+
+  copy_rows(sQ2, Q2, ld, mp, a.m, tid, NTH);
+  copy_rows(sK2, Q2 + a.C, ld, mp, a.m, tid, NTH);
+  copy_rows(sV2, Q2 + 2 * a.C, ld, mp, a.m, tid, NTH);
+  copy_rows(sdO2, dO2, a.C, mp, a.m, tid, NTH);
+  for (int j = tid; j < mp; j += NTH) {
+    const bool ok = j < a.m;
+    sL2[j] = ok ? a.lse2[(size_t)bh * a.m + j] * kLog2e : INFINITY;
+    sD2[j] = ok ? a.D2[(size_t)bh * a.m + j] : 0.f;
+  }
+  auto load = [&](int c) {  // chunk c's rows and statistics into its stage
+    const int r0 = c * R, valid = a.n - r0;
+    T* st = st0 + (c & 1) * kStage;
+    copy_rows(st, Q1 + (size_t)r0 * ld, ld, R, valid, tid, NTH);
+    copy_rows(st + R * P, Q1 + (size_t)r0 * ld + a.C, ld, R, valid, tid,
+              NTH);
+    copy_rows(st + 2 * R * P, Q1 + (size_t)r0 * ld + 2 * a.C, ld, R, valid,
+              tid, NTH);
+    copy_rows(st + 3 * R * P, dO1 + (size_t)r0 * a.C, a.C, R, valid, tid,
+              NTH);
+    float* l = sLD1 + (c & 1) * 2 * R;
+    for (int i = tid; i < R; i += NTH) {
+      const bool ok = i < valid;
+      l[i] = ok ? lse1[r0 + i] * kLog2e : INFINITY;
+      l[R + i] = ok ? D1g[r0 + i] : 0.f;
+    }
+  };
+  if (c0 < c1) load(c0);
+  cp_async_commit();  // the meta rows and chunk c0
+  if (c0 + 1 < c1) load(c0 + 1);
+  cp_async_commit();
+
+  float pq2[4][4], pk2[4][4], pv2[4][4];
+  zero(pq2);
+  zero(pk2);
+  zero(pv2);
+  for (int c = c0; c < c1; ++c) {
+    cp_async_wait<1>();  // chunk c (and the meta rows) landed for this
+    __syncthreads();     // thread, and for every thread
+    const int r0 = c * R + warp * 16;  // the warp's first image row
+    T* st = st0 + (c & 1) * kStage + warp * 16 * P;
+    const float* l1 = sLD1 + (c & 1) * 2 * R + warp * 16;
+    const bool busy = r0 < a.n;
+    float dq1[4][4], dk1[4][4], dv1[4][4];
+    zero(dq1);
+    zero(dk1);
+    zero(dv1);
+    for (int mt = 0; mt < mtiles; ++mt) {
+      const int j0 = mt * kMetaTile;
+      if (busy)
+        dca_bwd_warp<T>(a, st, st + R * P, st + 2 * R * P, st + 3 * R * P,
+                        l1, l1 + R, sQ2 + j0 * P, sK2 + j0 * P, sV2 + j0 * P,
+                        sdO2 + j0 * P, sL2 + j0, sD2 + j0, a.m - j0,
+                        a.n - r0, dq1, dk1, dv1, pq2, pk2, pv2);
+      if (c == c1 - 1) {  // the range's sums of this meta tile: warps in
+                          // order into sRed, then out
+        float(*acc[3])[4] = {pq2, pk2, pv2};
+        for (int w = 0; w < L::kWarps; ++w) {
+          if (warp == w) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+#pragma unroll
+              for (int d = 0; d < 4; ++d)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = g + 8 * (e >> 1);
+                  float* r = sRed + row * L::kPart + k * kHeadDim + 8 * d +
+                             2 * t + (e & 1);
+                  *r = w ? *r + acc[k][d][e] : acc[k][d][e];
+                }
+          }
+          __syncthreads();
+        }
+        float* part = a.part + (((size_t)bh * a.ranges + blockIdx.y) * mp +
+                                j0) * L::kPart;
+        for (int e = tid; e < 16 * L::kPart; e += NTH) part[e] = sRed[e];
+        zero(pq2);
+        zero(pk2);
+        zero(pv2);
+        __syncthreads();  // sRed is free for the next meta tile
+      }
+    }
+    // dq1 | dk1 | dv1 out, each staged through the warp's own rows of the
+    // stage (no other warp reads them)
+    T* out = dQ1 + (size_t)r0 * ld;
+    const int rows = a.n - r0;
+    store_tile(out, ld, rows, st, dq1, 1.f, 1.f);
+    store_tile(out + a.C, ld, rows, st + R * P, dk1, 1.f, 1.f);
+    store_tile(out + 2 * a.C, ld, rows, st + 2 * R * P, dv1, 1.f, 1.f);
+    __syncthreads();  // every warp is done with this stage
+    if (c + 2 < c1) load(c + 2);
+    cp_async_commit();
+  }
+}
+
+// dq2 | dk2 | dv2 of each (image, head, meta row): the ranges' partials
+// added in range order, rounded to T into dqkv2's thirds.
+template <typename T>
+__global__ void __launch_bounds__(256) k_dca_bwd_reduce(const DcaBwdTc a) {
+  constexpr int K = DcaBwdTile<T>::kPart;
+  const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= (size_t)a.batch * a.heads * a.m * K) return;
+  const int ch = idx % K, j = (idx / K) % a.m;
+  const int bh = idx / ((size_t)K * a.m);
+  const int mp = cdiv(a.m, kMetaTile) * kMetaTile;
+  const float* p = a.part + ((size_t)bh * a.ranges * mp + j) * K + ch;
+  float s = 0.f;
+  for (int r = 0; r < a.ranges; ++r) s += p[(size_t)r * mp * K];
+  const int b = bh / a.heads, h = bh % a.heads;
+  static_cast<T*>(a.dqkv2)[((size_t)b * a.m + j) * 3 * a.C +
+                           (ch / kHeadDim) * a.C + h * kHeadDim +
+                           ch % kHeadDim] = from_f<T>(s);
+}
+
+// Both launches; a.chunks > 1 only with one meta tile (m <= 16), whose
+// sums then stay in registers across the chunks.
+template <typename T>
+int launch_dca_bwd_tc(const DcaBwdTc& a, cudaStream_t s) {
+  using L = DcaBwdTile<T>;
+  static size_t attr = 0;
+  const int mp = cdiv(a.m, kMetaTile) * kMetaTile;
+  if (a.m < 1 || a.n < 1 || a.chunks < 1 ||
+      (a.chunks > 1 && a.m > kMetaTile) ||
+      a.ranges != cdiv(cdiv(a.n, L::kRows), a.chunks))
+    return (int)cudaErrorInvalidValue;
+  // an M whose rows do not fit fails here (cudaErrorInvalidValue)
+  const size_t bytes = L::smem_bytes(mp);
+  if (const int err = grant_smem(k_dca_bwd_tc<T>, bytes, attr)) return err;
+  k_dca_bwd_tc<T><<<dim3(a.batch * a.heads, a.ranges), L::kThreads, bytes,
+                    s>>>(a);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t total = (size_t)a.batch * a.heads * a.m * L::kPart;
+  k_dca_bwd_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- rows
 
 // Rows r0 and r0 + 8 of a warpgroup's accumulator: their partial sums s0,
@@ -544,7 +847,8 @@ struct RowMmArgs {
 
 struct RowMmMaps {
   CUtensorMap a[2];  // each stream's A, boxes of one sub-tile x 64 rows
-  CUtensorMap w;     // W (C, K), boxes of one sub-tile x kBoxP rows
+  CUtensorMap w[2];  // each stream's W (C, K), boxes of one sub-tile x
+                     // kBoxP rows (the D block's streams have their own)
 };
 
 enum { kRowDo = 0, kRowLn = 1, kRowLnF32 = 2 };
@@ -623,7 +927,7 @@ __global__ void __launch_bounds__(256, (TwoPerSm<T, CP>::kBlocks))
     tma_2d(dst, &maps.a[si], i * KS, row0, bar);
 #pragma unroll
     for (int r = 0; r < CP; r += L::kBoxP)
-      tma_2d(dst + L::kTileA + r * 128, &maps.w, i * KS, r, bar);
+      tma_2d(dst + L::kTileA + r * 128, &maps.w[si], i * KS, r, bar);
   };
   if (tid == 0)
     for (int i = 0; i < S - 1 && i < nk; ++i) load(i);
@@ -717,7 +1021,7 @@ int row_maps(CUtensorMap (&m)[2], const void* const (&p)[2],
 
 template <typename T, int CP, int kMode>
 int launch_rowmm_inst(const RowMmArgs& a, const void* const (&A)[2],
-                      const void* w, cudaStream_t s) {
+                      const void* const (&w)[2], cudaStream_t s) {
   using L = RowMmWg<T, CP>;
   static size_t attr = 0;
   if (const int err = grant_smem(k_rowmm_wg<T, CP, kMode>, L::kSmem, attr))
@@ -725,7 +1029,8 @@ int launch_rowmm_inst(const RowMmArgs& a, const void* const (&A)[2],
   RowMmMaps maps;
   const int rows[2] = {a.seg[0].rows, a.seg[1].rows};
   int err = row_maps<T>(maps.a, A, rows, a.K);
-  if (!err) err = tma_map<T>(&maps.w, w, a.C, a.K, L::kBoxP);
+  for (int i = 0; i < 2 && !err; ++i)
+    err = tma_map<T>(&maps.w[i], w[i], a.C, a.K, L::kBoxP);
   if (err) return err;
   const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, L::kRows);
   k_rowmm_wg<T, CP, kMode><<<blocks, 256, L::kSmem, s>>>(a, maps);
@@ -733,10 +1038,10 @@ int launch_rowmm_inst(const RowMmArgs& a, const void* const (&A)[2],
 }
 
 // out = A W^T (+ its epilogue) for both streams in one launch; A (rows, K)
-// per stream, W (C, K).
+// and W (C, K) per stream.
 template <typename T, int kMode>
-int launch_rowmm(RowMmArgs a, const void* const (&A)[2], const void* w,
-                 cudaStream_t s) {
+int launch_rowmm(RowMmArgs a, const void* const (&A)[2],
+                 const void* const (&w)[2], cudaStream_t s) {
   if (a.K % 8) return (int)cudaErrorInvalidValue;
   a.row_blocks0 = cdiv(a.seg[0].rows, 64);
   return by_tier(a.C, [&](auto cp) {

@@ -33,8 +33,10 @@ two runs give the same bits. ``dca_tiles_plain`` follows that order of
 work in PyTorch, for the tests. The kernel takes head_dim 32, as every
 released variant has, and up to ``MAX_META[dtype]`` meta tokens, whose
 rows of one head sit in shared memory beside the image rows (every
-released variant has 16, LeMeViT's constructor defaults to 128): on CUDA
-tensors others raise, they do not compose.
+released variant has 16, LeMeViT's constructor defaults to 128), in fp32
+or bf16 (``kernel_takes``): the attention modules ask ``kernel_takes``
+first under ``attn_backend="auto"`` and compose where it says no; a
+direct call (or ``"cuda"``) with other shapes raises.
 
 The backward recomputes ``dca_plain`` under autograd and takes its
 vector-Jacobian product, as the JAX package's ``_dca_bwd`` takes ``jax.vjp``
@@ -66,6 +68,15 @@ META_TILE = 16   # meta tokens of one m tile (c direction) / key tile (x)
 MAX_META = {torch.bfloat16: 304, torch.float32: 192}
 MERGE_WARPS = 8  # warps of the merge launch, each folding every 8th tile
 LOG2E = 1.4426950408889634
+
+
+def kernel_takes(c: int, num_heads: int, m: int, dtype) -> bool:
+    """Whether the kernel takes C = ``c`` with ``num_heads`` heads and
+    ``m`` meta tokens in ``dtype``: head_dim 32, fp32 or bf16, m <=
+    MAX_META[dtype] (``check_inputs``' and ``dca_kernel``'s limits),
+    decided from shapes alone, without CUDA."""
+    return (dtype in fb._DTYPES and c == num_heads * fb.HEAD_DIM
+            and m <= MAX_META[dtype])
 
 
 def pick_tile(n: int) -> int:

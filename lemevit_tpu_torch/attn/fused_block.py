@@ -153,9 +153,11 @@ def s_block_plain(x, c, params, *, num_heads: int, cpe=None,
 
 
 def _ln_rounded(t, w, b, dt):
-    """LayerNorm in fp32 of t, rounded to dt (the A operand of the next
-    product), as fp32."""
-    return _ln(t.float(), w.float(), b.float()).to(dt).float()
+    """LayerNorm in fp32 of t (affine w, b; none where they are None, as
+    the training kernels take folded weights), rounded to dt (the A operand
+    of the next product), as fp32."""
+    f = lambda a: None if a is None else a.float()
+    return _ln(t.float(), f(w), f(b)).to(dt).float()
 
 
 def _qkv_tiles(t, ln_w, ln_b, w, b, dt):
@@ -165,20 +167,25 @@ def _qkv_tiles(t, ln_w, ln_b, w, b, dt):
             + b.float()).to(dt)
 
 
-def _tail_tiles(t, o, wp, bp, ln_w, ln_b, w1, b1, w2, b2, dt):
+def _tail_tiles(t, o, wp, bp, ln_w, ln_b, w1, b1, w2, b2, dt, s1=None,
+                s2=None):
     """block_tc.cuh's k_tail_wg (and block_common.cuh's k_block_tail past
-    C = 512, which rounds in the same places): t1 = t + o Wp^T + bp in
-    fp32, LN2(t1) rounded to dt, then per HIDDEN_CHUNK hidden columns
-    GELU(fc1) in fp32 rounded to dt and its fc2 added to t1 + b2 in fp32;
-    the sum rounded to dt."""
-    t1 = o.float() @ wp.float().t() + bp.float() + t.float()
+    C = 512, which rounds in the same places): t1 = t + s1 (o Wp^T + bp) in
+    fp32, LN2(t1) rounded to dt, then per HIDDEN_CHUNK hidden columns s2
+    GELU(fc1) in fp32 rounded to dt and its fc2 added to t1 + s2 b2 in
+    fp32; the sum rounded to dt. s1 / s2 are the training instance's
+    per-image DropPath scales (B,), 1 where None (the inference instances).
+    Returns (out, t1), both in dt (t1 as the training instance writes
+    it)."""
+    col = lambda s: 1.0 if s is None else s.view(-1, 1, 1)
+    t1 = t.float() + col(s1) * (o.float() @ wp.float().t() + bp.float())
     a = _ln_rounded(t1, ln_w, ln_b, dt)
-    acc = t1 + b2.float()
+    acc = t1 + col(s2) * b2.float()
     for j0 in range(0, w1.shape[0], HIDDEN_CHUNK):
         j1 = j0 + HIDDEN_CHUNK
-        h = F.gelu(a @ w1[j0:j1].float().t() + b1[j0:j1].float())
+        h = col(s2) * F.gelu(a @ w1[j0:j1].float().t() + b1[j0:j1].float())
         acc = acc + h.to(dt).float() @ w2[:, j0:j1].float().t()
-    return acc.to(dt)
+    return acc.to(dt), t1.to(dt)
 
 
 def _cpe_rounded(x, cpe, img_w):
@@ -206,7 +213,7 @@ def s_block_tiles_plain(x, c, params, *, num_heads: int, cpe=None,
         q, k, v = _qkv_tiles(t, ln1w, ln1b, wqkv, bqkv, dt).split(ch, -1)
         o = mhsa_tiles_plain(q, k, v, scale=HEAD_DIM ** -0.5,
                              num_heads=num_heads)
-        return _tail_tiles(t, o, wp, bp, ln2w, ln2b, w1, b1, w2, b2, dt)
+        return _tail_tiles(t, o, wp, bp, ln2w, ln2b, w1, b1, w2, b2, dt)[0]
 
     return branch(x), branch(c)
 
@@ -229,8 +236,8 @@ def dca_block_tiles_plain(x, c, params, *, num_heads: int, scale_x: float,
     q2, k2, v2 = _qkv_tiles(c, ln1w, ln1b, wqkv2, bqkv2, dt).split(ch, -1)
     ax, ac = dca_tiles_plain(q1, k1, v1, q2, k2, v2, scale_x=scale_x,
                              scale_c=scale_c, num_heads=num_heads)
-    return (_tail_tiles(x, ax, wpx, bpx, ln2w, ln2b, w1, b1, w2, b2, dt),
-            _tail_tiles(c, ac, wpc, bpc, ln2w, ln2b, w1, b1, w2, b2, dt))
+    return (_tail_tiles(x, ax, wpx, bpx, ln2w, ln2b, w1, b1, w2, b2, dt)[0],
+            _tail_tiles(c, ac, wpc, bpc, ln2w, ln2b, w1, b1, w2, b2, dt)[0])
 
 
 def s_stage_plain(x, c, params_list, *, num_heads: int, cpes=None,
@@ -304,6 +311,33 @@ def _check(name: str, x, c, params: Sequence[torch.Tensor], num_heads: int,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor {i} is not contiguous and "
                              "16-byte aligned")
+
+
+def block_takes(attn_type: str, ch: int, num_heads: int, hidden: int,
+                m: int, dtype) -> bool:
+    """Whether the inference kernel of an ``attn_type`` block of width
+    ``ch`` with ``num_heads`` heads, MLP width ``hidden`` and ``m`` meta
+    tokens takes them in ``dtype``: the limits ``_check`` and
+    ``check_meta`` raise on (head_dim HEAD_DIM, C <= MAX_DIM, the MLP width
+    a multiple of 32, fp32 or bf16, and for a D or D2 block at most
+    ``attn/dca.py``'s MAX_META[dtype] meta tokens), decided from shapes
+    alone, so it runs without CUDA. Where it says no, the model composes in
+    PyTorch, as the JAX package does where its kernels return None."""
+    from lemevit_tpu_torch.attn import dca
+    return (dtype in _DTYPES and ch == num_heads * HEAD_DIM
+            and ch <= MAX_DIM and hidden % 32 == 0
+            and (attn_type not in ("D", "D2") or m <= dca.MAX_META[dtype]))
+
+
+def check_meta(name: str, m: int, dtype) -> None:
+    """Raise for more meta tokens than the D kernels stage (an image's meta
+    rows sit in shared memory beside its image rows: attn/dca.py's
+    MAX_META)."""
+    from lemevit_tpu_torch.attn import dca
+    if m > dca.MAX_META[dtype]:
+        raise ValueError(f"{name}: the kernel takes at most "
+                         f"{dca.MAX_META[dtype]} meta tokens in {dtype} "
+                         f"(attn/dca.py MAX_META), got {m}")
 
 
 def _check_shapes(name, params, shapes) -> None:
@@ -389,11 +423,8 @@ def dca_block(x, c, params, *, num_heads: int, scale_x: float,
         (ch,), (ch,), (3 * ch, ch), (3 * ch,), (3 * ch, ch), (3 * ch,),
         (ch, ch), (ch,), (ch, ch), (ch,), (ch,), (ch,), (hidden, ch),
         (hidden,), (ch, hidden), (ch,)])
+    check_meta("dca_block", m, x.dtype)
     from lemevit_tpu_torch.attn import dca
-    if m > dca.MAX_META[x.dtype]:
-        raise ValueError(f"dca_block: the kernel takes at most "
-                         f"{dca.MAX_META[x.dtype]} meta tokens in {x.dtype} "
-                         f"(attn/dca.py MAX_META), got {m}")
     ws = dict(dtype=x.dtype, device=x.device)
     xo = torch.empty_like(x)
     co = torch.empty_like(c)

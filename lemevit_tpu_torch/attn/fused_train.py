@@ -50,8 +50,12 @@ and dx through the CPE's transpose: the same CPE with the taps flipped
 (tap 8 - j for tap j) and no bias (cpe_rows_plain). ``*_block_train_plain``
 is each block composed under autograd: the reference the phases are tested
 against. The plain phases take head_dim from the shapes; the kernels take
-head_dim 32. ``mlp_bwd_tiles_plain`` and ``s_attn_bwd_tiles_plain`` are the
-S block's backward kernels' order of work (csrc/train_tc.cuh: their
+head_dim 32 (``train_takes`` states every limit of the training kernels,
+from shapes alone: the model asks it under ``attn_backend="auto"`` and
+composes where it says no; a direct call raises). ``s_train_fwd_tiles_plain``,
+``mlp_bwd_tiles_plain``, ``s_attn_bwd_tiles_plain`` and
+``dca_attn_bwd_tiles_plain`` are the order of work of the phases on the
+tensor cores (csrc/block_tc.cuh, attn_tc.cuh and train_tc.cuh: their
 roundings, the weight gradients over the launch's row ranges), which the
 tests hold the bf16 kernels against.
 
@@ -74,9 +78,11 @@ LN_EPS = fb.LN_EPS
 LAUNCHES = {"s_train_fwd": 0, "mlp_bwd": 0, "s_attn_bwd": 0,
             "dca_train_fwd": 0, "dca_attn_bwd": 0, "c_train_fwd": 0,
             "c_attn_bwd": 0}
-WGRAD_TILE = 64         # k_wgrad's output tile edge (the D and C blocks)
+WGRAD_TILE = 64         # k_wgrad's output tile edge (the C block)
 WGRAD_TC_TILE = 128     # k_wgrad_tc's (the S block and every MLP backward)
 CPE_GRAD_ROWS = 64      # least rows per k_cpe_tap_grads block
+# image rows of one k_dca_bwd_tc chunk (csrc/train_tc.cuh, DcaBwdTile)
+DCA_BWD_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 MAX_TRAIN_DIM = 512     # the row kernels of every MLP backward and of the S
                         # attention backward (csrc/train_tc.cuh) keep a
                         # (64 x C) fp32 sum in registers at C's accumulator
@@ -366,6 +372,40 @@ def s_attn_bwd_tiles_plain(x, c, dt1x, dt1c, dp, wqkv, bqkv, wp, ox, oc,
             dwp.to(wp.dtype), dbp.to(wp.dtype), dtaps, dbias)
 
 
+def s_train_fwd_tiles_plain(x, c, params, dp, *, num_heads: int, cpe=None,
+                            img_w: int = 0):
+    """lm_s_train_fwd's order of work in PyTorch (used by the tests only):
+    with ``cpe`` the CPE'd x rounded once (k_cpe_rows); per stream LN1
+    rounded to x's dtype and qkv = LN1 Wqkv'^T + b in fp32 rounded
+    (k_qkv_wg); o as ``attn/mhsa.py::mhsa_tiles_plain`` (k_mhsa_tc's 32-key
+    online-softmax steps, P rounded before P v) and each query's
+    log-sum-exp of the scaled scores of the rounded q, k in fp32; the tail
+    as k_tail_wg's training instance (fused_block._tail_tiles with the
+    branch scales: t1 rounded as written, s2 GELU(fc1) rounded per hidden
+    chunk). Returns what s_train_fwd_plain returns. In fp32 nothing
+    rounds."""
+    from lemevit_tpu_torch.attn.mhsa import mhsa_tiles_plain
+    wqkv, bqkv, wp, bp, w1, b1, w2, b2 = params
+    dt = x.dtype
+    if cpe is not None:
+        x = cpe_rows_plain(x, *cpe, img_w)
+    scale = fb.HEAD_DIM ** -0.5
+
+    def branch(t, s1, s2):
+        q, k, v = fb._qkv_tiles(t, None, None, wqkv, bqkv, dt).chunk(3, -1)
+        o = mhsa_tiles_plain(q, k, v, scale=scale, num_heads=num_heads)
+        lse = torch.logsumexp(torch.einsum(
+            "bnhd,bmhd->bhnm", _heads(q, num_heads), _heads(k, num_heads))
+            * scale, dim=-1)
+        out, t1 = fb._tail_tiles(t, o, wp, bp, None, None, w1, b1, w2, b2,
+                                 dt, s1, s2)
+        return out, t1, o, lse
+
+    xo, t1x, ox, lx = branch(x, dp[0], dp[1])
+    co, t1c, oc, lc = branch(c, dp[2], dp[3])
+    return xo, co, t1x, t1c, ox, oc, lx, lc
+
+
 def dca_train_fwd_plain(x, c, params, dp, *, num_heads: int, scale_x: float,
                         scale_c: float, cpe=None, img_w: int = 0):
     """D-block forward (the TPU's _dca_train_fwd_kernel): (x_out, c_out,
@@ -418,6 +458,61 @@ def dca_attn_bwd_plain(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2,
             _wgrad(dpx, ox).to(wpx.dtype), _colsum(dpx).to(wpx.dtype),
             _wgrad(dpc, oc).to(wpc.dtype), _colsum(dpc).to(wpc.dtype),
             dtaps, dbias)
+
+
+def dca_attn_bwd_tiles_plain(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2,
+                             bqkv2, wpx, wpc, ox, oc, lse_x, lse_c, *,
+                             num_heads: int, scale_x: float, scale_c: float,
+                             cpe=None, img_w: int = 0,
+                             rows_per_split: int = 0):
+    """lm_dca_attn_bwd's order of work in PyTorch (used by the tests only):
+    LN1 (of the CPE'd x, rounded once, with ``cpe``) rounded to x's dtype,
+    qkv1 / qkv2 rounded (k_qkv_wg with each stream's weights), dO = dproj
+    Wp rounded (k_rowmm_wg), both directions as _attn_bwd_tiles (P from
+    the log-sum-exp, dS and P rounded before their products, fp32 sums:
+    k_dca_bwd_tc, whose sums over the image rows meet in a fixed order in
+    fp32 before one rounding), dqkv1 / dqkv2 rounded, dx = dt1x + LN1'^T
+    (dqkv1 Wqkv1') and dc likewise from fp32 sums (with ``cpe`` kept in
+    fp32 for the CPE's backward), and each stream's weight gradients over
+    its own row ranges of ``rows_per_split`` rows (on CUDA tensors by
+    default each stream's k_wgrad_tc split on their device; required on the
+    CPU), rounded once. In fp32 nothing rounds."""
+    dt = x.dtype
+    b, n, ch = x.shape
+    m = c.shape[1]
+    h = num_heads
+    shapes = [(3 * ch, ch), (ch, ch)]
+    rps = [rows_per_split or _tiles_rows(x, r, 0, shapes)
+           for r in (b * n, b * m)]
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
+    ts, grads, dws = (xc, c), [], []
+    qkv = [(_norm(t).to(dt), w, bias) for t, w, bias in
+           ((xc, wqkv1, bqkv1), (c, wqkv2, bqkv2))]
+    q1, k1, v1, q2, k2, v2 = [
+        u for a, w, bias in qkv
+        for u in (a.float() @ w.float().t() + bias.float()).to(dt).chunk(
+            3, -1)]
+    dps = (_dproj(dp[0], dt1x), _dproj(dp[2], dt1c))
+    d_o = [(d.float() @ w.float()).to(dt) for d, w in zip(dps, (wpx, wpc))]
+    dq1, dk2, dv2 = _attn_bwd_tiles(q1, k2, v2, ox, d_o[0], lse_x, h,
+                                    scale_x, dt)
+    dq2, dk1, dv1 = _attn_bwd_tiles(q2, k1, v1, oc, d_o[1], lse_c, h,
+                                    scale_c, dt)
+    dqkvs = [torch.cat(u, -1).to(dt) for u in ((dq1, dk1, dv1),
+                                               (dq2, dk2, dv2))]
+    for t, dt1, dqkv, (a, w, _), dproj, o, r in zip(
+            ts, (dt1x, dt1c), dqkvs, qkv, dps, (ox, oc), rps):
+        grads.append(dt1.float() + _ln_bwd(dqkv.float() @ w.float(), t))
+        dws += [*_wgrad_ranges([(dqkv.reshape(-1, 3 * ch),
+                                 a.reshape(-1, ch))], r),
+                *_wgrad_ranges([(dproj.reshape(-1, ch),
+                                 o.reshape(-1, ch))], r)]
+    dx, dtaps, dbias = ((grads[0].to(dt), None, None) if cpe is None
+                        else _cpe_bwd_plain(x, grads[0], cpe, img_w))
+    like = (wqkv1, bqkv1, wpx, wpx, wqkv2, bqkv2, wpc, wpc)
+    dws = [g.to(p.dtype) for g, p in zip(dws, like)]
+    return (dx, grads[1].to(dt), dws[0], dws[1], dws[4], dws[5], dws[2],
+            dws[3], dws[6], dws[7], dtaps, dbias)
 
 
 def c_train_fwd_plain(x, c, params, dp, *, num_heads: int, cpe=None,
@@ -627,6 +722,17 @@ def _wgrad_tc_split(rows0: int, rows1: int, shapes, sms: int
     return rps, -(-rows0 // rps) + -(-rows1 // rps)
 
 
+def train_takes(attn_type: str, ch: int, num_heads: int, hidden: int,
+                m: int, dtype) -> bool:
+    """Whether a block's training kernels take its shapes and dtype: the
+    inference kernels' limits (``fused_block.block_takes``: head_dim 32,
+    the MLP width a multiple of 32, fp32 or bf16, at most ``MAX_META``
+    meta tokens in a D block, whose attention backward stages them all)
+    and C <= MAX_TRAIN_DIM. Decided from shapes alone, without CUDA."""
+    return (ch <= MAX_TRAIN_DIM
+            and fb.block_takes(attn_type, ch, num_heads, hidden, m, dtype))
+
+
 def _check_train_dim(name: str, ch: int) -> None:
     """Raise for a width past the training row kernels' MAX_TRAIN_DIM (every
     block's backward runs mlp_bwd, so its forward refuses it too)."""
@@ -798,6 +904,7 @@ def dca_train_fwd(x, c, params, dp, *, num_heads: int, scale_x: float,
                                    scale_x=scale_x, scale_c=scale_c,
                                    cpe=cpe, img_w=img_w)
     _check("dca_train_fwd", "dca", x, c, params, dp, num_heads, cpe, img_w)
+    fb.check_meta("dca_train_fwd", c.shape[1], x.dtype)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
@@ -815,10 +922,22 @@ def dca_train_fwd(x, c, params, dp, *, num_heads: int, scale_x: float,
     return tuple(outs)
 
 
+def _dca_bwd_chunks(n: int, bh: int, m: int, dtype, sms: int
+                    ) -> Tuple[int, int]:
+    """(chunks, ranges) of k_dca_bwd_tc for ``bh`` (image, head) pairs of
+    n image rows: ranges of ``chunks`` DCA_BWD_ROWS-row chunks, enough of
+    them that the CTAs number about four per multiprocessor; one chunk a
+    range past one meta tile (m > 16), whose sums then leave per chunk."""
+    total = -(-n // DCA_BWD_ROWS[dtype])
+    chunks = 1 if m > 16 else max(1, -(-total // -(-4 * sms // bh)))
+    return chunks, -(-total // chunks)
+
+
 def dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
                  ox, oc, lse_x, lse_c, *, num_heads: int, scale_x: float,
                  scale_c: float, cpe=None, img_w: int = 0):
-    """The D attention-backward phase; see dca_attn_bwd_plain."""
+    """The D attention-backward phase; see dca_attn_bwd_plain (bf16
+    rounding: dca_attn_bwd_tiles_plain)."""
     if not x.is_cuda:
         return dca_attn_bwd_plain(
             x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc, ox,
@@ -827,37 +946,42 @@ def dca_attn_bwd(x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
+    _check_train_dim("dca_attn_bwd", ch)
+    fb.check_meta("dca_attn_bwd", m, x.dtype)
     dpx, dpc = _dproj(dp[0], dt1x), _dproj(dp[2], dt1c)
-    dbpx, dbpc = _colsum(dpx).to(wpx.dtype), _colsum(dpc).to(wpc.dtype)
     shapes = [(3 * ch, ch), (ch, ch)]
-    rps_x, sx = _wgrad_split(b * n, 0, shapes, _sms(x.device))
-    rps_c, sc = _wgrad_split(b * m, 0, shapes, _sms(x.device))
+    sms = _sms(x.device)
+    rps_x, sx = _wgrad_tc_split(b * n, 0, shapes, sms)
+    rps_c, sc = _wgrad_tc_split(b * m, 0, shapes, sms)
     splits = max(sx, sc)
+    chunks, ranges = _dca_bwd_chunks(n, b * h, m, x.dtype, sms)
+    mp = -(-m // 16) * 16
     f32 = torch.float32
     outs = [torch.empty_like(x), torch.empty_like(c),
             torch.empty_like(wqkv1), torch.empty_like(bqkv1),
             torch.empty_like(wqkv2), torch.empty_like(bqkv2),
-            torch.empty_like(wpx), torch.empty_like(wpc)]
+            torch.empty_like(wpx), wpx.new_empty(ch), torch.empty_like(wpc),
+            wpc.new_empty(ch)]
     work = [_ws((b * n, ch), x), _ws((b * m, ch), x),
             _ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
-            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
+            _ws((b * n, ch), x), _ws((b * m, ch), x),
             _ws((b * h * n,), x, f32), _ws((b * h * m,), x, f32),
             _ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
-            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
-            _ws((splits * 3 * ch * ch,), x, f32),
-            _ws((splits * 3 * ch,), x, f32)]
-    tensors = [x, c, dt1x, dt1c, dpx, dpc, wqkv1, bqkv1, wqkv2, bqkv2,
-               wqkv1.t().contiguous(), wqkv2.t().contiguous(),
-               wpx.t().contiguous(), wpc.t().contiguous(), ox, oc]
+            _ws((b * h * ranges * mp * 3 * fb.HEAD_DIM,), x, f32),
+            _ws((splits * 4 * ch * ch,), x, f32),
+            _ws((splits * 4 * ch,), x, f32)]
+    tensors = [_aligned(t) for t in (x, c, dt1x, dt1c, dpx, dpc, wqkv1,
+                                     bqkv1, wqkv2, bqkv2)]
+    tensors += [wqkv1.t().contiguous(), wqkv2.t().contiguous(),
+                wpx.t().contiguous(), wpc.t().contiguous(), _aligned(ox),
+                _aligned(oc)]
     _check_tensors("dca_attn_bwd", x, tensors)
     cpe_args, cpe_rps = _cpe_bwd_args("dca_attn_bwd", x, cpe, img_w)
     fb._launch("dca_attn_bwd", x, [*tensors, lse_x, lse_c, *outs, *work,
-                                   *cpe_args],
-               b, n, m, ch, h, rps_x, rps_c, img_w, cpe_rps, scale_x,
-               scale_c, LN_EPS, counts=LAUNCHES)
-    dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dwpc = outs
-    return (dx, dc, dwqkv1, dbqkv1, dwqkv2, dbqkv2, dwpx, dbpx, dwpc, dbpc,
-            *cpe_args[-2:])
+                                   *cpe_args, *_ln_identity(x)],
+               b, n, m, ch, h, rps_x, rps_c, chunks, img_w, cpe_rps,
+               scale_x, scale_c, LN_EPS, counts=LAUNCHES)
+    return (*outs, *cpe_args[-2:])
 
 
 def c_train_fwd(x, c, params, dp, *, num_heads: int, cpe=None,

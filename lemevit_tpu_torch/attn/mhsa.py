@@ -62,6 +62,13 @@ def takes(n: int, c: int, num_heads: int, itemsize: int) -> bool:
             and 4 * n * c * itemsize + 8 * n * n <= MAX_BYTES)
 
 
+def kernel_takes(c: int, num_heads: int, dtype) -> bool:
+    """Whether the kernel takes (B, n, c) inputs of ``dtype`` with
+    ``num_heads`` heads: head_dim 32, fp32 or bf16 (``check_inputs``'
+    limits), decided from shapes alone, without CUDA."""
+    return dtype in fb._DTYPES and c == num_heads * fb.HEAD_DIM
+
+
 def mhsa_plain(q, k, v, *, scale: float, num_heads: int) -> torch.Tensor:
     """Self-attention composed in PyTorch (the JAX package's _xla_mhsa)."""
     b, n, c = q.shape

@@ -23,7 +23,12 @@ kernels:
   DualCrossAttentionV2  dca.dca(q, q, v1, k, k, v2) (:178-187)
 Where the kernel function declines (returns None, under the JAX package's
 conditions) the module composes ``reference.sdpa_bnhd``; so it does for CPU
-tensors under "auto" and always under "torch".
+tensors under "auto" and always under "torch". Under "auto" a module on
+the card also composes where its kernel's own limits say no
+(``mhsa.kernel_takes``, ``dca.kernel_takes``: head_dim 32, fp32 or bf16,
+at most ``MAX_META`` meta tokens; ``shapes_ok``), decided from shapes
+before any launch, as the JAX package's kernels decline; under "cuda" the
+kernel is called and raises for them.
 """
 from __future__ import annotations
 
@@ -35,6 +40,21 @@ from lemevit_tpu_torch.attn import mhsa as mhsa_mod
 from lemevit_tpu_torch.attn import reference as ref
 
 BACKENDS = ("auto", "torch", "cuda")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a kernel path for tensor ``t`` launches CUDA kernels (for a
+    CPU tensor it runs their plain versions, which take any shape)."""
+    return t.is_cuda
+
+
+def shapes_ok(backend: str, t: torch.Tensor, takes: bool) -> bool:
+    """Whether a kernel path may take tensor ``t``'s shapes, ``takes`` being
+    its kernel's own shape predicate: under "auto" a tensor on the card
+    needs it (where it says no the caller composes, as the JAX package does
+    where its kernels return None); "cuda" calls the kernel, which raises
+    for what it does not take; CPU tensors run the plain versions."""
+    return backend == "cuda" or not on_card(t) or takes
 
 
 def use_kernel(backend: str, t: torch.Tensor) -> bool:
@@ -80,7 +100,8 @@ class StandardAttention(_Attention):
         h = self.num_heads
         qkv = self.qkv(x)
         out = None
-        if use_kernel(self.attn_backend, x):
+        if use_kernel(self.attn_backend, x) and shapes_ok(
+                self.attn_backend, x, mhsa_mod.kernel_takes(c, h, qkv.dtype)):
             out = mhsa_mod.mhsa(*qkv.split(c, dim=-1), num_heads=h)
         if out is None:
             r = qkv.view(b, n, 3, h, c // h)
@@ -105,7 +126,8 @@ class CrossAttention(_Attention):
         q = self.q(c).view(b, m, h, ch // h)
         kv = self.kv(x).view(b, n, 2, h, ch // h)
         out = None
-        if use_kernel(self.attn_backend, x):
+        if use_kernel(self.attn_backend, x) and shapes_ok(
+                self.attn_backend, x, mhsa_mod.kernel_takes(ch, h, q.dtype)):
             out = mhsa_mod.sdpa(q, kv[:, :, 0], kv[:, :, 1])
         if out is None:
             out = ref.sdpa_bnhd(q, kv[:, :, 0], kv[:, :, 1])
@@ -130,7 +152,9 @@ class DualCrossAttention(_Attention):
         scale_x, scale_c = ref.dca_scales(n, m, ch)
         qkv1, qkv2 = self.qkv1(x), self.qkv2(c)
         pair = None
-        if use_kernel(self.attn_backend, x):
+        if use_kernel(self.attn_backend, x) and shapes_ok(
+                self.attn_backend, x,
+                dca_mod.kernel_takes(ch, h, m, qkv1.dtype)):
             pair = dca_mod.dca(*qkv1.split(ch, dim=-1),
                                *qkv2.split(ch, dim=-1), scale_x=scale_x,
                                scale_c=scale_c, num_heads=h)
@@ -163,7 +187,8 @@ class DualCrossAttentionV2(_Attention):
         q, v1 = self.qv1(x).split(ch, dim=-1)
         k, v2 = self.kv2(c).split(ch, dim=-1)
         pair = None
-        if use_kernel(self.attn_backend, x):
+        if use_kernel(self.attn_backend, x) and shapes_ok(
+                self.attn_backend, x, dca_mod.kernel_takes(ch, h, m, q.dtype)):
             pair = dca_mod.dca(q, q, v1, k, k, v2, scale_x=scale_x,
                                scale_c=scale_c, num_heads=h)
         if pair is None:

@@ -13,8 +13,14 @@ feature maps instead of logits.
     then Linear in float32.
 
 A pre-norm block without layer-scale or MLP dwconv runs as hand-written
-kernels where ``use_kernel(attn_backend, x)`` says so and the JAX package
-would run its kernel at that token count (``kernel_takes``):
+kernels where ``use_kernel(attn_backend, x)`` says so, the JAX package
+would run its kernel at that token count (``kernel_takes``) and, under
+"auto", the kernels take its shapes in the compute type
+(``fused_block.block_takes`` / ``fused_train.train_takes``: head_dim 32,
+C within the kernels' width, the MLP width a multiple of 32, at most
+``MAX_META`` meta tokens in a D block); a block they do not take composes,
+as the JAX package's does where its kernels return None, while "cuda"
+calls the kernels, which raise for it:
   - inference (eval mode, autograd off): the whole-block kernels of
     attn/fused_block.py, for C, D/D2 and S blocks;
   - training (train mode, autograd on): the training kernels of
@@ -55,6 +61,7 @@ from lemevit_tpu_torch.attn.modules import (
     DualCrossAttention,
     DualCrossAttentionV2,
     StandardAttention,
+    shapes_ok,
     use_kernel,
 )
 from lemevit_tpu_torch.core.layers import (
@@ -195,14 +202,25 @@ class LeMeBlock(nn.Module):
 
     # ------------------------------------------------------------ fused
 
-    def _fusable(self, x) -> bool:
-        """For NHWC tokens x: the structural conditions of the fused kernels
-        (the pre-norm form of every released variant), the JAX package's
-        token-count limits, then the backend switch."""
-        return (self.pre_norm and not self.use_layer_scale
+    def _fusable(self, x, c, train: bool = False) -> bool:
+        """For NHWC tokens x and meta tokens c: the structural conditions of
+        the fused kernels (the pre-norm form of every released variant),
+        the JAX package's token-count limits, the backend switch, then,
+        under "auto" on the card, the kernels' own shape limits in the
+        compute type (``fused_train.train_takes`` with ``train``, else
+        ``fused_block.block_takes``; ``attn/modules.py::shapes_ok``): a
+        block they do not take composes, as the JAX package's does where
+        its kernels return None. Under "cuda" the kernels are called and
+        raise for such a block."""
+        if not (self.pre_norm and not self.use_layer_scale
                 and not self.mlp_dwconv
                 and kernel_takes(self.attn_type, x.shape[1] * x.shape[2])
-                and use_kernel(self.attn_backend, x))
+                and use_kernel(self.attn_backend, x)):
+            return False
+        takes = fused_train.train_takes if train else fused_block.block_takes
+        return shapes_ok(self.attn_backend, x, takes(
+            self.attn_type, x.shape[-1], self.num_heads,
+            self.mlp.fc1.out_features, c.shape[1], compute_dtype(x)))
 
     def train_params(self) -> list:
         """The LN-folded parameter tuple of this block's training kernels
@@ -282,7 +300,7 @@ class LeMeBlock(nn.Module):
         hw = (h, w)
         train = self.training and torch.is_grad_enabled()
         infer = not self.training and not torch.is_grad_enabled()
-        fused = (train or infer) and self._fusable(x)
+        fused = (train or infer) and self._fusable(x, c, train)
         if train and dp is None:
             dp = self.dp_scales(b, x.device)
         s1x, s2x, s1c, s2c = (None,) * 4 if dp is None else dp
@@ -421,7 +439,7 @@ class LeMeViT(nn.Module):
         (x, c), or None for the per-block path."""
         blocks = self.stages[i]
         if (not self.s_stage or self.training or torch.is_grad_enabled()
-                or self.attn_type[i] != "S" or not blocks[0]._fusable(x)):
+                or self.attn_type[i] != "S" or not blocks[0]._fusable(x, c)):
             return None
         b, h, w, ch = x.shape
         heads = blocks[0].num_heads

@@ -25,8 +25,12 @@ kernels are held in bf16 against their tile models (*_block_tiles_plain),
 with their cpe mode and D2, within 2 bf16 steps of each output's largest
 element, and bit for bit between two runs; so are the S block's attention
 backward and the MLP backward (train_tc.cuh) against
-mlp_bwd_tiles_plain / s_attn_bwd_tiles_plain, and against their plain
-phases in fp32 at 1e-4 of each tensor's largest element."""
+mlp_bwd_tiles_plain / s_attn_bwd_tiles_plain, the S block's training
+forward (lm_s_train_fwd) against s_train_fwd_tiles_plain and the D block's
+attention backward (lm_dca_attn_bwd) against dca_attn_bwd_tiles_plain, all
+against their plain phases in fp32 at 1e-4 of each tensor's largest
+element. LeMeViT's constructor defaults (head_dim 64) run under "auto" on
+the card by composing, and match "torch"."""
 import numpy as np
 import pytest
 import torch
@@ -1092,3 +1096,185 @@ def test_bwd_tc_refuses_past_max_train_dim_on_gpu(cuda):
     with pytest.raises(ValueError, match="MAX_TRAIN_DIM"):
         ft.s_attn_bwd(x, c, gx, gc, dp, wqkv, bqkv, wp, *fwd[4:], **kw)
     assert _launched(before) == {}
+
+
+# Row 9 (s_train.cu's lm_s_train_fwd on k_qkv_wg, k_mhsa_tc and k_tail_wg's
+# training instance): (N, C, batch, image width for the cpe mode or 0)
+FWD_TC_SHAPES = [(196, 192, 4, 0), (49, 320, 4, 0), (784, 192, 2, 0),
+                 (1024, 192, 2, 0), (200, 192, 2, 0), (16, 64, 4, 0),
+                 (196, 192, 4, 14)]
+
+
+def _fwd_inputs(cuda, n, ch, b, dtype, seed, cpe_w=0):
+    """x, c, the S block's folded params, DropPath scales (some 0) and the
+    phase's keywords (with cpe_w, a CPE pair on images cpe_w wide), in
+    dtype."""
+    rng = np.random.RandomState(seed)
+    hid = 4 * ch
+    arrays = ([rng.randn(b, n, ch), rng.randn(b, M, ch)]
+              + _lin(rng, 3 * ch, ch) + _lin(rng, ch, ch)
+              + _lin(rng, hid, ch) + _lin(rng, ch, hid))
+    ts = [torch.tensor(a.astype(np.float32), device=cuda).to(dtype)
+          for a in arrays]
+    dp = torch.from_numpy(((rng.rand(4, b) < 0.7) / 0.7).astype(
+        np.float32)).to(cuda)
+    kw = {"num_heads": ch // 32}
+    if cpe_w:
+        kw.update(cpe=[torch.tensor(a, device=cuda).to(dtype)
+                       for a in _cpe(rng, ch)], img_w=cpe_w)
+    return ts[0], ts[1], ts[2:], dp, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b,cpe_w", FWD_TC_SHAPES)
+def test_s_train_fwd_tc_matches_plain_and_tiles_model_on_gpu(cuda, n, ch, b,
+                                                            cpe_w):
+    """lm_s_train_fwd: fp32 against s_train_fwd_plain at 1e-4 of each
+    output's largest element (x_out, c_out, t1, o and the log-sum-exp of
+    both streams); bf16 against s_train_fwd_tiles_plain within TILES_STEPS
+    bf16 steps of each output's largest element, the log-sum-exp at 1e-3;
+    one launch a call; two calls give the same bits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c, params, dp, kw = _fwd_inputs(cuda, n, ch, b, dtype, 12, cpe_w)
+        before = dict(ft.LAUNCHES)
+        got = ft.s_train_fwd(x, c, params, dp, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"s_train_fwd": 1}
+        again = ft.s_train_fwd(x, c, params, dp, **kw)
+        for g_, a_ in zip(got, again):
+            assert torch.equal(g_, a_)
+        ref = (ft.s_train_fwd_plain if dtype == torch.float32
+               else ft.s_train_fwd_tiles_plain)
+        want = ref(x, c, params, dp, **kw)
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            g_, w_ = g_.float(), w_.float()
+            assert g_.shape == w_.shape and torch.isfinite(g_).all(), i
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item(),
+                    msg=f"output {i}")
+            elif i >= 6:  # the log-sum-exp, fp32 from rounded q and k
+                torch.testing.assert_close(g_, w_, rtol=1e-3, atol=1e-3)
+            else:
+                _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+# Row 13 (dca_train.cu's lm_dca_attn_bwd on k_qkv_wg, k_rowmm_wg,
+# k_dca_bwd_tc and k_wgrad_tc): (N, C, batch, M, D2, image width for the
+# cpe mode or 0)
+DCA_BWD_SHAPES = [(3136, 64, 2, 16, False, 0), (784, 128, 2, 16, False, 0),
+                  (1000, 64, 2, 16, False, 0), (784, 128, 2, 48, False, 0),
+                  (784, 128, 2, 16, True, 0), (3136, 64, 2, 16, False, 56)]
+
+
+def _dca_bwd_inputs(cuda, n, ch, b, m, d2, dtype, seed, cpe_w=0):
+    """The D attention backward's arguments in dtype (D2: the permuted
+    [Wq|Wq|Wv1] / [Wk|Wk|Wv2] weights), its keywords, o and lse from the
+    plain forward in dtype."""
+    rng = np.random.RandomState(seed)
+    hid = 4 * ch
+    if d2:
+        wq, wv1, wk, wv2 = (_lin(rng, ch, ch) for _ in range(4))
+        attn = [np.concatenate([wq[0], wq[0], wv1[0]]),
+                np.concatenate([wq[1], wq[1], wv1[1]]),
+                np.concatenate([wk[0], wk[0], wv2[0]]),
+                np.concatenate([wk[1], wk[1], wv2[1]])]
+    else:
+        attn = _lin(rng, 3 * ch, ch) + _lin(rng, 3 * ch, ch)
+    arrays = ([rng.randn(b, n, ch), rng.randn(b, m, ch)] + attn
+              + _lin(rng, ch, ch) + _lin(rng, ch, ch)
+              + _lin(rng, hid, ch) + _lin(rng, ch, hid)
+              + [rng.randn(b, n, ch), rng.randn(b, m, ch)])
+    ts = [torch.tensor(a.astype(np.float32), device=cuda).to(dtype)
+          for a in arrays]
+    x, c, params, dt1x, dt1c = ts[0], ts[1], ts[2:14], ts[14], ts[15]
+    dp = torch.from_numpy(((rng.rand(4, b) < 0.7) / 0.7).astype(
+        np.float32)).to(cuda)
+    kw = {"num_heads": ch // 32}
+    kw["scale_x"], kw["scale_c"] = dca_scales(n, m, ch)
+    if cpe_w:
+        kw.update(cpe=[torch.tensor(a, device=cuda).to(dtype)
+                       for a in _cpe(rng, ch)], img_w=cpe_w)
+    fwd = ft.dca_train_fwd_plain(x, c, params, dp, **kw)
+    wqkv1, bqkv1, wqkv2, bqkv2, wpx, _, wpc = params[:7]
+    args = (x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
+            *fwd[4:])
+    return args, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b,m,d2,cpe_w", DCA_BWD_SHAPES)
+def test_dca_attn_bwd_tc_matches_plain_and_tiles_model_on_gpu(
+        cuda, n, ch, b, m, d2, cpe_w):
+    """lm_dca_attn_bwd: fp32 against dca_attn_bwd_plain at 1e-4 of each
+    tensor's largest element (dx, dc, every weight and bias gradient, with
+    the CPE the taps' and bias's too); bf16 against
+    dca_attn_bwd_tiles_plain within TILES_STEPS bf16 steps of each tensor's
+    largest element; one launch a call; two calls give the same bits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args, kw = _dca_bwd_inputs(cuda, n, ch, b, m, d2, dtype, 13, cpe_w)
+        before = dict(ft.LAUNCHES)
+        got = [t for t in ft.dca_attn_bwd(*args, **kw) if t is not None]
+        torch.cuda.synchronize()
+        assert _launched(before) == {"dca_attn_bwd": 1}
+        again = [t for t in ft.dca_attn_bwd(*args, **kw) if t is not None]
+        for g_, a_ in zip(got, again):
+            assert torch.equal(g_, a_)
+        ref = (ft.dca_attn_bwd_plain if dtype == torch.float32
+               else ft.dca_attn_bwd_tiles_plain)
+        want = [t for t in ref(*args, **kw) if t is not None]
+        assert len(got) == len(want) == (12 if cpe_w else 10)
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            g_, w_ = g_.float(), w_.float()
+            assert g_.shape == w_.shape and torch.isfinite(g_).all(), i
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item(),
+                    msg=f"tensor {i}")
+            else:
+                _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+def test_dca_train_refuses_more_meta_tokens_than_it_takes_on_gpu(cuda):
+    """Past MAX_META the D training phases raise a ValueError naming the
+    limit and launch nothing."""
+    from lemevit_tpu_torch.attn import dca
+    m = dca.MAX_META[torch.float32] + 8
+    args, kw = _dca_bwd_inputs(cuda, 64, 64, 1, m, False, torch.float32, 14)
+    before = dict(ft.LAUNCHES)
+    with pytest.raises(ValueError, match="MAX_META"):
+        ft.dca_attn_bwd(*args, **kw)
+    assert _launched(before) == {}
+
+
+@pytest.mark.gpu
+def test_constructor_defaults_compose_on_gpu(cuda):
+    """LeMeViT() with its own defaults (head_dim 64, 128 meta tokens) at
+    64^2 under "auto" on the card: the blocks decline by shape and compose,
+    so a forward and a training step run, launch no block kernel, and match
+    attn_backend="torch" (fp32; logits and every gradient at 1e-4 of their
+    largest element)."""
+    from lemevit_tpu_torch.attn import dca, mhsa
+    from lemevit_tpu_torch.models import lemevit as tmod
+    counts = (ft.LAUNCHES, fb.LAUNCHES, dca.LAUNCHES, mhsa.LAUNCHES)
+    torch.manual_seed(0)
+    auto = tmod.LeMeViT(num_classes=10).to(cuda)
+    plain = tmod.LeMeViT(num_classes=10, attn_backend="torch").to(cuda)
+    plain.load_state_dict(auto.state_dict())
+    x = torch.randn(2, 64, 64, 3, device=cuda)
+    before = [dict(d) for d in counts]
+    out = []
+    for m in (auto, plain):
+        m.train()
+        m(x).square().mean().backward()
+        m.eval()
+        with torch.no_grad():
+            out.append((m(x), [p.grad for p in m.parameters()]))
+    torch.cuda.synchronize()
+    assert [dict(d) for d in counts] == before
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(out[0][1], out[1][1]):
+        if b is not None:
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-7)

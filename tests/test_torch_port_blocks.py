@@ -197,7 +197,7 @@ def test_block_composition_variants_match_jax(attn_type, variant):
     tb = TBlock(C, H, attn_type, **variant).eval()
     tb.load_state_dict(block_state_dict(v["params"]), strict=True)
     with torch.no_grad():
-        assert not tb._fusable(torch.from_numpy(x))
+        assert not tb._fusable(torch.from_numpy(x), torch.from_numpy(c))
         tx, tc = tb(torch.from_numpy(x), torch.from_numpy(c))
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)

@@ -369,8 +369,10 @@ def test_dispatch_takes_jax_token_limits(kernel_path):
     s = tmod.LeMeBlock(32, 1, "S")
     d = tmod.LeMeBlock(32, 1, "D")
     x1024, x3136 = torch.zeros(1, 32, 32, 32), torch.zeros(1, 56, 56, 32)
-    assert s._fusable(x1024) and not s._fusable(x3136)
-    assert d._fusable(x3136) and not d._fusable(torch.zeros(1, 1, 3137, 32))
+    c = torch.zeros(1, 16, 32)
+    assert s._fusable(x1024, c) and not s._fusable(x3136, c)
+    assert d._fusable(x3136, c) and not d._fusable(
+        torch.zeros(1, 1, 3137, 32), c)
     assert tmod.kernel_takes("S", 784) and not tmod.kernel_takes("S", 3136)
 
 
@@ -383,7 +385,7 @@ def test_cd_blocks_train_on_kernel_path(kernel_path, attn_type):
     blk.drop_path.generator = torch.Generator().manual_seed(0)
     x = torch.randn(2, 4, 4, 32, requires_grad=True)
     c = torch.randn(2, 8, 32, requires_grad=True)
-    assert blk._fusable(x)
+    assert blk._fusable(x, c, train=True)
     before = dict(ft.LAUNCHES)
     xo, co = blk(x, c)
     assert xo.shape == x.shape and co.shape == c.shape
