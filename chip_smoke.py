@@ -6,15 +6,17 @@ Builds the CUDA kernels from lemevit_tpu_torch/attn/csrc and drives the
 port's main paths, each with every kernel's launch count set to 0 just
 before it and read just after:
   - serving: every inference block kernel held against its plain PyTorch
-    version at the shapes of LeMeViT-Base at 224^2 (the S and D kernels
+    version at the shapes of LeMeViT-Base at 224^2 (the C, S and D kernels
     also in bf16 against their order of work in PyTorch,
     *_block_tiles_plain, bit for bit over two runs, timed by CUDA events
-    and by the profiler's device time; also at a ragged N, with 32 and 128
-    meta tokens, and D2 through the weight permutation), base's kernel
-    path against its plain path, a bf16 batch of 64 served through
+    and by the profiler's device time; the C kernel's port launches read
+    from the profile, none of block_common.cuh's chain, its attention
+    beside SDPA's forward of the meta direction; also at a ragged N, with
+    32 and 128 meta tokens, and D2 through the weight permutation), base's
+    kernel path against its plain path, a bf16 batch of 64 served through
     cli.benchmark's inference function with a profile of one forward (the
-    S and D blocks' kernels by name, block_common.cuh's chain only for the
-    C blocks), and cli.validate on synthetic data;
+    C, S and D blocks' kernels by name, block_common.cuh's chain in none),
+    and cli.validate on synthetic data;
   - serving base on the slice's path (s_stage, cpe_in_kernel): the s_stage
     kernel held against its plain version and against the chain of S block
     kernels at base's, lemevit_tiny's and UperNet's stage shapes, with and
@@ -40,16 +42,20 @@ before it and read just after:
     phases on the tensor-core kernels: row 9, lm_s_train_fwd (S blocks:
     k_qkv_wg, k_mhsa_tc with the log-sum-exp, k_tail_wg's training
     instance), rows 10-11, lm_s_attn_bwd (S blocks) and lm_mlp_bwd (every
-    block kind) of train_tc.cuh, and row 13, lm_dca_attn_bwd (D blocks:
-    k_qkv_wg, k_rowmm_wg, the cross-attention backward k_dca_bwd_tc and
-    k_wgrad_tc), phase by phase: fp32 against the plain phases at 1e-4,
+    block kind) of train_tc.cuh, row 12, lm_dca_train_fwd (D blocks:
+    k_qkv_wg, k_dca_tc + k_dca_merge with the log-sum-exps, k_tail_wg's
+    training instance), and row 13, lm_dca_attn_bwd (D blocks: k_qkv_wg,
+    k_rowmm_wg, the cross-attention backward k_dca_bwd_tc and k_wgrad_tc,
+    on row 12's o and log-sum-exps), phase by phase: fp32 against the
+    plain phases at 1e-4,
     bf16 against their tile models (*_tiles_plain) within 2 bf16 steps of
     each tensor's largest element, every output bit for bit over two
     calls, the profiler's device time split by kernel with each phase's
-    port launches read (never more than PORT_LAUNCHES) and none of the
-    parent's chain kernels in rows 9 and 13, and SDPA's forward (row 9)
-    or backward (rows 10, 13, both directions) on the same q, k, v (and
-    dO) timed beside the attention tiles;
+    port launches read (never more than PORT_LAUNCHES; row 12 also in its
+    CPE mode) and none of the parent's chain kernels in rows 9, 12 and 13,
+    and SDPA's forward (rows 9, 12, both directions for row 12) or
+    backward (rows 10, 13, both directions) on the same q, k, v (and dO)
+    timed beside the attention tiles;
   - LeMeViT() with its constructor defaults (head_dim 64, 128 meta
     tokens) at 64^2 under attn_backend="auto": its blocks decline by shape
     and compose, a forward and a training step match "torch" with no
@@ -140,13 +146,13 @@ SLICE_FWD = {"c_block": 2, "dca_block": 8, "s_stage": 2}
 BLOCK_OFF_PATH = [("s_block", 200, 192, 16), ("s_block", 196, 384, 32),
                   ("s_block", 196, 384, 128), ("dca_block", 1000, 96, 16),
                   ("dca_block", 784, 192, 32), ("dca_block", 784, 192, 128)]
-# CUDA kernels of one bf16 base forward by name: c_block's chain
-# (block_common.cuh) twice, the S and D kernels' (block_tc.cuh, attn_tc.cuh)
-# 22 and 8 times; the old chain's kernels run only for the C blocks
-BASE_FWD_KERNELS = {"k_linear_ln": 2, "k_attention": 2, "k_attn_combine": 2,
-                    "k_block_tail": 2, "k_qkv_wg": 30, "k_mhsa_tc": 22,
-                    "k_mhsa_tc_small": 22, "k_dca_tc": 8, "k_dca_merge": 8,
-                    "k_tail_wg": 30}
+# CUDA kernels of one bf16 base forward by name: the C, S and D kernels'
+# (block_tc.cuh, attn_tc.cuh) 2, 22 and 8 times; block_common.cuh's chain
+# no more
+BASE_FWD_KERNELS = {"k_linear_ln": 0, "k_attention": 0, "k_attn_combine": 0,
+                    "k_block_tail": 0, "k_qkv_wg": 32, "k_mhsa_tc": 22,
+                    "k_mhsa_tc_small": 22, "k_dca_tc": 10, "k_dca_merge": 10,
+                    "k_tail_wg": 32}
 # lemevit_tiny at 224^2: (kernel, N, C, launches per eval forward)
 TINY_SHAPES = [("c_block", 3136, 64, 1),
                ("dca_block", 3136, 64, 2), ("dca_block", 784, 128, 2),
@@ -515,7 +521,8 @@ def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g, b_check=B_CHECK,
                 "s_block": fb.s_block}
     plains = {"c_block": fb.c_block_plain, "dca_block": fb.dca_block_plain,
               "s_block": fb.s_block_plain}
-    tiles = {"dca_block": fb.dca_block_tiles_plain,
+    tiles = {"c_block": fb.c_block_tiles_plain,
+             "dca_block": fb.dca_block_tiles_plain,
              "s_block": fb.s_block_tiles_plain}
 
     def call(fns, x, c, p, cpe=None):
@@ -561,6 +568,19 @@ def check_block_kernel(fb, kind, n, ch, per_fwd, dev, g, b_check=B_CHECK,
         dev_ms = device_ms(lambda: call(wrappers, xb, cb, pb, cpeb))
         extra = dict(m=m, err_tiles_bf16=err_t, bitwise_repeatable=True,
                      kernel_ms=dev_ms)
+        if kind == "c_block":  # its port kernels, the attention beside SDPA
+            prof = profile_call(lambda: call(wrappers, xb, cb, pb, cpeb),
+                                f"c_block N={n} C={ch} B={b_main}", top=8)
+            attn_ms = sum(v for k, v in prof.get("ms_by_name", {}).items()
+                          if "k_dca_" in k) or None  # none: dropped
+            sdpa = sdpa_c_fwd_device_ms(xb, cb, pb, ch // 32)
+            extra.update(port_launches_per_call=port_kernels(prof, kind),
+                         attn_part_device_ms=attn_ms, sdpa_fwd_ms=sdpa[0],
+                         sdpa_fwd_device_ms=sdpa[1])
+            say("kernel", f"c_block N={n} C={ch}: the meta direction's "
+                f"attention, device ms {fmt_ms(attn_ms)}; SDPA's forward on "
+                f"the same q, k, v {sdpa[0]:.4f} ms (device "
+                f"{fmt_ms(sdpa[1])})")
     del got, want
     ms = cuda_ms(lambda: call(wrappers, xb, cb, pb, cpeb))
     plain_ms = cuda_ms(lambda: call(plains, xb, cb, pb, cpeb))
@@ -884,6 +904,10 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
                               if key in k) or None  # none: dropped
                 if name == "s_train_fwd":
                     sdpa = sdpa_fwd_device_ms(ft, x, c, p, ch // 32)
+                elif name == "dca_train_fwd":
+                    sdpa = sdpa_dca_fwd_device_ms(ft, x, c, p, ch // 32,
+                                                  kw["scale_x"],
+                                                  kw["scale_c"])
                 elif name == "dca_attn_bwd":
                     sdpa = sdpa_dca_bwd_device_ms(
                         ft, tc_phases(ft, kind, x, c, p, dp, gx, gc,
@@ -927,9 +951,10 @@ def tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
     """{phase: (args, keywords)} of one block kind's phases on the
     tensor-core kernels, each on the kernel outputs of the phase before:
     row 9 (s_train_fwd) and row 10 (s_attn_bwd) at S, row 11 (mlp_bwd) at
-    every kind (the C block's on its meta stream alone), row 13
-    (dca_attn_bwd) at D. kw carries num_heads, the D scales and, with the
-    CPE pair ``cpe``, img_w."""
+    every kind (the C block's on its meta stream alone), rows 12
+    (dca_train_fwd) and 13 (dca_attn_bwd, on row 12's o and log-sum-exps)
+    at D. kw carries num_heads, the D scales and, with the CPE pair
+    ``cpe``, img_w."""
     w1, b1, w2 = p[-4], p[-3], p[-2]
     pkw = dict(kw, cpe=cpe) if cpe is not None else dict(kw)
     fwd = getattr(ft, TRAIN_PHASES[kind][0])(x, c, p, dp, **pkw)
@@ -942,15 +967,16 @@ def tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
         return {"s_train_fwd": ((x, c, p, dp), pkw), "mlp_bwd": (mlp, {}),
                 "s_attn_bwd": ((x, c, dt1x, dt1c, dp, *p[:3], *fwd[4:]),
                                pkw)}
-    return {"mlp_bwd": (mlp, {}),
+    return {"dca_train_fwd": ((x, c, p, dp), pkw), "mlp_bwd": (mlp, {}),
             "dca_attn_bwd": ((x, c, dt1x, dt1c, dp, *p[:5], p[6],
                               *fwd[4:]), pkw)}
 
 
 def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
                  img_w=0):
-    """Rows 9-11 and 13 (lm_s_train_fwd, lm_s_attn_bwd at S, lm_mlp_bwd at
-    every block kind, lm_dca_attn_bwd at D; with img_w in their cpe mode)
+    """Rows 9-13 (lm_s_train_fwd, lm_s_attn_bwd at S, lm_mlp_bwd at every
+    block kind, lm_dca_train_fwd, lm_dca_attn_bwd at D; with img_w in
+    their cpe mode)
     phase by phase: fp32 at b_check against the plain phases (TRAIN_TOL:
     1e-4 of (max|ref| + |ref|) per tensor), bf16 at b_main against their
     tile models (*_tiles_plain) within TILES_STEPS bf16 steps of each
@@ -1019,6 +1045,37 @@ def sdpa_fwd_device_ms(ft, x, c, p, heads) -> tuple:
     def run():
         for q, k, v in qkvs:
             F.scaled_dot_product_attention(q, k, v)
+    return cuda_ms(run), device_ms(run)
+
+
+def sdpa_dca_fwd_device_ms(ft, x, c, p, heads, scale_x, scale_c) -> tuple:
+    """(events ms, device ms) of SDPA's forward on row 12's attention
+    inputs: the x direction (q1 over k2 / v2, scale_x) and the c direction
+    (q2 over k1 / v1, scale_c), q, k, v rounded as k_qkv_wg rounds them;
+    for this table only."""
+    q1, k1, v1 = (_heads(u, heads) for u in _qkv_rows(ft, x, p[0], p[1]))
+    q2, k2, v2 = (_heads(u, heads) for u in _qkv_rows(ft, c, p[2], p[3]))
+
+    def run():
+        F.scaled_dot_product_attention(q1, k2, v2, scale=scale_x)
+        F.scaled_dot_product_attention(q2, k1, v1, scale=scale_c)
+    return cuda_ms(run), device_ms(run)
+
+
+def sdpa_c_fwd_device_ms(x, c, p, heads) -> tuple:
+    """(events ms, device ms) of SDPA's forward on the C block's attention
+    inputs: the meta queries over the image keys, q = LN1(c) Wq^T + bq and
+    k, v = LN1(x) Wkv^T + bkv rounded as k_qkv_wg rounds them; for this
+    table only."""
+    def rows(t, w, bias):
+        a = F.layer_norm(t.float(), t.shape[-1:], p[0].float(), p[1].float(),
+                         1e-6).to(t.dtype).float()
+        return (a @ w.float().t() + bias.float()).to(t.dtype)
+    q = _heads(rows(c, p[2], p[3]), heads)
+    k, v = (_heads(u, heads) for u in rows(x, p[4], p[5]).chunk(2, -1))
+
+    def run():
+        F.scaled_dot_product_attention(q, k, v)
     return cuda_ms(run), device_ms(run)
 
 
@@ -1143,6 +1200,11 @@ def check_train_cpe(ft, fb, kind, n, img_w, ch, blocks, dev, g,
     if profile:
         profile_call(calls[bwd_name][0], f"{bwd_name} with its CPE N={n} "
                      f"C={ch} B={b_main}", top=12)
+    port = None
+    if fwd_name == "dca_train_fwd":  # row 12: as many launches as without
+        port = port_kernels(profile_call(
+            calls[fwd_name][0], f"{fwd_name} with its CPE N={n} C={ch} "
+            f"B={b_main}", top=8), fwd_name)
     rows = []
     for name in (fwd_name, bwd_name):
         kern, plain_fn = calls[name]
@@ -1156,7 +1218,9 @@ def check_train_cpe(ft, fb, kind, n, img_w, ch, blocks, dev, g,
             grad_scale_bf16=errs[torch.bfloat16]["scale"],
             ms=cuda_ms(kern), plain_ms=cuda_ms(plain_fn),
             external_cpe_ms=ext_ms[name], bound_ms=t_bound, bound_by=by,
-            dtaps_bitwise_repeatable=repeatable))
+            dtaps_bitwise_repeatable=repeatable,
+            **({"port_launches_per_call": port} if name == fwd_name
+               and port is not None else {})))
     e32, e16 = errs[torch.float32], errs[torch.bfloat16]
     pass_ms = {name: cpe_pass_bytes(name, b_main, n, ch) / HBM_BYTES_PER_S
                * 1e3 for name in (fwd_name, bwd_name)}
@@ -1589,7 +1653,7 @@ def ptxas_report(src: Path) -> str:
 
 
 PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu",
-                 "s_train.cu")
+                 "c_block.cu", "s_train.cu", "dca_train.cu")
 
 
 def kernels_ptxas() -> dict:
@@ -1602,7 +1666,8 @@ def kernels_ptxas() -> dict:
         reports = pool.map(lambda src: ptxas_report(_build.CSRC / src),
                            PTXAS_SOURCES)
         out = dict(zip(PTXAS_SOURCES, reports))
-    for src in ("s_block.cu", "dca_block.cu", "s_train.cu"):
+    for src in ("s_block.cu", "dca_block.cu", "c_block.cu", "s_train.cu",
+                "dca_train.cu"):
         out[src] = "\n".join(
             line for line in out[src].splitlines()
             if any(k in line for k in ("_tc", "_wg", "k_dca_merge")))
@@ -1638,22 +1703,28 @@ def kernel_count(prof: dict, name: str) -> int:
                if f"{name}<" in k or k.endswith(name))
 
 
-# the attention kernels of rows 9, 10 and 13 by name, the SDPA call timed
-# beside them (forward, or backward of the same q, k, v and dO; both
-# directions for row 13) and what the line calls them
+# the attention kernels of rows 9, 10, 12 and 13 by name, the SDPA call
+# timed beside them (forward, or backward of the same q, k, v and dO; both
+# directions for rows 12 and 13) and what the line calls them
 ATTN_PART = {"s_train_fwd": ("k_mhsa_tc", "sdpa_fwd", "the attention tiles"),
              "s_attn_bwd": ("k_attn_bwd_", "sdpa_bwd", "the attention tiles"),
+             "dca_train_fwd": ("k_dca_", "sdpa_fwd",
+                               "the attention of both directions"),
              "dca_attn_bwd": ("k_dca_bwd_", "sdpa_bwd",
                               "the attention backward of both directions")}
-# the port's kernel launches of one call of each phase on the tensor-core
-# kernels (no CPE), and the kernels of the parent's chains that must not
-# run in rows 9 and 13 any more. The profiler may drop a kernel from its
-# table (PERF.md section 6), so a count short of PORT_LAUNCHES is reported,
-# not raised; a retired kernel in the table raises.
+# the port's kernel launches of one call of each phase (and of the C
+# block) on the tensor-core kernels, with or without the CPE where the
+# phase's count does not change with it, and the kernels of the parent's
+# chains that must not run in rows 4-5, 9, 12 and 13 any more. The
+# profiler may drop a kernel from its table (PERF.md section 6), so a
+# count short of PORT_LAUNCHES is reported, not raised; a retired kernel in
+# the table raises.
 PORT_LAUNCHES = {"s_train_fwd": 4, "mlp_bwd": 3, "s_attn_bwd": 8,
-                 "dca_attn_bwd": 9}
-RETIRED = {"s_train_fwd": ("k_linear_ln", "k_attention", "k_attn_combine",
-                           "k_block_tail"),
+                 "dca_train_fwd": 4, "dca_attn_bwd": 9, "c_block": 4}
+OLD_CHAIN = ("k_linear_ln", "k_attention", "k_attn_combine", "k_block_tail")
+RETIRED = {"s_train_fwd": OLD_CHAIN,
+           "dca_train_fwd": (*OLD_CHAIN, "k_cpe_rows"),
+           "c_block": OLD_CHAIN,
            "dca_attn_bwd": ("k_attn_bwd_dq", "k_attn_bwd_dkv",
                             "k_attn_bwd_rowdot", "k_wgrad", "k_wgrad_reduce",
                             "k_linear_ln", "k_ln_rows", "k_ln_bwd")}

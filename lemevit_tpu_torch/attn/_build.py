@@ -42,7 +42,7 @@ _F = ctypes.c_float
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 # entry point -> argtypes (every entry returns a cudaError_t code)
 SIGNATURES = {
-    "lm_c_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "lm_c_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_dca_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "lm_s_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_s_stage": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
@@ -51,8 +51,8 @@ SIGNATURES = {
     "lm_mlp_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _P],
     "lm_s_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                       _P],
-    "lm_dca_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                         _F, _P],
+    "lm_dca_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                         _P],
     "lm_dca_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _P],
     "lm_c_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,

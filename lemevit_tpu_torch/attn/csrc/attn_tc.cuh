@@ -36,7 +36,10 @@
 // one image through every head, both directions, the meta tokens in tiles
 // of 16, one head's slices in flight while the previous head computes;
 // k_dca_merge merges the c direction's per-tile partials in a fixed
-// order.
+// order. Its instances: both directions (dca_attn.cu, dca_block.cu); both
+// with each row's log-sum-exp (kLse, the D training forward, dca_train.cu);
+// the c direction alone (kX false, the C block, c_block.cu), whose CTAs
+// also split the meta rows into chunks of DcaArgs::mc.
 #pragma once
 
 #include "block_common.cuh"
@@ -45,6 +48,7 @@ namespace lm {
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- copies
 
@@ -630,7 +634,8 @@ struct DcaTile {
 // Both directions of dual cross-attention: image rows q1 / k1 / v1 (n per
 // image), meta rows q2 / k2 / v2 (m per image, in m tiles of 16). The c
 // direction's partials go to pm / pl / pacc at [((b heads + h) tiles +
-// tile) m + r] (pacc with 32 channels more).
+// tile) m + r] (pacc with 32 channels more). The c direction alone (kX
+// false) reads k1, v1 and q2 only.
 struct DcaArgs {
   const void* q1;
   const void* k1;
@@ -647,6 +652,9 @@ struct DcaArgs {
   int batch, heads, n, m, tiles;
   float sl2x, sl2c;  // scale_x, scale_c times log2(e)
   int k1_is_q1;      // D2: k1 aliases q1, whose rows are read once
+  float* lse_x;  // kLse: each image row's log-sum-exp (B, H, n) and each
+  float* lse_c;  // meta row's (B, H, m), fp32, natural log: m scale + ln l
+  int mc;        // kX false: meta rows of a CTA (a multiple of 16; grid z)
 };
 
 // The softmax numerators of one warp's scores s (rows g and g + 8, the
@@ -701,12 +709,13 @@ __device__ __forceinline__ void divide_rows(float (&p)[NT][4], float l0,
 
 // Shared bytes of dca_rows_tile for mp meta rows (m rounded up to a
 // multiple of 16): two stages of one head's slices (TR rows of q1, k1,
-// v1; mp of q2, k2, v2), then each warp's partial (max, sum, 16 x 32
-// sums) of one m tile.
-template <typename T>
+// v1; mp of q2, k2, v2; kX false: k1, v1 and q2 only), then each warp's
+// partial (max, sum, 16 x 32 sums) of one m tile.
+template <typename T, bool kX = true>
 __host__ __device__ constexpr int dca_smem_bytes(int mp) {
   constexpr int TR = DcaTile<T>::kRows;
-  return 2 * (3 * TR + 3 * mp) * TcRows<T>::kPitch * (int)sizeof(T) +
+  return 2 * (kX ? 3 * TR + 3 * mp : 2 * TR + mp) * TcRows<T>::kPitch *
+             (int)sizeof(T) +
          (TR / 16) * kMetaTile * (2 + kAccPitch) * (int)sizeof(float);
 }
 
@@ -719,15 +728,22 @@ __host__ __device__ constexpr int dca_smem_bytes(int mp) {
 //      a first pass takes each row's maximum and sum (online, as
 //      online_step), a second computes P normalised before rounding (as
 //      pallas_dca.py:66-68) and P V2; the last key tile's P is kept from
-//      the first pass, so at m <= 16 the scores are computed once.
-template <typename T>
+//      the first pass, so at m <= 16 the scores are computed once. kLse:
+//      each row's log-sum-exp too, from the first pass.
+// kX false: the c direction alone, on the meta rows of chunk `chunk` (a.mc
+// rows from chunk a.mc); nothing of q1, k2, v2 is staged.
+template <typename T, bool kX, bool kLse>
 __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
-                                              int tile,
+                                              int tile, int chunk,
                                               unsigned char* smem) {
   constexpr int TR = DcaTile<T>::kRows;
   constexpr int P = TcRows<T>::kPitch, W = TR / 16, NT = 2 * TR;
-  const int mtiles = cdiv(a.m, kMetaTile), mp = mtiles * kMetaTile;
-  const int stage = (3 * TR + 3 * mp) * P;
+  const int mbeg = kX ? 0 : chunk * a.mc;
+  const int mcnt = kX ? a.m : min(a.mc, a.m - mbeg);
+  const int mtiles = cdiv(mcnt, kMetaTile), mp = mtiles * kMetaTile;
+  // a stage's rows: [q1] k1 v1 q2 [k2 v2], the bracketed ones with kX
+  constexpr int oK1 = kX ? TR : 0, oV1 = oK1 + TR, oQ2 = oV1 + TR;
+  const int stage = (oQ2 + (kX ? 3 : 1) * mp) * P;
   T* stages = reinterpret_cast<T*>(smem);
   float* mw = reinterpret_cast<float*>(stages + 2 * stage);  // [W][16]
   float* lw = mw + W * kMetaTile;                            // [W][16]
@@ -736,29 +752,32 @@ __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
             tid = threadIdx.x;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = tile * TR, valid = a.n - row0;
-  const T* q1 = static_cast<const T*>(a.q1) +
-                ((size_t)b * a.n + row0) * a.ld_q1;
+  const T* q1 = kX ? static_cast<const T*>(a.q1) +
+                         ((size_t)b * a.n + row0) * a.ld_q1
+                   : nullptr;
   const T* k1 = static_cast<const T*>(a.k1) +
                 ((size_t)b * a.n + row0) * a.ld_kv1;
   const T* v1 = static_cast<const T*>(a.v1) +
                 ((size_t)b * a.n + row0) * a.ld_kv1;
-  const size_t meta_q = (size_t)b * a.m * a.ld_q2,
+  const size_t meta_q = ((size_t)b * a.m + mbeg) * a.ld_q2,
                meta_kv = (size_t)b * a.m * a.ld_kv2;
 
   auto load_head = [&](int h) {
     T* s = stages + (h & 1) * stage;
     const int c0 = h * kHeadDim;
-    copy_rows(s, q1 + c0, a.ld_q1, TR, valid, tid, NT);
-    if (!a.k1_is_q1)
-      copy_rows(s + TR * P, k1 + c0, a.ld_kv1, TR, valid, tid, NT);
-    copy_rows(s + 2 * TR * P, v1 + c0, a.ld_kv1, TR, valid, tid, NT);
-    T* sm = s + 3 * TR * P;
+    if constexpr (kX) copy_rows(s, q1 + c0, a.ld_q1, TR, valid, tid, NT);
+    if (!kX || !a.k1_is_q1)
+      copy_rows(s + oK1 * P, k1 + c0, a.ld_kv1, TR, valid, tid, NT);
+    copy_rows(s + oV1 * P, v1 + c0, a.ld_kv1, TR, valid, tid, NT);
+    T* sm = s + oQ2 * P;
     copy_rows(sm, static_cast<const T*>(a.q2) + meta_q + c0, a.ld_q2, mp,
-              a.m, tid, NT);
-    copy_rows(sm + mp * P, static_cast<const T*>(a.k2) + meta_kv + c0,
-              a.ld_kv2, mp, a.m, tid, NT);
-    copy_rows(sm + 2 * mp * P, static_cast<const T*>(a.v2) + meta_kv + c0,
-              a.ld_kv2, mp, a.m, tid, NT);
+              mcnt, tid, NT);
+    if constexpr (kX) {
+      copy_rows(sm + mp * P, static_cast<const T*>(a.k2) + meta_kv + c0,
+                a.ld_kv2, mp, a.m, tid, NT);
+      copy_rows(sm + 2 * mp * P, static_cast<const T*>(a.v2) + meta_kv + c0,
+                a.ld_kv2, mp, a.m, tid, NT);
+    }
   };
 
   load_head(0);
@@ -770,9 +789,9 @@ __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
     __syncthreads();     // ... and for every thread
     T* s = stages + (h & 1) * stage;
     T* sQ1 = s + warp * 16 * P;
-    const T* sK1 = (a.k1_is_q1 ? s : s + TR * P) + warp * 16 * P;
-    const T* sV1 = s + (2 * TR + warp * 16) * P;
-    const T* sQ2 = s + 3 * TR * P;
+    const T* sK1 = (kX && a.k1_is_q1 ? s : s + oK1 * P) + warp * 16 * P;
+    const T* sV1 = s + (oV1 + warp * 16) * P;
+    const T* sQ2 = s + oQ2 * P;
     const T* sK2 = sQ2 + mp * P;
     const T* sV2 = sK2 + mp * P;
 
@@ -807,7 +826,7 @@ __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
 
       // x direction, once the c direction is done with this warp's rows
       // (its output leaves through its own q1 rows, which are D2's keys)
-      if (mt == mtiles - 1) {
+      if (kX && mt == mtiles - 1) {
         ARows<T> A;
         A.load(sQ1);
         float sx[2][4], al[2];
@@ -818,6 +837,13 @@ __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
           online_step<2, true>(st, sx, a.m - kt * kMetaTile, a.sl2x, al);
         }
         const float l0 = quad_sum(st.l[0]), l1 = quad_sum(st.l[1]);
+        if constexpr (kLse) {  // m scale + ln l, the exp2 scale unfolded
+          const int r = row0 + warp * 16 + g;
+          float* L = a.lse_x + ((size_t)b * a.heads + h) * a.n;
+          const float sc = a.sl2x * kLn2;
+          if (t == 0 && r < a.n) L[r] = fmaf(st.m[0], sc, logf(l0));
+          if (t == 0 && r + 8 < a.n) L[r + 8] = fmaf(st.m[1], sc, logf(l1));
+        }
         float o[4][4] = {};
         for (int kt = 0; kt + 1 < mtiles; ++kt) {  // full key tiles
           float p[2][4];
@@ -846,7 +872,7 @@ __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
       // m tile mt's c partial: the warps' partials merged in warp order
       for (int e = tid; e < kMetaTile * kHeadDim; e += NT) {
         const int i = e / kHeadDim, d = e % kHeadDim;
-        const int r = mt * kMetaTile + i;
+        const int r = mbeg + mt * kMetaTile + i;
         if (r >= a.m) continue;
         float mx = -INFINITY;
 #pragma unroll
@@ -870,20 +896,23 @@ __device__ __forceinline__ void dca_rows_tile(const DcaArgs& a, int b,
   }
 }
 
-template <typename T>
+// Grid: (tiles, batch, meta chunks: 1 with kX).
+template <typename T, bool kX = true, bool kLse = false>
 __global__ void __launch_bounds__(2 * DcaTile<T>::kRows)
     k_dca_tc(const DcaArgs a) {
   extern __shared__ __align__(16) unsigned char dca_smem[];
-  dca_rows_tile<T>(a, blockIdx.y, blockIdx.x, dca_smem);
+  dca_rows_tile<T, kX, kLse>(a, blockIdx.y, blockIdx.x, blockIdx.z,
+                             dca_smem);
 }
 
 // One CTA per (image, head, meta query), lane = channel: the tiles'
 // partials merged into c_out. The maximum is exact in any order; the sums
 // run in a fixed order, warp w folding tiles w, w + kMergeWarps, ... in
-// turn, then the warps' sums folded in warp order.
+// turn, then the warps' sums folded in warp order. kLse: the query's
+// log-sum-exp too, from the merged maximum and sum.
 constexpr int kMergeWarps = 8;
 
-template <typename T>
+template <typename T, bool kLse = false>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     k_dca_merge(const DcaArgs a) {
   __shared__ float s_m[kMergeWarps], s_l[kMergeWarps];
@@ -923,6 +952,8 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
   static_cast<T*>(a.co)[((size_t)b * a.m + r) * a.ldo + h * kHeadDim +
                         lane] = from_f<T>(S / L);
+  if constexpr (kLse)
+    if (lane == 0) a.lse_c[row] = fmaf(mx, a.sl2c * kLn2, logf(L));
 }
 
 }  // namespace

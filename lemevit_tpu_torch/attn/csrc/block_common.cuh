@@ -1,5 +1,6 @@
-// Device building blocks shared by the fused LeMeBlock kernels (c_block.cu,
-// dca_block.cu, s_block.cu, s_stage.cu and the training kernels).
+// Device building blocks shared by s_stage.cu, the C block's training
+// kernels (c_train.cu), train_common.cuh and the S / D block tails past C =
+// 512 (block_tc.cuh's launch_tail_tc).
 //
 // Every public block kernel is a short chain of the launches defined here
 // (s_stage.cu runs their bodies, attention_tile and tail_rows, in one):
@@ -16,9 +17,8 @@
 // All matrix products go through one routine, tile_gemm: a shared-memory
 // tiled product with fp32 accumulation whose A operand is a matrix in
 // global or shared memory, optionally row-LayerNormed on the way in (Rows,
-// LnRows), or the LayerNorm of the block's 3x3 conditional position
-// embedding (CPE) of its rows (LnCpeRows), and whose result goes to an
-// epilogue functor (bias, exact-erf GELU, residual). bf16 products run on
+// LnRows), and whose result goes to an epilogue functor (bias, exact-erf
+// GELU, residual). bf16 products run on
 // the tensor cores (mma.sync m16n8k16, the LayerNorm output rounded to
 // bf16 first, as the TPU kernels round before the MXU); fp32 products stay
 // on FMA, so fp32 keeps full precision. No stage is pipelined: each 32-deep step loads, syncs and
@@ -104,8 +104,7 @@ __device__ __forceinline__ void row_stats(Get get, int rows, int K, float eps,
 // The A operands of tile_gemm. Rows: a plain row-major matrix (in global
 // or shared memory). LnRows: LayerNorm applied to the rows of a matrix on
 // the way in. Rows past `rows` read as zero. In bf16 both are staged 8
-// values per 16-byte load; the fp32 path reads them through a_elem. (The
-// CPE's LnCpeRows below is staged element by element.)
+// values per 16-byte load; the fp32 path reads them through a_elem.
 template <typename T>
 struct Rows {
   const T* p;
@@ -176,22 +175,6 @@ struct CpeRows {
       }
     }
     return to_f(from_f<T>(to_f(*px) + acc));
-  }
-};
-
-// LayerNorm of the CPE'd rows, statistics in shared memory: any product's
-// A operand can read CPE'd rows without a separate pass over x.
-template <typename T>
-struct LnCpeRows {
-  CpeRows<T> x;
-  const float* mean;
-  const float* rstd;
-  const T* g;
-  const T* beta;
-
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    if (r >= x.rows) return 0.f;
-    return (x(r, k) - mean[r]) * rstd[r] * to_f(g[k]) + to_f(beta[k]);
   }
 };
 
@@ -285,13 +268,6 @@ __device__ __forceinline__ void tile_gemm_mma(
               load_a.p + (size_t)r * load_a.ld + k0 + k);
         *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
       }
-    } else if constexpr (!std::is_same<LoadA, LnRows<__nv_bfloat16>>::value) {
-      // any other operand (LnCpeRows) element by element, rounded to bf16
-      // as the LnRows path rounds
-      for (int e = tid; e < BM * kBK; e += kThreads) {
-        const int r = e / kBK, k = e % kBK;
-        sA[r * kPitch + k] = __float2bfloat16(load_a(r, k0 + k));
-      }
     } else {
       for (int e = tid; e < BM * kBK / V; e += kThreads) {
         const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
@@ -349,7 +325,7 @@ __device__ __forceinline__ void tile_gemm_mma(
 }
 
 // One BM x BN output tile of A[BM x K] @ Wt[n0:n0+BN, :]^T, K % kBK == 0.
-// load_a is a Rows<T>, an LnRows<T> or an LnCpeRows<T>; wt is (ncols, ldw)
+// load_a is a Rows<T> or an LnRows<T>; wt is (ncols, ldw)
 // in torch Linear layout; columns >= ncols are masked. epi(r, n, v) receives every valid
 // output exactly once, from the thread that owns it. sA and sW hold
 // kBK * (BM + 1) and kBK * (BN + 1) floats, 16-byte aligned; in bf16 the
@@ -436,16 +412,14 @@ struct LinArgs {
   float eps;
   int plain_a;  // 1: A is used as given (no LayerNorm, ln_w / ln_b unused)
   int out_f32;  // 1: out = A @ w^T in float32, no bias (needs plain_a)
-  Cpe cpe;      // where cpe.taps is set: seg[cpe_seg] is LayerNormed after
-  int cpe_seg;  // its CPE (its rows are the image tokens, B * img_n)
 };
 
 constexpr int kLinBM = 64, kLinBN = 64;
 
-// The four modes are separate instances, so that each carries one product
+// The three modes are separate instances, so that each carries one product
 // and a straight epilogue (as one kernel with runtime flags, the inference
 // projection ran 1.5x slower).
-template <typename T, bool kPlainA, bool kOutF32, bool kCpe = false>
+template <typename T, bool kPlainA, bool kOutF32>
 __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
   __shared__ __align__(16) float sA[kBK * (kLinBM + 1)];
   __shared__ __align__(16) float sW[kBK * (kLinBN + 1)];
@@ -455,7 +429,9 @@ __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
     rb -= args.row_blocks0;
     si = 1;
   }
-  const LinSeg sg = args.seg[si];
+  // by value from a constant index: args.seg[si] made ptxas copy the
+  // parameter block to the stack (~9 % on lm_c_train_fwd, H100)
+  const LinSeg sg = si ? args.seg[1] : args.seg[0];
   const int n0 = blockIdx.y * kLinBN;
   if (n0 >= sg.ncols) return;  // uniform over the block, before any barrier
   const int K = args.K;
@@ -477,15 +453,6 @@ __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
   if constexpr (kPlainA) {
     tile_gemm<kLinBM, kLinBN>(Rows<T>{A, K, rows}, w, K, K, n0, sg.ncols, sA,
                               sW, epi);
-  } else if (kCpe && si == args.cpe_seg) {
-    // the image rows: statistics and product both read their CPE
-    const CpeRows<T> xc{A, K, rows, row0, args.cpe};
-    row_stats(xc, kLinBM, K, args.eps, s_mean, s_rstd);
-    __syncthreads();
-    tile_gemm<kLinBM, kLinBN>(
-        LnCpeRows<T>{xc, s_mean, s_rstd, static_cast<const T*>(args.ln_w),
-                     static_cast<const T*>(args.ln_b)},
-        w, K, K, n0, sg.ncols, sA, sW, epi);
   } else {
     row_stats(
         [&](int r, int k) {
@@ -502,8 +469,7 @@ __global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
 
 template <typename T>
 int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
-  if ((a.out_f32 && (!a.plain_a || a.seg[0].bias || a.seg[1].bias)) ||
-      (a.cpe.taps && a.plain_a))
+  if (a.out_f32 && (!a.plain_a || a.seg[0].bias || a.seg[1].bias))
     return (int)cudaErrorInvalidValue;
   const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kLinBM);
   dim3 grid(blocks, cdiv(max_ncols, kLinBN));
@@ -511,8 +477,6 @@ int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
     k_linear_ln<T, true, true><<<grid, kThreads, 0, s>>>(a);
   else if (a.plain_a)
     k_linear_ln<T, true, false><<<grid, kThreads, 0, s>>>(a);
-  else if (a.cpe.taps)
-    k_linear_ln<T, false, false, true><<<grid, kThreads, 0, s>>>(a);
   else
     k_linear_ln<T, false, false><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
@@ -706,7 +670,6 @@ struct TailSeg {
   const float* s2;
   int seq;
   void* t1;
-  Cpe cpe;  // where cpe.taps is set: t is before its CPE (image rows)
 };
 
 // Two streams share one launch and the block's norm2 + MLP weights.
@@ -742,10 +705,9 @@ inline size_t tail_smem_bytes(int C, size_t elt) {
 // output. sAcc holds t1 + b2 in fp32 and then gathers fc2; LN2(t1) is stored
 // once in T as fc1's A operand; the hidden activation lives one BM x
 // kTailBH chunk at a time, so the 4C-wide hidden row never exists whole.
-// With kCpe and sg.cpe.taps set, t is the stream before its CPE and the
-// residual reads the CPE of its rows. t, o and out may be written earlier
-// in the same launch (k_s_stage), so they are not read as restrict.
-template <typename T, bool kCpe>
+// t, o and out may be written earlier in the same launch (k_s_stage), so
+// they are not read as restrict.
+template <typename T>
 __device__ __forceinline__ void tail_rows(const TailArgs& a,
                                           const TailSeg& sg, int row0,
                                           unsigned char* smem) {
@@ -782,12 +744,6 @@ __device__ __forceinline__ void tail_rows(const TailArgs& a,
   const T* __restrict__ w2 = static_cast<const T*>(a.w2);
   const T* __restrict__ b2 = static_cast<const T*>(a.b2);
   T* out = static_cast<T*>(sg.out) + (size_t)row0 * C;
-  const CpeRows<T> tcpe{tin, C, rows, row0, sg.cpe};
-  const auto t_at = [&](int r, int n) {
-    if constexpr (kCpe)
-      if (sg.cpe.taps) return tcpe(r, n);
-    return to_f(tin[(size_t)r * C + n]);
-  };
 
   // 1. t1 = t + s1 (o @ Wp^T + bp), in fp32 (tile_gemm's first barrier
   //    orders the scale loads above before the epilogue reads them)
@@ -796,7 +752,9 @@ __device__ __forceinline__ void tail_rows(const TailArgs& a,
         Rows<T>{o, C, rows}, static_cast<const T*>(sg.wp), C, C, n0, C, sA,
         sW, [&](int r, int n, float v) {
           sAcc[r * C + n] =
-              r < rows ? s_s1[r] * (v + to_f(bp[n])) + t_at(r, n) : 0.f;
+              r < rows ? s_s1[r] * (v + to_f(bp[n])) +
+                             to_f(tin[(size_t)r * C + n])
+                       : 0.f;
         });
   __syncthreads();
   if (sg.t1) {
@@ -841,7 +799,7 @@ __device__ __forceinline__ void tail_rows(const TailArgs& a,
     out[e] = from_f<T>(sAcc[e]);
 }
 
-template <typename T, bool kCpe>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   int rb = blockIdx.x, si = 0;
@@ -849,7 +807,7 @@ __global__ void __launch_bounds__(kThreads) k_block_tail(const TailArgs a) {
     rb -= a.row_blocks0;
     si = 1;
   }
-  tail_rows<T, kCpe>(a, a.seg[si], rb * kTailBM, smem);
+  tail_rows<T>(a, a.seg[si], rb * kTailBM, smem);
 }
 
 // Sets k's dynamic shared memory limit to `bytes` once per size increase
@@ -864,23 +822,15 @@ int grant_smem(Kernel k, size_t bytes, size_t& attr_bytes) {
   return 0;
 }
 
-template <typename T, bool kCpe>
-int launch_tail_inst(const TailArgs& a, cudaStream_t s) {
-  static size_t attr_bytes = 0;
-  const size_t bytes = tail_smem_bytes(a.C, sizeof(T));
-  if (const int err = grant_smem(k_block_tail<T, kCpe>, bytes, attr_bytes))
-    return err;
-  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kTailBM);
-  k_block_tail<T, kCpe><<<blocks, kThreads, bytes, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The CPE reading residual is its own instance, as k_linear_ln's modes are.
 template <typename T>
 int launch_tail(const TailArgs& a, cudaStream_t s) {
-  if (a.seg[0].cpe.taps || a.seg[1].cpe.taps)
-    return launch_tail_inst<T, true>(a, s);
-  return launch_tail_inst<T, false>(a, s);
+  static size_t attr_bytes = 0;
+  const size_t bytes = tail_smem_bytes(a.C, sizeof(T));
+  if (const int err = grant_smem(k_block_tail<T>, bytes, attr_bytes))
+    return err;
+  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kTailBM);
+  k_block_tail<T><<<blocks, kThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // p[i] as a typed pointer (the host passes every tensor as void*).

@@ -584,13 +584,15 @@ inline int tma_map(CUtensorMap* m, const void* ptr, int rows, int cols,
 
 // ---------------------------------------------------------------- qkv
 
-// One stream's rows and its projection out = LN1(x) W^T + b, (rows, 3C).
+// One stream's rows and its projection out = LN1(x) W^T + b, (rows, cols):
+// cols = 3C where left 0 (qkv); the C block's kv (2C) and q (C) set it.
 struct QkvSeg {
   const void* x;
   const void* w;
   const void* bias;
   void* out;
   int rows;
+  int cols;
 };
 
 struct QkvArgs {
@@ -602,7 +604,7 @@ struct QkvArgs {
   float eps;
   int tiles_per_cta;  // 128-column tiles per CTA (gridDim.y splits them)
   Cpe cpe;   // where cpe.taps is set: seg[0] is LayerNormed after its CPE,
-  void* xc;  // which is also written here (rows, C) for the tail
+  void* xc;  // which is also written here (rows, C) for the tail where set
   void* ln_out[2];  // where set (the training backward's recompute): each
                     // stream's LN1 rows, rounded to T, written here too
 };
@@ -631,7 +633,7 @@ __device__ __forceinline__ void stage_ln_rows(const QkvArgs& a,
     if (r < rows && k < C) {
       if (cpe_rows) {
         v = cpe_chunk<T>(X, r, k, row0, C, a.cpe);
-        if (blockIdx.y == 0)
+        if (blockIdx.y == 0 && a.xc)
           *reinterpret_cast<uint4*>(static_cast<T*>(a.xc) +
                                     (size_t)(row0 + r) * C + k) = v;
       } else {
@@ -692,7 +694,7 @@ __global__ void __launch_bounds__(256, 2)
     si = 1;
   }
   const QkvSeg sg = a.seg[si];
-  const int C = a.C, ncols = 3 * C, nk = cdiv(C, KS), KA = nk * KS;
+  const int C = a.C, ncols = sg.cols, nk = cdiv(C, KS), KA = nk * KS;
   const int ct0 = blockIdx.y * a.tiles_per_cta;
   const int ct1 = min(cdiv(ncols, BN), ct0 + a.tiles_per_cta);
   if (ct0 >= ct1) return;  // uniform over the block, before any barrier
@@ -790,8 +792,8 @@ int launch_qkv_inst(const QkvArgs& a, dim3 grid, cudaStream_t s) {
     return err;
   QkvMaps maps;
   for (int i = 0; i < 2; ++i)
-    if (const int err = tma_map<T>(&maps.w[i], a.seg[i].w, 3 * a.C, a.C,
-                                   QkvWg<T>::kBN))
+    if (const int err = tma_map<T>(&maps.w[i], a.seg[i].w, a.seg[i].cols,
+                                   a.C, QkvWg<T>::kBN))
       return err;
   k_qkv_wg<T, kCpe, kLnOut><<<grid, 256, bytes, s>>>(a, maps);
   return (int)cudaGetLastError();
@@ -801,9 +803,12 @@ template <typename T>
 int launch_qkv_tc(QkvArgs a, cudaStream_t s) {
   constexpr int RB = QkvWg<T>::kRows;
   if (a.C % 32 || a.C > 640) return (int)cudaErrorInvalidValue;
+  for (QkvSeg& sg : a.seg)
+    if (!sg.cols) sg.cols = 3 * a.C;
   a.row_blocks0 = cdiv(a.seg[0].rows, RB);
   const int rb = a.row_blocks0 + cdiv(a.seg[1].rows, RB);
-  const int tiles = cdiv(3 * a.C, QkvWg<T>::kBN);
+  const int tiles =
+      cdiv(max(a.seg[0].cols, a.seg[1].cols), QkvWg<T>::kBN);
   const int groups = min(tiles, max(1, cdiv(kQkvFill, rb)));
   a.tiles_per_cta = cdiv(tiles, groups);
   const dim3 grid(rb, cdiv(tiles, a.tiles_per_cta));
@@ -1232,20 +1237,35 @@ int launch_mhsa_tc(const AttnArgs& a, cudaStream_t s) {
   return launch_mhsa_inst<T, false>(a, s);
 }
 
-// Both DCA directions on attn_tc.cuh's tiles plus the fixed-order merge
-// (dca_attn.cu's launches); a.tiles = ceil(n / DcaTile<T>::kRows).
-template <typename T>
-int launch_dca_tc(const DcaArgs& a, cudaStream_t s) {
+// Meta rows of one CTA of the c direction alone (k_dca_tc with kX false):
+// more split over the grid's z, so any M fits in shared memory.
+constexpr int kDcaMetaChunk = 256;
+
+// DCA on attn_tc.cuh's tiles plus the fixed-order merge (dca_attn.cu's
+// launches); a.tiles = ceil(n / DcaTile<T>::kRows). kX: both directions
+// (kLse: with each row's log-sum-exp at a.lse_x / a.lse_c); else the c
+// direction alone, its meta rows in chunks of up to kDcaMetaChunk.
+template <typename T, bool kX = true, bool kLse = false>
+int launch_dca_tc(DcaArgs a, cudaStream_t s) {
   static size_t attr = 0;
-  if (a.m < 1) return (int)cudaErrorInvalidValue;
-  // an M whose rows do not fit fails here (cudaErrorInvalidValue)
-  const size_t bytes = dca_smem_bytes<T>(cdiv(a.m, kMetaTile) * kMetaTile);
-  if (const int err = grant_smem(k_dca_tc<T>, bytes, attr)) return err;
-  k_dca_tc<T><<<dim3(a.tiles, a.batch), 2 * DcaTile<T>::kRows, bytes, s>>>(
-      a);
+  if (a.m < 1 || (kLse && (!a.lse_x || !a.lse_c)))
+    return (int)cudaErrorInvalidValue;
+  int mp = cdiv(a.m, kMetaTile) * kMetaTile, chunks = 1;
+  if constexpr (!kX) {
+    a.mc = min(mp, kDcaMetaChunk);
+    chunks = cdiv(a.m, a.mc);
+    mp = a.mc;
+  }
+  // with kX, an M whose rows do not fit fails here (cudaErrorInvalidValue)
+  const size_t bytes = dca_smem_bytes<T, kX>(mp);
+  if (const int err = grant_smem(k_dca_tc<T, kX, kLse>, bytes, attr))
+    return err;
+  k_dca_tc<T, kX, kLse><<<dim3(a.tiles, a.batch, chunks),
+                          2 * DcaTile<T>::kRows, bytes, s>>>(a);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  k_dca_merge<T><<<a.batch * a.heads * a.m, kMergeWarps * 32, 0, s>>>(a);
+  k_dca_merge<T, kLse><<<a.batch * a.heads * a.m, kMergeWarps * 32, 0, s>>>(
+      a);
   return (int)cudaGetLastError();
 }
 

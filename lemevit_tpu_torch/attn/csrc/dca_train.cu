@@ -10,13 +10,19 @@
 // qkv2 and fc1), so every LayerNorm runs without affine (ones / zeros where
 // the inference launches take gamma / beta).
 //
-// lm_dca_train_fwd (row 12 of the TPU kernel table): one k_linear_ln for
-//   qkv1 = LN1(x) Wqkv1'^T + b and qkv2 = LN1(c) Wqkv2'^T + b; the x
-//   direction (image queries over the 16 meta keys, one split) writes o_x
-//   and its log-sum-exp; the c direction (meta queries over the N image
-//   keys, split over blocks and merged by k_attn_combine) writes o_c and
-//   its log-sum-exp; k_block_tail applies proj_x / proj_c per stream, the
-//   branch scales s1 / s2 and the shared MLP, and writes t1x / t1c.
+// lm_dca_train_fwd (row 12 of the TPU kernel table), on the tensor cores
+//   (the inference D block's chain, dca_block.cu, in its training
+//   instances): block_tc.cuh's k_qkv_wg for qkv1 = LN1(x) Wqkv1'^T + b and
+//   qkv2 = LN1(c) Wqkv2'^T + b (each stream with its own weights; in the
+//   cpe mode it stages each row block's CPE'd x once and writes it, the
+//   tail's residual); attn_tc.cuh's k_dca_tc + k_dca_merge in their kLse
+//   instance: one pass over each 128-row image tile serves both directions,
+//   the x direction (image queries over the M meta keys) writes o_x and
+//   each row's log-sum-exp, the c direction's per-tile partials merge in a
+//   fixed order into o_c and its log-sum-exp; k_tail_wg's training
+//   instance applies proj_x / proj_c per stream, the branch scales s1 / s2
+//   and the shared MLP, and writes t1x / t1c. 4 launches; no atomics, so
+//   two calls give the same bits.
 // lm_dca_attn_bwd (row 13), on the tensor cores: block_tc.cuh's k_qkv_wg
 //   (its LN1-rows instance, each stream with its own weights) recomputes
 //   LN1, qkv1 and qkv2 and writes the LN1 rows; train_tc.cuh's k_rowmm_wg
@@ -32,18 +38,17 @@
 //   stream, give dWqkv', dbqkv, dWp and dbp = colsum(s1 dt1) (left to XLA
 //   on the TPU). 9 launches; no atomics, so two calls give the same bits.
 // With a CPE (taps non-null), x is the image tokens before the 3x3 CPE:
-//   the forward runs k_cpe_rows once into a workspace (its residual is the
-//   CPE'd x); the backward recomputes the CPE'd rows in k_qkv_wg's cpe mode,
-//   takes du = dt1x + LN1'^T da_x in fp32 from k_rowmm_wg, then
-//   k_cpe_tap_grads and the flipped-tap k_cpe_rows (dx = CPE^T du). D2's
-//   weight permutation is unchanged.
+//   the forward's k_qkv_wg stages the CPE'd rows (its cpe mode) and writes
+//   them to a workspace, the tail's residual; the backward recomputes the
+//   CPE'd rows in k_qkv_wg's cpe mode, takes du = dt1x + LN1'^T da_x in
+//   fp32 from k_rowmm_wg, then k_cpe_tap_grads and the flipped-tap
+//   k_cpe_rows (dx = CPE^T du). D2's weight permutation is unchanged.
 // Bound on the H100: operations in the products (~24 C^2 a row in the
 //   qkv, proj and MLP products), bytes in the attention backward (~4 M C
 //   operations a row each way against its q, k, v, dO rows in and dq, dk,
-//   dv rows out). The forward's products are block_common.cuh's tiled
-//   mma.sync (bf16) or FMA (fp32); the backward's kernels and their designs
-//   are train_tc.cuh's and block_tc.cuh's, fp32 on FMA products of the
-//   same tiles.
+//   dv rows out). Both phases' kernels and their designs are block_tc.cuh's,
+//   attn_tc.cuh's and train_tc.cuh's, fp32 on FMA products of the same
+//   tiles.
 #include "train_tc.cuh"
 
 namespace lm {
@@ -53,80 +58,67 @@ namespace {
 //    8 wpx, 9 bpx, 10 wpc, 11 bpc, 12 w1', 13 b1', 14 w2, 15 b2,
 //    16 dp (4, B) fp32 | 17 x_out, 18 c_out, 19 t1x, 20 t1c, 21 o_x, 22 o_c,
 //    23 lse_x (B H N), 24 lse_c (B H M) fp32 | workspace 25 qkv1 (B N, 3C),
-//    26 qkv2 (B M, 3C), 27 pm, 28 pl (B H splits M), 29 pacc (x 32) fp32 |
-//    the CPE or nulls: 30 taps (9, C), 31 bias (C,), workspace 32 the CPE'd
-//    x (B N, C). Images are img_w wide.
+//    26 qkv2 (B M, 3C), 27 pm, 28 pl (B H tiles M), 29 pacc (x 32) fp32,
+//    tiles = ceil(N / TR), TR = 128 in bf16, 64 in fp32 | the CPE or nulls:
+//    30 taps (9, C), 31 bias (C,), workspace 32 the CPE'd x (B N, C).
+//    Images are img_w wide.
 template <typename T>
 int dca_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
-                  int hidden, int keys_per_split, int img_w, float scale_x,
-                  float scale_c, float eps, cudaStream_t s) {
-  const void* x = p[0];
-  int err;
-  if (p[30]) {
-    err = launch_cpe_rows<T, T>(p[0], p[30], p[31], mp<T>(p, 32), B * N, C,
-                                img_w, N, 0, s);
-    if (err) return err;
-    x = p[32];
-  }
-  LinArgs la{};
-  la.seg[0] = {x, p[4], p[5], mp<T>(p, 25), B * N, 3 * C};
-  la.seg[1] = {p[1], p[6], p[7], mp<T>(p, 26), B * M, 3 * C};
-  la.row_blocks0 = cdiv(B * N, kLinBM);
-  la.ln_w = p[2];
-  la.ln_b = p[3];
-  la.K = C;
-  la.eps = eps;
-  err = launch_linear<T>(la, 3 * C, s);
+                  int hidden, int img_w, float scale_x, float scale_c,
+                  float eps, cudaStream_t s) {
+  // LN1 (of the CPE'd x, staged once per row block and written to the
+  // workspace, in the cpe mode) and qkv1 / qkv2, each stream its weights
+  QkvArgs qa{};
+  qa.seg[0] = {p[0], p[4], p[5], mp<T>(p, 25), B * N};
+  qa.seg[1] = {p[1], p[6], p[7], mp<T>(p, 26), B * M};
+  qa.ln_w = p[2];
+  qa.ln_b = p[3];
+  qa.C = C;
+  qa.eps = eps;
+  qa.cpe = Cpe{p[30], p[31], img_w, N};
+  qa.xc = mp<T>(p, 32);
+  if (qa.cpe.taps && !qa.xc) return (int)cudaErrorInvalidValue;
+  int err = launch_qkv_tc<T>(qa, s);
   if (err) return err;
 
+  // both directions with each row's log-sum-exp: the x direction's from
+  // k_dca_tc, the c direction's from k_dca_merge after its fixed-order merge
   const T* qkv1 = cp<T>(p, 25);
   const T* qkv2 = cp<T>(p, 26);
-  AttnArgs ax{};  // x direction: image queries against the meta keys
-  ax.q = qkv1;
-  ax.k = qkv2 + C;
-  ax.v = qkv2 + 2 * C;
-  ax.out = mp<T>(p, 21);
-  ax.lse = fp(p, 23);
-  ax.ldq = ax.ldkv = 3 * C;
-  ax.ldo = C;
-  ax.batch = B;
-  ax.heads = H;
-  ax.nq = N;
-  ax.nk = M;
-  ax.keys_per_split = M;
-  ax.splits = 1;
-  ax.scale = scale_x;
-  err = launch_attention<T>(ax, s);
+  DcaArgs da{};
+  da.q1 = qkv1;
+  da.k1 = qkv1 + C;
+  da.v1 = qkv1 + 2 * C;
+  da.q2 = qkv2;
+  da.k2 = qkv2 + C;
+  da.v2 = qkv2 + 2 * C;
+  da.xo = mp<T>(p, 21);
+  da.co = mp<T>(p, 22);
+  da.pm = fp(p, 27);
+  da.pl = fp(p, 28);
+  da.pacc = fp(p, 29);
+  da.lse_x = fp(p, 23);
+  da.lse_c = fp(p, 24);
+  da.ld_q1 = da.ld_kv1 = da.ld_q2 = da.ld_kv2 = 3 * C;
+  da.ldo = C;
+  da.batch = B;
+  da.heads = H;
+  da.n = N;
+  da.m = M;
+  da.tiles = cdiv(N, DcaTile<T>::kRows);
+  da.sl2x = scale_x * kLog2e;
+  da.sl2c = scale_c * kLog2e;
+  err = launch_dca_tc<T, true, true>(da, s);
   if (err) return err;
 
-  AttnArgs ac{};  // c direction: meta queries against the image keys
-  ac.q = qkv2;
-  ac.k = qkv1 + C;
-  ac.v = qkv1 + 2 * C;
-  ac.out = mp<T>(p, 22);
-  ac.lse = fp(p, 24);
-  ac.pm = fp(p, 27);
-  ac.pl = fp(p, 28);
-  ac.pacc = fp(p, 29);
-  ac.ldq = ac.ldkv = 3 * C;
-  ac.ldo = C;
-  ac.batch = B;
-  ac.heads = H;
-  ac.nq = M;
-  ac.nk = N;
-  ac.keys_per_split = keys_per_split;
-  ac.splits = cdiv(N, keys_per_split);
-  ac.scale = scale_c;
-  err = launch_attention<T>(ac, s);
-  if (err) return err;
-
+  // proj per stream, t1 = t + s1 (o Wp^T + bp) written, the shared LN2 +
+  // MLP under s2
   const float* dp = static_cast<const float*>(p[16]);
   TailArgs ta{};
-  ta.seg[0] = {x, p[21], p[8], p[9], mp<T>(p, 17), B * N,
-               dp, dp + B, N, mp<T>(p, 19)};
-  ta.seg[1] = {p[1], p[22], p[10], p[11], mp<T>(p, 18), B * M,
-               dp + 2 * B, dp + 3 * B, M, mp<T>(p, 20)};
-  ta.row_blocks0 = cdiv(B * N, kTailBM);
+  ta.seg[0] = {qa.cpe.taps ? p[32] : p[0], p[21], p[8], p[9], mp<T>(p, 17),
+               B * N, dp, dp + B, N, mp<T>(p, 19)};
+  ta.seg[1] = {p[1], p[22], p[10], p[11], mp<T>(p, 18), B * M, dp + 2 * B,
+               dp + 3 * B, M, mp<T>(p, 20)};
   ta.ln_w = p[2];
   ta.ln_b = p[3];
   ta.w1 = p[12];
@@ -136,7 +128,7 @@ int dca_train_fwd(const void* const* p, int B, int N, int M, int C, int H,
   ta.C = C;
   ta.hidden = hidden;
   ta.eps = eps;
-  return launch_tail<T>(ta, s);
+  return launch_tail_tc<T>(ta, s);
 }
 
 // p: 0 x, 1 c, 2 dt1x, 3 dt1c, 4 dprojx, 5 dprojc (= s1 dt1), 6 wqkv1',
@@ -274,15 +266,14 @@ int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
 
 extern "C" int lm_dca_train_fwd(int dtype, const void* const* p, int B,
                                 int N, int M, int C, int H, int hidden,
-                                int keys_per_split, int img_w, float scale_x,
-                                float scale_c, float eps, void* stream) {
+                                int img_w, float scale_x, float scale_c,
+                                float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return lm::dca_train_fwd<float>(p, B, N, M, C, H, hidden, keys_per_split,
-                                    img_w, scale_x, scale_c, eps, s);
-  return lm::dca_train_fwd<__nv_bfloat16>(p, B, N, M, C, H, hidden,
-                                          keys_per_split, img_w, scale_x,
-                                          scale_c, eps, s);
+    return lm::dca_train_fwd<float>(p, B, N, M, C, H, hidden, img_w, scale_x,
+                                    scale_c, eps, s);
+  return lm::dca_train_fwd<__nv_bfloat16>(p, B, N, M, C, H, hidden, img_w,
+                                          scale_x, scale_c, eps, s);
 }
 
 extern "C" int lm_dca_attn_bwd(int dtype, const void* const* p, int B, int N,

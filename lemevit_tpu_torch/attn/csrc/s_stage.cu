@@ -200,8 +200,8 @@ __global__ void __launch_bounds__(kThreads) k_s_stage(const StageArgs a) {
     const int rbx = cdiv(N, kTailBM), rbc = cdiv(M, kTailBM);
     for (int it = rank; it < rbx + rbc; it += a.csize) {
       const bool isx = it < rbx;
-      tail_rows<T, false>(ta, isx ? sx : sc, (isx ? it : it - rbx) * kTailBM,
-                          smem);
+      tail_rows<T>(ta, isx ? sx : sc, (isx ? it : it - rbx) * kTailBM,
+                   smem);
     }
     stage_sync(a.csize);
   }

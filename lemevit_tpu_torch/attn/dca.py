@@ -123,28 +123,17 @@ def workspace(b: int, h: int, m: int, n: int, tile: int, device):
                        dtype=torch.float32, device=device)
 
 
-def dca_tiles_plain(q1, k1, v1, q2, k2, v2, *, scale_x: float,
-                    scale_c: float, num_heads: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both directions in csrc/dca_attn.cu's order of work, in PyTorch
-    (used by the tests only): the x direction's softmax over the meta keys
-    in exp2 with the scale folded in, each row's maximum and sum taken
-    over key tiles of META_TILE in order (online), then P normalised and
-    rounded to the input type before P v2; the c direction's partial
-    softmax per warp of WARP_KEYS image keys (P rounded before P v1),
-    merged in warp order into each tile of TILE[dtype] rows, then the tiles
-    merged as the merge launch does: its warp w folds tiles w, w +
-    MERGE_WARPS, ... in order, then the warps fold in order."""
-    tile = TILE[q1.dtype]
+def _heads(t, num_heads):
+    """(B, L, C) -> (B, H, L, C / H) in fp32."""
+    return t.reshape(t.shape[0], t.shape[1], num_heads, -1).transpose(
+        1, 2).float()
+
+
+def _x_tiles(q1, k2, v2, scale_x, num_heads):
+    """The x direction in k_dca_tc's order of work: (x_out, lse_x)."""
     b, n, c = q1.shape
-    m, d = q2.shape[1], c // num_heads
-    dt = v1.dtype
-
-    def heads(t):  # (B, H, L, d) in fp32
-        return t.reshape(t.shape[0], t.shape[1], num_heads, d).transpose(
-            1, 2).float()
-
-    s = heads(q1) @ heads(k2).transpose(-1, -2)              # (B, H, N, M)
+    m = k2.shape[1]
+    s = _heads(q1, num_heads) @ _heads(k2, num_heads).transpose(-1, -2)
     sl2 = scale_x * LOG2E
     top = s.new_full(s.shape[:-1] + (1,), -float("inf"))
     l = torch.zeros_like(top)
@@ -154,16 +143,34 @@ def dca_tiles_plain(q1, k1, v1, q2, k2, v2, *, scale_x: float,
         l = l * torch.exp2((top - new) * sl2) + torch.exp2(
             part * sl2 - new * sl2).sum(-1, keepdim=True)
         top = new
-    p = (torch.exp2(s * sl2 - top * sl2) / l).to(dt).float()
-    xo = (p @ heads(v2)).transpose(1, 2).reshape(b, n, c).to(dt)
+    p = (torch.exp2(s * sl2 - top * sl2) / l).to(v2.dtype).float()
+    xo = (p @ _heads(v2, num_heads)).transpose(1, 2).reshape(b, n, c)
+    lse = (top * scale_x + torch.log(l)).squeeze(-1)
+    return xo.to(v2.dtype), lse
 
+
+def dca_c_tiles_plain(q2, k1, v1, *, scale_c: float, num_heads: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The c direction alone in k_dca_tc's order of work, in PyTorch (used
+    by the tests only; the C block's attention): the partial softmax per
+    warp of WARP_KEYS image keys (P rounded before P v1), merged in warp
+    order into each tile of TILE[dtype] rows, then the tiles merged as the
+    merge launch does: its warp w folds tiles w, w + MERGE_WARPS, ... in
+    order, then the warps fold in order. Returns (c_out, lse_c): the
+    output in the input type and each meta query's log-sum-exp (B, H, M)
+    in fp32, natural log (m scale + ln l, from the merged maximum and
+    sum)."""
+    dt = v1.dtype
+    tile = TILE[dt]
+    b, n, c = k1.shape
+    m, d = q2.shape[1], c // num_heads
     sl2 = scale_c * LOG2E
     tiles, w = n_tiles(n, tile), tile // WARP_KEYS
     pad = tiles * tile - n
-    s = F.pad(heads(q2) @ heads(k1).transpose(-1, -2), (0, pad),
-              value=-float("inf"))
+    s = F.pad(_heads(q2, num_heads) @ _heads(k1, num_heads).transpose(-1, -2),
+              (0, pad), value=-float("inf"))
     s = s.reshape(b, num_heads, m, tiles, w, WARP_KEYS)
-    v = F.pad(heads(v1), (0, 0, 0, pad)).reshape(
+    v = F.pad(_heads(v1, num_heads), (0, 0, 0, pad)).reshape(
         b, num_heads, tiles, w, WARP_KEYS, d)
     mw = s.amax(-1)                              # (B, H, M, tiles, w)
     ref = torch.where(torch.isinf(mw), torch.zeros_like(mw), mw)
@@ -188,9 +195,26 @@ def dca_tiles_plain(q1, k1, v1, q2, k2, v2, *, scale_x: float,
         return top, big_l, big_a
 
     mt, lt, at = merge(mw, lw, aw)               # each tile, warps in order
-    _, big_l, big_a = merge(mt, lt, at, MERGE_WARPS)  # the tiles
+    top, big_l, big_a = merge(mt, lt, at, MERGE_WARPS)  # the tiles
     co = (big_a / big_l[..., None]).transpose(1, 2).reshape(b, m, c)
-    return xo, co.to(dt)
+    return co.to(dt), top * scale_c + torch.log(big_l)
+
+
+def dca_tiles_plain(q1, k1, v1, q2, k2, v2, *, scale_x: float,
+                    scale_c: float, num_heads: int, lse: bool = False):
+    """Both directions in csrc/dca_attn.cu's order of work, in PyTorch
+    (used by the tests only): the x direction's softmax over the meta keys
+    in exp2 with the scale folded in, each row's maximum and sum taken
+    over key tiles of META_TILE in order (online), then P normalised and
+    rounded to the input type before P v2; the c direction as
+    ``dca_c_tiles_plain``. Returns (x_out, c_out), with ``lse`` also each
+    row's log-sum-exp in fp32, natural log, (B, H, N) and (B, H, M), as
+    the D training forward's instance writes them (m scale + ln l from
+    the x direction's first pass and the c direction's merge)."""
+    xo, lx = _x_tiles(q1, k2, v2, scale_x, num_heads)
+    co, lc = dca_c_tiles_plain(q2, k1, v1, scale_c=scale_c,
+                               num_heads=num_heads)
+    return (xo, co, lx, lc) if lse else (xo, co)
 
 
 def rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:

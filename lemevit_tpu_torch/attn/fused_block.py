@@ -29,10 +29,11 @@ LayerNorm affine by folding it into the next matmul's weights; here the
 kernels apply LayerNorm (statistics and affine) in the prologue of the
 product it feeds, so nothing is folded and the weights are used as given.
 
-The S and D kernels run on the tensor cores (``csrc/block_tc.cuh`` for the
-qkv product and the tail, ``csrc/attn_tc.cuh`` for the attention);
-``s_block_tiles_plain`` and ``dca_block_tiles_plain`` follow their order of
-work in PyTorch, rounding where they round, for the tests. The D kernel
+The C, D and S kernels run on the tensor cores (``csrc/block_tc.cuh`` for
+the qkv product and the tail, ``csrc/attn_tc.cuh`` for the attention);
+``c_block_tiles_plain``, ``s_block_tiles_plain`` and
+``dca_block_tiles_plain`` follow their order of work in PyTorch, rounding
+where they round, for the tests. The D kernel
 takes at most ``attn/dca.py``'s ``MAX_META`` meta tokens (a head's meta
 rows sit in shared memory); on CUDA tensors more raise.
 
@@ -240,6 +241,27 @@ def dca_block_tiles_plain(x, c, params, *, num_heads: int, scale_x: float,
             _tail_tiles(c, ac, wpc, bpc, ln2w, ln2b, w1, b1, w2, b2, dt)[0])
 
 
+def c_block_tiles_plain(x, c, params, *, num_heads: int, cpe=None,
+                        img_w: int = 0) -> torch.Tensor:
+    """The C kernel's order of work in PyTorch (used by the tests only):
+    with ``cpe`` the CPE'd x rounded once (k_qkv_wg's cpe mode); kv =
+    LN1(x) Wkv^T + bkv and q = LN1(c) Wq^T + bq as k_qkv_wg computes them
+    (LN1 and the product rounded); the meta queries over the image keys as
+    ``attn/dca.py::dca_c_tiles_plain`` (per-warp partials merged per tile,
+    the tiles merged in the merge launch's fixed order); the tail on the
+    meta rows as s_block_tiles_plain's. In fp32 nothing rounds."""
+    from lemevit_tpu_torch.attn.dca import dca_c_tiles_plain
+    dt = x.dtype
+    x = _cpe_rounded(x, cpe, img_w)
+    (ln1w, ln1b, wq, bq, wkv, bkv, wp, bp, ln2w, ln2b, w1, b1, w2, b2) = params
+    ch = x.shape[-1]
+    k, v = _qkv_tiles(x, ln1w, ln1b, wkv, bkv, dt).split(ch, -1)
+    q = _qkv_tiles(c, ln1w, ln1b, wq, bq, dt)
+    o, _ = dca_c_tiles_plain(q, k, v, scale_c=HEAD_DIM ** -0.5,
+                             num_heads=num_heads)
+    return _tail_tiles(c, o, wp, bp, ln2w, ln2b, w1, b1, w2, b2, dt)[0]
+
+
 def s_stage_plain(x, c, params_list, *, num_heads: int, cpes=None,
                   img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """A stage of S blocks: ``s_block_plain`` with each block's parameters
@@ -360,13 +382,24 @@ def _launch(name: str, x: torch.Tensor, tensors, *scalars,
 
 
 def _partials(b, h, m, n, device):
-    """c_block's and the training kernels' split-softmax partials over
-    KEYS_PER_SPLIT image keys (block_common.cuh's k_attention)."""
+    """The training C forward's split-softmax partials over KEYS_PER_SPLIT
+    image keys (block_common.cuh's k_attention)."""
     splits = -(-n // KEYS_PER_SPLIT)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty(b * h * splits * m, **f32),
             torch.empty(b * h * splits * m, **f32),
             torch.empty(b * h * splits * m * HEAD_DIM, **f32))
+
+
+def dca_partials(b, h, m, n, like):
+    """k_dca_tc's per-tile partials of the c direction (attn_tc.cuh: max,
+    sum and 32 sums per (image, head, tile of image rows, meta query)), as
+    three views of one fp32 workspace."""
+    from lemevit_tpu_torch.attn import dca
+    tile = dca.TILE[like.dtype]
+    part = dca.workspace(b, h, m, n, tile, like.device)
+    rows = dca.workspace_rows(b, h, m, n, tile)
+    return [part[:rows], part[rows:2 * rows], part[2 * rows:]]
 
 
 def c_block(x, c, params, *, num_heads: int, cpe=None,
@@ -387,10 +420,9 @@ def c_block(x, c, params, *, num_heads: int, cpe=None,
     co = torch.empty_like(c)
     work = [torch.empty(b * m, ch, **ws), torch.empty(b * n, 2 * ch, **ws),
             torch.empty(b * m, ch, **ws),
-            *_partials(b, num_heads, m, n, x.device)]
+            *dca_partials(b, num_heads, m, n, x)]
     _launch("c_block", x, [x, c, *params, co, *work, *_cpe_ptrs(cpe)], b, n,
-            m, ch, num_heads, hidden, KEYS_PER_SPLIT, img_w,
-            HEAD_DIM ** -0.5, LN_EPS)
+            m, ch, num_heads, hidden, img_w, HEAD_DIM ** -0.5, LN_EPS)
     return co
 
 
@@ -424,16 +456,12 @@ def dca_block(x, c, params, *, num_heads: int, scale_x: float,
         (ch, ch), (ch,), (ch, ch), (ch,), (ch,), (ch,), (hidden, ch),
         (hidden,), (ch, hidden), (ch,)])
     check_meta("dca_block", m, x.dtype)
-    from lemevit_tpu_torch.attn import dca
     ws = dict(dtype=x.dtype, device=x.device)
     xo = torch.empty_like(x)
     co = torch.empty_like(c)
-    tile = dca.TILE[x.dtype]
-    part = dca.workspace(b, num_heads, m, n, tile, x.device)
-    rows = dca.workspace_rows(b, num_heads, m, n, tile)
     work = [torch.empty(b * n, 3 * ch, **ws), torch.empty(b * m, 3 * ch, **ws),
             torch.empty(b * n, ch, **ws), torch.empty(b * m, ch, **ws),
-            part[:rows], part[rows:2 * rows], part[2 * rows:]]
+            *dca_partials(b, num_heads, m, n, x)]
     _launch("dca_block", x, [x, c, *params, xo, co, *work, *_cpe_ptrs(cpe),
                              _cpe_work(x, cpe)],
             b, n, m, ch, num_heads, hidden, img_w, scale_x, scale_c, LN_EPS)

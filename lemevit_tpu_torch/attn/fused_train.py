@@ -52,7 +52,8 @@ is each block composed under autograd: the reference the phases are tested
 against. The plain phases take head_dim from the shapes; the kernels take
 head_dim 32 (``train_takes`` states every limit of the training kernels,
 from shapes alone: the model asks it under ``attn_backend="auto"`` and
-composes where it says no; a direct call raises). ``s_train_fwd_tiles_plain``,
+composes where it says no; a direct call raises).
+``s_train_fwd_tiles_plain``, ``dca_train_fwd_tiles_plain``,
 ``mlp_bwd_tiles_plain``, ``s_attn_bwd_tiles_plain`` and
 ``dca_attn_bwd_tiles_plain`` are the order of work of the phases on the
 tensor cores (csrc/block_tc.cuh, attn_tc.cuh and train_tc.cuh: their
@@ -422,6 +423,33 @@ def dca_train_fwd_plain(x, c, params, dp, *, num_heads: int, scale_x: float,
     ox, oc = ox.to(dt), oc.to(dt)
     xo, t1x = _tail(x, ox, wpx, bpx, dp[0], dp[1], w1, b1, w2, b2)
     co, t1c = _tail(c, oc, wpc, bpc, dp[2], dp[3], w1, b1, w2, b2)
+    return xo, co, t1x, t1c, ox, oc, lx, lc
+
+
+def dca_train_fwd_tiles_plain(x, c, params, dp, *, num_heads: int,
+                              scale_x: float, scale_c: float, cpe=None,
+                              img_w: int = 0):
+    """lm_dca_train_fwd's order of work in PyTorch (used by the tests only):
+    with ``cpe`` the CPE'd x rounded once (k_qkv_wg's cpe mode, the tail's
+    residual); per stream LN1 rounded to x's dtype and qkv = LN1 Wqkv'^T +
+    b in fp32 rounded (k_qkv_wg, each stream its weights); both directions
+    as ``attn/dca.py::dca_tiles_plain`` with their log-sum-exps (k_dca_tc
+    and k_dca_merge's kLse instance); the tails as k_tail_wg's training
+    instance (fused_block._tail_tiles with the branch scales). Returns what
+    dca_train_fwd_plain returns. In fp32 nothing rounds."""
+    from lemevit_tpu_torch.attn.dca import dca_tiles_plain
+    wqkv1, bqkv1, wqkv2, bqkv2, wpx, bpx, wpc, bpc, w1, b1, w2, b2 = params
+    dt = x.dtype
+    x = fb._cpe_rounded(x, cpe, img_w)
+    q1, k1, v1 = fb._qkv_tiles(x, None, None, wqkv1, bqkv1, dt).chunk(3, -1)
+    q2, k2, v2 = fb._qkv_tiles(c, None, None, wqkv2, bqkv2, dt).chunk(3, -1)
+    ox, oc, lx, lc = dca_tiles_plain(q1, k1, v1, q2, k2, v2, scale_x=scale_x,
+                                     scale_c=scale_c, num_heads=num_heads,
+                                     lse=True)
+    xo, t1x = fb._tail_tiles(x, ox, wpx, bpx, None, None, w1, b1, w2, b2, dt,
+                             dp[0], dp[1])
+    co, t1c = fb._tail_tiles(c, oc, wpc, bpc, None, None, w1, b1, w2, b2, dt,
+                             dp[2], dp[3])
     return xo, co, t1x, t1c, ox, oc, lx, lc
 
 
@@ -914,11 +942,11 @@ def dca_train_fwd(x, c, params, dp, *, num_heads: int, scale_x: float,
             torch.empty_like(c), _ws((b, n, ch), x), _ws((b, m, ch), x),
             _ws((b, h, n), x, f32), _ws((b, h, m), x, f32)]
     work = [_ws((b * n, 3 * ch), x), _ws((b * m, 3 * ch), x),
-            *fb._partials(b, h, m, n, x.device)]
+            *fb.dca_partials(b, h, m, n, x)]
     fb._launch("dca_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
                                     *outs, *work, *_cpe_fwd_args(x, cpe)],
-               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT, img_w, scale_x,
-               scale_c, LN_EPS, counts=LAUNCHES)
+               b, n, m, ch, h, hidden, img_w, scale_x, scale_c, LN_EPS,
+               counts=LAUNCHES)
     return tuple(outs)
 
 

@@ -20,14 +20,16 @@ The attention-only kernels are also held in bf16 against their order of
 work in PyTorch (*_tiles_plain) at 1e-2 and within 2 bf16 steps of each
 output's largest element (so that dca_attn's c_out, of values ~0.01, is
 held at its own scale), dca_attn with 32 to MAX_META meta tokens against
-dca_plain, and dca_attn bit for bit between two runs. The S and D block
+dca_plain, and dca_attn bit for bit between two runs. The C, S and D block
 kernels are held in bf16 against their tile models (*_block_tiles_plain),
 with their cpe mode and D2, within 2 bf16 steps of each output's largest
 element, and bit for bit between two runs; so are the S block's attention
 backward and the MLP backward (train_tc.cuh) against
 mlp_bwd_tiles_plain / s_attn_bwd_tiles_plain, the S block's training
-forward (lm_s_train_fwd) against s_train_fwd_tiles_plain and the D block's
-attention backward (lm_dca_attn_bwd) against dca_attn_bwd_tiles_plain, all
+forward (lm_s_train_fwd) against s_train_fwd_tiles_plain, the D block's
+training forward (lm_dca_train_fwd) against dca_train_fwd_tiles_plain and
+its attention backward (lm_dca_attn_bwd) against dca_attn_bwd_tiles_plain,
+all
 against their plain phases in fp32 at 1e-4 of each tensor's largest
 element. LeMeViT's constructor defaults (head_dim 64) run under "auto" on
 the card by composing, and match "torch"."""
@@ -674,8 +676,14 @@ TILE_CASES = [("s", 196, 384, 16), ("s", 49, 512, 16), ("s", 200, 192, 16),
               ("s", 196, 384, 32), ("s", 49, 512, 128), ("s", 64, 640, 16),
               ("s", 49, 448, 16), ("s", 16, 32, 16), ("d", 784, 192, 16),
               ("d", 3136, 96, 16), ("d", 1000, 96, 16), ("d", 784, 192, 32),
-              ("d", 784, 192, 128), ("d", 256, 160, 16), ("d", 64, 640, 16)]
-TILES = {"s": fb.s_block_tiles_plain, "d": fb.dca_block_tiles_plain}
+              ("d", 784, 192, 128), ("d", 256, 160, 16), ("d", 64, 640, 16),
+              # the C block: base's and lemevit_tiny's stage 0, a ragged N,
+              # and 300 meta tokens (two chunks of the attention's CTAs)
+              ("c", 3136, 96, 16), ("c", 3136, 64, 16), ("c", 1000, 96, 16),
+              ("c", 200, 64, 300)]
+TILES = {"c": fb.c_block_tiles_plain, "s": fb.s_block_tiles_plain,
+         "d": fb.dca_block_tiles_plain}
+BLOCKS = {"c": "c_block", "s": "s_block", "d": "dca_block"}
 # bf16 against the tile models: within TILES_STEPS bf16 steps of each
 # output's largest element, as chip_smoke.py holds them (a fp32 sum taken
 # in another order can flip one of the model's roundings, and an output
@@ -685,11 +693,13 @@ TILES_STEPS = 2
 
 
 def _tile_call(kind, fn, x, c, params, **kw):
+    """fn's outputs as a tuple (the C block returns c_out alone)."""
     n, m, ch = x.shape[1], c.shape[1], x.shape[2]
     kw["num_heads"] = ch // 32
     if kind == "d":
         kw["scale_x"], kw["scale_c"] = dca_scales(n, m, ch)
-    return fn(x, c, params, **kw)
+    out = fn(x, c, params, **kw)
+    return out if isinstance(out, tuple) else (out,)
 
 
 def _tile_inputs(kind, n, ch, m, seed, cpe_w=0):
@@ -705,11 +715,12 @@ def _tile_inputs(kind, n, ch, m, seed, cpe_w=0):
 @pytest.mark.parametrize("kind,n,ch,m", TILE_CASES)
 def test_block_tc_kernel_matches_plain_and_tiles_model_on_gpu(cuda, kind, n,
                                                               ch, m):
-    """The S / D kernel in fp32 against its plain version (1e-4); in bf16
-    against its order of work in PyTorch (*_block_tiles_plain) on the same
-    inputs (TILES_STEPS), and bit for bit between two runs."""
+    """The C / S / D kernel in fp32 against its plain version (1e-4); in
+    bf16 against its order of work in PyTorch (*_block_tiles_plain) on the
+    same inputs (TILES_STEPS), and bit for bit between two runs; one launch
+    a call."""
     x, c, params, _ = _tile_inputs(kind, n, ch, m, 21)
-    name = {"s": "s_block", "d": "dca_block"}[kind]
+    name = BLOCKS[kind]
     xd, cd, pd = x.to(cuda), c.to(cuda), [p.to(cuda) for p in params]
     before = fb.LAUNCHES[name]
     got = _tile_call(kind, getattr(fb, name), xd, cd, pd)
@@ -731,14 +742,15 @@ def test_block_tc_kernel_matches_plain_and_tiles_model_on_gpu(cuda, kind, n,
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,n,img_w,ch", [("s", 196, 14, 384),
                                              ("d", 784, 28, 192),
-                                             ("d", 3136, 56, 96)])
+                                             ("d", 3136, 56, 96),
+                                             ("c", 3136, 56, 96)])
 def test_block_tc_cpe_matches_tiles_model_on_gpu(cuda, kind, n, img_w, ch):
     """The cpe mode in bf16 against the tile model with the same CPE."""
     x, c, params, cpe = _tile_inputs(kind, n, ch, M, 22, img_w)
     bf = torch.bfloat16
     xb, cb = x.to(cuda, bf), c.to(cuda, bf)
     pb, cpb = [p.to(cuda, bf) for p in params], [t.to(cuda, bf) for t in cpe]
-    name = {"s": "s_block", "d": "dca_block"}[kind]
+    name = BLOCKS[kind]
     got = _tile_call(kind, getattr(fb, name), xb, cb, pb, cpe=cpb,
                      img_w=img_w)
     want = _tile_call(kind, TILES[kind], xb, cb, pb, cpe=cpb, img_w=img_w)
@@ -1167,10 +1179,11 @@ DCA_BWD_SHAPES = [(3136, 64, 2, 16, False, 0), (784, 128, 2, 16, False, 0),
                   (784, 128, 2, 16, True, 0), (3136, 64, 2, 16, False, 56)]
 
 
-def _dca_bwd_inputs(cuda, n, ch, b, m, d2, dtype, seed, cpe_w=0):
-    """The D attention backward's arguments in dtype (D2: the permuted
-    [Wq|Wq|Wv1] / [Wk|Wk|Wv2] weights), its keywords, o and lse from the
-    plain forward in dtype."""
+def _dca_inputs(cuda, n, ch, b, m, d2, dtype, seed, cpe_w=0):
+    """x, c, the D block's folded params (D2: the permuted [Wq|Wq|Wv1] /
+    [Wk|Wk|Wv2] weights), DropPath scales (some 0), upstream gradients
+    dt1x, dt1c and the phases' keywords (with cpe_w, a CPE pair on images
+    cpe_w wide), in dtype."""
     rng = np.random.RandomState(seed)
     hid = 4 * ch
     if d2:
@@ -1195,11 +1208,23 @@ def _dca_bwd_inputs(cuda, n, ch, b, m, d2, dtype, seed, cpe_w=0):
     if cpe_w:
         kw.update(cpe=[torch.tensor(a, device=cuda).to(dtype)
                        for a in _cpe(rng, ch)], img_w=cpe_w)
-    fwd = ft.dca_train_fwd_plain(x, c, params, dp, **kw)
+    return x, c, params, dp, dt1x, dt1c, kw
+
+
+def _dca_bwd_args(x, c, params, dp, dt1x, dt1c, fwd):
+    """The D attention backward's arguments on a forward's o and lse."""
     wqkv1, bqkv1, wqkv2, bqkv2, wpx, _, wpc = params[:7]
-    args = (x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
+    return (x, c, dt1x, dt1c, dp, wqkv1, bqkv1, wqkv2, bqkv2, wpx, wpc,
             *fwd[4:])
-    return args, kw
+
+
+def _dca_bwd_inputs(cuda, n, ch, b, m, d2, dtype, seed, cpe_w=0):
+    """The D attention backward's arguments in dtype, its keywords, o and
+    lse from the plain forward in dtype."""
+    x, c, params, dp, dt1x, dt1c, kw = _dca_inputs(cuda, n, ch, b, m, d2,
+                                                   dtype, seed, cpe_w)
+    fwd = ft.dca_train_fwd_plain(x, c, params, dp, **kw)
+    return _dca_bwd_args(x, c, params, dp, dt1x, dt1c, fwd), kw
 
 
 @pytest.mark.gpu
@@ -1233,6 +1258,54 @@ def test_dca_attn_bwd_tc_matches_plain_and_tiles_model_on_gpu(
                     msg=f"tensor {i}")
             else:
                 _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b,m,d2,cpe_w", DCA_BWD_SHAPES)
+def test_dca_train_fwd_tc_matches_plain_and_tiles_model_on_gpu(
+        cuda, n, ch, b, m, d2, cpe_w):
+    """Row 12, lm_dca_train_fwd (k_qkv_wg, k_dca_tc + k_dca_merge with the
+    log-sum-exps, k_tail_wg's training instance): fp32 against
+    dca_train_fwd_plain at 1e-4 of each output's largest element (x_out,
+    c_out, t1x, t1c, o and the log-sum-exp of both directions); bf16
+    against dca_train_fwd_tiles_plain within TILES_STEPS bf16 steps of
+    each output's largest element, the log-sum-exps at 1e-3; one launch a
+    call; two calls give the same bits; in fp32 row 13 on this forward's o
+    and log-sum-exp matches it on the plain forward's at 1e-4."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c, params, dp, dt1x, dt1c, kw = _dca_inputs(cuda, n, ch, b, m, d2,
+                                                       dtype, 15, cpe_w)
+        before = dict(ft.LAUNCHES)
+        got = ft.dca_train_fwd(x, c, params, dp, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"dca_train_fwd": 1}
+        again = ft.dca_train_fwd(x, c, params, dp, **kw)
+        for g_, a_ in zip(got, again):
+            assert torch.equal(g_, a_)
+        ref = (ft.dca_train_fwd_plain if dtype == torch.float32
+               else ft.dca_train_fwd_tiles_plain)
+        want = ref(x, c, params, dp, **kw)
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            g_, w_ = g_.float(), w_.float()
+            assert g_.shape == w_.shape and torch.isfinite(g_).all(), i
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item(),
+                    msg=f"output {i}")
+            elif i >= 6:  # the log-sum-exps, fp32 from rounded q and k
+                torch.testing.assert_close(g_, w_, rtol=1e-3, atol=1e-3)
+            else:
+                _close_at_scale(g_, w_, None, TILES_STEPS)
+        if dtype == torch.float32:
+            on_kernel = ft.dca_attn_bwd(
+                *_dca_bwd_args(x, c, params, dp, dt1x, dt1c, got), **kw)
+            on_plain = ft.dca_attn_bwd(
+                *_dca_bwd_args(x, c, params, dp, dt1x, dt1c, want), **kw)
+            for g_, w_ in zip(on_kernel, on_plain):
+                if w_ is not None:
+                    torch.testing.assert_close(
+                        g_, w_, rtol=1e-4,
+                        atol=1e-4 * w_.abs().max().item())
 
 
 @pytest.mark.gpu
