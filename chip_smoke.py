@@ -35,8 +35,10 @@ before it and read just after:
   - training lemevit_tiny (C, D and S blocks): the inference kernels at its
     five shapes, its C, D and S training kernels (forward, MLP backward,
     attention backward) held against their plain versions, a D2 training
-    block through the weight permutation, one fp32 train step on the kernel
-    path against the plain path, cli.train as above, cli.benchmark --bench
+    block through the weight permutation, a C training block with 320 meta
+    tokens (rows 14-15 phase by phase, and the block on the kernel path
+    against its composition), one fp32 train step on the kernel path
+    against the plain path, cli.train as above, cli.benchmark --bench
     train, and a profile of one train step;
   - at every training shape above and below (and in the CPE mode), the
     phases on the tensor-core kernels: row 9, lm_s_train_fwd (S blocks:
@@ -44,18 +46,23 @@ before it and read just after:
     instance), rows 10-11, lm_s_attn_bwd (S blocks) and lm_mlp_bwd (every
     block kind) of train_tc.cuh, row 12, lm_dca_train_fwd (D blocks:
     k_qkv_wg, k_dca_tc + k_dca_merge with the log-sum-exps, k_tail_wg's
-    training instance), and row 13, lm_dca_attn_bwd (D blocks: k_qkv_wg,
+    training instance), row 13, lm_dca_attn_bwd (D blocks: k_qkv_wg,
     k_rowmm_wg, the cross-attention backward k_dca_bwd_tc and k_wgrad_tc,
-    on row 12's o and log-sum-exps), phase by phase: fp32 against the
-    plain phases at 1e-4,
+    on row 12's o and log-sum-exps), row 14, lm_c_train_fwd (C blocks:
+    k_qkv_wg with two widths, the c direction of k_dca_tc + k_dca_merge
+    with the log-sum-exp, k_tail_wg's training instance), and row 15,
+    lm_c_attn_bwd (C blocks: k_qkv_wg, k_rowmm_wg, the c direction of
+    k_dca_bwd_tc and k_wgrad_tc, on row 14's o and log-sum-exp), phase by
+    phase: fp32 against the plain phases at 1e-4,
     bf16 against their tile models (*_tiles_plain) within 2 bf16 steps of
     each tensor's largest element, every output bit for bit over two
     calls, the profiler's device time split by kernel with each phase's
-    port launches read (never more than PORT_LAUNCHES; row 12 also in its
-    CPE mode) and none of the parent's chain kernels in rows 9, 12 and 13,
-    and SDPA's forward (rows 9, 12, both directions for row 12) or
-    backward (rows 10, 13, both directions) on the same q, k, v (and dO)
-    timed beside the attention tiles;
+    port launches read (never more than PORT_LAUNCHES; rows 12 and 14 also
+    in their CPE mode) and no block_common.cuh tail or separate CPE pass in
+    the forwards, and SDPA's forward (rows 9, 12, 14; both directions for
+    row 12, the meta direction for row 14) or backward (rows 10, 13, 15
+    likewise) on the same q, k, v (and dO) timed beside the attention
+    tiles;
   - LeMeViT() with its constructor defaults (head_dim 64, 128 meta
     tokens) at 64^2 under attn_backend="auto": its blocks decline by shape
     and compose, a forward and a training step match "torch" with no
@@ -73,9 +80,10 @@ before it and read just after:
     launches, no convolution for the 15 block CPEs);
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
     6 classes): what ptxas reports for the tensor-core kernels' sources
-    (mhsa.cu, dca_attn.cu, s_block.cu, dca_block.cu; compiled beside the
-    earlier phases), the kernels held against their plain versions and, in bf16,
-    against their order of work in PyTorch (*_tiles_plain) (dca_attn at
+    (mhsa.cu, dca_attn.cu, s_block.cu, dca_block.cu, c_block.cu and the
+    three training sources; after the timed phases), the kernels held
+    against their plain versions and, in bf16, against their order of work
+    in PyTorch (*_tiles_plain) (dca_attn at
     stages 1-2's shapes, at N = 1000 and with 128 meta tokens, through
     D2's aliasing and one backward, two runs bit for bit; mhsa at three
     shapes and at N = 200 and 1) beside SDPA's time on the same inputs,
@@ -149,8 +157,7 @@ BLOCK_OFF_PATH = [("s_block", 200, 192, 16), ("s_block", 196, 384, 32),
 # CUDA kernels of one bf16 base forward by name: the C, S and D kernels'
 # (block_tc.cuh, attn_tc.cuh) 2, 22 and 8 times; block_common.cuh's chain
 # no more
-BASE_FWD_KERNELS = {"k_linear_ln": 0, "k_attention": 0, "k_attn_combine": 0,
-                    "k_block_tail": 0, "k_qkv_wg": 32, "k_mhsa_tc": 22,
+BASE_FWD_KERNELS = {"k_block_tail": 0, "k_qkv_wg": 32, "k_mhsa_tc": 22,
                     "k_mhsa_tc_small": 22, "k_dca_tc": 10, "k_dca_merge": 10,
                     "k_tail_wg": 32}
 # lemevit_tiny at 224^2: (kernel, N, C, launches per eval forward)
@@ -782,20 +789,20 @@ def check_model_bf16(name: str, dev, g, batch: int = 8) -> dict:
                 max_ref=scale)
 
 
-def train_inputs(ft, kind, b, n, ch, g, dev, dtype):
-    """x, c, the LN-folded parameter tuple of an "s", "dca" or "c" block,
-    DropPath scales (keep 0.85) and upstream gradients, seeded, in
-    ``dtype`` on ``dev``."""
+def train_inputs(ft, kind, b, n, ch, g, dev, dtype, m=M):
+    """x, c (m meta tokens), the LN-folded parameter tuple of an "s", "dca"
+    or "c" block, DropPath scales (keep 0.85) and upstream gradients,
+    seeded, in ``dtype`` on ``dev``."""
     params = []
     for shape in ft._param_shapes(kind, ch, 4 * ch):
         params.append(torch.randn(shape, generator=g) * shape[-1] ** -0.5
                       if len(shape) == 2 else
                       torch.randn(shape, generator=g) * 0.1)
     x = torch.randn(b, n, ch, generator=g)
-    c = torch.randn(b, M, ch, generator=g)
+    c = torch.randn(b, m, ch, generator=g)
     dp = (torch.rand(4, b, generator=g) < 0.85).float() / 0.85
     gx = torch.randn(b, n, ch, generator=g)
-    gc = torch.randn(b, M, ch, generator=g)
+    gc = torch.randn(b, m, ch, generator=g)
     cast = [t.to(dev, dtype) for t in (x, c, gx, gc, *params)]
     return cast[0], cast[1], cast[4:], dp.to(dev), cast[2], cast[3]
 
@@ -875,7 +882,7 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
                                    names[:-4]),
             "scale": max(w.abs().max().item() for w in want_g)}
         del got_o, got_g, want_o, want_g
-    # rows 10-11 against their tile models and plain phases, two calls
+    # rows 9-15 against their tile models and plain phases, two calls
     tc_errs = check_bwd_tc(ft, kind, n, ch, dev, g, b_check, b_main)
     # times per kernel, bf16, b_main, on the inputs of the last check
     rows = []
@@ -886,7 +893,7 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
         n_seen = 0 if (kind == "c" and name == "mlp_bwd") else n
         t_bound, by = bound(*train_work(name, b_main, n_seen, ch))
         extra = {}
-        if name in tc_errs:  # rows 9-11, 13: device time, split by kernel
+        if name in tc_errs:  # rows 9-15: device time, split by kernel
             prof = profile_call(kern, f"{name} {kind} N={n} C={ch} "
                                 f"B={b_main}", top=10)
             port = port_kernels(prof, name)
@@ -913,6 +920,12 @@ def check_train_kernels(ft, kind, n, ch, blocks, dev, g, profile=False,
                         ft, tc_phases(ft, kind, x, c, p, dp, gx, gc,
                                       kw)[name][0], ch // 32,
                         kw["scale_x"], kw["scale_c"])
+                elif name == "c_train_fwd":
+                    sdpa = sdpa_c_train_device_ms(ft, x, c, p, ch // 32)
+                elif name == "c_attn_bwd":
+                    sdpa = sdpa_c_train_device_ms(
+                        ft, x, c, p, ch // 32, tc_phases(
+                            ft, kind, x, c, p, dp, gx, gc, kw)[name][0])
                 else:
                     mlp_out = phase_calls(ft, kind, x, c, p, dp, gx, gc,
                                           kw)["mlp_bwd"][0]()
@@ -953,14 +966,18 @@ def tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
     row 9 (s_train_fwd) and row 10 (s_attn_bwd) at S, row 11 (mlp_bwd) at
     every kind (the C block's on its meta stream alone), rows 12
     (dca_train_fwd) and 13 (dca_attn_bwd, on row 12's o and log-sum-exps)
-    at D. kw carries num_heads, the D scales and, with the CPE pair
-    ``cpe``, img_w."""
+    at D, rows 14 (c_train_fwd) and 15 (c_attn_bwd, on row 14's o and
+    log-sum-exp) at C. kw carries num_heads, the D scales and, with the CPE
+    pair ``cpe``, img_w."""
     w1, b1, w2 = p[-4], p[-3], p[-2]
     pkw = dict(kw, cpe=cpe) if cpe is not None else dict(kw)
     fwd = getattr(ft, TRAIN_PHASES[kind][0])(x, c, p, dp, **pkw)
     if kind == "c":
         none = x[:, :0]
-        return {"mlp_bwd": ((none, fwd[1], none, gc, dp, w1, b1, w2), {})}
+        mlp = (none, fwd[1], none, gc, dp, w1, b1, w2)
+        dt1c = ft.mlp_bwd(*mlp)[1]
+        return {"c_train_fwd": ((x, c, p, dp), pkw), "mlp_bwd": (mlp, {}),
+                "c_attn_bwd": ((x, c, dt1c, dp, *p[:5], *fwd[2:]), pkw)}
     mlp = (fwd[2], fwd[3], gx, gc, dp, w1, b1, w2)
     dt1x, dt1c = ft.mlp_bwd(*mlp)[:2]
     if kind == "s":
@@ -973,24 +990,26 @@ def tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe=None):
 
 
 def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
-                 img_w=0):
-    """Rows 9-13 (lm_s_train_fwd, lm_s_attn_bwd at S, lm_mlp_bwd at every
-    block kind, lm_dca_train_fwd, lm_dca_attn_bwd at D; with img_w in
-    their cpe mode)
+                 img_w=0, m=M):
+    """Rows 9-15 (lm_s_train_fwd, lm_s_attn_bwd at S, lm_mlp_bwd at every
+    block kind, lm_dca_train_fwd, lm_dca_attn_bwd at D, lm_c_train_fwd,
+    lm_c_attn_bwd at C; with img_w in their cpe mode)
     phase by phase: fp32 at b_check against the plain phases (TRAIN_TOL:
     1e-4 of (max|ref| + |ref|) per tensor), bf16 at b_main against their
     tile models (*_tiles_plain) within TILES_STEPS bf16 steps of each
     tensor's largest element, and every output bit for bit over two bf16
-    calls. Returns {phase: (fp32 err, bf16 err against the tile model)}."""
+    calls; m meta tokens. Returns {phase: (fp32 err, bf16 err against the
+    tile model)}."""
     kw = {"num_heads": ch // 32}
     if kind == "dca":
         from lemevit_tpu_torch.attn.reference import dca_scales
-        kw["scale_x"], kw["scale_c"] = dca_scales(n, M, ch)
+        kw["scale_x"], kw["scale_c"] = dca_scales(n, m, ch)
     if img_w:
         kw["img_w"] = img_w
     errs = {}
     for dtype, b in ((torch.float32, b_check), (torch.bfloat16, b_main)):
-        x, c, p, dp, gx, gc = train_inputs(ft, kind, b, n, ch, g, dev, dtype)
+        x, c, p, dp, gx, gc = train_inputs(ft, kind, b, n, ch, g, dev, dtype,
+                                           m)
         cpe = cpe_inputs(ch, g, dev, dtype) if img_w else None
         phases = tc_phases(ft, kind, x, c, p, dp, gx, gc, kw, cpe)
         for name, (args, pkw) in phases.items():
@@ -1015,7 +1034,7 @@ def check_bwd_tc(ft, kind, n, ch, dev, g, b_check=B_CHECK, b_main=B_MAIN,
                     None, TILES_STEPS))
         del x, c, p, gx, gc, phases
     say("bwd-tc", f"{kind} N={n} C={ch}{f' cpe {img_w} wide' if img_w else ''}"
-        ": " + "; ".join(
+        f"{f' M={m}' if m != M else ''}: " + "; ".join(
             f"{name} fp32 B={b_check} err {e[0]:.2e} (plain), bf16 "
             f"B={b_main} err {e[1]:.2e} (tile model, {TILES_STEPS} steps)"
             for name, e in errs.items()) + "; two calls bit for bit")
@@ -1076,6 +1095,32 @@ def sdpa_c_fwd_device_ms(x, c, p, heads) -> tuple:
 
     def run():
         F.scaled_dot_product_attention(q, k, v)
+    return cuda_ms(run), device_ms(run)
+
+
+def sdpa_c_train_device_ms(ft, x, c, p, heads, bwd_args=None) -> tuple:
+    """(events ms, device ms) of SDPA's forward (or, given row 15's
+    arguments ``bwd_args``, its backward) on rows 14-15's attention inputs:
+    the meta queries over the image keys, q = LN1(c) Wq'^T + bq' and k, v =
+    LN1(x) Wkv'^T + bkv' (and dO = s1c dt1c Wp) rounded as the kernels
+    round them; for this table only."""
+    def rows(t, w, bias):
+        return (ft._norm(t).to(t.dtype).float() @ w.float().t()
+                + bias.float()).to(t.dtype)
+    q = _heads(rows(c, p[0], p[1]), heads)
+    k, v = (_heads(u, heads) for u in rows(x, p[2], p[3]).chunk(2, -1))
+    if bwd_args is None:
+        def run():
+            F.scaled_dot_product_attention(q, k, v)
+        return cuda_ms(run), device_ms(run)
+    dt1c, dp = bwd_args[2], bwd_args[3]
+    ins = [u.requires_grad_() for u in (q, k, v)]
+    out = F.scaled_dot_product_attention(*ins)
+    d_o = _heads((ft._dproj(dp[2], dt1c).float() @ p[4].float()).to(
+        dt1c.dtype), heads)
+
+    def run():
+        torch.autograd.grad(out, ins, d_o, retain_graph=True)
     return cuda_ms(run), device_ms(run)
 
 
@@ -1201,7 +1246,8 @@ def check_train_cpe(ft, fb, kind, n, img_w, ch, blocks, dev, g,
         profile_call(calls[bwd_name][0], f"{bwd_name} with its CPE N={n} "
                      f"C={ch} B={b_main}", top=12)
     port = None
-    if fwd_name == "dca_train_fwd":  # row 12: as many launches as without
+    if fwd_name in ("dca_train_fwd", "c_train_fwd"):  # rows 12, 14: as
+        # many launches as without
         port = port_kernels(profile_call(
             calls[fwd_name][0], f"{fwd_name} with its CPE N={n} C={ch} "
             f"B={b_main}", top=8), fwd_name)
@@ -1237,6 +1283,34 @@ def check_train_cpe(ft, fb, kind, n, img_w, ch, blocks, dev, g,
             f"{r['bound_ms']:.4f} {r['bound_by']}, CPE passes' bytes "
             f"{pass_ms[r['name']]:.4f})" for r in rows))
     return rows
+
+
+def check_c_train_meta(ft, dev, g, m=320, n=3136, ch=64, b=8):
+    """The C block with m meta tokens (past the 256 meta rows a CTA of
+    k_dca_tc and k_dca_bwd_tc stages at a time; the C block takes any M):
+    rows 14-15 phase by phase as check_bwd_tc holds them, then a bf16 C
+    training block on the kernel path (one launch of each phase) against
+    its autograd composition in fp32 on the same bf16 inputs
+    (TRAIN_TOL)."""
+    check_bwd_tc(ft, "c", n, ch, dev, g, b_check=2, b_main=b, m=m)
+    kw = {"num_heads": ch // 32}
+    x, c, p, dp, gx, gc = train_inputs(ft, "c", b, n, ch, g, dev,
+                                       torch.bfloat16, m)
+    reset()
+    got_o, got_g = run_train_block(ft.c_block_train, x, c, p, dp, gx, gc, kw)
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {"c_train_fwd": 1, "mlp_bwd": 1,
+                                      "c_attn_bwd": 1}, f"C block, M={m}")
+    want_o, want_g = run_train_block(
+        ft.c_block_train_plain, x.float(), c.float(), [t.float() for t in p],
+        dp, gx.float(), gc.float(), kw)
+    otol, gtol = TRAIN_TOL[torch.bfloat16]
+    err_o = max_err(got_o, want_o, otol)
+    err_g = max_grad_err(got_g, want_g, gtol,
+                         [f"grad {i}" for i in range(len(want_g))])
+    say("train-kernel", f"c N={n} C={ch} M={m} bf16 B={b}: the kernel path "
+        f"against the fp32 composition, err out {err_o:.2e}, grads "
+        f"{err_g:.2e} (tol {otol:g} / {gtol:g})")
 
 
 def check_d2_train_block(ft, dev, g):
@@ -1653,7 +1727,7 @@ def ptxas_report(src: Path) -> str:
 
 
 PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu",
-                 "c_block.cu", "s_train.cu", "dca_train.cu")
+                 "c_block.cu", "s_train.cu", "dca_train.cu", "c_train.cu")
 
 
 def kernels_ptxas() -> dict:
@@ -1667,7 +1741,7 @@ def kernels_ptxas() -> dict:
                            PTXAS_SOURCES)
         out = dict(zip(PTXAS_SOURCES, reports))
     for src in ("s_block.cu", "dca_block.cu", "c_block.cu", "s_train.cu",
-                "dca_train.cu"):
+                "dca_train.cu", "c_train.cu"):
         out[src] = "\n".join(
             line for line in out[src].splitlines()
             if any(k in line for k in ("_tc", "_wg", "k_dca_merge")))
@@ -1703,31 +1777,35 @@ def kernel_count(prof: dict, name: str) -> int:
                if f"{name}<" in k or k.endswith(name))
 
 
-# the attention kernels of rows 9, 10, 12 and 13 by name, the SDPA call
+# the attention kernels of rows 9, 10 and 12-15 by name, the SDPA call
 # timed beside them (forward, or backward of the same q, k, v and dO; both
-# directions for rows 12 and 13) and what the line calls them
+# directions for rows 12 and 13, the meta direction for rows 14 and 15) and
+# what the line calls them
 ATTN_PART = {"s_train_fwd": ("k_mhsa_tc", "sdpa_fwd", "the attention tiles"),
              "s_attn_bwd": ("k_attn_bwd_", "sdpa_bwd", "the attention tiles"),
              "dca_train_fwd": ("k_dca_", "sdpa_fwd",
                                "the attention of both directions"),
              "dca_attn_bwd": ("k_dca_bwd_", "sdpa_bwd",
-                              "the attention backward of both directions")}
+                              "the attention backward of both directions"),
+             "c_train_fwd": ("k_dca_", "sdpa_fwd",
+                             "the attention of the meta direction"),
+             "c_attn_bwd": ("k_dca_bwd_", "sdpa_bwd",
+                            "the attention backward of the meta direction")}
 # the port's kernel launches of one call of each phase (and of the C
-# block) on the tensor-core kernels, with or without the CPE where the
-# phase's count does not change with it, and the kernels of the parent's
-# chains that must not run in rows 4-5, 9, 12 and 13 any more. The
-# profiler may drop a kernel from its table (PERF.md section 6), so a
-# count short of PORT_LAUNCHES is reported, not raised; a retired kernel in
-# the table raises.
+# block) on the tensor-core kernels, counted from the sources, with or
+# without the CPE where the phase's count does not change with it, and the
+# kernels that must not run in them: block_common.cuh's tail (the S / D
+# tails past C = 512) and the separate CPE pass the forwards' k_qkv_wg
+# replaced. The profiler may drop a kernel from its table (PERF.md section
+# 6), so a count short of PORT_LAUNCHES is reported, not raised; a count
+# past it or a retired kernel in the table raises.
 PORT_LAUNCHES = {"s_train_fwd": 4, "mlp_bwd": 3, "s_attn_bwd": 8,
-                 "dca_train_fwd": 4, "dca_attn_bwd": 9, "c_block": 4}
-OLD_CHAIN = ("k_linear_ln", "k_attention", "k_attn_combine", "k_block_tail")
-RETIRED = {"s_train_fwd": OLD_CHAIN,
-           "dca_train_fwd": (*OLD_CHAIN, "k_cpe_rows"),
-           "c_block": OLD_CHAIN,
-           "dca_attn_bwd": ("k_attn_bwd_dq", "k_attn_bwd_dkv",
-                            "k_attn_bwd_rowdot", "k_wgrad", "k_wgrad_reduce",
-                            "k_linear_ln", "k_ln_rows", "k_ln_bwd")}
+                 "dca_train_fwd": 4, "dca_attn_bwd": 9, "c_block": 4,
+                 "c_train_fwd": 4, "c_attn_bwd": 9}
+RETIRED = {"s_train_fwd": ("k_block_tail",),
+           "dca_train_fwd": ("k_block_tail", "k_cpe_rows"),
+           "c_train_fwd": ("k_block_tail", "k_cpe_rows"),
+           "c_block": ("k_block_tail",)}
 
 
 def port_kernels(prof: dict, name: str) -> int | None:
@@ -2225,6 +2303,7 @@ def main() -> None:
         train_rows += check_train_kernels(ft, kind, n, ch, blocks, dev, g,
                                           profile=n == 3136)
     check_d2_train_block(ft, dev, g)
+    check_c_train_meta(ft, dev, g)
     check_defaults_model(dev)
     check_train_step(dev, "lemevit_tiny", TINY_STEP)
     tiny_launches, tiny_res = train_main_path("lemevit_tiny", TINY_STEP,

@@ -55,10 +55,9 @@ SIGNATURES = {
                          _P],
     "lm_dca_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _F, _P],
-    "lm_c_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                       _P],
-    "lm_c_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                      _P],
+    "lm_c_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "lm_c_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                      _F, _P],
     "lm_dca_attn": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                     _P],
     "lm_mhsa": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _P],

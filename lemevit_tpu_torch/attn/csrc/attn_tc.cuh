@@ -38,8 +38,10 @@
 // k_dca_merge merges the c direction's per-tile partials in a fixed
 // order. Its instances: both directions (dca_attn.cu, dca_block.cu); both
 // with each row's log-sum-exp (kLse, the D training forward, dca_train.cu);
-// the c direction alone (kX false, the C block, c_block.cu), whose CTAs
-// also split the meta rows into chunks of DcaArgs::mc.
+// the c direction alone (kX false, the C block, c_block.cu, and its
+// training forward, c_train.cu, where k_dca_merge's kLse instance writes
+// the meta rows' log-sum-exp), whose CTAs also split the meta rows into
+// chunks of DcaArgs::mc.
 #pragma once
 
 #include "block_common.cuh"

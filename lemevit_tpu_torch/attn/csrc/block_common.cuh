@@ -1,28 +1,22 @@
-// Device building blocks shared by s_stage.cu, the C block's training
-// kernels (c_train.cu), train_common.cuh and the S / D block tails past C =
-// 512 (block_tc.cuh's launch_tail_tc).
+// Device building blocks of s_stage.cu (row 6) and of the S / D block tails
+// past C = 512 (block_tc.cuh's launch_tail_tc), and the types, layouts and
+// helpers that block_tc.cuh, attn_tc.cuh and the training headers share.
 //
-// Every public block kernel is a short chain of the launches defined here
-// (s_stage.cu runs their bodies, attention_tile and tail_rows, in one):
-//   k_linear_ln    out = LN(a) @ W^T + b, a @ W^T + b, or a @ W^T in fp32
-//                  (qkv projections; the training kernels' data-gradient
-//                  products)
-//   k_attention    softmax(q k^T * scale) v per (image, head), online
-//                  softmax over key chunks, optionally split over blocks;
-//                  optionally each query's log-sum-exp (for the backward)
-//   k_attn_combine merges the per-split (max, sum, acc) partials (and
-//                  writes the log-sum-exp where asked)
-//   k_block_tail   t1 = t + s1 (o @ Wp^T + bp); out = t1 + s2 MLP(LN2(t1)),
-//                  s1 / s2 per-image DropPath scales (1 in inference)
-// All matrix products go through one routine, tile_gemm: a shared-memory
-// tiled product with fp32 accumulation whose A operand is a matrix in
-// global or shared memory, optionally row-LayerNormed on the way in (Rows,
-// LnRows), and whose result goes to an epilogue functor (bias, exact-erf
-// GELU, residual). bf16 products run on
-// the tensor cores (mma.sync m16n8k16, the LayerNorm output rounded to
-// bf16 first, as the TPU kernels round before the MXU); fp32 products stay
-// on FMA, so fp32 keeps full precision. No stage is pipelined: each 32-deep step loads, syncs and
-// multiplies (the next PRs' cp.async / TMA and wgmma work).
+//   attention_tile softmax(q k^T * scale) v of one (image, head) and 32
+//                  queries, online softmax over 64-key chunks (k_s_stage's
+//                  attention)
+//   tail_rows      t1 = t + s1 (o @ Wp^T + bp); out = t1 + s2 MLP(LN2(t1)),
+//                  s1 / s2 per-image DropPath scales (1 in inference);
+//                  k_block_tail runs it over 32-row blocks
+// All their matrix products go through one routine, tile_gemm: a
+// shared-memory tiled product with fp32 accumulation whose A operand is a
+// matrix in global or shared memory, optionally row-LayerNormed on the way
+// in (Rows, LnRows), and whose result goes to an epilogue functor (bias,
+// exact-erf GELU, residual). bf16 products run on the tensor cores
+// (mma.sync m16n8k16, the LayerNorm output rounded to bf16 first, as the
+// TPU kernels round before the MXU); fp32 products stay on FMA, so fp32
+// keeps full precision. No stage is pipelined: each 32-deep step loads,
+// syncs and multiplies.
 //
 // Types: T is float or __nv_bfloat16 for every activation, weight, bias and
 // norm parameter of one call; products, softmax and LayerNorm statistics are
@@ -389,121 +383,20 @@ __device__ __forceinline__ void tile_gemm(LoadA load_a,
   }
 }
 
-// ---------------------------------------------------------------- linear
-
-// One row range of a projection: out[rows, ncols] = LN(a) @ w^T + bias.
-struct LinSeg {
-  const void* a;
-  const void* w;
-  const void* bias;
-  void* out;
-  int rows;
-  int ncols;
-};
-
-// Up to two segments share one launch and one LayerNorm (norm1 of a block
-// feeds both the image-token and the meta-token projections).
-struct LinArgs {
-  LinSeg seg[2];
-  int row_blocks0;  // row blocks of seg[0]; the rest belong to seg[1]
-  const void* ln_w;
-  const void* ln_b;
-  int K;
-  float eps;
-  int plain_a;  // 1: A is used as given (no LayerNorm, ln_w / ln_b unused)
-  int out_f32;  // 1: out = A @ w^T in float32, no bias (needs plain_a)
-};
-
-constexpr int kLinBM = 64, kLinBN = 64;
-
-// The three modes are separate instances, so that each carries one product
-// and a straight epilogue (as one kernel with runtime flags, the inference
-// projection ran 1.5x slower).
-template <typename T, bool kPlainA, bool kOutF32>
-__global__ void __launch_bounds__(kThreads) k_linear_ln(const LinArgs args) {
-  __shared__ __align__(16) float sA[kBK * (kLinBM + 1)];
-  __shared__ __align__(16) float sW[kBK * (kLinBN + 1)];
-  __shared__ float s_mean[kLinBM], s_rstd[kLinBM];
-  int rb = blockIdx.x, si = 0;
-  if (rb >= args.row_blocks0) {
-    rb -= args.row_blocks0;
-    si = 1;
-  }
-  // by value from a constant index: args.seg[si] made ptxas copy the
-  // parameter block to the stack (~9 % on lm_c_train_fwd, H100)
-  const LinSeg sg = si ? args.seg[1] : args.seg[0];
-  const int n0 = blockIdx.y * kLinBN;
-  if (n0 >= sg.ncols) return;  // uniform over the block, before any barrier
-  const int K = args.K;
-  const int row0 = rb * kLinBM;
-  const int rows = min(kLinBM, sg.rows - row0);
-  const T* __restrict__ A = static_cast<const T*>(sg.a) + (size_t)row0 * K;
-  const T* __restrict__ bias = static_cast<const T*>(sg.bias);
-  using Out = typename std::conditional<kOutF32, float, T>::type;
-  Out* __restrict__ out = static_cast<Out*>(sg.out) + (size_t)row0 * sg.ncols;
-  const int ldo = sg.ncols;
-  auto epi = [&](int r, int n, float v) {
-    if (r >= rows) return;
-    if constexpr (kOutF32)
-      out[(size_t)r * ldo + n] = v;
-    else
-      out[(size_t)r * ldo + n] = from_f<T>(v + to_f(bias[n]));
-  };
-  const T* __restrict__ w = static_cast<const T*>(sg.w);
-  if constexpr (kPlainA) {
-    tile_gemm<kLinBM, kLinBN>(Rows<T>{A, K, rows}, w, K, K, n0, sg.ncols, sA,
-                              sW, epi);
-  } else {
-    row_stats(
-        [&](int r, int k) {
-          return r < rows ? to_f(A[(size_t)r * K + k]) : 0.f;
-        },
-        kLinBM, K, args.eps, s_mean, s_rstd);
-    __syncthreads();
-    tile_gemm<kLinBM, kLinBN>(
-        LnRows<T>{A, K, rows, s_mean, s_rstd, static_cast<const T*>(args.ln_w),
-                  static_cast<const T*>(args.ln_b)},
-        w, K, K, n0, sg.ncols, sA, sW, epi);
-  }
-}
-
-template <typename T>
-int launch_linear(const LinArgs& a, int max_ncols, cudaStream_t s) {
-  if (a.out_f32 && (!a.plain_a || a.seg[0].bias || a.seg[1].bias))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, kLinBM);
-  dim3 grid(blocks, cdiv(max_ncols, kLinBN));
-  if (a.out_f32)
-    k_linear_ln<T, true, true><<<grid, kThreads, 0, s>>>(a);
-  else if (a.plain_a)
-    k_linear_ln<T, true, false><<<grid, kThreads, 0, s>>>(a);
-  else
-    k_linear_ln<T, false, false><<<grid, kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------- attention
 
-// q rows (batch * nq, ldq), k / v rows (batch * nk, ldkv); head h reads
-// columns [32 h, 32 h + 32). Keys are split into `splits` ranges of
-// keys_per_split; with one split the normalised result goes to out, else
-// each split writes its running (max, sum, acc) to pm / pl / pacc, laid out
-// [(b * heads + h) * splits + split][query] (pacc with 32 channels more).
+// q rows (batch * nq, ldq), k / v rows (batch * nk, ldkv), out rows
+// (batch * nq, ldo); head h reads columns [32 h, 32 h + 32).
 struct AttnArgs {
   const void* q;
   const void* k;
   const void* v;
   void* out;
-  float* pm;
-  float* pl;
-  float* pacc;
   int ldq, ldkv, ldo;
   int batch, heads, nq, nk;
-  int splits, keys_per_split;
   float scale;
   float* lse;  // where set: each query's log-sum-exp of its scaled scores,
-               // at [(b * heads + h) * nq + query] (written by k_attention
-               // with one split, else by k_attn_combine; by attn_tc.cuh's
+               // at [(b * heads + h) * nq + query] (attn_tc.cuh's
                // k_mhsa_tc / k_mhsa_tc_small in their kLse instances)
 };
 
@@ -514,21 +407,19 @@ constexpr int kKC = 64;                 // keys per shared-memory chunk
 constexpr int kAttnSmemFloats =
     kQB * kHeadDim + kKC * (kHeadDim + 1) + kKC * kHeadDim;
 
-// One (image, head) pair's kQB queries from q0 against one split of the
-// keys, in `smem` (kAttnSmemFloats). Starts with a barrier, so a block may
-// run several tiles in turn (k_s_stage does).
+// One (image, head) pair's kQB queries from q0 against all its keys, an
+// online softmax over kKC-key chunks, in `smem` (kAttnSmemFloats). Starts
+// with a barrier, so a block may run several tiles in turn (k_s_stage
+// does).
 template <typename T>
 __device__ __forceinline__ void attention_tile(const AttnArgs& a, int bh,
-                                               int q0, int split,
-                                               float* smem) {
+                                               int q0, float* smem) {
   float (*sQ)[kHeadDim] = reinterpret_cast<float (*)[kHeadDim]>(smem);
   float (*sK)[kHeadDim + 1] =
       reinterpret_cast<float (*)[kHeadDim + 1]>(smem + kQB * kHeadDim);
   float (*sV)[kHeadDim] = reinterpret_cast<float (*)[kHeadDim]>(
       smem + kQB * kHeadDim + kKC * (kHeadDim + 1));
   const int b = bh / a.heads, h = bh % a.heads;
-  const int kbeg = split * a.keys_per_split;
-  const int kend = min(a.nk, kbeg + a.keys_per_split);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // not restrict: k_s_stage writes q, k and v earlier in the same launch
   const T* Q = static_cast<const T*>(a.q);
@@ -549,8 +440,8 @@ __device__ __forceinline__ void attention_tile(const AttnArgs& a, int bh,
     l[i] = 0.f;
     acc[i] = 0.f;
   }
-  for (int kc = kbeg; kc < kend; kc += kKC) {
-    const int cnt = min(kKC, kend - kc);
+  for (int kc = 0; kc < a.nk; kc += kKC) {
+    const int cnt = min(kKC, a.nk - kc);
     __syncthreads();
     for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
       const int j = e / kHeadDim, t = e % kHeadDim;
@@ -596,62 +487,9 @@ __device__ __forceinline__ void attention_tile(const AttnArgs& a, int bh,
   for (int i = 0; i < kQPW; ++i) {
     const int gq = q0 + warp * kQPW + i;
     if (gq >= a.nq) continue;
-    if (a.splits == 1) {
-      T* out = static_cast<T*>(a.out);
-      out[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim + lane] =
-          from_f<T>(acc[i] / l[i]);
-      if (a.lse && lane == 0) a.lse[(size_t)bh * a.nq + gq] = m[i] + logf(l[i]);
-    } else {
-      const size_t p = ((size_t)bh * a.splits + split) * a.nq + gq;
-      if (lane == 0) {
-        a.pm[p] = m[i];
-        a.pl[p] = l[i];
-      }
-      a.pacc[p * kHeadDim + lane] = acc[i];
-    }
+    static_cast<T*>(a.out)[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim +
+                           lane] = from_f<T>(acc[i] / l[i]);
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) k_attention(const AttnArgs a) {
-  __shared__ float smem[kAttnSmemFloats];
-  attention_tile<T>(a, blockIdx.x, blockIdx.y * kQB, blockIdx.z, smem);
-}
-
-// One warp per (image, head, query): merge the splits' partial softmaxes.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) k_attn_combine(const AttnArgs a) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= a.batch * a.heads * a.nq) return;
-  const int bh = row / a.nq, gq = row % a.nq;
-  const int b = bh / a.heads, h = bh % a.heads;
-  float mx = -INFINITY;
-  for (int s = 0; s < a.splits; ++s)
-    mx = fmaxf(mx, a.pm[((size_t)bh * a.splits + s) * a.nq + gq]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < a.splits; ++s) {
-    const size_t p = ((size_t)bh * a.splits + s) * a.nq + gq;
-    const float w = expf(a.pm[p] - mx);
-    L = fmaf(w, a.pl[p], L);
-    A = fmaf(w, a.pacc[p * kHeadDim + lane], A);
-  }
-  T* out = static_cast<T*>(a.out);
-  out[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim + lane] =
-      from_f<T>(A / L);
-  // the training forwards' log-sum-exp; null on the serving path
-  if (a.lse && lane == 0) a.lse[row] = mx + logf(L);
-}
-
-template <typename T>
-int launch_attention(const AttnArgs& a, cudaStream_t s) {
-  dim3 grid(a.batch * a.heads, cdiv(a.nq, kQB), a.splits);
-  k_attention<T><<<grid, kThreads, 0, s>>>(a);
-  int err = (int)cudaGetLastError();
-  if (err || a.splits == 1) return err;
-  k_attn_combine<T><<<cdiv(a.batch * a.heads * a.nq, kWarps), kThreads, 0,
-                      s>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- tail

@@ -1244,11 +1244,14 @@ constexpr int kDcaMetaChunk = 256;
 // DCA on attn_tc.cuh's tiles plus the fixed-order merge (dca_attn.cu's
 // launches); a.tiles = ceil(n / DcaTile<T>::kRows). kX: both directions
 // (kLse: with each row's log-sum-exp at a.lse_x / a.lse_c); else the c
-// direction alone, its meta rows in chunks of up to kDcaMetaChunk.
+// direction alone, its meta rows in chunks of up to kDcaMetaChunk (kLse:
+// the C block's training forward, the meta rows' log-sum-exp at a.lse_c,
+// written by the merge alone, so k_dca_tc runs its inference instance).
 template <typename T, bool kX = true, bool kLse = false>
 int launch_dca_tc(DcaArgs a, cudaStream_t s) {
+  constexpr bool kTileLse = kX && kLse;  // k_dca_tc writes lse_x
   static size_t attr = 0;
-  if (a.m < 1 || (kLse && (!a.lse_x || !a.lse_c)))
+  if (a.m < 1 || (kLse && (!a.lse_c || (kX && !a.lse_x))))
     return (int)cudaErrorInvalidValue;
   int mp = cdiv(a.m, kMetaTile) * kMetaTile, chunks = 1;
   if constexpr (!kX) {
@@ -1258,10 +1261,10 @@ int launch_dca_tc(DcaArgs a, cudaStream_t s) {
   }
   // with kX, an M whose rows do not fit fails here (cudaErrorInvalidValue)
   const size_t bytes = dca_smem_bytes<T, kX>(mp);
-  if (const int err = grant_smem(k_dca_tc<T, kX, kLse>, bytes, attr))
+  if (const int err = grant_smem(k_dca_tc<T, kX, kTileLse>, bytes, attr))
     return err;
-  k_dca_tc<T, kX, kLse><<<dim3(a.tiles, a.batch, chunks),
-                          2 * DcaTile<T>::kRows, bytes, s>>>(a);
+  k_dca_tc<T, kX, kTileLse><<<dim3(a.tiles, a.batch, chunks),
+                              2 * DcaTile<T>::kRows, bytes, s>>>(a);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   k_dca_merge<T, kLse><<<a.batch * a.heads * a.m, kMergeWarps * 32, 0, s>>>(

@@ -174,8 +174,7 @@ int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   RowMmArgs ro{};
   for (int si = 0; si < 2; ++si)
     ro.seg[si] = {mp<T>(p, 32 + si), nullptr, nullptr, p[14 + si],
-                  fp(p, 34 + si), rows[si], n[si]};
-  ro.K = C;
+                  fp(p, 34 + si), rows[si], n[si], C};
   ro.C = C;
   ro.heads = H;
   ro.eps = eps;
@@ -214,10 +213,10 @@ int dca_attn_bwd(const void* const* p, int B, int N, int M, int C, int H,
   // the cpe mode du (fp32, at the CPE's output), then the CPE's backward
   RowMmArgs rl{};
   rl.seg[0] = {const_cast<void*>(cpe.taps ? p[44] : p[18]),
-               cpe.taps ? p[43] : p[0], p[2], nullptr, nullptr, rows[0], N};
+               cpe.taps ? p[43] : p[0], p[2], nullptr, nullptr, rows[0], N,
+               3 * C};
   rl.seg[1] = {const_cast<void*>(p[19]), p[1], p[3], nullptr, nullptr,
-               rows[1], M};
-  rl.K = 3 * C;
+               rows[1], M, 3 * C};
   rl.C = C;
   rl.heads = H;
   rl.eps = eps;

@@ -12,8 +12,8 @@
 // loops over the stage's blocks itself. Per block, four phases split their
 // work items round-robin over the cluster's CTAs and end in a cluster
 // barrier: the CPE of x into a workspace; qkv = LN1(t) Wqkv^T + b for both
-// streams (32 x 128 tiles of tile_gemm); the attention (attention_tile, the
-// k_attention inner loop, per head and 32 queries); the tail (tail_rows: proj,
+// streams (32 x 128 tiles of tile_gemm); the attention (attention_tile, an
+// online softmax per head and 32 queries); the tail (tail_rows: proj,
 // residual, LN2, MLP over 32-row blocks, hidden in 128-wide chunks). Between
 // blocks x and c stay in the input type in the output buffers, as the TPU
 // scratch kept them. The weights are read in place through a device table
@@ -165,7 +165,6 @@ __global__ void __launch_bounds__(kThreads) k_s_stage(const StageArgs a) {
     at.ldo = C;
     at.batch = a.B;
     at.heads = H;
-    at.splits = 1;
     at.scale = a.scale;
     const int qbx = cdiv(N, kQB), qbc = cdiv(M, kQB);
     for (int it = rank; it < H * (qbx + qbc); it += a.csize) {
@@ -176,8 +175,8 @@ __global__ void __launch_bounds__(kThreads) k_s_stage(const StageArgs a) {
       at.k = qkv + C;
       at.v = qkv + 2 * C;
       at.out = isx ? a.o_x : a.o_c;
-      at.nq = at.nk = at.keys_per_split = isx ? N : M;
-      attention_tile<T>(at, img * H + i / qb, (i % qb) * kQB, 0,
+      at.nq = at.nk = isx ? N : M;
+      attention_tile<T>(at, img * H + i / qb, (i % qb) * kQB,
                         reinterpret_cast<float*>(smem));
     }
     stage_sync(a.csize);

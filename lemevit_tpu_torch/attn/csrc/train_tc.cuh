@@ -1,9 +1,11 @@
-// The S block's MLP backward and attention backward and the D block's
-// attention backward on Hopper's tensor cores (s_train.cu's lm_mlp_bwd and
-// lm_s_attn_bwd, dca_train.cu's lm_dca_attn_bwd). Replaces, with
-// block_tc.cuh's k_qkv_wg, lemevit_tpu/attn/pallas_train.py's
-// _mlp_bwd_kernel (_mlp_bwd_call), _s_attn_bwd_kernel (_s_train_bwd_call)
-// and _dca_attn_bwd_kernel (_dca_train_bwd_call): the TPU kernels
+// The S block's MLP backward and attention backward and the D and C
+// blocks' attention backwards on Hopper's tensor cores (s_train.cu's
+// lm_mlp_bwd and lm_s_attn_bwd, dca_train.cu's lm_dca_attn_bwd,
+// c_train.cu's lm_c_attn_bwd). Replaces, with block_tc.cuh's k_qkv_wg,
+// lemevit_tpu/attn/pallas_train.py's _mlp_bwd_kernel (_mlp_bwd_call),
+// _s_attn_bwd_kernel (_s_train_bwd_call), _dca_attn_bwd_kernel
+// (_dca_train_bwd_call) and _c_attn_bwd_kernel (_c_train_bwd_call): the
+// TPU kernels
 // recompute LN / fc1 / GELU and LN1 / qkv / P in VMEM and accumulate the
 // weight gradients in resident fp32 blocks across their sequential grid;
 // here the row kernels write the rounded operands of the weight gradients
@@ -28,13 +30,14 @@
 //                  LN2 backward + dout runs in the epilogue from those
 //                  registers, its row sums meeting in shared memory.
 //   k_rowmm_wg     out = A W^T over 64 rows a CTA, A and W sub-tiles by TMA
-//                  into a ring (each stream its own W: the D block's
-//                  proj_x / proj_c, qkv1 / qkv2), the (64 x C) sum in
-//                  registers: dO = dproj Wp
-//                  rounded to T with D = rowsum(dO . o) per head in its
-//                  epilogue, or da = dqkv Wqkv' with the LN1 backward and
-//                  the dt1 residual in its epilogue (dx in T, or du in fp32
-//                  for the CPE's backward).
+//                  into a ring (each stream its own W and depth: the D
+//                  block's proj_x / proj_c, qkv1 / qkv2; the C block's kv
+//                  at 2C and q at C), the (64 x C) sum in registers: dO =
+//                  dproj Wp rounded to T with D = rowsum(dO . o) per head
+//                  in its epilogue, or da = dqkv Wqkv' with the LN1
+//                  backward and the dt1 residual (none for the C block's
+//                  image rows) in its epilogue (dx in T, or du in fp32 for
+//                  the CPE's backward).
 //   k_attn_bwd_kv_tc / k_attn_bwd_q_tc / k_attn_bwd_small_tc
 //                  FlashAttention-2's backward on attn_tc.cuh's fragments
 //                  (ldmatrix into mma.sync m16n8k16, quad-shuffle rows, ex2
@@ -54,7 +57,10 @@
 //                  dv1 of its rows and, for the sums over N (dq2, dk2, dv2:
 //                  the 16 meta rows are one m tile, so no CTA walks all N),
 //                  an fp32 partial per range, which the reduce adds in range
-//                  order.
+//                  order. The C block's is its c direction alone (kX
+//                  false): k1 / v1 staged a chunk, q2 / dO2 up to 256 meta
+//                  rows at a time, dk1 / dv1 written, dq2 through the
+//                  partials.
 //   k_wgrad_tc     dW = G^T A over token rows for up to two products in one
 //                  launch: both operands arrive row-major with K = rows, so
 //                  128 x 128 tiles of G and A are copied 64 rows deep by
@@ -402,16 +408,20 @@ int launch_attn_bwd_tc(const AttnBwdTc& a, cudaStream_t s) {
 
 // ---------------------------------------------------------------- DCA bwd
 
-// The D block's attention backward, both directions (dca_train.cu's
-// lm_dca_attn_bwd): the x direction's N image queries q1 over the M meta
-// keys k2 / v2, the c direction's M meta queries q2 over the N image keys
-// k1 / v1. qkv1 / dqkv1 are (B N, 3C) image rows, qkv2 / dqkv2 (B M, 3C)
-// meta rows, dO1 / dO2 (rows, C) in T; lse1 / D1 at [(b heads + h) N + i],
-// lse2 / D2 at [(b heads + h) M + j], fp32. dq1, dk1 and dv1 (one image
-// row's) are written by k_dca_bwd_tc; dq2, dk2 and dv2 (sums over the N
-// image rows) leave each range of image rows as an fp32 partial (part:
-// [((b heads + h) ranges + range) Mp + j][dq2 32 | dk2 32 | dv2 32], Mp =
-// M rounded up to 16), which k_dca_bwd_reduce adds in range order.
+// The cross-attention backward of the D block, both directions (kX,
+// dca_train.cu's lm_dca_attn_bwd): the x direction's N image queries q1
+// over the M meta keys k2 / v2, the c direction's M meta queries q2 over
+// the N image keys k1 / v1. qkv1 / dqkv1 are (B N, 3C) image rows, qkv2 /
+// dqkv2 (B M, 3C) meta rows. The C block's (kX false, c_train.cu's
+// lm_c_attn_bwd) is the c direction alone: qkv1 / dqkv1 are then kv / dkv
+// (B N, 2C: k1 | v1), qkv2 / dqkv2 are q / dq (B M, C), and nothing of dO1,
+// lse1 or D1 is read. dO1 / dO2 (rows, C) in T; lse1 / D1 at [(b heads +
+// h) N + i], lse2 / D2 at [(b heads + h) M + j], fp32. dq1, dk1 and dv1
+// (one image row's) are written by k_dca_bwd_tc; dq2, dk2 and dv2 (sums
+// over the N image rows; only dq2 without kX) leave each range of image
+// rows as an fp32 partial (part: [((b heads + h) ranges + range) Mp +
+// j][dq2 32 | dk2 32 | dv2 32], Mp = M rounded up to 16), which
+// k_dca_bwd_reduce adds in range order.
 struct DcaBwdTc {
   const void* qkv1;
   const void* qkv2;
@@ -427,22 +437,29 @@ struct DcaBwdTc {
   int C, batch, heads, n, m;
   int ranges, chunks;  // ranges of `chunks` row chunks per (image, head)
   float scale_x, scale_c;
+  int mc;  // meta rows staged at a time (a multiple of 16; set by the
+           // launch: all of them with kX, up to kDcaMetaChunk without)
 };
 
 // Image rows of one chunk, 16 a warp: 128 in bf16, 64 in fp32 (whose rows
 // take twice the shared memory).
-template <typename T>
+template <typename T, bool kX = true>
 struct DcaBwdTile {
   static constexpr int kRows = sizeof(T) == 2 ? 128 : 64;
   static constexpr int kWarps = kRows / 16;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kPart = 3 * kHeadDim;  // floats of a partial row
-  // two stages of a chunk's q1, k1, v1, dO1 rows, the meta rows q2, k2,
-  // v2, dO2 (mp of each), the chunk stages' L1 / D1, the meta L2 / D2, one
-  // meta tile's partial (16 rows)
-  static size_t smem_bytes(int mp) {
-    return (size_t)(2 * 4 * kRows + 4 * mp) * TcRows<T>::kPitch * sizeof(T) +
-           (size_t)(2 * 2 * kRows + 2 * mp + 16 * kPart) * sizeof(float);
+  static constexpr int kSums = kX ? 3 : 1;  // dq2 [dk2 dv2]
+  static constexpr int kPart = kSums * kHeadDim;  // floats of a partial row
+  static constexpr int kChunk = kX ? 4 : 2;  // q1 k1 v1 dO1, or k1 v1
+  static constexpr int kMeta = kX ? 4 : 2;   // q2 k2 v2 dO2, or q2 dO2
+  // two stages of a chunk's kChunk arrays, mc meta rows of kMeta arrays,
+  // with kX the chunk stages' L1 / D1, the meta L2 / D2, one meta tile's
+  // partial (16 rows)
+  static size_t smem_bytes(int mc) {
+    return (size_t)(2 * kChunk * kRows + kMeta * mc) * TcRows<T>::kPitch *
+               sizeof(T) +
+           (size_t)((kX ? 2 * 2 * kRows : 0) + 2 * mc + 16 * kPart) *
+               sizeof(float);
   }
 };
 
@@ -451,15 +468,15 @@ struct DcaBwdTile {
 // fragments, P rebuilt from the log-sum-exps (L = lse log2(e), +inf for a
 // padded row, so its P is 0) and P, dS rounded to T before their
 // products:
-//   x: S = Q1 K2^T, dP = dO1 V2^T (meta keys past m masked), dS; dq1 +=
-//      dS K2; then S^T = K2 Q1^T, dP^T = V2 dO1^T: pv2 += P^T dO1, pk2 +=
-//      dS^T Q1 (the warp's part of the sums over image rows);
+//   x (kX): S = Q1 K2^T, dP = dO1 V2^T (meta keys past m masked), dS;
+//      dq1 += dS K2; then S^T = K2 Q1^T, dP^T = V2 dO1^T: pv2 += P^T dO1,
+//      pk2 += dS^T Q1 (the warp's part of the sums over image rows);
 //   c: S^T = K1 Q2^T, dP^T = V1 dO2^T: dv1 += P^T dO2, dk1 += dS^T Q2;
 //      then S = Q2 K1^T, dP = dO2 V1^T (image keys past the chunk's valid
 //      rows masked): pq2 += dS K1.
 // The transposed products are recomputed rather than moved between
 // fragments: head_dim 32 and 16 meta tokens make them a few mma.sync each.
-template <typename T>
+template <typename T, bool kX>
 __device__ __forceinline__ void dca_bwd_warp(
     const DcaBwdTc& a, const T* sQ1, const T* sK1, const T* sV1,
     const T* sdO1, const float* L1, const float* D1, const T* sQ2,
@@ -468,27 +485,30 @@ __device__ __forceinline__ void dca_bwd_warp(
     float (&dk1)[4][4], float (&dv1)[4][4], float (&pq2)[4][4],
     float (&pk2)[4][4], float (&pv2)[4][4]) {
   const int g = (threadIdx.x & 31) >> 2;
-  const float slx = a.scale_x * kLog2e, slc = a.scale_c * kLog2e;
+  const float slc = a.scale_c * kLog2e;
   ARows<T> A0, A1;
   float s[2][4], dp[2][4];
-  // x direction, rows = image queries
-  A0.load(sQ1);
-  A1.load(sdO1);
-  qk_tile<2>(s, A0, sK2);
-  qk_tile<2>(dp, A1, sV2);
-  {
-    const float L[2] = {L1[g], L1[g + 8]}, D[2] = {D1[g], D1[g + 8]};
-    bwd_scores<2, true, true>(s, dp, L, D, slx, a.scale_x, m_valid);
+  if constexpr (kX) {
+    const float slx = a.scale_x * kLog2e;
+    // x direction, rows = image queries
+    A0.load(sQ1);
+    A1.load(sdO1);
+    qk_tile<2>(s, A0, sK2);
+    qk_tile<2>(dp, A1, sV2);
+    {
+      const float L[2] = {L1[g], L1[g + 8]}, D[2] = {D1[g], D1[g + 8]};
+      bwd_scores<2, true, true>(s, dp, L, D, slx, a.scale_x, m_valid);
+    }
+    pv_tile<1>(dq1, dp, sK2);
+    // x direction, rows = meta keys (columns: the warp's image rows)
+    A0.load(sK2);
+    A1.load(sV2);
+    qk_tile<2>(s, A0, sQ1);
+    qk_tile<2>(dp, A1, sdO1);
+    bwd_scores<2, false, false>(s, dp, L1, D1, slx, a.scale_x, 16);
+    pv_tile<1>(pv2, s, sdO1);
+    pv_tile<1>(pk2, dp, sQ1);
   }
-  pv_tile<1>(dq1, dp, sK2);
-  // x direction, rows = meta keys (columns: the warp's image rows)
-  A0.load(sK2);
-  A1.load(sV2);
-  qk_tile<2>(s, A0, sQ1);
-  qk_tile<2>(dp, A1, sdO1);
-  bwd_scores<2, false, false>(s, dp, L1, D1, slx, a.scale_x, 16);
-  pv_tile<1>(pv2, s, sdO1);
-  pv_tile<1>(pk2, dp, sQ1);
   // c direction, rows = image keys (columns: the meta queries)
   A0.load(sK1);
   A1.load(sV1);
@@ -512,74 +532,91 @@ __device__ __forceinline__ void dca_bwd_warp(
 // CTA (image, head) blockIdx.x, range blockIdx.y: the range's chunks of
 // DcaBwdTile<T>::kRows image rows in turn through a two-stage cp.async
 // ring (chunk c + 2 in flight while chunk c computes), the image's meta
-// rows staged once. Warp w owns rows 16 w .. 16 w + 15 of each chunk:
+// rows staged once (without kX a.mc at a time: past a.mc meta rows the
+// range holds one chunk, and each further group of meta rows is staged in
+// turn against it). Warp w owns rows 16 w .. 16 w + 15 of each chunk:
 // their dq1 / dk1 / dv1 sum over the meta tiles in registers and leave
-// rounded to T; the meta sums pq2 / pk2 / pv2 stay in registers across the
-// range's chunks (more than one meta tile: one chunk a range, the host's
-// choice) and meet in shared memory in warp order, one meta tile at a
-// time, before the range's partial goes out. No atomics: two calls give
-// the same bits.
-template <typename T>
-__global__ void __launch_bounds__(DcaBwdTile<T>::kThreads, 1)
+// rounded to T; the meta sums pq2 (/ pk2 / pv2) stay in registers across
+// the range's chunks (more than one meta tile: one chunk a range, the
+// host's choice) and meet in shared memory in warp order, one meta tile
+// at a time, before the range's partial goes out. No atomics: two calls
+// give the same bits.
+template <typename T, bool kX>
+__global__ void __launch_bounds__(DcaBwdTile<T, kX>::kThreads, 1)
     k_dca_bwd_tc(const DcaBwdTc a) {
-  using L = DcaBwdTile<T>;
+  using L = DcaBwdTile<T, kX>;
   constexpr int P = TcRows<T>::kPitch, R = L::kRows, NTH = L::kThreads;
-  constexpr int kStage = 4 * R * P;  // q1, k1, v1, dO1 rows of one chunk
+  constexpr int kStage = L::kChunk * R * P;  // the arrays of one chunk
   extern __shared__ __align__(16) unsigned char dbw_smem[];
-  const int mp = cdiv(a.m, kMetaTile) * kMetaTile, mtiles = mp / kMetaTile;
+  // with kX every meta row is staged once (one group, known at compile
+  // time, so the loop below adds nothing to the x direction's registers)
+  const int mp = cdiv(a.m, kMetaTile) * kMetaTile, mc = kX ? mp : a.mc;
+  const int groups = kX ? 1 : cdiv(a.m, mc);
+  // a stage's rows: [q1] k1 v1 [dO1]; the meta rows: q2 [k2 v2] dO2
+  constexpr int oK1 = kX ? R : 0, oV1 = oK1 + R, odO1 = oV1 + R;
   T* st0 = reinterpret_cast<T*>(dbw_smem);
   T* sQ2 = st0 + 2 * kStage;
-  T* sK2 = sQ2 + mp * P;
-  T* sV2 = sK2 + mp * P;
-  T* sdO2 = sV2 + mp * P;
-  float* sLD1 = reinterpret_cast<float*>(sdO2 + mp * P);  // [2][L1 | D1]
-  float* sL2 = sLD1 + 2 * 2 * R;
-  float* sD2 = sL2 + mp;
-  float* sRed = sD2 + mp;  // one meta tile's partial, [16][kPart]
+  T* sK2 = sQ2 + mc * P;  // kX
+  T* sV2 = sK2 + mc * P;  // kX
+  T* sdO2 = kX ? sV2 + mc * P : sQ2 + mc * P;
+  float* sLD1 = reinterpret_cast<float*>(sdO2 + mc * P);  // kX: [2][L1|D1]
+  float* sL2 = sLD1 + (kX ? 2 * 2 * R : 0);
+  float* sD2 = sL2 + mc;
+  float* sRed = sD2 + mc;  // one meta tile's partial, [16][kPart]
   const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
   const int warp = threadIdx.x >> 5, tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int ld = 3 * a.C;
-  const T* Q1 = static_cast<const T*>(a.qkv1) + (size_t)b * a.n * ld +
-                h * kHeadDim;
-  const T* dO1 = static_cast<const T*>(a.dO1) + (size_t)b * a.n * a.C +
-                 h * kHeadDim;
-  const T* Q2 = static_cast<const T*>(a.qkv2) + (size_t)b * a.m * ld +
+  // row pitches: qkv1 / dqkv1 3C (kv / dkv 2C), qkv2 / dqkv2 3C (q / dq C)
+  const int ld1 = (kX ? 3 : 2) * a.C, ld2 = (kX ? 3 : 1) * a.C;
+  const T* X1 = static_cast<const T*>(a.qkv1) + (size_t)b * a.n * ld1 +
+                h * kHeadDim;  // the head's first column of q1 (k1)
+  const T* dO1 = kX ? static_cast<const T*>(a.dO1) +
+                          (size_t)b * a.n * a.C + h * kHeadDim
+                    : nullptr;
+  const T* Q2 = static_cast<const T*>(a.qkv2) + (size_t)b * a.m * ld2 +
                 h * kHeadDim;
   const T* dO2 = static_cast<const T*>(a.dO2) + (size_t)b * a.m * a.C +
                  h * kHeadDim;
-  T* dQ1 = static_cast<T*>(a.dqkv1) + (size_t)b * a.n * ld + h * kHeadDim;
-  const float* lse1 = a.lse1 + (size_t)bh * a.n;
-  const float* D1g = a.D1 + (size_t)bh * a.n;
+  T* dX1 = static_cast<T*>(a.dqkv1) + (size_t)b * a.n * ld1 + h * kHeadDim;
+  const float* lse1 = kX ? a.lse1 + (size_t)bh * a.n : nullptr;
+  const float* D1g = kX ? a.D1 + (size_t)bh * a.n : nullptr;
   const int c0 = blockIdx.y * a.chunks;
   const int c1 = min(cdiv(a.n, R), c0 + a.chunks);
 
-  copy_rows(sQ2, Q2, ld, mp, a.m, tid, NTH);
-  copy_rows(sK2, Q2 + a.C, ld, mp, a.m, tid, NTH);
-  copy_rows(sV2, Q2 + 2 * a.C, ld, mp, a.m, tid, NTH);
-  copy_rows(sdO2, dO2, a.C, mp, a.m, tid, NTH);
-  for (int j = tid; j < mp; j += NTH) {
-    const bool ok = j < a.m;
-    sL2[j] = ok ? a.lse2[(size_t)bh * a.m + j] * kLog2e : INFINITY;
-    sD2[j] = ok ? a.D2[(size_t)bh * a.m + j] : 0.f;
-  }
-  auto load = [&](int c) {  // chunk c's rows and statistics into its stage
-    const int r0 = c * R, valid = a.n - r0;
-    T* st = st0 + (c & 1) * kStage;
-    copy_rows(st, Q1 + (size_t)r0 * ld, ld, R, valid, tid, NTH);
-    copy_rows(st + R * P, Q1 + (size_t)r0 * ld + a.C, ld, R, valid, tid,
-              NTH);
-    copy_rows(st + 2 * R * P, Q1 + (size_t)r0 * ld + 2 * a.C, ld, R, valid,
-              tid, NTH);
-    copy_rows(st + 3 * R * P, dO1 + (size_t)r0 * a.C, a.C, R, valid, tid,
-              NTH);
-    float* l = sLD1 + (c & 1) * 2 * R;
-    for (int i = tid; i < R; i += NTH) {
-      const bool ok = i < valid;
-      l[i] = ok ? lse1[r0 + i] * kLog2e : INFINITY;
-      l[R + i] = ok ? D1g[r0 + i] : 0.f;
+  auto stage_meta = [&](int j0) {  // meta rows j0 .. j0 + mc - 1
+    const int cnt = min(mc, a.m - j0);
+    copy_rows(sQ2, Q2 + (size_t)j0 * ld2, ld2, mc, cnt, tid, NTH);
+    if constexpr (kX) {
+      copy_rows(sK2, Q2 + a.C, ld2, mc, cnt, tid, NTH);
+      copy_rows(sV2, Q2 + 2 * a.C, ld2, mc, cnt, tid, NTH);
+    }
+    copy_rows(sdO2, dO2 + (size_t)j0 * a.C, a.C, mc, cnt, tid, NTH);
+    for (int j = tid; j < mc; j += NTH) {
+      const bool ok = j < cnt;
+      sL2[j] = ok ? a.lse2[(size_t)bh * a.m + j0 + j] * kLog2e : INFINITY;
+      sD2[j] = ok ? a.D2[(size_t)bh * a.m + j0 + j] : 0.f;
     }
   };
+  auto load = [&](int c) {  // chunk c's rows (and statistics) into its stage
+    const int r0 = c * R, valid = a.n - r0;
+    T* st = st0 + (c & 1) * kStage;
+    const T* x1 = X1 + (size_t)r0 * ld1;
+    if constexpr (kX) copy_rows(st, x1, ld1, R, valid, tid, NTH);
+    copy_rows(st + oK1 * P, x1 + (kX ? a.C : 0), ld1, R, valid, tid, NTH);
+    copy_rows(st + oV1 * P, x1 + (kX ? 2 : 1) * a.C, ld1, R, valid, tid,
+              NTH);
+    if constexpr (kX) {
+      copy_rows(st + odO1 * P, dO1 + (size_t)r0 * a.C, a.C, R, valid, tid,
+                NTH);
+      float* l = sLD1 + (c & 1) * 2 * R;
+      for (int i = tid; i < R; i += NTH) {
+        const bool ok = i < valid;
+        l[i] = ok ? lse1[r0 + i] * kLog2e : INFINITY;
+        l[R + i] = ok ? D1g[r0 + i] : 0.f;
+      }
+    }
+  };
+  stage_meta(0);
   if (c0 < c1) load(c0);
   cp_async_commit();  // the meta rows and chunk c0
   if (c0 + 1 < c1) load(c0 + 1);
@@ -600,59 +637,74 @@ __global__ void __launch_bounds__(DcaBwdTile<T>::kThreads, 1)
     zero(dq1);
     zero(dk1);
     zero(dv1);
-    for (int mt = 0; mt < mtiles; ++mt) {
-      const int j0 = mt * kMetaTile;
-      if (busy)
-        dca_bwd_warp<T>(a, st, st + R * P, st + 2 * R * P, st + 3 * R * P,
-                        l1, l1 + R, sQ2 + j0 * P, sK2 + j0 * P, sV2 + j0 * P,
-                        sdO2 + j0 * P, sL2 + j0, sD2 + j0, a.m - j0,
-                        a.n - r0, dq1, dk1, dv1, pq2, pk2, pv2);
-      if (c == c1 - 1) {  // the range's sums of this meta tile: warps in
-                          // order into sRed, then out
-        float(*acc[3])[4] = {pq2, pk2, pv2};
-        for (int w = 0; w < L::kWarps; ++w) {
-          if (warp == w) {
+    for (int grp = 0; grp < groups; ++grp) {
+      const int j0c = grp * mc;
+      if (!kX && grp) {  // the next mc meta rows (one chunk in this range)
+        __syncthreads();  // every warp is done with the staged ones
+        stage_meta(j0c);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int mtiles = kX ? mp / kMetaTile
+                            : cdiv(min(mc, a.m - j0c), kMetaTile);
+      for (int mt = 0; mt < mtiles; ++mt) {
+        const int j0 = mt * kMetaTile;
+        if (busy)
+          dca_bwd_warp<T, kX>(
+              a, st, st + oK1 * P, st + oV1 * P, st + odO1 * P, l1, l1 + R,
+              sQ2 + j0 * P, sK2 + j0 * P, sV2 + j0 * P, sdO2 + j0 * P,
+              sL2 + j0, sD2 + j0, a.m - j0c - j0, a.n - r0, dq1, dk1, dv1,
+              pq2, pk2, pv2);
+        if (c == c1 - 1) {  // the range's sums of this meta tile: warps in
+                            // order into sRed, then out
+          float(*acc[3])[4] = {pq2, pk2, pv2};
+          for (int w = 0; w < L::kWarps; ++w) {
+            if (warp == w) {
 #pragma unroll
-            for (int k = 0; k < 3; ++k)
+              for (int k = 0; k < L::kSums; ++k)
 #pragma unroll
-              for (int d = 0; d < 4; ++d)
+                for (int d = 0; d < 4; ++d)
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  const int row = g + 8 * (e >> 1);
-                  float* r = sRed + row * L::kPart + k * kHeadDim + 8 * d +
-                             2 * t + (e & 1);
-                  *r = w ? *r + acc[k][d][e] : acc[k][d][e];
-                }
+                  for (int e = 0; e < 4; ++e) {
+                    const int row = g + 8 * (e >> 1);
+                    float* r = sRed + row * L::kPart + k * kHeadDim + 8 * d +
+                               2 * t + (e & 1);
+                    *r = w ? *r + acc[k][d][e] : acc[k][d][e];
+                  }
+            }
+            __syncthreads();
           }
-          __syncthreads();
+          float* part = a.part + (((size_t)bh * a.ranges + blockIdx.y) * mp +
+                                  j0c + j0) * L::kPart;
+          for (int e = tid; e < 16 * L::kPart; e += NTH) part[e] = sRed[e];
+          zero(pq2);
+          zero(pk2);
+          zero(pv2);
+          __syncthreads();  // sRed is free for the next meta tile
         }
-        float* part = a.part + (((size_t)bh * a.ranges + blockIdx.y) * mp +
-                                j0) * L::kPart;
-        for (int e = tid; e < 16 * L::kPart; e += NTH) part[e] = sRed[e];
-        zero(pq2);
-        zero(pk2);
-        zero(pv2);
-        __syncthreads();  // sRed is free for the next meta tile
       }
     }
-    // dq1 | dk1 | dv1 out, each staged through the warp's own rows of the
-    // stage (no other warp reads them)
-    T* out = dQ1 + (size_t)r0 * ld;
+    // dq1 | dk1 | dv1 (dk1 | dv1 without kX) out, each staged through the
+    // warp's own rows of the stage (no other warp reads them)
+    T* out = dX1 + (size_t)r0 * ld1;
     const int rows = a.n - r0;
-    store_tile(out, ld, rows, st, dq1, 1.f, 1.f);
-    store_tile(out + a.C, ld, rows, st + R * P, dk1, 1.f, 1.f);
-    store_tile(out + 2 * a.C, ld, rows, st + 2 * R * P, dv1, 1.f, 1.f);
+    if constexpr (kX) store_tile(out, ld1, rows, st, dq1, 1.f, 1.f);
+    out += kX ? a.C : 0;
+    store_tile(out, ld1, rows, st + oK1 * P, dk1, 1.f, 1.f);
+    store_tile(out + a.C, ld1, rows, st + oV1 * P, dv1, 1.f, 1.f);
     __syncthreads();  // every warp is done with this stage
     if (c + 2 < c1) load(c + 2);
     cp_async_commit();
   }
 }
 
-// dq2 | dk2 | dv2 of each (image, head, meta row): the ranges' partials
-// added in range order, rounded to T into dqkv2's thirds.
-template <typename T>
+// dq2 | dk2 | dv2 (dq2 alone without kX) of each (image, head, meta row):
+// the ranges' partials added in range order, rounded to T into dqkv2's
+// thirds (dq).
+template <typename T, bool kX>
 __global__ void __launch_bounds__(256) k_dca_bwd_reduce(const DcaBwdTc a) {
-  constexpr int K = DcaBwdTile<T>::kPart;
+  constexpr int K = DcaBwdTile<T, kX>::kPart;
   const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
   if (idx >= (size_t)a.batch * a.heads * a.m * K) return;
   const int ch = idx % K, j = (idx / K) % a.m;
@@ -662,31 +714,34 @@ __global__ void __launch_bounds__(256) k_dca_bwd_reduce(const DcaBwdTc a) {
   float s = 0.f;
   for (int r = 0; r < a.ranges; ++r) s += p[(size_t)r * mp * K];
   const int b = bh / a.heads, h = bh % a.heads;
-  static_cast<T*>(a.dqkv2)[((size_t)b * a.m + j) * 3 * a.C +
+  static_cast<T*>(a.dqkv2)[((size_t)b * a.m + j) * (kX ? 3 : 1) * a.C +
                            (ch / kHeadDim) * a.C + h * kHeadDim +
                            ch % kHeadDim] = from_f<T>(s);
 }
 
 // Both launches; a.chunks > 1 only with one meta tile (m <= 16), whose
 // sums then stay in registers across the chunks.
-template <typename T>
-int launch_dca_bwd_tc(const DcaBwdTc& a, cudaStream_t s) {
-  using L = DcaBwdTile<T>;
+template <typename T, bool kX = true>
+int launch_dca_bwd_tc(DcaBwdTc a, cudaStream_t s) {
+  using L = DcaBwdTile<T, kX>;
   static size_t attr = 0;
   const int mp = cdiv(a.m, kMetaTile) * kMetaTile;
   if (a.m < 1 || a.n < 1 || a.chunks < 1 ||
       (a.chunks > 1 && a.m > kMetaTile) ||
       a.ranges != cdiv(cdiv(a.n, L::kRows), a.chunks))
     return (int)cudaErrorInvalidValue;
-  // an M whose rows do not fit fails here (cudaErrorInvalidValue)
-  const size_t bytes = L::smem_bytes(mp);
-  if (const int err = grant_smem(k_dca_bwd_tc<T>, bytes, attr)) return err;
-  k_dca_bwd_tc<T><<<dim3(a.batch * a.heads, a.ranges), L::kThreads, bytes,
-                    s>>>(a);
+  a.mc = kX ? mp : min(mp, kDcaMetaChunk);
+  // with kX, an M whose rows do not fit fails here (cudaErrorInvalidValue)
+  const size_t bytes = L::smem_bytes(a.mc);
+  if (const int err = grant_smem(k_dca_bwd_tc<T, kX>, bytes, attr))
+    return err;
+  k_dca_bwd_tc<T, kX><<<dim3(a.batch * a.heads, a.ranges), L::kThreads,
+                        bytes, s>>>(a);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   const size_t total = (size_t)a.batch * a.heads * a.m * L::kPart;
-  k_dca_bwd_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(a);
+  k_dca_bwd_reduce<T, kX><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
@@ -827,28 +882,31 @@ __device__ __forceinline__ void ln_bwd_epilogue(
 
 // One stream of k_rowmm_wg: A (rows, K) by TMA (maps.a), out (rows, C).
 // kRowDo: out = dO in T and D[(b heads + h) n + i] = rowsum over head h of
-// dO . o. kRowLn / kRowLnF32: out = res + LN'(x)^T (A W^T), in T / fp32.
+// dO . o. kRowLn / kRowLnF32: out = res + LN'(x)^T (A W^T), in T / fp32;
+// no residual where res is null (the C block's x, which passes the block).
 struct RowMmSeg {
   void* out;
   const void* x;    // the LayerNorm's input rows (kRowLn*)
-  const void* res;  // the residual gradient (kRowLn*), in T
+  const void* res;  // the residual gradient (kRowLn*), in T, or null
   const void* o;    // the attention output (kRowDo)
   float* D;         // (kRowDo)
   int rows;
   int n;  // tokens per image (kRowDo)
+  int K;  // A's columns, W's depth (the C block's streams differ: 2C, C)
 };
 
 struct RowMmArgs {
   RowMmSeg seg[2];
   int row_blocks0;
-  int K, C, heads;
+  int C, heads;
   float eps;
 };
 
 struct RowMmMaps {
   CUtensorMap a[2];  // each stream's A, boxes of one sub-tile x 64 rows
   CUtensorMap w[2];  // each stream's W (C, K), boxes of one sub-tile x
-                     // kBoxP rows (the D block's streams have their own)
+                     // kBoxP rows (the C and D blocks' streams have their
+                     // own)
 };
 
 enum { kRowDo = 0, kRowLn = 1, kRowLnF32 = 2 };
@@ -908,7 +966,9 @@ __global__ void __launch_bounds__(256, (TwoPerSm<T, CP>::kBlocks))
     rb -= a.row_blocks0;
     si = 1;
   }
-  const RowMmSeg sg = a.seg[si];
+  // by value from a constant index: a.seg[si] made ptxas copy the
+  // parameter block to a 120-byte stack frame
+  const RowMmSeg sg = si ? a.seg[1] : a.seg[0];
   const int C = a.C, row0 = rb * RB, rows = min(RB, sg.rows - row0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3, wg = warp >> 2;
@@ -919,7 +979,7 @@ __global__ void __launch_bounds__(256, (TwoPerSm<T, CP>::kBlocks))
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int nk = cdiv(a.K, KS);
+  const int nk = cdiv(sg.K, KS);
   auto load = [&](int i) {  // thread 0: sub-tile i of A and W
     unsigned char* dst = ring + (i % S) * L::kStage;
     uint64_t* bar = full + i % S;
@@ -998,8 +1058,10 @@ __global__ void __launch_bounds__(256, (TwoPerSm<T, CP>::kBlocks))
     }
   } else {
     using TO = typename std::conditional<kMode == kRowLnF32, float, T>::type;
-    ln_bwd_epilogue<NT>(acc, X,
-                        static_cast<const T*>(sg.res) + (size_t)row0 * C,
+    const T* res = sg.res ? static_cast<const T*>(sg.res) +
+                                (size_t)row0 * C
+                          : nullptr;
+    ln_bwd_epilogue<NT>(acc, X, res,
                         static_cast<TO*>(sg.out) + (size_t)row0 * C, rows, C,
                         c0, r0, s_mean, s_rstd, red, RB, wg);
   }
@@ -1009,10 +1071,10 @@ __global__ void __launch_bounds__(256, (TwoPerSm<T, CP>::kBlocks))
 // takes no empty matrix; no CTA then reads it).
 template <typename T>
 int row_maps(CUtensorMap (&m)[2], const void* const (&p)[2],
-             const int (&rows)[2], int cols) {
+             const int (&rows)[2], const int (&cols)[2]) {
   for (int i = 0; i < 2; ++i)
     if (rows[i])
-      if (const int err = tma_map<T>(&m[i], p[i], rows[i], cols, 64))
+      if (const int err = tma_map<T>(&m[i], p[i], rows[i], cols[i], 64))
         return err;
   if (!rows[0]) m[0] = m[1];
   if (!rows[1]) m[1] = m[0];
@@ -1028,9 +1090,10 @@ int launch_rowmm_inst(const RowMmArgs& a, const void* const (&A)[2],
     return err;
   RowMmMaps maps;
   const int rows[2] = {a.seg[0].rows, a.seg[1].rows};
-  int err = row_maps<T>(maps.a, A, rows, a.K);
+  const int cols[2] = {a.seg[0].K, a.seg[1].K};
+  int err = row_maps<T>(maps.a, A, rows, cols);
   for (int i = 0; i < 2 && !err; ++i)
-    err = tma_map<T>(&maps.w[i], w[i], a.C, a.K, L::kBoxP);
+    err = tma_map<T>(&maps.w[i], w[i], a.C, cols[i], L::kBoxP);
   if (err) return err;
   const int blocks = a.row_blocks0 + cdiv(a.seg[1].rows, L::kRows);
   k_rowmm_wg<T, CP, kMode><<<blocks, 256, L::kSmem, s>>>(a, maps);
@@ -1038,11 +1101,12 @@ int launch_rowmm_inst(const RowMmArgs& a, const void* const (&A)[2],
 }
 
 // out = A W^T (+ its epilogue) for both streams in one launch; A (rows, K)
-// and W (C, K) per stream.
+// and W (C, K) per stream, each stream its K.
 template <typename T, int kMode>
 int launch_rowmm(RowMmArgs a, const void* const (&A)[2],
                  const void* const (&w)[2], cudaStream_t s) {
-  if (a.K % 8) return (int)cudaErrorInvalidValue;
+  for (const RowMmSeg& sg : a.seg)
+    if (sg.K < 8 || sg.K % 8) return (int)cudaErrorInvalidValue;
   a.row_blocks0 = cdiv(a.seg[0].rows, 64);
   return by_tier(a.C, [&](auto cp) {
     return launch_rowmm_inst<T, decltype(cp)::value, kMode>(a, A, w, s);
@@ -1307,8 +1371,8 @@ int launch_mlp_bwd_inst(MlpTcArgs a, const void* const (&dz)[2],
   if (const int err = grant_smem(k_mlp_bwd_wg<T, CP>, L::kSmem, attr))
     return err;
   MlpTcMaps maps;
-  const int rows[2] = {a.seg[0].rows, a.seg[1].rows};
-  int err = row_maps<T>(maps.dz, dz, rows, a.C);
+  const int rows[2] = {a.seg[0].rows, a.seg[1].rows}, cols[2] = {a.C, a.C};
+  int err = row_maps<T>(maps.dz, dz, rows, cols);
   if (!err) err = tma_map<T>(&maps.w1, w1, a.hidden, a.C, 64);
   if (!err) err = tma_map<T>(&maps.w2t, w2t, a.hidden, a.C, 64);
   if (!err) err = tma_map<T>(&maps.w1t, w1t, a.C, a.hidden, L::kBoxP);

@@ -52,7 +52,6 @@ from lemevit_tpu_torch.attn.reference import sdpa_bnhd
 
 LN_EPS = 1e-6          # the blocks' norm1 / norm2
 HEAD_DIM = 32          # the kernels assign one lane per head channel
-KEYS_PER_SPLIT = 256   # image keys per block in the meta-query direction
 MAX_DIM = 640          # the tails keep their rows of t1 and LN2(t1) on
                        # chip: 64 (block_tc.cuh, C <= 512) or 32
                        # (block_common.cuh) rows at a time
@@ -379,16 +378,6 @@ def _launch(name: str, x: torch.Tensor, tensors, *scalars,
         *[0 if t is None else t.data_ptr() for t in tensors])
     _build.launch(lib, name, x.device, _DTYPES[x.dtype], ptrs, *scalars,
                   counts=counts)
-
-
-def _partials(b, h, m, n, device):
-    """The training C forward's split-softmax partials over KEYS_PER_SPLIT
-    image keys (block_common.cuh's k_attention)."""
-    splits = -(-n // KEYS_PER_SPLIT)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty(b * h * splits * m, **f32),
-            torch.empty(b * h * splits * m, **f32),
-            torch.empty(b * h * splits * m * HEAD_DIM, **f32))
 
 
 def dca_partials(b, h, m, n, like):

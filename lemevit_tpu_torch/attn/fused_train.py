@@ -54,8 +54,9 @@ head_dim 32 (``train_takes`` states every limit of the training kernels,
 from shapes alone: the model asks it under ``attn_backend="auto"`` and
 composes where it says no; a direct call raises).
 ``s_train_fwd_tiles_plain``, ``dca_train_fwd_tiles_plain``,
-``mlp_bwd_tiles_plain``, ``s_attn_bwd_tiles_plain`` and
-``dca_attn_bwd_tiles_plain`` are the order of work of the phases on the
+``c_train_fwd_tiles_plain``, ``mlp_bwd_tiles_plain``,
+``s_attn_bwd_tiles_plain``, ``dca_attn_bwd_tiles_plain`` and
+``c_attn_bwd_tiles_plain`` are the order of work of the phases on the
 tensor cores (csrc/block_tc.cuh, attn_tc.cuh and train_tc.cuh: their
 roundings, the weight gradients over the launch's row ranges), which the
 tests hold the bf16 kernels against.
@@ -79,10 +80,10 @@ LN_EPS = fb.LN_EPS
 LAUNCHES = {"s_train_fwd": 0, "mlp_bwd": 0, "s_attn_bwd": 0,
             "dca_train_fwd": 0, "dca_attn_bwd": 0, "c_train_fwd": 0,
             "c_attn_bwd": 0}
-WGRAD_TILE = 64         # k_wgrad's output tile edge (the C block)
-WGRAD_TC_TILE = 128     # k_wgrad_tc's (the S block and every MLP backward)
+WGRAD_TC_TILE = 128     # k_wgrad_tc's output tile edge
 CPE_GRAD_ROWS = 64      # least rows per k_cpe_tap_grads block
-# image rows of one k_dca_bwd_tc chunk (csrc/train_tc.cuh, DcaBwdTile)
+# image rows of one k_dca_bwd_tc chunk (csrc/train_tc.cuh, DcaBwdTile; the
+# C and D blocks alike)
 DCA_BWD_ROWS = {torch.bfloat16: 128, torch.float32: 64}
 MAX_TRAIN_DIM = 512     # the row kernels of every MLP backward and of the S
                         # attention backward (csrc/train_tc.cuh) keep a
@@ -586,6 +587,76 @@ def c_attn_bwd_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
             _colsum(dpc).to(wp.dtype), dtaps, dbias)
 
 
+
+def c_train_fwd_tiles_plain(x, c, params, dp, *, num_heads: int, cpe=None,
+                            img_w: int = 0):
+    """lm_c_train_fwd's order of work in PyTorch (used by the tests only):
+    with ``cpe`` the CPE'd x rounded once (k_qkv_wg stages it); kv =
+    LN1(x) Wkv'^T + bkv' and q = LN1(c) Wq'^T + bq' with LN1 and the fp32
+    product rounded to x's dtype (k_qkv_wg, two widths); the meta queries
+    over the image keys as ``attn/dca.py::dca_c_tiles_plain`` with each
+    meta row's log-sum-exp (k_dca_tc's per-warp partials merged per tile,
+    the tiles merged in k_dca_merge's fixed order, then m scale + ln l);
+    the tail on the meta rows as k_tail_wg's training instance
+    (fused_block._tail_tiles with s1c / s2c). Returns what
+    c_train_fwd_plain returns. In fp32 nothing rounds."""
+    from lemevit_tpu_torch.attn.dca import dca_c_tiles_plain
+    wq, bq, wkv, bkv, wp, bp, w1, b1, w2, b2 = params
+    dt = x.dtype
+    xc = fb._cpe_rounded(x, cpe, img_w)
+    k, v = fb._qkv_tiles(xc, None, None, wkv, bkv, dt).chunk(2, -1)
+    q = fb._qkv_tiles(c, None, None, wq, bq, dt)
+    o, lse = dca_c_tiles_plain(q, k, v, scale_c=fb.HEAD_DIM ** -0.5,
+                               num_heads=num_heads)
+    co, t1c = fb._tail_tiles(c, o, wp, bp, None, None, w1, b1, w2, b2, dt,
+                             dp[2], dp[3])
+    return co, t1c, o, lse
+
+
+def c_attn_bwd_tiles_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
+                           num_heads: int, cpe=None, img_w: int = 0,
+                           rows_per_split: int = 0):
+    """lm_c_attn_bwd's order of work in PyTorch (used by the tests only):
+    LN1 (of the CPE'd x, rounded once, with ``cpe``) rounded to x's dtype,
+    kv and q rounded (k_qkv_wg, two widths), dO = dproj Wp rounded
+    (k_rowmm_wg), the c direction's backward as _attn_bwd_tiles (P from the
+    log-sum-exp, dS and P rounded before their products, fp32 sums:
+    k_dca_bwd_tc, whose sums of dq over the image rows meet per range and
+    then in range order in fp32 before one rounding), dkv and dq rounded,
+    dxt = LN1'^T (dkv Wkv') with no residual and dc = dt1c + LN1'^T (dq
+    Wq') from fp32 sums (with ``cpe`` dxt kept in fp32 for the CPE's
+    backward), and each stream's weight gradients over its own row ranges
+    of ``rows_per_split`` rows (on CUDA tensors by default each stream's
+    k_wgrad_tc split on their device; required on the CPU), dbp among
+    them, rounded once. In fp32 nothing rounds."""
+    dt = x.dtype
+    b, n, ch = x.shape
+    m = c.shape[1]
+    rps = [rows_per_split or _tiles_rows(x, r, 0, shapes) for r, shapes in
+           ((b * n, [(2 * ch, ch)]), (b * m, [(ch, ch), (ch, ch)]))]
+    xc = x if cpe is None else cpe_rows_plain(x, *cpe, img_w)
+    ax, ac = _norm(xc).to(dt), _norm(c).to(dt)
+    k, v = (ax.float() @ wkv.float().t() + bkv.float()).to(dt).chunk(2, -1)
+    q = (ac.float() @ wq.float().t() + bq.float()).to(dt)
+    dproj = _dproj(dp[2], dt1c)
+    d_o = (dproj.float() @ wp.float()).to(dt)
+    dq, dk, dv = _attn_bwd_tiles(q, k, v, o, d_o, lse, num_heads,
+                                 fb.HEAD_DIM ** -0.5, dt)
+    dq, dkv = dq.to(dt), torch.cat([dk, dv], -1).to(dt)
+    dxt = _ln_bwd(dkv.float() @ wkv.float(), xc)
+    dc = dt1c.float() + _ln_bwd(dq.float() @ wq.float(), c)
+    dwkv, dbkv = _wgrad_ranges([(dkv.reshape(-1, 2 * ch),
+                                 ax.reshape(-1, ch))], rps[0])
+    dwq, dbq = _wgrad_ranges([(dq.reshape(-1, ch), ac.reshape(-1, ch))],
+                             rps[1])
+    dwp, dbp = _wgrad_ranges([(dproj.reshape(-1, ch), o.reshape(-1, ch))],
+                             rps[1])
+    dxt, dtaps, dbias = ((dxt.to(dt), None, None) if cpe is None
+                         else _cpe_bwd_plain(x, dxt, cpe, img_w))
+    return (dxt, dc.to(dt), dwq.to(wq.dtype), dbq.to(bq.dtype),
+            dwkv.to(wkv.dtype), dbkv.to(bkv.dtype), dwp.to(wp.dtype),
+            dbp.to(wp.dtype), dtaps, dbias)
+
 def cpe_rows_plain(x, taps, bias, img_w: int, dtype=None) -> torch.Tensor:
     """The 3x3 CPE of (B, N, C) tokens from images img_w wide
     (``fused_block.cpe_plain``) computed in fp32 and rounded once to
@@ -722,26 +793,13 @@ def _check_tensors(name, like, tensors) -> None:
                              f"CUDA {like.dtype} tensor")
 
 
-def _wgrad_split(rows0: int, rows1: int, shapes, sms: int
-                 ) -> Tuple[int, int]:
-    """(rows_per_split, splits) of k_wgrad for the (O, I) products of one
-    call: enough row ranges that the smallest product launches about four
-    blocks on each of the device's ``sms`` multiprocessors."""
-    tiles = min(-(-o // WGRAD_TILE) * -(-i // WGRAD_TILE) for o, i in shapes)
-    want = max(1, -(-4 * sms // tiles))
-    rps = max(128, -(-(rows0 + rows1) // want))
-    rps = -(-rps // 32) * 32
-    return rps, -(-rows0 // rps) + -(-rows1 // rps)
-
-
 def _wgrad_tc_split(rows0: int, rows1: int, shapes, sms: int
                     ) -> Tuple[int, int]:
-    """(rows_per_split, splits) of k_wgrad_tc (the S block's and every MLP
-    backward: 128 x 128 tiles, all (O, I) products of a call in one
-    launch): enough row ranges that the products together launch about two
-    blocks on each of the device's ``sms`` multiprocessors, at least 128
-    rows, a multiple of 64, per range; each stream's rows split on their
-    own."""
+    """(rows_per_split, splits) of k_wgrad_tc (128 x 128 tiles, all (O, I)
+    products of a launch): enough row ranges that the products together
+    launch about two blocks on each of the device's ``sms``
+    multiprocessors, at least 128 rows, a multiple of 64, per range; each
+    stream's rows split on their own."""
     tiles = sum(-(-o // WGRAD_TC_TILE) * -(-i // WGRAD_TC_TILE)
                 for o, i in shapes)
     want = max(1, -(-2 * sms // tiles))
@@ -1026,47 +1084,53 @@ def c_train_fwd(x, c, params, dp, *, num_heads: int, cpe=None,
     outs = [torch.empty_like(c), torch.empty_like(c), _ws((b, m, ch), x),
             _ws((b, h, m), x, torch.float32)]
     work = [_ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
-            *fb._partials(b, h, m, n, x.device)]
+            *fb.dca_partials(b, h, m, n, x)]
     fb._launch("c_train_fwd", x, [x, c, *_ln_identity(x), *params, dp,
-                                  *outs, *work, *_cpe_fwd_args(x, cpe)],
-               b, n, m, ch, h, hidden, fb.KEYS_PER_SPLIT, img_w,
-               fb.HEAD_DIM ** -0.5, LN_EPS, counts=LAUNCHES)
+                                  *outs, *work, *fb._cpe_ptrs(cpe)],
+               b, n, m, ch, h, hidden, img_w, fb.HEAD_DIM ** -0.5, LN_EPS,
+               counts=LAUNCHES)
     return tuple(outs)
 
 
 def c_attn_bwd(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse, *,
                num_heads: int, cpe=None, img_w: int = 0):
-    """The C attention-backward phase; see c_attn_bwd_plain."""
+    """The C attention-backward phase; see c_attn_bwd_plain (bf16 rounding:
+    c_attn_bwd_tiles_plain)."""
     if not x.is_cuda:
         return c_attn_bwd_plain(x, c, dt1c, dp, wq, bq, wkv, bkv, wp, o, lse,
                                 num_heads=num_heads, cpe=cpe, img_w=img_w)
     b, n, ch = x.shape
     m = c.shape[1]
     h = num_heads
+    _check_train_dim("c_attn_bwd", ch)
     dpc = _dproj(dp[2], dt1c)
-    dbp = _colsum(dpc).to(wp.dtype)
-    rps_x, sx = _wgrad_split(b * n, 0, [(2 * ch, ch)], _sms(x.device))
-    rps_c, sc = _wgrad_split(b * m, 0, [(ch, ch)], _sms(x.device))
+    sms = _sms(x.device)
+    rps_x, sx = _wgrad_tc_split(b * n, 0, [(2 * ch, ch)], sms)
+    rps_c, sc = _wgrad_tc_split(b * m, 0, [(ch, ch), (ch, ch)], sms)
     splits = max(sx, sc)
+    chunks, ranges = _dca_bwd_chunks(n, b * h, m, x.dtype, sms)
+    mp = -(-m // 16) * 16
     f32 = torch.float32
     outs = [torch.empty_like(x), torch.empty_like(c), torch.empty_like(wq),
             torch.empty_like(bq), torch.empty_like(wkv),
-            torch.empty_like(bkv), torch.empty_like(wp)]
+            torch.empty_like(bkv), torch.empty_like(wp), wp.new_empty(ch)]
     work = [_ws((b * n, ch), x), _ws((b * m, ch), x),
-            _ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
-            _ws((b * m, ch), x, f32), _ws((b * h * m,), x, f32),
-            _ws((b * m, ch), x), _ws((b * n, 2 * ch), x),
-            _ws((b * n, ch), x, f32), _ws((b * m, ch), x, f32),
+            _ws((b * n, 2 * ch), x), _ws((b * m, ch), x),
+            _ws((b * m, ch), x), _ws((b * h * m,), x, f32),
+            _ws((b * n, 2 * ch), x), _ws((b * m, ch), x),
+            _ws((b * h * ranges * mp * fb.HEAD_DIM,), x, f32),
             _ws((splits * 2 * ch * ch,), x, f32),
             _ws((splits * 2 * ch,), x, f32)]
-    tensors = [x, c, dt1c, dpc, wq, bq, wkv, bkv, wq.t().contiguous(),
-               wkv.t().contiguous(), wp.t().contiguous(), o]
+    tensors = [_aligned(t) for t in (x, c, dt1c, dpc, wq, bq, wkv, bkv)]
+    tensors += [wq.t().contiguous(), wkv.t().contiguous(),
+                wp.t().contiguous(), _aligned(o)]
     _check_tensors("c_attn_bwd", x, tensors)
     cpe_args, cpe_rps = _cpe_bwd_args("c_attn_bwd", x, cpe, img_w)
-    fb._launch("c_attn_bwd", x, [*tensors, lse, *outs, *work, *cpe_args],
-               b, n, m, ch, h, rps_x, rps_c, img_w, cpe_rps,
+    fb._launch("c_attn_bwd", x, [*tensors, lse, *outs, *work, *cpe_args,
+                                 *_ln_identity(x)],
+               b, n, m, ch, h, rps_x, rps_c, chunks, img_w, cpe_rps,
                fb.HEAD_DIM ** -0.5, LN_EPS, counts=LAUNCHES)
-    return (*outs, dbp, *cpe_args[-2:])
+    return (*outs, *cpe_args[-2:])
 
 
 def _upstream(g, like):

@@ -17,7 +17,7 @@ prints a verdict: "keep" when the port's current design choice still holds,
                 ((128, 128) ones into rows arange(128) % 8; exact), then
                 seeded fp32 at the CPE tap-gradient reduction's size
                 (3136 * 64 rows into 64 channels) twice; keep (the
-                fixed-order fp32 partials of k_wgrad / k_cpe_grads_reduce)
+                fixed-order fp32 partials of k_wgrad_tc / k_cpe_grads_reduce)
                 when the two runs differ in any bit.
   pltpu_roll    ``roll_rows_probe``: (3136, 64) fp32 shifted by 56 flat
                 rows (one image row of stage 0) with 16-byte loads,

@@ -29,7 +29,8 @@ mlp_bwd_tiles_plain / s_attn_bwd_tiles_plain, the S block's training
 forward (lm_s_train_fwd) against s_train_fwd_tiles_plain, the D block's
 training forward (lm_dca_train_fwd) against dca_train_fwd_tiles_plain and
 its attention backward (lm_dca_attn_bwd) against dca_attn_bwd_tiles_plain,
-all
+and the C block's (lm_c_train_fwd, lm_c_attn_bwd, also with 320 meta
+tokens) against c_train_fwd_tiles_plain / c_attn_bwd_tiles_plain, all
 against their plain phases in fp32 at 1e-4 of each tensor's largest
 element. LeMeViT's constructor defaults (head_dim 64) run under "auto" on
 the card by composing, and match "torch"."""
@@ -1351,3 +1352,117 @@ def test_constructor_defaults_compose_on_gpu(cuda):
         if b is not None:
             torch.testing.assert_close(
                 a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-7)
+
+
+# Rows 14-15 (c_train.cu's lm_c_train_fwd on k_qkv_wg, the c direction of
+# k_dca_tc + k_dca_merge with the log-sum-exp and k_tail_wg's training
+# instance; lm_c_attn_bwd on k_qkv_wg, k_rowmm_wg, the c direction of
+# k_dca_bwd_tc and k_wgrad_tc): (N, C, batch, M, image width for the cpe
+# mode or 0); a ragged N, three meta tiles, M = 320 (past the 256 meta rows
+# a CTA stages at a time) and base's width
+C_TRAIN_SHAPES = [(3136, 64, 2, 16, 0), (1000, 64, 2, 16, 0),
+                  (784, 96, 2, 48, 0), (200, 64, 2, 320, 0),
+                  (3136, 96, 2, 16, 0), (3136, 64, 2, 16, 56)]
+
+
+def _c_inputs(cuda, n, ch, b, m, dtype, seed, cpe_w=0):
+    """x, c, the C block's folded params, DropPath scales (some 0), the
+    upstream gradient dt1c and the phases' keywords (with cpe_w, a CPE pair
+    on images cpe_w wide), in dtype."""
+    rng = np.random.RandomState(seed)
+    hid = 4 * ch
+    arrays = ([rng.randn(b, n, ch), rng.randn(b, m, ch)]
+              + _lin(rng, ch, ch) + _lin(rng, 2 * ch, ch) + _lin(rng, ch, ch)
+              + _lin(rng, hid, ch) + _lin(rng, ch, hid)
+              + [rng.randn(b, m, ch)])
+    ts = [torch.tensor(a.astype(np.float32), device=cuda).to(dtype)
+          for a in arrays]
+    dp = torch.from_numpy(((rng.rand(4, b) < 0.7) / 0.7).astype(
+        np.float32)).to(cuda)
+    kw = {"num_heads": ch // 32}
+    if cpe_w:
+        kw.update(cpe=[torch.tensor(a, device=cuda).to(dtype)
+                       for a in _cpe(rng, ch)], img_w=cpe_w)
+    return ts[0], ts[1], ts[2:12], dp, ts[12], kw
+
+
+def _c_bwd_args(x, c, params, dp, dt1c, fwd):
+    """The C attention backward's arguments on a forward's o and lse."""
+    return (x, c, dt1c, dp, *params[:5], *fwd[2:])
+
+
+def _check_phase(got, want, dtype, lse_from=None):
+    """fp32 at 1e-4 of each tensor's largest element; bf16 within
+    TILES_STEPS bf16 steps of it, tensors from ``lse_from`` on (the
+    log-sum-exps, fp32 from rounded q and k) at 1e-3."""
+    assert len(got) == len(want)
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        g_, w_ = g_.float(), w_.float()
+        assert g_.shape == w_.shape and torch.isfinite(g_).all(), i
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                g_, w_, rtol=1e-4, atol=1e-4 * w_.abs().max().item(),
+                msg=f"tensor {i}")
+        elif lse_from is not None and i >= lse_from:
+            torch.testing.assert_close(g_, w_, rtol=1e-3, atol=1e-3)
+        else:
+            _close_at_scale(g_, w_, None, TILES_STEPS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b,m,cpe_w", C_TRAIN_SHAPES)
+def test_c_train_fwd_tc_matches_plain_and_tiles_model_on_gpu(cuda, n, ch, b,
+                                                            m, cpe_w):
+    """Row 14, lm_c_train_fwd: fp32 against c_train_fwd_plain (c_out, t1c,
+    o and the meta rows' log-sum-exp); bf16 against
+    c_train_fwd_tiles_plain; one launch a call; two calls give the same
+    bits; in fp32 row 15 on this forward's o and log-sum-exp matches it on
+    the plain forward's at 1e-4."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c, params, dp, dt1c, kw = _c_inputs(cuda, n, ch, b, m, dtype, 16,
+                                               cpe_w)
+        before = dict(ft.LAUNCHES)
+        got = ft.c_train_fwd(x, c, params, dp, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"c_train_fwd": 1}
+        again = ft.c_train_fwd(x, c, params, dp, **kw)
+        for g_, a_ in zip(got, again):
+            assert torch.equal(g_, a_)
+        ref = (ft.c_train_fwd_plain if dtype == torch.float32
+               else ft.c_train_fwd_tiles_plain)
+        want = ref(x, c, params, dp, **kw)
+        _check_phase(got, want, dtype, lse_from=3)
+        if dtype == torch.float32:
+            on_kernel = ft.c_attn_bwd(
+                *_c_bwd_args(x, c, params, dp, dt1c, got), **kw)
+            on_plain = ft.c_attn_bwd(
+                *_c_bwd_args(x, c, params, dp, dt1c, want), **kw)
+            _check_phase([t for t in on_kernel if t is not None],
+                         [t for t in on_plain if t is not None], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ch,b,m,cpe_w", C_TRAIN_SHAPES)
+def test_c_attn_bwd_tc_matches_plain_and_tiles_model_on_gpu(cuda, n, ch, b,
+                                                           m, cpe_w):
+    """Row 15, lm_c_attn_bwd: fp32 against c_attn_bwd_plain (dxt, dc, every
+    weight and bias gradient, dbp among them, with the CPE the taps' and
+    bias's too); bf16 against c_attn_bwd_tiles_plain; one launch a call;
+    two calls give the same bits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c, params, dp, dt1c, kw = _c_inputs(cuda, n, ch, b, m, dtype, 17,
+                                               cpe_w)
+        args = _c_bwd_args(x, c, params, dp, dt1c,
+                           ft.c_train_fwd_plain(x, c, params, dp, **kw))
+        before = dict(ft.LAUNCHES)
+        got = [t for t in ft.c_attn_bwd(*args, **kw) if t is not None]
+        torch.cuda.synchronize()
+        assert _launched(before) == {"c_attn_bwd": 1}
+        again = [t for t in ft.c_attn_bwd(*args, **kw) if t is not None]
+        for g_, a_ in zip(got, again):
+            assert torch.equal(g_, a_)
+        ref = (ft.c_attn_bwd_plain if dtype == torch.float32
+               else ft.c_attn_bwd_tiles_plain)
+        want = [t for t in ref(*args, **kw) if t is not None]
+        assert len(got) == (10 if cpe_w else 8)
+        _check_phase(got, want, dtype)

@@ -116,18 +116,9 @@ def test_fold_ln_matches_layer_norm():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-def test_wgrad_split_covers_rows():
-    for rows0, rows1, shapes in [(12544, 1024, [(1536, 384), (384, 1536)]),
-                                 (128, 64, [(96, 32)]),
-                                 (50176, 1024, [(576, 192), (192, 192)])]:
-        rps, splits = ft._wgrad_split(rows0, rows1, shapes, 132)
-        assert rps % 32 == 0 and rps >= 128
-        assert splits == -(-rows0 // rps) + -(-rows1 // rps)
-
-
 def test_wgrad_tc_split_covers_rows():
-    """The row ranges of k_wgrad_tc (the S block's and every MLP backward,
-    all products in one launch) cover each stream's rows, aligned to its
+    """The row ranges of k_wgrad_tc (every block's backwards, all products
+    of a launch) cover each stream's rows, aligned to its
     64-row step, at least 128 rows each, about two CTAs an SM over the
     products and not far past it."""
     for rows0, rows1, shapes in [(12544, 1024, [(1536, 384), (384, 1536)]),
