@@ -45,8 +45,9 @@ SIGNATURES = {
     "lm_c_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_dca_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     "lm_s_block": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "lm_s_stage": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                   _P],
+    "lm_s_stage": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                   _F, _P],
+    "lm_s_stage_table": [_I, _PTRS, _I, _I, _I, _I, _P],
     "lm_s_train_fwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lm_mlp_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _F, _P],
     "lm_s_attn_bwd": [_I, _PTRS, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,

@@ -470,6 +470,20 @@ __device__ __forceinline__ void store_lse(const AttnArgs& a, int bh, int q,
   }
 }
 
+// The barrier of one tile's kTcThreads threads: the CTA's (__syncthreads),
+// or with kWg, warpgroup threadIdx.x / 128's own (named barrier 1 + that
+// index), so that each warpgroup of a larger CTA runs a tile of its own
+// (s_stage.cu).
+template <bool kWg>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (kWg)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (threadIdx.x >> 7)),
+                 "n"(kTcThreads)
+                 : "memory");
+  else
+    __syncthreads();
+}
+
 // Queries q0 .. q0 + MhsaTile<T>::kQ - 1 of (image, head) bh against all
 // a.nk keys; smem holds MhsaTile<T>::kSmemBytes. Warp w owns kMT m tiles
 // of 16 queries. Q is copied once; 64-key K / V tiles stream through a
@@ -477,8 +491,9 @@ __device__ __forceinline__ void store_lse(const AttnArgs& a, int bh, int q,
 // softmax steps of 32 keys (half the score registers of a 64-key step). A
 // warp past the last query only copies and waits; a ragged last step
 // computes 16 keys where those hold the rest. kLse also writes each
-// query's log-sum-exp (store_lse).
-template <typename T, bool kLse = false>
+// query's log-sum-exp (store_lse). kWg: run by one warpgroup of a larger
+// CTA (tile_sync), its threads numbered within the warpgroup.
+template <typename T, bool kLse = false, bool kWg = false>
 __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
                                                int q0, T* smem) {
   constexpr int P = TcRows<T>::kPitch, MT = MhsaTile<T>::kMT;
@@ -486,7 +501,8 @@ __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
   T* sQ = smem;
   T* sK = sQ + QR * P;
   T* sV = sK + 2 * kTcK * P;
-  const int warp = threadIdx.x >> 5, tid = threadIdx.x;
+  const int tid = kWg ? threadIdx.x & (kTcThreads - 1) : threadIdx.x;
+  const int warp = tid >> 5;
   const int b = bh / a.heads, h = bh % a.heads;
   const T* Q = static_cast<const T*>(a.q) +
                ((size_t)b * a.nq + q0) * a.ldq + h * kHeadDim;
@@ -521,7 +537,7 @@ __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
   }
   for (int kt = 0; kt < tiles; ++kt) {
     cp_async_wait<1>();  // tile kt (and Q) landed for this thread ...
-    __syncthreads();     // ... and for every thread
+    tile_sync<kWg>();    // ... and for every thread
     if (busy) {
       if (kt == 0) {
 #pragma unroll
@@ -545,7 +561,7 @@ __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
                                     sl2);
       }
     }
-    __syncthreads();  // every warp is done with this stage
+    tile_sync<kWg>();  // every warp is done with this stage
     if (kt + 2 < tiles) load_kv(kt + 2);
     cp_async_commit();
   }
@@ -561,8 +577,9 @@ __device__ __forceinline__ void mhsa_rows_tile(const AttnArgs& a, int bh,
 }
 
 // Warp w takes (image, head) bh0 + w whole: its nq <= 16 queries against
-// its nk <= 16 keys (N = 16 is the meta-token stream); smem holds
-// 4 x 48 rows. kLse as mhsa_rows_tile's.
+// its nk <= 16 keys (N = 16 is the meta-token stream); smem holds 48 rows
+// a warp of the CTA (4 in k_mhsa_tc_small, 8 in s_stage.cu). kLse as
+// mhsa_rows_tile's.
 template <typename T, bool kLse = false>
 __device__ __forceinline__ void mhsa_small_tile(const AttnArgs& a, int bh0,
                                                 T* smem) {

@@ -1,22 +1,18 @@
-// Device building blocks of s_stage.cu (row 6) and of the S / D block tails
-// past C = 512 (block_tc.cuh's launch_tail_tc), and the types, layouts and
+// The S / D block tail past C = 512 (block_tc.cuh's launch_tail_tc and
+// s_stage.cu's tail items at that width), and the types, layouts and
 // helpers that block_tc.cuh, attn_tc.cuh and the training headers share.
 //
-//   attention_tile softmax(q k^T * scale) v of one (image, head) and 32
-//                  queries, online softmax over 64-key chunks (k_s_stage's
-//                  attention)
 //   tail_rows      t1 = t + s1 (o @ Wp^T + bp); out = t1 + s2 MLP(LN2(t1)),
 //                  s1 / s2 per-image DropPath scales (1 in inference);
 //                  k_block_tail runs it over 32-row blocks
-// All their matrix products go through one routine, tile_gemm: a
-// shared-memory tiled product with fp32 accumulation whose A operand is a
-// matrix in global or shared memory, optionally row-LayerNormed on the way
-// in (Rows, LnRows), and whose result goes to an epilogue functor (bias,
-// exact-erf GELU, residual). bf16 products run on the tensor cores
-// (mma.sync m16n8k16, the LayerNorm output rounded to bf16 first, as the
-// TPU kernels round before the MXU); fp32 products stay on FMA, so fp32
-// keeps full precision. No stage is pipelined: each 32-deep step loads,
-// syncs and multiplies.
+// Its matrix products go through one routine, tile_gemm: a shared-memory
+// tiled product with fp32 accumulation whose A operand is a matrix in
+// global or shared memory (Rows), and whose result goes to an epilogue
+// functor (bias, exact-erf GELU, residual). bf16 products run on the
+// tensor cores (mma.sync m16n8k16, LN2 rounded to bf16 first, as the TPU
+// kernels round before the MXU); fp32 products stay on FMA, so fp32 keeps
+// full precision. No stage is pipelined: each 32-deep step loads, syncs and
+// multiplies.
 //
 // Types: T is float or __nv_bfloat16 for every activation, weight, bias and
 // norm parameter of one call; products, softmax and LayerNorm statistics are
@@ -95,33 +91,14 @@ __device__ __forceinline__ void row_stats(Get get, int rows, int K, float eps,
   }
 }
 
-// The A operands of tile_gemm. Rows: a plain row-major matrix (in global
-// or shared memory). LnRows: LayerNorm applied to the rows of a matrix on
-// the way in. Rows past `rows` read as zero. In bf16 both are staged 8
-// values per 16-byte load; the fp32 path reads them through a_elem.
+// The A operand of tile_gemm: a row-major matrix (in global or shared
+// memory), rows past `rows` read as zero. bf16 stages it 8 values per
+// 16-byte load; the fp32 path reads it through a_elem.
 template <typename T>
 struct Rows {
   const T* p;
   int ld;
   int rows;
-};
-
-// (a - mean) * rstd * g + beta, with the row statistics in shared memory.
-template <typename T>
-struct LnRows {
-  const T* p;
-  int ld;
-  int rows;
-  const float* mean;
-  const float* rstd;
-  const T* g;
-  const T* beta;
-
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    if (r >= rows) return 0.f;
-    return (to_f(p[(size_t)r * ld + k]) - mean[r]) * rstd[r] * to_f(g[k]) +
-           to_f(beta[k]);
-  }
 };
 
 // ---------------------------------------------------------------- CPE
@@ -138,44 +115,6 @@ struct Cpe {
   int img_n;         // N = H * W
 };
 
-// The CPE of rows [0, rows) of p (row pitch = C, the taps' channel count),
-// whose row 0 is flat row g0: x[i] + bias + sum_9 tap[ky, kx] x[i + (ky - 1)
-// W + (kx - 1)] in fp32, rounded to T (the type x would be stored in after
-// an external CPE). Rows past `rows` read as zero.
-template <typename T>
-struct CpeRows {
-  const T* p;
-  int ld;
-  int rows;
-  int g0;
-  Cpe cpe;
-
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    if (r >= rows) return 0.f;
-    const T* taps = static_cast<const T*>(cpe.taps);
-    const int i = (g0 + r) % cpe.img_n;
-    const int y = i / cpe.img_w, xc = i - y * cpe.img_w;
-    const int img_h = cpe.img_n / cpe.img_w;
-    const T* px = p + (size_t)r * ld + k;
-    float acc = to_f(static_cast<const T*>(cpe.bias)[k]);
-#pragma unroll
-    for (int dy = -1; dy <= 1; ++dy) {
-      if (y + dy < 0 || y + dy >= img_h) continue;
-#pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) {
-        if (xc + dx < 0 || xc + dx >= cpe.img_w) continue;
-        acc = fmaf(to_f(taps[((dy + 1) * 3 + dx + 1) * ld + k]),
-                   to_f(px[(ptrdiff_t)(dy * cpe.img_w + dx) * ld]), acc);
-      }
-    }
-    return to_f(from_f<T>(to_f(*px) + acc));
-  }
-};
-
-template <typename LoadA>
-__device__ __forceinline__ float a_elem(const LoadA& a, int r, int k) {
-  return a(r, k);
-}
 template <typename T>
 __device__ __forceinline__ float a_elem(const Rows<T>& a, int r, int k) {
   return r < a.rows ? to_f(a.p[(size_t)r * a.ld + k]) : 0.f;
@@ -253,45 +192,13 @@ __device__ __forceinline__ void tile_gemm_mma(
   for (int k0 = 0; k0 < K; k0 += kBK) {
     __syncthreads();
     constexpr int V = 8;  // bf16 per 16-byte copy
-    if constexpr (std::is_same<LoadA, Rows<__nv_bfloat16>>::value) {
-      for (int e = tid; e < BM * kBK / V; e += kThreads) {
-        const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < load_a.rows)
-          v = *reinterpret_cast<const uint4*>(
-              load_a.p + (size_t)r * load_a.ld + k0 + k);
-        *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
-      }
-    } else {
-      for (int e = tid; e < BM * kBK / V; e += kThreads) {
-        const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < load_a.rows) {
-          const uint4 va = *reinterpret_cast<const uint4*>(
-              load_a.p + (size_t)r * load_a.ld + k0 + k);
-          const uint4 vg =
-              *reinterpret_cast<const uint4*>(load_a.g + k0 + k);
-          const uint4 vb =
-              *reinterpret_cast<const uint4*>(load_a.beta + k0 + k);
-          const __nv_bfloat162* a2 =
-              reinterpret_cast<const __nv_bfloat162*>(&va);
-          const __nv_bfloat162* g2 =
-              reinterpret_cast<const __nv_bfloat162*>(&vg);
-          const __nv_bfloat162* b2 =
-              reinterpret_cast<const __nv_bfloat162*>(&vb);
-          __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&v);
-          const float mu = load_a.mean[r], rs = load_a.rstd[r];
-#pragma unroll
-          for (int i = 0; i < V / 2; ++i) {
-            const float2 fa = __bfloat1622float2(a2[i]);
-            const float2 fg = __bfloat1622float2(g2[i]);
-            const float2 fb = __bfloat1622float2(b2[i]);
-            o2[i] = __floats2bfloat162_rn((fa.x - mu) * rs * fg.x + fb.x,
-                                          (fa.y - mu) * rs * fg.y + fb.y);
-          }
-        }
-        *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
-      }
+    for (int e = tid; e < BM * kBK / V; e += kThreads) {
+      const int r = e / (kBK / V), k = (e % (kBK / V)) * V;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < load_a.rows)
+        v = *reinterpret_cast<const uint4*>(load_a.p +
+                                            (size_t)r * load_a.ld + k0 + k);
+      *reinterpret_cast<uint4*>(sA + r * kPitch + k) = v;
     }
     for (int e = tid; e < BN * kBK / V; e += kThreads) {
       const int n = e / (kBK / V), k = (e % (kBK / V)) * V, gn = n0 + n;
@@ -319,8 +226,8 @@ __device__ __forceinline__ void tile_gemm_mma(
 }
 
 // One BM x BN output tile of A[BM x K] @ Wt[n0:n0+BN, :]^T, K % kBK == 0.
-// load_a is a Rows<T> or an LnRows<T>; wt is (ncols, ldw)
-// in torch Linear layout; columns >= ncols are masked. epi(r, n, v) receives every valid
+// load_a is a Rows<T>; wt is (ncols, ldw) in torch Linear layout; columns
+// >= ncols are masked. epi(r, n, v) receives every valid
 // output exactly once, from the thread that owns it. sA and sW hold
 // kBK * (BM + 1) and kBK * (BN + 1) floats, 16-byte aligned; in bf16 the
 // operands' rows are 16-byte aligned too (the wrappers check the tensors).
@@ -399,98 +306,6 @@ struct AttnArgs {
                // at [(b * heads + h) * nq + query] (attn_tc.cuh's
                // k_mhsa_tc / k_mhsa_tc_small in their kLse instances)
 };
-
-constexpr int kQPW = 4;                 // queries per warp
-constexpr int kQB = kWarps * kQPW;      // queries per block
-constexpr int kKC = 64;                 // keys per shared-memory chunk
-// shared floats of one attention tile: queries, keys (padded), values
-constexpr int kAttnSmemFloats =
-    kQB * kHeadDim + kKC * (kHeadDim + 1) + kKC * kHeadDim;
-
-// One (image, head) pair's kQB queries from q0 against all its keys, an
-// online softmax over kKC-key chunks, in `smem` (kAttnSmemFloats). Starts
-// with a barrier, so a block may run several tiles in turn (k_s_stage
-// does).
-template <typename T>
-__device__ __forceinline__ void attention_tile(const AttnArgs& a, int bh,
-                                               int q0, float* smem) {
-  float (*sQ)[kHeadDim] = reinterpret_cast<float (*)[kHeadDim]>(smem);
-  float (*sK)[kHeadDim + 1] =
-      reinterpret_cast<float (*)[kHeadDim + 1]>(smem + kQB * kHeadDim);
-  float (*sV)[kHeadDim] = reinterpret_cast<float (*)[kHeadDim]>(
-      smem + kQB * kHeadDim + kKC * (kHeadDim + 1));
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // not restrict: k_s_stage writes q, k and v earlier in the same launch
-  const T* Q = static_cast<const T*>(a.q);
-  const T* Kp = static_cast<const T*>(a.k);
-  const T* Vp = static_cast<const T*>(a.v);
-
-  __syncthreads();  // a previous tile's reads of sQ / sK / sV are done
-  for (int e = threadIdx.x; e < kQB * kHeadDim; e += kThreads) {
-    const int qi = e / kHeadDim, t = e % kHeadDim, gq = q0 + qi;
-    sQ[qi][t] = gq < a.nq ? to_f(Q[(size_t)(b * a.nq + gq) * a.ldq +
-                                   h * kHeadDim + t]) * a.scale
-                          : 0.f;
-  }
-  float m[kQPW], l[kQPW], acc[kQPW];
-#pragma unroll
-  for (int i = 0; i < kQPW; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    acc[i] = 0.f;
-  }
-  for (int kc = 0; kc < a.nk; kc += kKC) {
-    const int cnt = min(kKC, a.nk - kc);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kKC * kHeadDim; e += kThreads) {
-      const int j = e / kHeadDim, t = e % kHeadDim;
-      float kv = 0.f, vv = 0.f;
-      if (j < cnt) {
-        const size_t off = (size_t)(b * a.nk + kc + j) * a.ldkv +
-                           h * kHeadDim + t;
-        kv = to_f(Kp[off]);
-        vv = to_f(Vp[off]);
-      }
-      sK[j][t] = kv;
-      sV[j][t] = vv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kQPW; ++i) {
-      const int qi = warp * kQPW + i;
-      if (q0 + qi >= a.nq) continue;  // uniform over the warp
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int t = 0; t < kHeadDim; ++t) {
-        const float qv = sQ[qi][t];
-        s0 = fmaf(qv, sK[lane][t], s0);
-        s1 = fmaf(qv, sK[lane + 32][t], s1);
-      }
-      if (lane >= cnt) s0 = -INFINITY;
-      if (lane + 32 >= cnt) s1 = -INFINITY;
-      // cnt >= 1, so the chunk maximum and m_new are finite
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m[i] - m_new);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      l[i] = l[i] * alpha + warp_sum(p0 + p1);
-      float o = acc[i] * alpha;
-      for (int j = 0; j < cnt; ++j) {
-        const float p = __shfl_sync(0xffffffffu, j < 32 ? p0 : p1, j & 31);
-        o = fmaf(p, sV[j][lane], o);
-      }
-      acc[i] = o;
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kQPW; ++i) {
-    const int gq = q0 + warp * kQPW + i;
-    if (gq >= a.nq) continue;
-    static_cast<T*>(a.out)[(size_t)(b * a.nq + gq) * a.ldo + h * kHeadDim +
-                           lane] = from_f<T>(acc[i] / l[i]);
-  }
-}
 
 // ---------------------------------------------------------------- tail
 

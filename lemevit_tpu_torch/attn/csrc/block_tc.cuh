@@ -106,9 +106,10 @@ __device__ __forceinline__ uint4 pack(const float (&f)[16 / sizeof(T)]) {
   return v;
 }
 
-// 16-byte chunk [k, k + V) of flat row r0 + r's 3x3 CPE (block_common.cuh,
-// CpeRows: x + bias + sum_9 tap x[shifted], fp32 sums in the same order,
-// rounded once to T). X points at flat row r0 (row pitch C).
+// 16-byte chunk [k, k + V) of flat row r0 + r's 3x3 CPE (block_common.cuh's
+// Cpe: x + bias + sum_9 tap x[shifted], fp32 sums with the bias first and
+// the taps in (ky, kx) order, rounded once to T). X points at flat row r0
+// (row pitch C).
 template <typename T>
 __device__ __forceinline__ uint4 cpe_chunk(const T* X, int r, int k, int r0,
                                            int C, const Cpe& cpe) {
@@ -534,6 +535,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, int phase) {
       "r"(phase)
       : "memory");
 }
+// Ends an mbarrier's life, so that its bytes may serve another purpose
+// (s_stage.cu runs one work item after another in the same shared memory
+// and invalidates an item's barriers, QkvWg / TailWg::barriers, once every
+// thread has waited on them).
+__device__ __forceinline__ void mbar_inval(uint64_t* b) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
 // Box (c0, c1) (column, row) of the 2-D map into shared memory at dst.
 __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
                                        int c0, int c1, uint64_t* bar) {
@@ -610,7 +619,7 @@ struct QkvArgs {
 };
 
 // Rows [row0, row0 + rows) of stream si (their 3x3 CPE in the cpe mode, also
-// written to a.xc by the first column group), staged once into the RB rows
+// written to a.xc by column group 0, cg), staged once into the RB rows
 // of a swizzled tile and LayerNormed there in place, a warp per row with
 // two-pass fp32 statistics, rounded to T. Chunks at rows >= rows or columns
 // in [C, KA) are zero.
@@ -618,7 +627,7 @@ template <typename T, bool kCpe, int RB>
 __device__ __forceinline__ void stage_ln_rows(const QkvArgs& a,
                                               const QkvSeg& sg, int si,
                                               int row0, int rows, int KA,
-                                              unsigned char* sA) {
+                                              int cg, unsigned char* sA) {
   constexpr int V = 16 / sizeof(T);
   const auto at = [&](int r, int k) {
     return reinterpret_cast<T*>(sA + swz<T>(RB, r, k));
@@ -633,7 +642,7 @@ __device__ __forceinline__ void stage_ln_rows(const QkvArgs& a,
     if (r < rows && k < C) {
       if (cpe_rows) {
         v = cpe_chunk<T>(X, r, k, row0, C, a.cpe);
-        if (blockIdx.y == 0 && a.xc)
+        if (cg == 0 && a.xc)
           *reinterpret_cast<uint4*>(static_cast<T*>(a.xc) +
                                     (size_t)(row0 + r) * C + k) = v;
       } else {
@@ -678,24 +687,29 @@ struct QkvWg {
     return 1024 + (size_t)kStages * kTile +
            (size_t)kRows * cdiv(C, kSub<T>) * 128 + 64;
   }
+  // the kStages mbarriers of an item at base (after the ring and the rows)
+  static __device__ uint64_t* barriers(unsigned char* base, int C) {
+    return reinterpret_cast<uint64_t*>(base + kStages * kTile +
+                                       kRows * cdiv(C, kSub<T>) * 128);
+  }
 };
 
+// One work item of k_qkv_wg: row block rb of stream si (segment sg, its
+// weights through maps.w[si]), its column group cg (tiles [cg
+// tiles_per_cta, ...) of the 128-column tiles); base: the item's shared
+// memory, 1024-aligned (QkvWg<T>::smem_bytes less the alignment slack). The
+// item initialises its mbarriers (QkvWg<T>::barriers). x and its CPE
+// neighbours are read by plain loads, never through the read-only path
+// (s_stage.cu writes them earlier in the same launch).
 template <typename T, bool kCpe, bool kLnOut = false>
-__global__ void __launch_bounds__(256, 2)
-    k_qkv_wg(const QkvArgs a, const __grid_constant__ QkvMaps maps) {
+__device__ __forceinline__ void qkv_wg_item(const QkvArgs& a,
+                                            const QkvSeg& sg, int si, int rb,
+                                            int cg, const QkvMaps& maps,
+                                            unsigned char* base) {
   using L = QkvWg<T>;
   constexpr int S = L::kStages, BN = L::kBN, RB = L::kRows, KS = kSub<T>;
-  extern __shared__ unsigned char qwg_smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(qwg_smem_raw) + 1023) & ~uintptr_t(1023));
-  int rb = blockIdx.x, si = 0;
-  if (rb >= a.row_blocks0) {
-    rb -= a.row_blocks0;
-    si = 1;
-  }
-  const QkvSeg sg = a.seg[si];
   const int C = a.C, ncols = sg.cols, nk = cdiv(C, KS), KA = nk * KS;
-  const int ct0 = blockIdx.y * a.tiles_per_cta;
+  const int ct0 = cg * a.tiles_per_cta;
   const int ct1 = min(cdiv(ncols, BN), ct0 + a.tiles_per_cta);
   if (ct0 >= ct1) return;  // uniform over the block, before any barrier
   const int row0 = rb * RB, rows = min(RB, sg.rows - row0);
@@ -719,7 +733,7 @@ __global__ void __launch_bounds__(256, 2)
   };
   if (tid == 0)
     for (int i = 0; i < S - 1 && i < total; ++i) load(i);
-  stage_ln_rows<T, kCpe, RB>(a, sg, si, row0, rows, KA, sA);
+  stage_ln_rows<T, kCpe, RB>(a, sg, si, row0, rows, KA, cg, sA);
 
   float acc[32];  // the warpgroup's 64 columns of the tile
 #pragma unroll
@@ -728,7 +742,7 @@ __global__ void __launch_bounds__(256, 2)
   fence_async_smem();  // LN1(x), written by the threads, for the tensor
   __syncthreads();     // cores
   if constexpr (kLnOut) {
-    if (blockIdx.y == 0) {  // LN1(x) rows out, 16 bytes a thread
+    if (cg == 0) {  // LN1(x) rows out, 16 bytes a thread
       constexpr int V = 16 / sizeof(T);
       T* ln = static_cast<T*>(a.ln_out[si]) + (size_t)row0 * C;
       const int cv = C / V;
@@ -777,6 +791,21 @@ __global__ void __launch_bounds__(256, 2)
     if (tid == 0 && i + S - 1 < total) load(i + S - 1);
   }
   mma_wait<T, 0>();
+}
+
+template <typename T, bool kCpe, bool kLnOut = false>
+__global__ void __launch_bounds__(256, 2)
+    k_qkv_wg(const QkvArgs a, const __grid_constant__ QkvMaps maps) {
+  extern __shared__ unsigned char qwg_smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(qwg_smem_raw) + 1023) & ~uintptr_t(1023));
+  int rb = blockIdx.x, si = 0;
+  if (rb >= a.row_blocks0) {
+    rb -= a.row_blocks0;
+    si = 1;
+  }
+  const QkvSeg sg = a.seg[si];
+  qkv_wg_item<T, kCpe, kLnOut>(a, sg, si, rb, blockIdx.y, maps, base);
 }
 
 // Grid: (row blocks of both streams, column groups). Where the row blocks
@@ -885,24 +914,35 @@ struct TailWg {
   static constexpr size_t kSmem = kFixed + (size_t)kStages * kStage;
   static_assert(kN % 8 == 0 && kStage % 1024 == 0 && kSA % 1024 == 0,
                 "wgmma tiers");
+  // the kStages mbarriers of an item at base (after sA, sH, the ring and
+  // the row sums)
+  static __device__ uint64_t* barriers(unsigned char* base) {
+    return reinterpret_cast<uint64_t*>(base + kSA + kSH + kStages * kStage +
+                                       4 * kRows * 4);
+  }
 };
 
+// One work item of k_tail_wg: row block `block` of both streams' blocks
+// (a.row_blocks0 of the image stream first; segment a.seg[si], its proj
+// weights through maps.wp[si], fc1 / fc2 through maps.w1 / w2); base as
+// qkv_wg_item's (TailWg<T, CP>::kSmem less the slack). The item
+// initialises its mbarriers (TailWg<T, CP>::barriers). t and o are read by
+// plain loads and cp.async.cg (L2), never through the read-only path:
+// s_stage.cu writes them earlier in the same launch.
 template <typename T, int CP, bool kTrain = false>
-__global__ void __launch_bounds__(256, 1)
-    k_tail_wg(const TailArgs a, const __grid_constant__ TailMaps maps) {
+__device__ __forceinline__ void tail_wg_item(const TailArgs& a, int block,
+                                             const TailMaps& maps,
+                                             unsigned char* base) {
   using L = TailWg<T, CP>;
   constexpr int S = L::kStages, RB = L::kRows, NT = L::kN / 8, KS = L::kKS;
   constexpr int NTH = L::kHN / 8, HID = L::kHid, NTHR = L::kThreads;
   constexpr int V = 16 / sizeof(T);
-  extern __shared__ unsigned char wg_smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* sA = base;
   unsigned char* sH = sA + L::kSA;
   unsigned char* ring = sH + L::kSH;
   float* red = reinterpret_cast<float*>(ring + S * L::kStage);
   uint64_t* full = reinterpret_cast<uint64_t*>(red + 4 * RB);  // [S]
-  int rb = blockIdx.x, si = 0;
+  int rb = block, si = 0;
   if (rb >= a.row_blocks0) {
     rb -= a.row_blocks0;
     si = 1;
@@ -1140,6 +1180,15 @@ __global__ void __launch_bounds__(256, 1)
     *reinterpret_cast<uint4*>(out + (size_t)r * C + k) =
         *reinterpret_cast<const uint4*>(sA + swz<T>(RB, r, k));
   }
+}
+
+template <typename T, int CP, bool kTrain = false>
+__global__ void __launch_bounds__(256, 1)
+    k_tail_wg(const TailArgs a, const __grid_constant__ TailMaps maps) {
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
+  tail_wg_item<T, CP, kTrain>(a, blockIdx.x, maps, base);
 }
 
 template <typename T, int CP, bool kTrain>

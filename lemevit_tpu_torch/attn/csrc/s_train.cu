@@ -39,9 +39,9 @@
 //   saved), takes du = dt1x + LN1'^T da in fp32 from k_rowmm_wg (a launch
 //   of its own for the image stream), then k_cpe_tap_grads (dtaps, dbias)
 //   and the flipped-tap k_cpe_rows (dx = CPE^T du). One k_cpe_rows per
-//   forward chain, rather than the inference kernels' CpeRows loader: that
-//   loader recomputes each element's neighbourhood in every product and
-//   LayerNorm pass that reads it (2.3-2.8x slower in serving).
+//   forward chain, rather than a CPE loader inside the products, which
+//   recomputed each element's neighbourhood in every product and LayerNorm
+//   pass that read it (2.3-2.8x slower in serving).
 // Bound on the H100: operations for the products, bytes for the LayerNorm
 // and row kernels. The forward's designs are block_tc.cuh's and
 // attn_tc.cuh's (wgmma from TMA-fed weight tiles, mma.sync attention

@@ -29,7 +29,7 @@ inline float* fp(const void* const* p, int i) {
 // limits it. Each element sums its 9 taps in fp32 (bias first, taps in
 // (ky, kx) order) and is rounded once to the output type, where the TPU's
 // _cpe_flat accumulates separably in the activation type; this matches
-// CpeRows bit for bit. Bound on the H100: bytes (18 operations per element
+// block_tc.cuh's cpe_chunk bit for bit. Bound on the H100: bytes (18 operations per element
 // against 4-10 bytes). A thread takes 8 channels of one row with 16-byte
 // loads (32 in fp32), so the row's image position (three integer
 // divisions) and each tap's load serve 8 elements; the neighbours' re-reads

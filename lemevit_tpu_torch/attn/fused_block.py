@@ -31,9 +31,12 @@ product it feeds, so nothing is folded and the weights are used as given.
 
 The C, D and S kernels run on the tensor cores (``csrc/block_tc.cuh`` for
 the qkv product and the tail, ``csrc/attn_tc.cuh`` for the attention);
-``c_block_tiles_plain``, ``s_block_tiles_plain`` and
-``dca_block_tiles_plain`` follow their order of work in PyTorch, rounding
-where they round, for the tests. The D kernel
+``c_block_tiles_plain``, ``s_block_tiles_plain``,
+``dca_block_tiles_plain`` and ``s_stage_tiles_plain`` follow their order of
+work in PyTorch, rounding where they round, for the tests. ``s_stage``'s
+kernel runs the S block's tiles as work items of one persistent launch, in
+the order and with the dependencies of ``stage_schedule``, a table built
+here from the shapes alone (cached per shape) and copied to the device. The D kernel
 takes at most ``attn/dca.py``'s ``MAX_META`` meta tokens (a head's meta
 rows sit in shared memory); on CUDA tensors more raise.
 
@@ -43,8 +46,10 @@ CUDA tensors; the plain versions do not count).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,6 +63,28 @@ MAX_DIM = 640          # the tails keep their rows of t1 and LN2(t1) on
 HIDDEN_CHUNK = 128     # hidden columns of one MLP chunk (both headers'
                        # tails)
 MAX_N_STAGE = 1024     # lemevit_tpu/attn/pallas_block.py:38 _MAX_N_SBLOCK
+
+# s_stage's work items (csrc/s_stage.cu, on block_tc.cuh's and attn_tc.cuh's
+# tiles): rows of a qkv item and of a tail item (QkvWg / TailWg kRows; past
+# C = 512 block_common.cuh's kTailBM), output columns of a qkv tile (QkvWg
+# kBN), the token count at or below which a warp takes an (image, head)
+# whole (kTcSmall), queries of a warpgroup's attention unit (MhsaTile kQ),
+# attention units per item (two warpgroups, or eight warps), the card's
+# SMs (the qkv columns are split over groups where the row blocks are
+# fewer), and the bytes of one block's weight table (s_stage.cu StageBlock).
+STAGE_ROWS, STAGE_TAIL_ROWS_WIDE = 64, 32
+QKV_TILE = 128
+SMALL_N = 16
+ATTN_QUERIES = {torch.bfloat16: 128, torch.float32: 64}
+UNITS_ROWS, UNITS_SMALL = 2, 8
+CARD_SMS = 132
+STAGE_BLOCK_BYTES = 896
+# the phases of a stage's blocks, the phase each waits for, and the fields
+# of a schedule row (s_stage.cu's enum)
+QKV, ATTN, TAIL = 0, 1, 2
+WAITS_ON = {QKV: TAIL, ATTN: QKV, TAIL: ATTN}
+STAGE_FIELDS = ("kind", "block", "stream", "index", "group", "first",
+                "last", "wait_phase", "wait_mult")
 
 LAUNCHES = {"c_block": 0, "dca_block": 0, "s_block": 0, "s_stage": 0}
 
@@ -270,6 +297,108 @@ def s_stage_plain(x, c, params_list, *, num_heads: int, cpes=None,
                              cpe=None if cpes is None else cpes[j],
                              img_w=img_w)
     return x, c
+
+
+def s_stage_tiles_plain(x, c, params_list, *, num_heads: int, cpes=None,
+                        img_w: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stage kernel's order of work in PyTorch (used by the tests only):
+    ``s_block_tiles_plain`` with each block's parameters and CPE in turn,
+    x and c rounded to the input type between blocks, as the chain of
+    ``s_block`` kernels rounds them (the stage runs the same tiles)."""
+    for j, params in enumerate(params_list):
+        x, c = s_block_tiles_plain(x, c, params, num_heads=num_heads,
+                                   cpe=None if cpes is None else cpes[j],
+                                   img_w=img_w)
+    return x, c
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def stage_schedule(nb: int, b: int, n: int, m: int, ch: int,
+                   num_heads: int, dtype) -> Tuple[np.ndarray, np.ndarray,
+                                                   int]:
+    """The ordered work items of ``s_stage``'s kernel for nb blocks at
+    batch b, n image and m meta tokens, width ch: (items (K, 9) int32 with
+    the STAGE_FIELDS of each row, counts (3, b) int32, qkv_tiles). A pure
+    function of the shapes, run without CUDA; the kernel executes it row by
+    row, each CTA claiming the next row.
+
+    For each block j: the QKV items (each a STAGE_ROWS-row block of one
+    stream, flat over the batch, x a group of qkv_tiles 128-column tiles),
+    the ATTN items (UNITS_ROWS units of (image, head, ATTN_QUERIES queries),
+    one a warpgroup, or at n <= SMALL_N UNITS_SMALL (image, head) pairs, one
+    a warp), the TAIL items (row blocks, STAGE_TAIL_ROWS_WIDE rows past
+    C = 512); each phase sorted by the last image it touches, both streams
+    merged. An item waits for phase WAITS_ON[kind] of each image it touches
+    (first .. last) to be done wait_mult blocks over: counts[phase][image]
+    items of a phase touch an image in every block, so its counter reaching
+    wait_mult * counts means blocks < wait_mult are done (an item of block
+    j + 1 depends, through the chain, on every item of block j of its
+    images). QKV(j) waits for TAIL(j - 1), ATTN(j) for QKV(j), TAIL(j) for
+    ATTN(j): what each reads, the CPE's neighbour rows included (they stay
+    within an image, so the table does not depend on the CPE or the image
+    width), and what each overwrites. Every wait lies earlier in the list,
+    so tickets taken in order cannot deadlock."""
+    rows = (b * n, b * m)
+    seq = (n, m)
+    tail_rows = STAGE_ROWS if ch <= 512 else STAGE_TAIL_ROWS_WIDE
+    tiles = _cdiv(3 * ch, QKV_TILE)
+    row_blocks = sum(_cdiv(r, STAGE_ROWS) for r in rows)
+    groups = min(tiles, max(1, _cdiv(CARD_SMS, row_blocks)))
+    qkv_tiles = _cdiv(tiles, groups)
+    groups = _cdiv(tiles, qkv_tiles)
+    phases = {QKV: [], ATTN: [], TAIL: []}  # (last, first, stream, idx, g)
+    for s in (0, 1):
+        def span(r0, r1):
+            return (r1 - 1) // seq[s], r0 // seq[s]
+        for rb in range(_cdiv(rows[s], STAGE_ROWS)):
+            last, first = span(rb * STAGE_ROWS,
+                               min(rows[s], (rb + 1) * STAGE_ROWS))
+            phases[QKV] += [(last, first, s, rb, g) for g in range(groups)]
+        if seq[s] <= SMALL_N:
+            per, per_img = UNITS_SMALL, num_heads
+        else:
+            per = UNITS_ROWS
+            per_img = num_heads * _cdiv(seq[s], ATTN_QUERIES[dtype])
+        units = b * per_img
+        for u in range(0, units, per):
+            phases[ATTN].append(((min(units, u + per) - 1) // per_img,
+                                 u // per_img, s, u, 0))
+        for rb in range(_cdiv(rows[s], tail_rows)):
+            last, first = span(rb * tail_rows,
+                               min(rows[s], (rb + 1) * tail_rows))
+            phases[TAIL].append((last, first, s, rb, 0))
+    counts = np.zeros((3, b), np.int32)
+    for kind, its in phases.items():
+        its.sort()
+        for last, first, *_ in its:
+            counts[kind, first:last + 1] += 1
+    items = [(kind, j, s, idx, g, first, last, WAITS_ON[kind],
+              j if kind == QKV else j + 1)
+             for j in range(nb) for kind in (QKV, ATTN, TAIL)
+             for last, first, s, idx, g in phases[kind]]
+    items = np.asarray(items, np.int32).reshape(-1, len(STAGE_FIELDS))
+    items.setflags(write=False)
+    counts.setflags(write=False)
+    return items, counts, qkv_tiles
+
+
+_DEVICE_SCHEDULES = {}
+
+
+def _device_schedule(nb, b, n, m, ch, num_heads, dtype, device):
+    """stage_schedule's tables on ``device``, copied once per shape."""
+    key = (nb, b, n, m, ch, num_heads, dtype, device)
+    if key not in _DEVICE_SCHEDULES:
+        items, counts, qkv_tiles = stage_schedule(nb, b, n, m, ch, num_heads,
+                                                  dtype)
+        _DEVICE_SCHEDULES[key] = (
+            torch.from_numpy(items.copy()).to(device),
+            torch.from_numpy(counts.copy()).to(device), qkv_tiles)
+    return _DEVICE_SCHEDULES[key]
 
 
 def stage_takes(n: int, m: int, ch: int, num_heads: int, n_blocks: int,
@@ -509,18 +638,37 @@ def s_stage(x, c, params_list, *, num_heads: int, cpes=None,
         cpe = None if cpes is None else cpes[j]
         _check("s_stage", x, c, params, num_heads, hidden, cpe, img_w)
         _check_shapes("s_stage", params, _s_shapes(ch, hidden))
-    blocks = [t for j, params in enumerate(params_list)
-              for t in (*params, *_cpe_ptrs(None if cpes is None
-                                            else cpes[j]))]
-    # the blocks' pointers, copied from pinned memory on x's stream
-    table = torch.tensor([0 if t is None else t.data_ptr() for t in blocks],
-                         dtype=torch.int64).pin_memory().to(
-                             x.device, non_blocking=True)
+    items, counts, qkv_tiles = _device_schedule(nb, b, n, m, ch, num_heads,
+                                                x.dtype, x.device)
+    table = _stage_table(x, params_list, cpes, hidden)
     xo = torch.empty_like(x)
     co = torch.empty_like(c)
     xa = None if cpes is None else torch.empty_like(x)
+    sync = torch.empty(1 + 3 * b, dtype=torch.int32, device=x.device)
     _launch("s_stage", x, [x, c, xo, co, xa, *_s_work(b, n, m, ch, x),
-                           table],
-            nb, b, n, m, ch, num_heads, hidden, img_w, int(cpes is not None),
-            HEAD_DIM ** -0.5, LN_EPS)
+                           table, items, counts, sync],
+            len(items), b, n, m, ch, num_heads, hidden, img_w,
+            int(cpes is not None), qkv_tiles, HEAD_DIM ** -0.5, LN_EPS)
     return xo, co
+
+
+def _stage_table(x, params_list, cpes, hidden) -> torch.Tensor:
+    """The blocks' weight table on x's device: lm_s_stage_table writes each
+    block's TMA maps and pointers into pinned host memory, copied on x's
+    stream without waiting for it."""
+    from lemevit_tpu_torch.attn import _build
+    nb, ch = len(params_list), x.shape[-1]
+    ptrs = [0 if t is None else t.data_ptr()
+            for j, params in enumerate(params_list)
+            for t in (*params, *_cpe_ptrs(None if cpes is None
+                                          else cpes[j]))]
+    host = torch.empty(nb * STAGE_BLOCK_BYTES, dtype=torch.uint8,
+                       pin_memory=True)
+    if host.data_ptr() % 64:
+        raise RuntimeError("s_stage: the weight table is not 64-byte "
+                           "aligned")
+    lib = _build.library()
+    _build.check(lib, lib.lm_s_stage_table(
+        _DTYPES[x.dtype], (ctypes.c_void_p * len(ptrs))(*ptrs), nb, ch,
+        hidden, host.numel(), host.data_ptr()), "s_stage_table")
+    return host.to(x.device, non_blocking=True)

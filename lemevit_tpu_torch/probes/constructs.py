@@ -28,8 +28,9 @@ prints a verdict: "keep" when the port's current design choice still holds,
   cluster       ``cluster_probe``: clusters of 1, 2, 4, 8 and 16 CTAs (16
                 with the non-portable opt-in), each CTA reading its peers'
                 ranks from global and distributed shared memory after the
-                cluster barrier; keep (s_stage's cap of 8) when 16 does not
-                launch.
+                cluster barrier; keep the portable cap of 8 when 16 does
+                not launch (no model kernel uses clusters since s_stage.cu
+                became one persistent launch of the S block's tiles).
 
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs its ``*_plain`` version. ``LAUNCHES`` counts the kernels'
@@ -414,9 +415,9 @@ def probe_cluster(device) -> dict:
                bound_ms=4 * CLUSTERS * 8 * 17 / HBM_BYTES_PER_S * 1e3)
     row["verdict"] = _verdict(
         route, not wide,
-        "clusters of 16 do not launch; s_stage's cap of 8 holds",
+        "clusters of 16 do not launch; the portable cap of 8 holds",
         f"a cluster of 16 launches ({sizes[16]['max_active_clusters']} "
-        "active at once): s_stage's cap of 8 may be re-measured")
+        "active at once): the portable cap of 8 may be re-measured")
     return row
 
 

@@ -13,7 +13,8 @@
 //                          index, 16-byte loads        probe_reshape_c320 :108
 //   k_cluster_probe        thread-block clusters of 1-16 CTAs: cluster
 //                          barrier, peer global and distributed shared
-//                          memory reads (k_s_stage's construct)
+//                          memory reads (the construct of k_s_stage's
+//                          first design, one cluster an image)
 // Bound on the H100: bytes for the roll and the fold (read and write once),
 // each well below a microsecond at the probes' shapes, so their times are
 // launch times; the erf passes are a few operations per element.

@@ -809,11 +809,16 @@ def _stage_inputs(rng, nb, n, ch, use_cpe):
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("nb,n,img_w,ch", [(3, 196, 14, 384),
                                            (2, 49, 7, 512),
-                                           (2, 1024, 32, 192)])
+                                           (2, 1024, 32, 192),
+                                           (2, 49, 7, 640),
+                                           (2, 20, 5, 64)])
 def test_s_stage_matches_plain_and_chain_on_gpu(cuda, nb, n, img_w, ch,
                                                 dtype, tol, use_cpe):
-    """s_stage (one launch) against s_stage_plain in fp32 on the same
-    inputs, and against the chain of s_block kernels in its own type."""
+    """s_stage (one persistent launch of the S block's tiles) against
+    s_stage_plain in fp32 on the same inputs, and bit for bit against the
+    chain of s_block kernels in its own type and a second call (C = 640:
+    block_common.cuh's 32-row tails; N = 20: 64-row blocks over four
+    images)."""
     x, c, params, cpes = _stage_inputs(np.random.RandomState(12), nb, n, ch,
                                        use_cpe)
     dev = lambda a: torch.from_numpy(a).to(cuda, dtype)  # noqa: E731
@@ -834,13 +839,13 @@ def test_s_stage_matches_plain_and_chain_on_gpu(cuda, nb, n, img_w, ch,
     for j, p in enumerate(pd):
         chain = fb.s_block(*chain, p, cpe=None if cd_ is None else cd_[j],
                            **kw)
-    for g_, w_, k_ in zip(got, want, chain):
+    again = fb.s_stage(xd, cd, pd, cpes=cd_, **kw)
+    for g_, w_, k_, a_ in zip(got, want, chain, again):
         assert torch.isfinite(g_).all()
         scale = w_.abs().max().item() if dtype == torch.bfloat16 else 1.0
         torch.testing.assert_close(g_.float(), w_, rtol=tol,
                                    atol=tol * scale)
-        torch.testing.assert_close(g_.float(), k_.float(), rtol=tol,
-                                   atol=tol)
+        assert torch.equal(g_, k_) and torch.equal(g_, a_)
 
 
 @pytest.mark.gpu
