@@ -82,7 +82,10 @@ before it and read just after:
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
     6 classes): what ptxas reports for the tensor-core kernels' sources
     (mhsa.cu, dca_attn.cu, s_block.cu, dca_block.cu, c_block.cu,
-    s_stage.cu and the three training sources; after the timed phases),
+    s_stage.cu and the three training sources) and the probes' (ew_probe.cu,
+    constructs.cu: every k_ew_probe instance and k_scatter_add_probe with
+    no spill and no stack frame, or the script fails), after the timed
+    phases,
     the kernels held
     against their plain versions and, in bf16, against their order of work
     in PyTorch (*_tiles_plain) (dca_attn at
@@ -96,13 +99,21 @@ before it and read just after:
     windows), cli.train_seg on synthetic data (batch 8, bf16, 6 steps and
     a slide-inference eval) and a profile of one seg train step;
   - the toolchain probes (lemevit_tpu_torch/probes, built into their own
-    library): the per-op probe k_ew_probe held against its plain version
-    for all 12 ops at K = 1 and at vpu_probe's K on each of its three
-    (R, C) tiles x 64; then the probe path, python -m
+    library): the per-op probe (k_ew_probe over flat vectors,
+    k_ew_probe_rows in ew.layout's row groups) held against its plain
+    version for all 12 ops at K = 1 and at vpu_probe's K, and the K = 0
+    copy exact, on each of its three (R, C) tiles x 64 (timed by events
+    and the profiler beside the library call) and where the row layout
+    changes (C = 8, 392, 2048 at 300 rows), the kernel's layout equal to
+    ew.layout at every C; then the probe path, python -m
     lemevit_tpu_torch.cli.probes --ew (each construct probe, erff against
-    JAX's polynomial erf, an atomicAdd scatter, 16-byte row-shifted loads,
-    the C = 320 fold and thread-block clusters of 1-16, against its plain
-    version in its own process; the per-op slope table at the three
+    JAX's polynomial erf, the scatter with per-CTA partials meeting by
+    global atomics (JAX's input exact, the tap input twice, 4096 random
+    bins through the global branch, within 1e-6 of each bin's sum of |x|),
+    16-byte row-shifted loads, the C = 320 fold and thread-block clusters
+    of 1-16, against its plain version in its own process, each timed by
+    events and by the profiler's device time of its kernel alone beside
+    its library call's; the per-op slope table at the three
     shapes; the A/B rows of s_stage, the inference and the training CPE
     placements) in a fresh process whose counts start at 0 and which
     reports its launches, and the training paths' A/B row: vit_tiny and
@@ -119,6 +130,7 @@ import copy
 import csv
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1750,24 +1762,52 @@ def ptxas_report(src: Path) -> str:
 PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu",
                  "c_block.cu", "s_stage.cu", "s_train.cu", "dca_train.cu",
                  "c_train.cu")
+# the probe sources, and their kernels that must show no spill and no
+# stack frame
+PROBE_PTXAS = {"ew_probe.cu": "k_ew_probe", "constructs.cu":
+               "k_scatter_add_probe"}
 
 
 def kernels_ptxas() -> dict:
     """What ptxas reports (registers, shared memory, spills) for the
-    tensor-core kernels' sources, built with the library's flags, one
-    nvcc per source, all at once (s_block.cu's and dca_block.cu's report
-    keeps the kernels they launch: block_tc.cuh's and attn_tc.cuh's)."""
+    tensor-core kernels' sources and the probes' (PROBE_PTXAS), built with
+    the library's flags, one nvcc per source, all at once (s_block.cu's
+    and dca_block.cu's report keeps the kernels they launch: block_tc.cuh's
+    and attn_tc.cuh's)."""
+    from lemevit_tpu_torch import probes
     from lemevit_tpu_torch.attn import _build
-    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
-        reports = pool.map(lambda src: ptxas_report(_build.CSRC / src),
-                           PTXAS_SOURCES)
-        out = dict(zip(PTXAS_SOURCES, reports))
+    srcs = ([_build.CSRC / src for src in PTXAS_SOURCES]
+            + [probes.CSRC / src for src in PROBE_PTXAS])
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        out = dict(zip([src.name for src in srcs],
+                       pool.map(ptxas_report, srcs)))
     for src in ("s_block.cu", "dca_block.cu", "c_block.cu", "s_train.cu",
                 "dca_train.cu", "c_train.cu"):
         out[src] = "\n".join(
             line for line in out[src].splitlines()
             if any(k in line for k in ("_tc", "_wg", "k_dca_merge")))
     return out
+
+
+def check_probe_ptxas(ptxas: dict) -> dict:
+    """Raise unless every instance of PROBE_PTXAS's kernels reports 0 bytes
+    of stack frame, spill stores and spill loads; per source, the count of
+    instances and their largest register count."""
+    summary = {}
+    for src, kernel in PROBE_PTXAS.items():
+        lines = [ln for ln in ptxas[src].splitlines() if kernel in ln]
+        frames = [ln for ln in lines if "stack frame" in ln]
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                if "Used " in ln]
+        bad = [ln for ln in frames
+               if any(int(n) for n in re.findall(r"(\d+) bytes", ln))]
+        if bad or not frames or len(frames) != len(regs):
+            raise AssertionError(f"ptxas {src}: {kernel} spills or has a "
+                                 f"stack frame (or no report): "
+                                 f"{(bad or lines)[:4]}")
+        summary[src] = {"kernel": kernel, "instances": len(regs),
+                        "max_registers": max(regs), "spill_or_stack": 0}
+    return summary
 
 
 def profile_kernels(fn, what: str, want: dict) -> tuple:
@@ -2070,20 +2110,36 @@ def serve_slice(dev, g, default_res, prof_default) -> tuple:
                       "convolutions": convs[1]}
 
 
+# (rows, C) where ew.layout's (G, V) differs from the three tiles': one
+# vector in a group of 8 lanes (C = 8, (8, 1)), 8 lanes of 7 slots, the
+# last in one lane (392, (8, 7)), 32 lanes of 8 full slots (2048, (32,
+# 8)); 300 rows, so the last CTA of either kernel is partial
+EW_LAYOUT_SHAPES = ((300, 8), (300, 392), (300, 2048))
+
+
 def check_ew_probes(dev) -> list:
     """k_ew_probe against ew_probe_plain for every op at K = 1 and at
-    vpu_probe's K on each of its three (R, C) tiles x 64 (within
-    ew.max_ulps bf16 steps, ew.ATOL near zero; at C = 384 and 784 a warp's
-    lanes hold unequal counts of 16-byte vectors, so the masked loads,
-    stores and row reductions run), and the K = 0 copy exact; each timed
-    at K = 1 beside its plain version, the one PyTorch call computing it
-    where there is one, and its bound. One row per op and shape."""
+    vpu_probe's K (within ew.max_ulps bf16 steps, ew.ATOL near zero), and
+    the K = 0 copy exact, on each of vpu_probe's three (R, C) tiles x 64 and
+    at EW_LAYOUT_SHAPES; the kernel's (G, V) equal to ew.layout at every C.
+    On the three tiles each op is timed at K = 1 (CUDA events and the
+    profiler's device time) beside its plain version, the one PyTorch call
+    computing it where there is one (both ways), and its bound. One row per
+    op and tile."""
     from lemevit_tpu_torch.probes import ew
+    wrong = [c for c in range(8, ew.MAX_COLS + 1, 8)
+             if ew.kernel_layout(c) != ew.layout(c)]
+    if wrong:
+        raise AssertionError(f"lm_ew_layout differs from ew.layout at C = "
+                             f"{wrong[:8]}")
     rows = []
-    for r, c in ew.SHAPES:
+    for r, c in ew.SHAPES + EW_LAYOUT_SHAPES:
         x = ew.probe_input(r, c, dev)
+        if (r, c) in EW_LAYOUT_SHAPES:
+            x = x[:r]  # a few hundred rows
         if not torch.equal(ew.ew_probe(x, "fma", 0), x):
-            raise AssertionError(f"ew_probe K=0 ({r}, {c}): not a copy")
+            raise AssertionError(f"ew_probe K=0 {tuple(x.shape)}: not a "
+                                 "copy")
         for op in ew.OPS:
             k = ew.jax_k(op)
             got1, want1 = ew.ew_probe(x, op, 1), ew.ew_probe_plain(x, op, 1)
@@ -2091,27 +2147,38 @@ def check_ew_probes(dev) -> list:
             mk = ew.mismatches(ew.ew_probe(x, op, k),
                                ew.ew_probe_plain(x, op, k), k)
             if m1["bad"] or mk["bad"]:
-                raise AssertionError(f"ew_probe {op} ({r}, {c}): K=1 {m1}, "
-                                     f"K={k} {mk}")
+                raise AssertionError(f"ew_probe {op} {tuple(x.shape)}: K=1 "
+                                     f"{m1}, K={k} {mk}")
+            if (r, c) in EW_LAYOUT_SHAPES:
+                continue
             lib = ew.LIBRARY.get(op)
             t_bytes = ew.pass_bytes(*x.shape) / HBM_BYTES_PER_S * 1e3
             t_ops = x.numel() * ew.OP_FLOPS[op] / FP32_FLOPS * 1e3
             rows.append({
                 "name": f"ew_probe.{op}", "shape": list(x.shape),
+                "layout": list(ew.layout(c)) if op in ew.ROW_OPS else None,
                 "max_ulp_k1": m1["max_ulp"], f"max_ulp_k{k}": mk["max_ulp"],
                 "err_bf16": (got1.float() - want1.float()).abs().max().item(),
                 "ms": cuda_ms(lambda: ew.ew_probe(x, op, 1), 30),
+                "kernel_ms": device_ms(lambda: ew.ew_probe(x, op, 1)),
                 "plain_ms": cuda_ms(lambda: ew.ew_probe_plain(x, op, 1), 30),
                 "library_ms": cuda_ms(lambda: lib(x), 30) if lib else None,
+                "library_kernel_ms": device_ms(lambda: lib(x)) if lib
+                else None,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
             q = rows[-1]
             say("probe", f"ew_probe {op} {x.shape[0]}x{c} bf16: K=1 "
                 f"{q['max_ulp_k1']} / K={k} {mk['max_ulp']} bf16 steps from "
                 f"plain (limits {ew.max_ulps(1)} / {ew.max_ulps(k)}); K=1 "
-                f"{q['ms']:.4f} ms (plain {q['plain_ms']:.4f}, library "
-                f"{q['library_ms'] if lib else 'none'}, bound "
-                f"{q['bound_ms']:.4f} {q['bound_by']})")
+                f"{q['ms']:.4f} ms, device {fmt_ms(q['kernel_ms'])} (plain "
+                f"{q['plain_ms']:.4f}, library "
+                f"{fmt_ms(q['library_ms']) if lib else 'none'}, device "
+                f"{fmt_ms(q['library_kernel_ms']) if lib else 'none'}, "
+                f"bound {q['bound_ms']:.4f} {q['bound_by']})")
+    say("probe", f"ew_probe at {EW_LAYOUT_SHAPES} (layouts "
+        f"{[ew.layout(c) for _, c in EW_LAYOUT_SHAPES]}): every op within "
+        "its limits, K=0 exact; lm_ew_layout == ew.layout at every C")
     return rows
 
 
@@ -2136,9 +2203,11 @@ def probes_main_path() -> dict:
         if not (row["ok"] and row["route"] == "cuda"
                 and row["verdict"].startswith(("keep", "FLIP"))):
             raise AssertionError(f"cli.probes {name}: {row}")
-        say("probe", f"{name}: {row['verdict']}; {row['ms']:.4f} ms "
-            f"(plain {row['plain_ms']:.4f}, library {row['library_ms']}, "
-            f"bound {row['bound_ms']:.6f})")
+        say("probe", f"{name}: {row['verdict']}; {row['ms']:.4f} ms, "
+            f"device {fmt_ms(row['kernel_ms'])} (plain "
+            f"{row['plain_ms']:.4f}, library {fmt_ms(row['library_ms'])}, "
+            f"device {fmt_ms(row['library_kernel_ms'])}, bound "
+            f"{row['bound_ms']:.6f})")
     missing = [k for k in ["erf_probe", "scatter_add_probe",
                            "roll_rows_probe", "fold_probe", "cluster_probe"]
                + [f"ew_probe.{op}" for op in table["ew"][0]["us_per_pass"]]
@@ -2415,6 +2484,8 @@ def main() -> None:
     for src, report in ptxas.items():
         for line in report.splitlines():
             say("ptxas", f"{src}: {line}")
+    probe_ptxas = check_probe_ptxas(ptxas)
+    say("ptxas", f"probes: {json.dumps(probe_ptxas)}")
     dca_rows = [check_dca_attn(n, ch, blocks, dev, g)
                 for n, ch, blocks in SEG_DCA] + [
         check_dca_attn(n, ch, blocks, dev, g, m=m)
@@ -2541,7 +2612,7 @@ def main() -> None:
         rows = [r for r in ew_rows if r["name"] == f"ew_probe.{op}"]
 
         def mean(key):
-            if rows[0][key] is None:
+            if any(r[key] is None for r in rows):
                 return None
             return sum(r[key] for r in rows) / len(rows)
         kernels.append({
@@ -2553,7 +2624,10 @@ def main() -> None:
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": mean("library_ms"), "shapes": strip(rows),
+            "library_ms": mean("library_ms"),
+            "kernel_ms": mean("kernel_ms"),
+            "library_kernel_ms": mean("library_kernel_ms"),
+            "shapes": strip(rows), "ptxas": probe_ptxas["ew_probe.cu"],
             "us_per_pass_per_tile": {shape: per[op]
                                      for shape, per in slopes.items()}})
     for name, (kernel, replaces) in CONSTRUCT_KERNELS.items():
@@ -2566,6 +2640,8 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row["library_ms"], "verdict": row["verdict"],
+            **({"ptxas": probe_ptxas["constructs.cu"]}
+               if kernel == "scatter_add_probe" else {}),
             "probe": {k: v for k, v in row.items()
                       if k not in ("ms", "plain_ms", "bound_ms",
                                    "library_ms", "verdict", "route",

@@ -27,8 +27,9 @@ _I = ctypes.c_int
 # entry point -> argtypes (every entry returns a cudaError_t code)
 SIGNATURES = {
     "lm_ew_probe": [_I, _I, _P, _P, _I, _I, _P],
+    "lm_ew_layout": [_I, ctypes.POINTER(ctypes.c_int)],
     "lm_erf_probe": [_I, _I, _P, _P, _I, _P],
-    "lm_scatter_add_probe": [_P, _P, _P, _I, _I, _P],
+    "lm_scatter_add_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lm_roll_rows_probe": [_P, _P, _I, _I, _I, _P],
     "lm_fold_probe": [_P, _P, _I, _I, _I, _P],
     "lm_cluster_probe": [_I, _I, _P, _P],

@@ -13,12 +13,16 @@ prints a verdict: "keep" when the port's current design choice still holds,
                 GELU stays on ``erff``) when erff is within 1e-6 of the
                 fp64 erf and no slower than the polynomial (within the
                 ``NOISE`` of device times) per evaluation.
-  scatter       ``scatter_add_probe``: an atomicAdd scatter of JAX's input
-                ((128, 128) ones into rows arange(128) % 8; exact), then
-                seeded fp32 at the CPE tap-gradient reduction's size
-                (3136 * 64 rows into 64 channels) twice; keep (the
-                fixed-order fp32 partials of k_wgrad_tc / k_cpe_grads_reduce)
-                when the two runs differ in any bit.
+  scatter       ``scatter_add_probe``: a scatter whose per-CTA partials
+                (runs of equal index summed in registers, then a shared-
+                memory partial where ``scatter_plan`` fits it) meet by
+                global atomicAdd, on JAX's input ((128, 128) ones into rows
+                arange(128) % 8; exact), then seeded fp32 at the CPE
+                tap-gradient reduction's size (3136 * 64 rows into 64
+                channels) twice, and into 4096 random bins (each run
+                straight to global atomics); keep (the fixed-order fp32
+                partials of k_wgrad_tc / k_cpe_grads_reduce) when the two
+                tap runs differ in any bit.
   pltpu_roll    ``roll_rows_probe``: (3136, 64) fp32 shifted by 56 flat
                 rows (one image row of stage 0) with 16-byte loads,
                 wrapping as jnp.roll; keep when exact.
@@ -35,7 +39,10 @@ prints a verdict: "keep" when the port's current design choice still holds,
 For a CUDA tensor each wrapper launches its kernel or raises; for a CPU
 tensor it runs its ``*_plain`` version. ``LAUNCHES`` counts the kernels'
 launches. ``PROBES[name](device)`` runs one probe and returns its result
-row; on the CPU it runs the plain versions only, and the row says so.
+row; on the CPU it runs the plain versions only, and the row says so. On
+the card a row gives each kernel's time by CUDA events around its wrapper
+("ms", host-paced where the kernel is short) and by the profiler's device
+time of the kernel alone ("kernel_ms"), with its library call's likewise.
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ import numpy as np
 import torch
 
 from lemevit_tpu_torch import probes
-from lemevit_tpu_torch.utils.profiling import HBM_BYTES_PER_S, cuda_ms
+from lemevit_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, cuda_ms,
+                                               kernel_ms)
 
 LAUNCHES = {"erf_probe": 0, "scatter_add_probe": 0, "roll_rows_probe": 0,
             "fold_probe": 0, "cluster_probe": 0}
@@ -65,6 +73,10 @@ NOISE = 0.02             # device times closer than this decide no verdict
 SCATTER_X = (128, 128)   # JAX's scatter input, rows into arange % 8
 SCATTER_BINS = 8
 TAP_ROWS, TAP_CH = 3136 * 64, 64   # k_cpe_tap_grads' rows at stage 0
+RANDOM_BINS = 4096       # the global-atomic branch's check: random bins
+SCATTER_THREADS = 256
+SCATTER_CTAS = 2 * 132   # two CTAs an SM of the H100
+SCATTER_SMEM = 96 * 1024  # constructs.cu::kScatterSmem
 ROLL_X, ROLL_SHIFT = (3136, 64), 56
 FOLD_X = (4, 784, 320)
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
@@ -99,6 +111,63 @@ def scatter_add_probe_plain(x, idx, out_rows: int) -> torch.Tensor:
     """out[idx[r]] += x[r] into zeros (out_rows, C)."""
     out = torch.zeros(out_rows, x.shape[1], dtype=x.dtype, device=x.device)
     return out.index_add_(0, idx.long(), x)
+
+
+def scatter_plan(rows: int, cols: int, out_rows: int) -> dict:
+    """How ``k_scatter_add_probe`` walks (rows, cols) into out_rows bins:
+    ``quads`` = cols / 4 threads per row (float4 loads), ``lanes`` = 256 //
+    quads rows walked at once per CTA, each lane ``per_lane`` consecutive
+    rows, ``grid`` CTAs (about SCATTER_CTAS), and ``shared``: whether the
+    CTA's (out_rows, cols) fp32 partial fits SCATTER_SMEM. Raises where the
+    kernel takes no such shape (cols not a multiple of 4, or above 1024)."""
+    if cols % 4 or not 4 <= cols <= 4 * SCATTER_THREADS or rows < 1:
+        raise ValueError(f"scatter_add_probe: rows >= 1 and C a multiple of "
+                         f"4 up to {4 * SCATTER_THREADS} expected, got "
+                         f"({rows}, {cols})")
+    quads = cols // 4
+    lanes = SCATTER_THREADS // quads
+    per_lane = -(-rows // (lanes * SCATTER_CTAS))
+    return {"quads": quads, "lanes": lanes, "per_lane": per_lane,
+            "grid": -(-rows // (lanes * per_lane)),
+            "shared": out_rows * cols * 4 <= SCATTER_SMEM}
+
+
+def scatter_add_probe_tiles_plain(x, idx, out_rows: int) -> torch.Tensor:
+    """``k_scatter_add_probe``'s order of work in PyTorch, fp32: each lane
+    of ``scatter_plan`` sums its runs of equal idx in row order (a run
+    starts at its first row) and flushes each run, at its end, into its
+    CTA's partial (``shared``) or into out. The kernel's atomics meet in an
+    order the card chooses; this model fixes one: the flushes of one row
+    step by lane, then the CTAs' partials in CTA order."""
+    rows, cols = x.shape
+    p = scatter_plan(rows, cols, out_rows)
+    lane = torch.arange(p["grid"] * p["lanes"])
+    first = lane * p["per_lane"]
+    end = (first + p["per_lane"]).clamp(max=rows)
+    # the partial each lane flushes into: its CTA's, or out itself
+    where = lane // p["lanes"] if p["shared"] else torch.zeros_like(lane)
+    part = torch.zeros(int(where.max()) + 1, out_rows, cols)
+    x, idx = x.float().cpu(), idx.long().cpu()
+    acc = torch.zeros(len(lane), cols)
+    bin_ = torch.full((len(lane),), -1)
+
+    def flush(sel):
+        sel = sel & (bin_ >= 0)
+        part.index_put_((where[sel], bin_[sel]), acc[sel], accumulate=True)
+    for j in range(p["per_lane"]):
+        r = first + j
+        live = r < end
+        rr = r.clamp(max=rows - 1)
+        new = live & (idx[rr] != bin_)
+        flush(new)
+        acc = torch.where(new[:, None], x[rr],
+                          torch.where(live[:, None], acc + x[rr], acc))
+        bin_ = torch.where(new, idx[rr], bin_)
+    flush(torch.ones_like(bin_, dtype=torch.bool))
+    out = torch.zeros(out_rows, cols)
+    for cta_part in part:  # in CTA order
+        out = out + cta_part
+    return out
 
 
 def roll_rows_probe_plain(x, shift: int) -> torch.Tensor:
@@ -136,7 +205,8 @@ def erf_probe(x, poly: bool = False, k: int = 1) -> torch.Tensor:
 
 
 def scatter_add_probe(x, idx, out_rows: int) -> torch.Tensor:
-    """out[idx[r]] += x[r] by atomicAdd: ``k_scatter_add_probe``."""
+    """out[idx[r]] += x[r], per-CTA partials meeting by global atomicAdd:
+    ``k_scatter_add_probe`` as ``scatter_plan`` lays it out."""
     if not x.is_cuda:
         return scatter_add_probe_plain(x, idx, out_rows)
     probes.check_cuda("scatter_add_probe", x, dtype=torch.float32)
@@ -144,11 +214,13 @@ def scatter_add_probe(x, idx, out_rows: int) -> torch.Tensor:
     if x.dim() != 2 or idx.shape != (x.shape[0],) or idx.device != x.device:
         raise ValueError("scatter_add_probe: x (rows, C) and idx (rows,) on "
                          "one device expected")
+    plan = scatter_plan(x.shape[0], x.shape[1], out_rows)
     if int(idx.min()) < 0 or int(idx.max()) >= out_rows:
         raise ValueError("scatter_add_probe: an index is out of range")
     out = torch.zeros(out_rows, x.shape[1], dtype=x.dtype, device=x.device)
     probes.launch("scatter_add_probe", x, x, idx, out, x.shape[0],
-                  x.shape[1], counts=LAUNCHES)
+                  x.shape[1], out_rows, plan["per_lane"], plan["grid"],
+                  int(plan["shared"]), counts=LAUNCHES)
     return out
 
 
@@ -232,16 +304,22 @@ def fold_input(device) -> torch.Tensor:
     return torch.randn(FOLD_X, generator=g).to(torch.bfloat16).to(device)
 
 
-def _times(device, kernel, plain, library=None, nbytes=0) -> dict:
-    """The kernel's, the plain version's and the library call's device ms
-    and the bytes bound on the card; "not measured" on the CPU."""
+def _times(device, kernel, name, plain, library=None, nbytes=0) -> dict:
+    """On the card: the kernel's, the plain version's and the library
+    call's ms by CUDA events around each call ("ms", "plain_ms",
+    "library_ms"), the profiler's device ms of the kernel alone (the
+    kernels whose name holds ``name``: "kernel_ms") and of the library
+    call ("library_kernel_ms"), and the bytes bound; "not measured" on the
+    CPU."""
+    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms",
+            "bound_ms")
     if torch.device(device).type != "cuda":
-        return {k: "not measured"
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-            "library_ms": None if library is None else cuda_ms(
-                library),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        return dict.fromkeys(keys, "not measured")
+    lib = (None, None) if library is None else (
+        cuda_ms(library), kernel_ms(library, 20, 3))
+    return dict(zip(keys, (cuda_ms(kernel), kernel_ms(kernel, 20, 3, name),
+                           cuda_ms(plain), *lib,
+                           nbytes / HBM_BYTES_PER_S * 1e3)))
 
 
 def _label(device) -> str:
@@ -272,7 +350,7 @@ def probe_erf_prim(device) -> dict:
                (got - erf_probe_plain(x)).abs().max().item(),
                (poly - erf_probe_plain(x, poly=True)).abs().max().item(),
                err_k)}
-    row.update(_times(device, lambda: erf_probe(x),
+    row.update(_times(device, lambda: erf_probe(x), "k_erf_probe",
                       lambda: erf_probe_plain(x), lambda: torch.erf(x),
                       2 * x.numel() * 4))
     faster = True
@@ -301,6 +379,17 @@ def probe_erf_prim(device) -> dict:
     return row
 
 
+def sum_err(got, x, idx, out_rows) -> float:
+    """The largest |got - the fp64 sum| over 1e-6 of the bin's sum of |x|
+    (fp32 sums of any order stay within it); 0 where a bin is empty."""
+    i = idx.long()
+    ref = torch.zeros(out_rows, x.shape[1], dtype=torch.float64,
+                      device=x.device).index_add_(0, i, x.double())
+    tol = 1e-6 * torch.zeros_like(ref).index_add_(0, i, x.abs().double())
+    err = (got.double() - ref).abs()
+    return (err / tol.clamp_min(1e-300)).max().item()
+
+
 def probe_scatter(device) -> dict:
     x, idx = scatter_input(device)
     got = scatter_add_probe(x, idx, SCATTER_X[0])
@@ -312,22 +401,32 @@ def probe_scatter(device) -> dict:
     zeros = torch.zeros(TAP_ROWS, dtype=torch.int32, device=device)
     a = scatter_add_probe(xs, zeros, 1)
     b = scatter_add_probe(xs, zeros, 1)
-    ref = xs.double().sum(0, keepdim=True)
-    # fp32 sums of 200704 terms in any order: within 1e-6 of sum |x|
-    tol = 1e-6 * xs.abs().double().sum(0, keepdim=True)
-    err = ((a.double() - ref).abs() / tol).max().item()
+    err = sum_err(a, xs, zeros, 1)
     same = bool(torch.equal(a, b))
+    bins = torch.randint(0, RANDOM_BINS, (TAP_ROWS,), generator=g,
+                         dtype=torch.int32).to(device)
+    err_bins = sum_err(scatter_add_probe(xs, bins, RANDOM_BINS), xs, bins,
+                        RANDOM_BINS)
     route = _label(device)
     row = {"route": route, "exact_jax_input": exact,
            "tap_sum_err_over_tol": err, "two_runs_bitwise_equal": same,
+           "random_bins_err_over_tol": err_bins,
+           "shared_partial": {
+               "jax": scatter_plan(*SCATTER_X, SCATTER_X[0])["shared"],
+               "tap": scatter_plan(TAP_ROWS, TAP_CH, 1)["shared"],
+               "random_bins": scatter_plan(TAP_ROWS, TAP_CH,
+                                           RANDOM_BINS)["shared"]},
            "err": (got - scatter_add_probe_plain(x, idx, SCATTER_X[0])
                    ).abs().max().item()}
+    # the library call adds into a buffer made once, so that both device
+    # times are the scatter's kernel alone
+    into = torch.zeros(1, TAP_CH, device=xs.device)
     row.update(_times(
         device, lambda: scatter_add_probe(xs, zeros, 1),
-        lambda: scatter_add_probe_plain(xs, zeros, 1),
-        lambda: torch.zeros(1, TAP_CH, device=xs.device).index_add_(
-            0, zeros, xs), (xs.numel() + TAP_ROWS + TAP_CH) * 4))
-    row["ok"] = exact and err <= 1.0
+        "k_scatter_add_probe", lambda: scatter_add_probe_plain(xs, zeros, 1),
+        lambda: into.index_add_(0, zeros, xs),
+        (xs.numel() + TAP_ROWS + TAP_CH) * 4))
+    row["ok"] = exact and err <= 1.0 and err_bins <= 1.0
     row["verdict"] = _verdict(
         route, not same,
         "fixed-order fp32 partials (atomicAdd sums differ between runs)",
@@ -344,6 +443,7 @@ def probe_pltpu_roll(device) -> dict:
            "err": (got - roll_rows_probe_plain(x, ROLL_SHIFT)
                    ).abs().max().item()}
     row.update(_times(device, lambda: roll_rows_probe(x, ROLL_SHIFT),
+                      "k_roll_rows_probe",
                       lambda: roll_rows_probe_plain(x, ROLL_SHIFT),
                       lambda: torch.roll(x, ROLL_SHIFT, 0),
                       2 * x.numel() * 4))
@@ -363,7 +463,7 @@ def probe_reshape_c320(device) -> dict:
            "err": (got.float() - fold_probe_plain(x).float()
                    ).abs().max().item()}
     # the library call is the plain version's one copy of the view
-    row.update(_times(device, lambda: fold_probe(x),
+    row.update(_times(device, lambda: fold_probe(x), "k_fold_probe",
                       lambda: fold_probe_plain(x),
                       lambda: x.reshape(-1, FOLD_X[2]).clone(),
                       2 * x.numel() * 2))
@@ -409,7 +509,9 @@ def probe_cluster(device) -> dict:
         row["verdict"] = "plain (cpu)"
         return row
     # the bytes bound: every CTA writes 1 + 2 csize ranks, at csize 8
-    row.update(ms=sizes[8]["ms"], library_ms=None,
+    row.update(ms=sizes[8]["ms"], library_ms=None, library_kernel_ms=None,
+               kernel_ms=kernel_ms(lambda: cluster_probe(
+                   8, CLUSTERS, device), 20, 3, "k_cluster_probe"),
                plain_ms=cuda_ms(lambda: cluster_probe_plain(
                    8, CLUSTERS).to(device)),
                bound_ms=4 * CLUSTERS * 8 * 17 / HBM_BYTES_PER_S * 1e3)

@@ -5,7 +5,8 @@
 //   k_erf_probe<false>     device erff, K evaluations  probe_erf_prim :57
 //   k_erf_probe<true>      JAX's degree-29 polynomial erf (pallas_block.py
 //                          _erf, the TPU's workaround), K evaluations
-//   k_scatter_add_probe    atomicAdd scatter of rows    probe_scatter :78
+//   k_scatter_add_probe    atomicAdd scatter of rows, pre-summed on chip
+//                                                       probe_scatter :78
 //   k_roll_rows_probe      rows shifted with 16-byte loads, wrapping
 //                          (k_cpe_rows' row-shifted access)
 //                                                       probe_pltpu_roll :93
@@ -17,7 +18,9 @@
 //                          first design, one cluster an image)
 // Bound on the H100: bytes for the roll and the fold (read and write once),
 // each well below a microsecond at the probes' shapes, so their times are
-// launch times; the erf passes are a few operations per element.
+// launch times; the erf passes are a few operations per element. The
+// scatter is bound by reading x and idx once (its atomics add to a few
+// hundred bytes at the tap probe's shape).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -27,6 +30,8 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
+// the scatter's shared-memory partial, constructs.py::SCATTER_SMEM
+constexpr long kScatterSmem = 96 * 1024;
 
 // lemevit_tpu/attn/pallas_block.py:73-95: erf(x) = x P(s), s = 2 x^2 / B^2
 // - 1 on x clamped to [-B, B]; |err| < 5.1e-7
@@ -65,14 +70,88 @@ __global__ void k_erf_probe(const float* __restrict__ x,
   out[i] = acc;
 }
 
-__global__ void k_scatter_add_probe(const float* __restrict__ x,
-                                    const int* __restrict__ idx,
-                                    float* __restrict__ out, long rows,
-                                    int cols) {
-  const long i = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= rows * cols) return;
-  const long r = i / cols;
-  atomicAdd(out + (long)idx[r] * cols + (i - r * cols), x[i]);
+// out[idx[r]] += x[r], fp32, with the rows summed on chip before any
+// global atomic. CTA b walks rows [b * lanes * per_lane, (b + 1) * lanes *
+// per_lane) (constructs.py::scatter_plan): thread t takes the 4 columns of
+// quad t % q (float4 loads, q = cols / 4) and lane t / q of lanes = 256 / q,
+// which walks its per_lane rows in order, kScatterUnroll loads in flight.
+// A run of equal idx is summed in registers (the run starts at its first
+// row) and flushed when idx changes: with SHARED into the CTA's (out_rows,
+// cols) partial in shared memory by shared atomics, then one global float4
+// atomicAdd per (bin, quad) per CTA (a partial that is exactly zero adds
+// nothing: out starts at +0 and a sum is -0 only when both terms are);
+// without it (the partial would not fit) each run goes straight to global
+// float4 atomics. The CTAs' partials meet by global atomics in an order the
+// card chooses: the probe asks whether that order changes the sums.
+constexpr int kScatterUnroll = 4;
+
+template <bool SHARED>
+__device__ __forceinline__ void flush_run(float4* part, float4* out, int q,
+                                          int bin, int c, float4 acc) {
+  if (bin < 0) return;  // no run yet
+  if constexpr (SHARED) {
+    float* p = reinterpret_cast<float*>(part + (long)bin * q + c);
+    atomicAdd(p, acc.x);
+    atomicAdd(p + 1, acc.y);
+    atomicAdd(p + 2, acc.z);
+    atomicAdd(p + 3, acc.w);
+  } else {
+    atomicAdd(out + (long)bin * q + c, acc);
+  }
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(kThreads)
+    k_scatter_add_probe(const float4* __restrict__ x,
+                        const int* __restrict__ idx, float4* __restrict__ out,
+                        int rows, int q, int out_rows, int per_lane) {
+  extern __shared__ float4 part[];  // (out_rows, q) with SHARED
+  const int lanes = kThreads / q;
+  const int c = threadIdx.x % q, lane = threadIdx.x / q;
+  if constexpr (SHARED) {
+    for (int i = threadIdx.x; i < out_rows * q; i += kThreads)
+      part[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+  }
+  if (lane < lanes) {
+    const long r0 = ((long)blockIdx.x * lanes + lane) * per_lane;
+    const long r1 = min(r0 + per_lane, (long)rows);
+    int bin = -1;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (long r = r0; r < r1; r += kScatterUnroll) {
+      int id[kScatterUnroll];
+      float4 v[kScatterUnroll];
+#pragma unroll
+      for (int u = 0; u < kScatterUnroll; ++u)
+        if (r + u < r1) {
+          id[u] = idx[r + u];
+          v[u] = x[(r + u) * q + c];
+        }
+#pragma unroll
+      for (int u = 0; u < kScatterUnroll; ++u) {
+        if (r + u >= r1) break;
+        if (id[u] != bin) {
+          flush_run<SHARED>(part, out, q, bin, c, acc);
+          bin = id[u];
+          acc = v[u];
+        } else {
+          acc.x += v[u].x;
+          acc.y += v[u].y;
+          acc.z += v[u].z;
+          acc.w += v[u].w;
+        }
+      }
+    }
+    flush_run<SHARED>(part, out, q, bin, c, acc);
+  }
+  if constexpr (SHARED) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < out_rows * q; i += kThreads) {
+      const float4 s = part[i];
+      if (s.x != 0.f || s.y != 0.f || s.z != 0.f || s.w != 0.f)
+        atomicAdd(out + i, s);
+    }
+  }
 }
 
 // out row r = x row (r - shift) mod rows, as jnp.roll / torch.roll
@@ -165,17 +244,38 @@ extern "C" int lm_erf_probe(int poly, int k, const void* x, void* out, int n,
   return (int)cudaGetLastError();
 }
 
-// x: (rows, cols) fp32, idx: (rows,) int32 in [0, out rows), out: zeroed
-// (out rows, cols) fp32; out[idx[r]] += x[r] by atomicAdd.
+// x: (rows, cols) fp32, cols a multiple of 4 up to 1024, idx: (rows,) int32
+// in [0, out_rows), out: zeroed (out_rows, cols) fp32, all 16-byte aligned;
+// out[idx[r]] += x[r]. per_lane, grid, shared: constructs.py::scatter_plan
+// (rows per lane, CTAs, whether the (out_rows, cols) partial sits in
+// shared memory; at most kScatterSmem bytes).
 extern "C" int lm_scatter_add_probe(const void* x, const void* idx, void* out,
-                                    int rows, int cols, void* stream) {
-  const long n = (long)rows * cols;
-  lp::k_scatter_add_probe<<<(unsigned)((n + lp::kThreads - 1) /
-                                       lp::kThreads),
-                            lp::kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<float*>(out), rows, cols);
+                                    int rows, int cols, int out_rows,
+                                    int per_lane, int grid, int shared,
+                                    void* stream) {
+  const int q = cols / 4;
+  const long smem = shared ? (long)out_rows * cols * 4 : 0;
+  if (cols % 4 || q < 1 || q > lp::kThreads || rows < 1 || per_lane < 1 ||
+      grid < 1 || smem > lp::kScatterSmem ||
+      (long)grid * (lp::kThreads / q) * per_lane < rows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* xi = static_cast<const float4*>(x);
+  const int* ii = static_cast<const int*>(idx);
+  float4* o = static_cast<float4*>(out);
+  if (shared) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          lp::k_scatter_add_probe<true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    lp::k_scatter_add_probe<true><<<grid, lp::kThreads, smem, s>>>(
+        xi, ii, o, rows, q, out_rows, per_lane);
+  } else {
+    lp::k_scatter_add_probe<false><<<grid, lp::kThreads, 0, s>>>(
+        xi, ii, o, rows, q, out_rows, per_lane);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,15 @@
   ew_probe(x, op, k)        -> x with ``op`` applied k times in fp32
 
 x is a (rows, C) bf16 array; the result is rounded to bf16 once, after the
-k passes. For a CUDA tensor ``ew_probe`` launches ``k_ew_probe<Op, K>``
+k passes. For a CUDA tensor ``ew_probe`` launches the kernel
 (``probes/csrc/ew_probe.cu``) or raises; for a CPU tensor it runs
 ``ew_probe_plain``, the same passes in PyTorch. ``LAUNCHES["ew_probe.<op>"]``
 counts the kernel's launches per op (k = 0 counts under the op passed).
+The elementwise ops and the k = 0 copy run ``k_ew_probe<Op, K>`` over the
+array's flat 16-byte vectors; the row ops (ln, rowmax, rowsum)
+``k_ew_probe_rows<Op, K, G, V>``, a group of G lanes per row with V
+vectors a lane, (G, V) = ``layout(C)``, the row sums in the order of one
+warp a row: no pass touches a slot that holds no element.
 
 The ops are vpu_probe's twelve (``OPS``): exp, exp2, recip 1 / (t + 1.001),
 the two GELU forms of the JAX kernels (gelu_fast: the clipped tanh-erf form
@@ -23,16 +28,22 @@ the GELUs and ln and 8 for the rest.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from lemevit_tpu_torch import probes
+from lemevit_tpu_torch.attn import _build
 from lemevit_tpu_torch.utils.profiling import HBM_BYTES_PER_S, cuda_ms
 
 TILES = 64                                      # vpu_probe.main's grid
 SHAPES = ((392, 1536), (784, 384), (1568, 784))  # its (R, C) tiles
 KS = (0, 1, 2, 4, 8)                            # the kernel's K instances
-MAX_COLS = 2048                                 # 32 lanes x 8 x 16 bytes
+GROUPS = (32, 16, 8)   # the row ops' lanes per row, larger first
+MAX_V = 8                       # 16-byte vectors a lane: 64 fp32 registers
+MAX_COLS = 8 * GROUPS[0] * MAX_V                # 2048
+ROW_OPS = ("ln", "rowmax", "rowsum")
 LN_EPS = 1e-6
 _SQRT_HALF = 0.7071067811865476
 # lemevit_tpu/attn/pallas_block.py:105 _ERF_TANH_P
@@ -89,6 +100,30 @@ ATOL = 1e-6
 def jax_k(op: str) -> int:
     """vpu_probe.main's K: 4 for the GELUs and ln, 8 for the rest."""
     return 4 if op.startswith("gelu") or op == "ln" else 8
+
+
+def layout(cols: int) -> tuple:
+    """(G, V) of the row ops' kernel for rows of ``cols`` columns (a
+    multiple of 8 up to MAX_COLS): G lanes per row, V 16-byte vectors a
+    lane, vector j of the row in lane j % G, slot j // G. Among G in
+    GROUPS at V = ceil(cols / 8 / G) <= MAX_V, the least padding G * V -
+    cols / 8 (the larger G on a tie); so only slot V - 1 of a lane may hold
+    no element. ``ew_probe.cu::ew_layout`` is the same rule."""
+    nvec = cols // 8
+    if cols % 8 or not 1 <= nvec <= GROUPS[0] * MAX_V:
+        raise ValueError(f"layout: C a multiple of 8 up to {MAX_COLS}, "
+                         f"got {cols}")
+    fits = [(g, -(-nvec // g)) for g in GROUPS if -(-nvec // g) <= MAX_V]
+    return min(fits, key=lambda gv: gv[0] * gv[1])
+
+
+def kernel_layout(cols: int) -> tuple:
+    """The (G, V) the built kernel picks for ``cols`` (lm_ew_layout), for
+    holding ``layout`` against it on the card."""
+    gv = (ctypes.c_int * 2)()
+    _build.check(probes.library(), probes.library().lm_ew_layout(cols, gv),
+                 "ew_layout")
+    return gv[0], gv[1]
 
 
 def ew_probe_plain(x: torch.Tensor, op: str, k: int) -> torch.Tensor:

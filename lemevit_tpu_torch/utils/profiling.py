@@ -89,12 +89,17 @@ def cuda_ms(fn, iters: int = 30, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int = 1, warm: int = 1) -> Optional[float]:
+def kernel_ms(fn, iters: int = 1, warm: int = 1,
+              name: Optional[str] = None) -> Optional[float]:
     """Mean time per call of fn()'s CUDA kernels on the device, summed by
     torch.profiler over ``iters`` calls after ``warm``: the device's work
     without the gaps where it waits for the host. Only device activity is
-    recorded (host operators would multiply the profiler's cost). None
-    when the profiler records no device time."""
+    recorded (host operators would multiply the profiler's cost); with
+    ``name``, only the kernels whose name holds it. Each kernel counts its
+    mean time times its launches per call (its records over ``iters``,
+    rounded, at least one: fn launches the same kernels every call), so
+    records the profiler drops do not shorten the call.
+    None when the profiler records no such device time."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
@@ -105,11 +110,13 @@ def kernel_ms(fn, iters: int = 1, warm: int = 1) -> Optional[float]:
         torch.cuda.synchronize()
     # device activity only; a user annotation's range on the device spans
     # kernels counted already
-    us = sum(e.device_time_total for e in prof.key_averages()
+    us = sum(e.device_time_total / e.count * max(1, round(e.count / iters))
+             for e in prof.key_averages()
              if e.device_time_total > 0
              and str(getattr(e, "device_type", "")).endswith("CUDA")
-             and not getattr(e, "is_user_annotation", False))
-    return us / 1e3 / iters if us else None
+             and not getattr(e, "is_user_annotation", False)
+             and (name is None or name in e.key))
+    return us / 1e3 if us else None
 
 
 def cost_analysis(model, img_size: int, device=None,

@@ -15,7 +15,11 @@ C, also with the 3x3 CPE inside) the same on outputs and, on gradients
 of each tensor's largest element, the tap gradients bit for bit between two
 runs; whole models 1e-3 (fp32 logits, gradients); the per-op probe within
 1 bf16 step of its plain version at K = 1 and 2 at vpu_probe's K
-(probes/ew.py::max_ulps), the construct probes exact (erf within 1e-6).
+(probes/ew.py::max_ulps), also where its row layout (ew.layout) leaves
+lanes empty, pads a last slot or fills 32 lanes, with the kernel's layout
+equal to ew.layout at every C; the construct probes exact (erf within
+1e-6), the scatter's sums within 1e-6 of each bin's sum of |x| of the
+fp64 sum in both of its branches.
 The attention-only kernels are also held in bf16 against their order of
 work in PyTorch (*_tiles_plain) at 1e-2 and within 2 bf16 steps of each
 output's largest element (so that dca_attn's c_out, of values ~0.01, is
@@ -900,6 +904,49 @@ def test_ew_probe_matches_plain_on_gpu(cuda, op, k, shape):
     assert ew.LAUNCHES[f"ew_probe.{op}"] == before + 1
     m = ew.mismatches(got, ew.ew_probe_plain(x, op, k), k)
     assert m["bad"] == 0, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 8), (300, 392), (300, 2048)])
+@pytest.mark.parametrize("k", ["0", "1", "jax"])
+@pytest.mark.parametrize("op", list(ew.OPS))
+def test_ew_probe_layouts_on_gpu(cuda, op, k, shape):
+    """k_ew_probe at a few hundred rows where ew.layout puts one vector in
+    a group of 8 lanes (C = 8), 8 lanes of 7 slots with the last in one
+    lane (392) and 32 lanes of 8 full slots (2048): K = 0 exact, K = 1 and
+    vpu_probe's K within ew.max_ulps."""
+    k = ew.jax_k(op) if k == "jax" else int(k)
+    x = ew.probe_input(*shape, cuda)[:shape[0]]
+    got = ew.ew_probe(x, op, k)
+    if k == 0:
+        assert torch.equal(got, x)
+    m = ew.mismatches(got, ew.ew_probe_plain(x, op, k), k)
+    assert m["bad"] == 0, m
+
+
+@pytest.mark.gpu
+def test_ew_kernel_layout_on_gpu(cuda):
+    assert all(ew.kernel_layout(c) == ew.layout(c)
+               for c in range(8, ew.MAX_COLS + 1, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,bins,sort", [
+    (200704, 64, 1, False), (200704, 64, 4096, False), (5000, 320, 16, True),
+    (777, 12, 3, False), (128, 128, 128, False)])
+def test_scatter_add_probe_on_gpu(cuda, rows, cols, bins, sort):
+    """k_scatter_add_probe in its shared-partial and global branches
+    (scatter_plan) against the fp64 sum and its tile model."""
+    g = torch.Generator().manual_seed(rows + bins)
+    x = torch.randn(rows, cols, generator=g)
+    idx = torch.randint(0, bins, (rows,), generator=g, dtype=torch.int32)
+    if sort:
+        idx = idx.sort().values
+    x, idx = x.to(cuda), idx.to(cuda)
+    got = constructs.scatter_add_probe(x, idx, bins)
+    assert constructs.sum_err(got, x, idx, bins) <= 1.0
+    tiles = constructs.scatter_add_probe_tiles_plain(x, idx, bins).to(cuda)
+    assert constructs.sum_err(tiles, x, idx, bins) <= 1.0
 
 
 @pytest.mark.gpu
