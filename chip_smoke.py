@@ -2,9 +2,15 @@
 
   python3 chip_smoke.py
 
-Builds the CUDA kernels from lemevit_tpu_torch/attn/csrc and drives the
-port's main paths, each with every kernel's launch count set to 0 just
-before it and read just after:
+Builds the CUDA kernels from lemevit_tpu_torch/attn/csrc (and the probes'
+from lemevit_tpu_torch/probes/csrc), prints what ptxas reported during
+that build for the tensor-core kernels' sources (mhsa.cu, dca_attn.cu,
+s_block.cu, dca_block.cu, c_block.cu, s_stage.cu and the three training
+sources) and the probes' (ew_probe.cu, constructs.cu: every k_ew_probe
+instance, k_scatter_add_probe, k_fold_probe and both k_erf_probe
+instances with no spill and no stack frame, or the script fails), and
+drives the port's main paths, each with every kernel's launch count set
+to 0 just before it and read just after:
   - serving: every inference block kernel held against its plain PyTorch
     version at the shapes of LeMeViT-Base at 224^2 (the C, S and D kernels
     also in bf16 against their order of work in PyTorch,
@@ -80,13 +86,7 @@ before it and read just after:
     --train-cpe-in-kernel, and a profile of one train step (the same
     launches, no convolution for the 15 block CPEs);
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
-    6 classes): what ptxas reports for the tensor-core kernels' sources
-    (mhsa.cu, dca_attn.cu, s_block.cu, dca_block.cu, c_block.cu,
-    s_stage.cu and the three training sources) and the probes' (ew_probe.cu,
-    constructs.cu: every k_ew_probe instance and k_scatter_add_probe with
-    no spill and no stack frame, or the script fails), after the timed
-    phases,
-    the kernels held
+    6 classes): the kernels held
     against their plain versions and, in bf16, against their order of work
     in PyTorch (*_tiles_plain) (dca_attn at
     stages 1-2's shapes, at N = 1000 and with 128 meta tokens, through
@@ -110,10 +110,13 @@ before it and read just after:
     JAX's polynomial erf, the scatter with per-CTA partials meeting by
     global atomics (JAX's input exact, the tap input twice, 4096 random
     bins through the global branch, within 1e-6 of each bin's sum of |x|),
-    16-byte row-shifted loads, the C = 320 fold and thread-block clusters
-    of 1-16, against its plain version in its own process, each timed by
-    events and by the profiler's device time of its kernel alone beside
-    its library call's; the per-op slope table at the three
+    16-byte row-shifted loads, the C = 320 fold (exact) and thread-block
+    clusters of 1-16, against its plain version in its own process, each
+    timed by events and by the profiler's device time of its kernel alone
+    beside its library call's and the card's launch floor, the erf and the
+    fold also at a size where the bytes set the pace (erff within 1e-6 of
+    fp64 and of its plain version at K = 1 and at the slope's K); the
+    per-op slope table at the three
     shapes; the A/B rows of s_stage, the inference and the training CPE
     placements) in a fresh process whose counts start at 0 and which
     reports its launches, and the training paths' A/B row: vit_tiny and
@@ -121,8 +124,9 @@ before it and read just after:
     above, decided by each path's bare train step's device time with the
     switch off and on in alternating pairs.
 Every phase prints one line; any failure raises and exits non-zero. The
-last lines are a JSON object of per-kernel numbers, the card's name and
-power limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
+script's total seconds are printed before the last lines, which are a
+JSON object of per-kernel numbers, the card's name and power limit as
+nvidia-smi reports them, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -131,7 +135,6 @@ import csv
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -271,6 +274,8 @@ CONSTRUCT_KERNELS = {
     # one cluster an image); no TPU kernel counterpart
     "cluster": ("cluster_probe", None),
 }
+# the construct probes that also time their kernel where bytes set the pace
+LARGE_PROBES = ("erf_prim", "reshape_c320")
 # launches per train step and per eval forward of each trained model
 VIT_STEP = {"s_train_fwd": 8, "mlp_bwd": 8, "s_attn_bwd": 8, "mhsa": 2}
 VIT_EVAL = {"s_block": 8, "mhsa": 2}
@@ -1726,23 +1731,12 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def ptxas_report(src: Path) -> str:
-    """What ptxas reports for each kernel of one source compiled with the
-    library's flags (``-Xptxas -v``: registers, shared memory, spills),
-    one kernel per line, names demangled by ``cu++filt`` where it exists."""
-    from lemevit_tpu_torch.attn import _build
-    nvcc = _build.find_nvcc()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
-    try:
-        out = subprocess.run(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-             str(_build.CSRC), "-c", str(src), "-o", str(tmp / "report.o")],
-            capture_output=True, text=True, check=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def ptxas_report(log: str, nvcc: str) -> str:
+    """What ptxas printed for each kernel of one source (``-Xptxas -v``:
+    registers, shared memory, stack frame, spills), one kernel per line,
+    names demangled by ``cu++filt`` where it exists beside ``nvcc``."""
     rows, name = [], ""
-    for line in (out.stdout + out.stderr).splitlines():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif name and ("Used" in line or "spill" in line):
@@ -1762,25 +1756,27 @@ def ptxas_report(src: Path) -> str:
 PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu",
                  "c_block.cu", "s_stage.cu", "s_train.cu", "dca_train.cu",
                  "c_train.cu")
-# the probe sources, and their kernels that must show no spill and no
-# stack frame
-PROBE_PTXAS = {"ew_probe.cu": "k_ew_probe", "constructs.cu":
-               "k_scatter_add_probe"}
+# the probe sources, and their kernels (by a part of their name) with the
+# count of instances each must show, none with a spill or a stack frame
+PROBE_PTXAS = {"ew_probe.cu": {"k_ew_probe": 229},
+               "constructs.cu": {"k_scatter_add_probe": 2, "k_fold_probe": 1,
+                                 "k_erf_probe": 2}}
 
 
 def kernels_ptxas() -> dict:
-    """What ptxas reports (registers, shared memory, spills) for the
-    tensor-core kernels' sources and the probes' (PROBE_PTXAS), built with
-    the library's flags, one nvcc per source, all at once (s_block.cu's
-    and dca_block.cu's report keeps the kernels they launch: block_tc.cuh's
-    and attn_tc.cuh's)."""
+    """What ptxas reported (registers, shared memory, spills) for the
+    tensor-core kernels' sources and the probes' (PROBE_PTXAS) while the
+    two libraries were built (``_build.ptxas_log``: the build's own
+    ``-Xptxas -v``, so nothing compiles twice). s_block.cu's and
+    dca_block.cu's report keeps the kernels they launch: block_tc.cuh's and
+    attn_tc.cuh's."""
     from lemevit_tpu_torch import probes
     from lemevit_tpu_torch.attn import _build
-    srcs = ([_build.CSRC / src for src in PTXAS_SOURCES]
-            + [probes.CSRC / src for src in PROBE_PTXAS])
-    with ThreadPoolExecutor(len(srcs)) as pool:
-        out = dict(zip([src.name for src in srcs],
-                       pool.map(ptxas_report, srcs)))
+    nvcc = _build.find_nvcc()
+    logs = {**_build.ptxas_log(), **_build.ptxas_log(probes.CSRC,
+                                                     probes.STEM)}
+    out = {src: ptxas_report(logs[src], nvcc)
+           for src in (*PTXAS_SOURCES, *PROBE_PTXAS)}
     for src in ("s_block.cu", "dca_block.cu", "c_block.cu", "s_train.cu",
                 "dca_train.cu", "c_train.cu"):
         out[src] = "\n".join(
@@ -1790,23 +1786,27 @@ def kernels_ptxas() -> dict:
 
 
 def check_probe_ptxas(ptxas: dict) -> dict:
-    """Raise unless every instance of PROBE_PTXAS's kernels reports 0 bytes
-    of stack frame, spill stores and spill loads; per source, the count of
-    instances and their largest register count."""
+    """Raise unless each kernel of PROBE_PTXAS shows its count of instances,
+    each with 0 bytes of stack frame, spill stores and spill loads; per
+    source and kernel, the instances and their largest register count."""
     summary = {}
-    for src, kernel in PROBE_PTXAS.items():
-        lines = [ln for ln in ptxas[src].splitlines() if kernel in ln]
-        frames = [ln for ln in lines if "stack frame" in ln]
-        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
-                if "Used " in ln]
-        bad = [ln for ln in frames
-               if any(int(n) for n in re.findall(r"(\d+) bytes", ln))]
-        if bad or not frames or len(frames) != len(regs):
-            raise AssertionError(f"ptxas {src}: {kernel} spills or has a "
-                                 f"stack frame (or no report): "
-                                 f"{(bad or lines)[:4]}")
-        summary[src] = {"kernel": kernel, "instances": len(regs),
-                        "max_registers": max(regs), "spill_or_stack": 0}
+    for src, kernels in PROBE_PTXAS.items():
+        summary[src] = {}
+        for kernel, count in kernels.items():
+            lines = [ln for ln in ptxas[src].splitlines() if kernel in ln]
+            frames = [ln for ln in lines if "stack frame" in ln]
+            regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                    if "Used " in ln]
+            bad = [ln for ln in frames
+                   if any(int(n) for n in re.findall(r"(\d+) bytes", ln))]
+            if bad or len(frames) != count or len(regs) != count:
+                raise AssertionError(
+                    f"ptxas {src}: {kernel} spills or has a stack frame, or "
+                    f"shows {len(regs)} instances, not {count}: "
+                    f"{(bad or lines)[:4]}")
+            summary[src][kernel] = {"instances": count,
+                                    "max_registers": max(regs),
+                                    "spill_or_stack": 0}
     return summary
 
 
@@ -2207,7 +2207,20 @@ def probes_main_path() -> dict:
             f"device {fmt_ms(row['kernel_ms'])} (plain "
             f"{row['plain_ms']:.4f}, library {fmt_ms(row['library_ms'])}, "
             f"device {fmt_ms(row['library_kernel_ms'])}, bound "
-            f"{row['bound_ms']:.6f})")
+            f"{row['bound_ms']:.6f}, launch floor "
+            f"{fmt_ms(row.get('launch_floor_ms'))})")
+        if "large" in row:  # the erf and the fold where bytes set the pace
+            big = row["large"]
+            say("probe", f"{name} at {big['shape']}: {big['ms']:.4f} ms, "
+                f"device {fmt_ms(big['kernel_ms'])} (library "
+                f"{fmt_ms(big['library_ms'])}, device "
+                f"{fmt_ms(big['library_kernel_ms'])}, bound "
+                f"{big['bound_ms']:.6f})")
+    if not all("large" in table[name] for name in LARGE_PROBES):
+        raise AssertionError(f"cli.probes: no large-size row of "
+                             f"{LARGE_PROBES}")
+    say("probe", f"launch floor (a one-element fill, device): "
+        f"{fmt_ms(table['launch_floor_ms'])} ms")
     missing = [k for k in ["erf_probe", "scatter_add_probe",
                            "roll_rows_probe", "fold_probe", "cluster_probe"]
                + [f"ew_probe.{op}" for op in table["ew"][0]["us_per_pass"]]
@@ -2244,6 +2257,7 @@ def strip(rows):
 
 
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -2262,7 +2276,6 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    t_start = time.time()
 
     # 1. the card
     smi = subprocess.run(
@@ -2282,6 +2295,13 @@ def main() -> None:
     probes.library()
     say("build", f"{lib_path.name} and {probe_path.name} in "
         f"{time.time() - t0:.1f} s")
+    # what ptxas printed during that build
+    ptxas = kernels_ptxas()
+    for src, report in ptxas.items():
+        for line in report.splitlines():
+            say("ptxas", f"{src}: {line}")
+    probe_ptxas = check_probe_ptxas(ptxas)
+    say("ptxas", f"probes: {json.dumps(probe_ptxas)}")
 
     # 3. inference kernels against their plain versions
     g = torch.Generator().manual_seed(0)
@@ -2480,12 +2500,6 @@ def main() -> None:
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
     #    the S kernels at stages 3-4's, the crop forward and slide
     #    inference, then its main path cli.train_seg and a profile
-    ptxas = kernels_ptxas()  # after the timed phases 3-7, none beside it
-    for src, report in ptxas.items():
-        for line in report.splitlines():
-            say("ptxas", f"{src}: {line}")
-    probe_ptxas = check_probe_ptxas(ptxas)
-    say("ptxas", f"probes: {json.dumps(probe_ptxas)}")
     dca_rows = [check_dca_attn(n, ch, blocks, dev, g)
                 for n, ch, blocks in SEG_DCA] + [
         check_dca_attn(n, ch, blocks, dev, g, m=m)
@@ -2627,7 +2641,8 @@ def main() -> None:
             "library_ms": mean("library_ms"),
             "kernel_ms": mean("kernel_ms"),
             "library_kernel_ms": mean("library_kernel_ms"),
-            "shapes": strip(rows), "ptxas": probe_ptxas["ew_probe.cu"],
+            "shapes": strip(rows),
+            "ptxas": probe_ptxas["ew_probe.cu"]["k_ew_probe"],
             "us_per_pass_per_tile": {shape: per[op]
                                      for shape, per in slopes.items()}})
     for name, (kernel, replaces) in CONSTRUCT_KERNELS.items():
@@ -2640,8 +2655,8 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row["library_ms"], "verdict": row["verdict"],
-            **({"ptxas": probe_ptxas["constructs.cu"]}
-               if kernel == "scatter_add_probe" else {}),
+            **({"ptxas": probe_ptxas["constructs.cu"][f"k_{kernel}"]}
+               if f"k_{kernel}" in probe_ptxas["constructs.cu"] else {}),
             "probe": {k: v for k, v in row.items()
                       if k not in ("ms", "plain_ms", "bound_ms",
                                    "library_ms", "verdict", "route",

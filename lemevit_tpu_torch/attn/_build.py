@@ -15,13 +15,17 @@ and the toolchain probes, ``probes/csrc`` -> ``lemevit_probes_<hash>.so``
 sources, so editing a probe does not rebuild the model kernels, and a probe
 that does not compile does not stop them from building. Every entry point
 returns a ``cudaError_t`` code, and every library exports
-``lm_error_string`` for ``check``.
+``lm_error_string`` for ``check``. Each source compiles with ``-Xptxas -v``,
+and what ptxas printed for it (every kernel's registers, shared memory,
+stack frame and spills) is kept beside the library (``ptxas_log``), so a
+report needs no second compile.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -35,6 +39,7 @@ STEM = "lemevit_kernels"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+PTXAS_FLAGS = ["-Xptxas", "-v"]   # the build's ptxas report (ptxas_log)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,7 +87,7 @@ def sources(csrc: Path = None) -> list:
 
 
 def source_hash(csrc: Path = None) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     for p in sorted((csrc or CSRC).glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -93,17 +98,25 @@ def library_path(csrc: Path = None, stem: str = STEM) -> Path:
     return BUILD_DIR / f"{stem}_{source_hash(csrc)}.so"
 
 
-def _run_all(cmds, what: str) -> None:
+def ptxas_path(so: Path) -> Path:
+    """Where ``build`` keeps the ptxas report of library ``so``."""
+    return so.with_suffix(".ptxas.json")
+
+
+def _run_all(cmds, what: str) -> list:
+    """Run cmds all at once; their outputs (stdout + stderr), in order."""
     procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True))
              for c in cmds]
-    failed = []
+    failed, outs = [], []
     for c, p in procs:
         out, err = p.communicate()
+        outs.append(out + err)
         if p.returncode != 0:
             failed.append(f"$ {' '.join(c)}\n{out}{err}")
     if failed:
         raise RuntimeError(f"{what} failed:\n" + "\n".join(failed))
+    return outs
 
 
 def build(csrc: Path = None, stem: str = STEM) -> Path:
@@ -119,16 +132,28 @@ def build(csrc: Path = None, stem: str = STEM) -> Path:
     try:
         srcs = sources(csrc)
         objs = [tmp / (src.stem + ".o") for src in srcs]
-        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
-                   "-o", str(obj)] for src, obj in zip(srcs, objs)],
-                 "nvcc compile")
+        outs = _run_all([[nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-I", str(csrc),
+                          "-c", str(src), "-o", str(obj)]
+                         for src, obj in zip(srcs, objs)], "nvcc compile")
         tmp_so = tmp / so.name
         _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp_so),
                    *map(str, objs)]], "nvcc link")
-        os.replace(tmp_so, so)  # atomic: a reader never sees half a file
+        report = tmp / "ptxas.json"
+        report.write_text(json.dumps(
+            {src.name: out for src, out in zip(srcs, outs)}))
+        # atomic, the report first: a reader never sees half a file, and
+        # the library never stands without its report
+        os.replace(report, ptxas_path(so))
+        os.replace(tmp_so, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return so
+
+
+def ptxas_log(csrc: Path = None, stem: str = STEM) -> dict:
+    """What ptxas printed (``-Xptxas -v``) while ``build`` compiled each
+    source of csrc, by file name (built first if need be)."""
+    return json.loads(ptxas_path(build(csrc, stem)).read_text())
 
 
 def load(so: Path, signatures: dict) -> ctypes.CDLL:

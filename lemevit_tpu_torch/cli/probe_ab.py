@@ -15,7 +15,19 @@ harness, the same for every root:
     bits, so that each root's outputs are compared with the first root's
     ("same_bits": how many of them agree);
   - the construct probes' kernels on their probes' inputs (erf, the
-    scatter on the tap input, roll, fold) beside their library calls.
+    scatter on the tap input, roll, fold) beside their library calls, and
+    the erf and the fold also where the bytes set the pace ("erf_large":
+    K = 1 on the slope input, the (256, 256) tile 64 times; "fold_large":
+    (64, 784, 320) bf16), each with its bytes; fingerprints of the erf's
+    (both forms, K = 1 and the slope's K, and the large input at K = 1)
+    and the fold's (both sizes) outputs, compared with the first root's
+    as the ew outputs are;
+  - the erf probe's slopes (``erf_slopes``): each form at K = 1 and at
+    constructs.ERF_SLOPE_K on the slope input, (t_K - t_1) / (K - 1) /
+    64 in us per evaluation of one (256, 256) tile, as
+    constructs.probe_erf_prim decides its verdict by;
+  - the card's launch floor ("launch_floor_ms": the device time of a
+    one-element fill).
 Every call is timed by CUDA events over ``--reps`` warm calls ("ms", which
 the host paces where the kernel is short) and by the profiler's device time
 of its kernels ("device_ms": for a probe the kernels whose name holds its
@@ -34,6 +46,9 @@ import sys
 from pathlib import Path
 
 TILES = 64   # vpu_probe's grid: a probe input is (R * 64, C)
+# constructs.FOLD_X_LARGE, made here with constructs.fold_input's seed so
+# that a root whose package lacks it is timed on the same input
+FOLD_LARGE = (64, 784, 320)
 
 
 def _events_ms(fn, reps: int, warm: int = 3) -> float:
@@ -111,10 +126,21 @@ def measure(reps: int) -> dict:
             row["ops"][op] = entry
         out["ew"].append(row)
     ci = constructs
-    x = ci.erf_input(dev)
-    out["constructs"]["erf"] = {
-        "kernel": timed(lambda: ci.erf_probe(x), "k_erf_probe"),
-        "library": timed(lambda: torch.erf(x), None)}
+
+    def probe(kernel, name, library, nbytes):
+        return {"kernel": timed(kernel, name), "library": timed(library, None),
+                "bytes": nbytes}
+    xe = ci.erf_input(dev)
+    xes = xe.repeat(ci.ERF_TILES, 1)   # the slope input
+    for key, xi in (("erf", xe), ("erf_large", xes)):
+        out["constructs"][key] = probe(lambda: ci.erf_probe(xi),
+                                       "k_erf_probe", lambda: torch.erf(xi),
+                                       2 * xi.numel() * 4)
+    k = ci.ERF_SLOPE_K
+    out["erf_slope"] = {"k": k, "tiles": ci.ERF_TILES, **{
+        form: {f"k{kk}": timed(lambda: ci.erf_probe(xes, poly, kk),
+                               "k_erf_probe") for kk in (1, k)}
+        for form, poly in (("erff", False), ("poly", True))}}
     g = torch.Generator().manual_seed(0)
     xs = torch.randn(ci.TAP_ROWS, ci.TAP_CH, generator=g).to(dev)
     zeros = torch.zeros(ci.TAP_ROWS, dtype=torch.int32, device=dev)
@@ -128,11 +154,22 @@ def measure(reps: int) -> dict:
         "kernel": timed(lambda: ci.roll_rows_probe(x, ci.ROLL_SHIFT),
                         "k_roll_rows_probe"),
         "library": timed(lambda: torch.roll(x, ci.ROLL_SHIFT, 0), None)}
-    x = ci.fold_input(dev)
-    out["constructs"]["fold"] = {
-        "kernel": timed(lambda: ci.fold_probe(x), "k_fold_probe"),
-        "library": timed(lambda: x.reshape(-1, ci.FOLD_X[2]).clone(),
-                         None)}
+    xf = ci.fold_input(dev)
+    g = torch.Generator().manual_seed(0)
+    xl = torch.randn(FOLD_LARGE, generator=g).to(torch.bfloat16).to(dev)
+    for key, xi in (("fold", xf), ("fold_large", xl)):
+        out["constructs"][key] = probe(
+            lambda: ci.fold_probe(xi), "k_fold_probe",
+            lambda: xi.reshape(-1, xi.shape[2]).clone(), 2 * xi.numel() * 2)
+    z = torch.zeros(1, device=dev)
+    out["launch_floor_ms"] = _device_ms(z.zero_, None)
+    out["construct_bits"] = {
+        **{f"erf.{form}.k{kk}": _digest(ci.erf_probe(xe, poly, kk))
+           for form, poly in (("erff", False), ("poly", True))
+           for kk in (1, k)},
+        "erf_large.erff.k1": _digest(ci.erf_probe(xes)),
+        "fold": _digest(ci.fold_probe(xf)),
+        "fold_large": _digest(ci.fold_probe(xl))}
     return out
 
 
@@ -155,11 +192,27 @@ def slopes(row: dict) -> dict:
     return out
 
 
+def erf_slopes(slope: dict) -> dict:
+    """Per erf form of one run's ``erf_slope``: us per evaluation of one
+    (256, 256) tile, (t_K - t_1) / (K - 1) / tiles, by events
+    ("us_per_tile") and device time ("us_per_tile_device", None where the
+    profiler recorded nothing)."""
+    k, tiles, out = slope["k"], slope["tiles"], {}
+    for form in ("erff", "poly"):
+        t1, tk = slope[form]["k1"], slope[form][f"k{k}"]
+        dv = None
+        if t1["device_ms"] is not None and tk["device_ms"] is not None:
+            dv = (tk["device_ms"] - t1["device_ms"]) / (k - 1) / tiles * 1e3
+        out[form] = {"us_per_tile": (tk["ms"] - t1["ms"]) / (k - 1) / tiles
+                     * 1e3, "us_per_tile_device": dv}
+    return out
+
+
 def report(runs: list) -> list:
     """Lines of the A/B table: per tile and op the K = 1 device ms of each
     run (a, b, ...), the library call's (the first run's), and the device
     slope per element in ps; per construct probe, kernel and library
-    device ms."""
+    device ms beside its bytes bound; the launch floor."""
     from lemevit_tpu_torch.utils.profiling import HBM_BYTES_PER_S
 
     def f(xs):
@@ -178,11 +231,20 @@ def report(runs: list) -> list:
             lib = f([e.get("library", {}).get("device_ms")])
             lines.append(f"  {op:10s} K=1 {k1} | library {lib} | "
                          f"ps/element {ps}")
-    for name in runs[0]["constructs"]:
+    for name, first in runs[0]["constructs"].items():
         got = [r["constructs"][name] for r in runs]
-        lines.append(f"{name:8s} kernel "
+        bound = first.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
+        lines.append(f"{name:10s} kernel "
                      f"{f(g['kernel']['device_ms'] for g in got)} | library "
-                     f"{f(g['library']['device_ms'] for g in got)}")
+                     f"{f(g['library']['device_ms'] for g in got)} | bytes "
+                     f"bound {bound:.5f}")
+    for form in ("erff", "poly"):
+        got = [erf_slopes(r["erf_slope"])[form] for r in runs]
+        lines.append(f"erf slope {form}: us per tile per evaluation, "
+                     f"device {f(g['us_per_tile_device'] for g in got)} | "
+                     f"events {f(g['us_per_tile'] for g in got)}")
+    lines.append("launch floor (device) "
+                 f"{f(r.get('launch_floor_ms') for r in runs)}")
     return lines
 
 
@@ -227,14 +289,19 @@ def main(argv=None) -> list:
             row["slopes"] = slopes(row)
         res["bits"] = {f"{r['r']}x{r['c']}.{op}": e["bits"]
                        for r in res["ew"] for op, e in r["ops"].items()}
+        res["bits"].update(res["construct_bits"])
         first = (runs[0] if runs else res)["bits"]
+        res["differ"] = [k for k, v in first.items() if res["bits"][k] != v]
         res["same_bits"] = (
-            f"{sum(res['bits'][k] == v for k, v in first.items())} of "
-            f"{len(first)} (tile, op) outputs at K = 1 and vpu_probe's K "
-            f"bit for bit as {roots[0]}'s")
+            f"{len(first) - len(res['differ'])} of {len(first)} outputs "
+            f"((tile, op) at K = 1 and vpu_probe's K; the erf's and the "
+            f"fold's) bit for bit as {roots[0]}'s")
         runs.append(res)
         print(json.dumps({"root": label, "card": res["card"],
-                          "same_bits": res["same_bits"], "ew": [
+                          "same_bits": res["same_bits"],
+                          "differ": res["differ"],
+                          "launch_floor_ms": res["launch_floor_ms"],
+                          "erf_slopes": erf_slopes(res["erf_slope"]), "ew": [
             {"tile": f"{r['r']}x{r['c']}", "k1_device_ms": {
                 op: e["k1"]["device_ms"] for op, e in r["ops"].items()}}
             for r in res["ew"]], "constructs": res["constructs"]}),

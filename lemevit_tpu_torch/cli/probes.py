@@ -28,7 +28,9 @@ the run-to-run spread of device times):
   pb_ew         n/a: the port's kernels have no bf16-elementwise mode (the
                 cast_rt cost of --ew stands beside it)
 The result goes to ``--out`` (HOPPER_PROBES.json) and to stdout, with every
-kernel launch the run made (``launches``).
+kernel launch the run made (``launches``) and the card's launch floor
+(``launch_floor_ms``: the profiler's device time of a one-element fill,
+beside which the probes' times at their own small shapes are read).
 
   python -m lemevit_tpu_torch.cli.probes [--ew] [--skip-perf]
   python -m lemevit_tpu_torch.cli.probes --probe cluster   # one, in-process
@@ -304,11 +306,14 @@ def main(argv=None) -> dict:
         table[name] = run_construct_probe(name, str(device))
         print(f"{name:16s} {table[name]['verdict']}", flush=True)
     if device.type != "cuda":  # no device times on the CPU
+        table["launch_floor_ms"] = NOT_MEASURED
         if args.ew:
             table["ew"] = NOT_MEASURED
         if not args.skip_perf:
             table.update(dict.fromkeys(PERF_PROBES, NOT_MEASURED))
     else:
+        table["launch_floor_ms"] = constructs.launch_floor_ms(device)
+        print(f"launch floor     {table['launch_floor_ms']} ms", flush=True)
         if args.ew:
             table["ew"] = ew.slope_table(device, reps=args.reps)
             for row in table["ew"]:

@@ -28,10 +28,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "lm_ew_probe": [_I, _I, _P, _P, _I, _I, _P],
     "lm_ew_layout": [_I, ctypes.POINTER(ctypes.c_int)],
-    "lm_erf_probe": [_I, _I, _P, _P, _I, _P],
+    "lm_erf_probe": [_I, _I, _P, _P, _I, _I, _P],
     "lm_scatter_add_probe": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lm_roll_rows_probe": [_P, _P, _I, _I, _I, _P],
-    "lm_fold_probe": [_P, _P, _I, _I, _I, _P],
+    "lm_fold_probe": [_P, _P, _I, _I, _P],
     "lm_cluster_probe": [_I, _I, _P, _P],
     "lm_cluster_occupancy": [_I, ctypes.POINTER(ctypes.c_int)],
 }

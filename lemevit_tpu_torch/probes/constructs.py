@@ -9,10 +9,11 @@ prints a verdict: "keep" when the port's current design choice still holds,
 
   erf_prim      ``erf_probe``: device ``erff`` against JAX's degree-29
                 polynomial (``pallas_block._erf``, the TPU's workaround) on
-                JAX's (256, 256) linspace(-3, 3) tile; keep (the port's
-                GELU stays on ``erff``) when erff is within 1e-6 of the
-                fp64 erf and no slower than the polynomial (within the
-                ``NOISE`` of device times) per evaluation.
+                JAX's (256, 256) linspace(-3, 3) tile, a float4 a thread
+                (``erf_plan``); keep (the port's GELU stays on ``erff``)
+                when erff is within 1e-6 of the fp64 erf and no slower than
+                the polynomial (within the ``NOISE`` of device times) per
+                evaluation.
   scatter       ``scatter_add_probe``: a scatter whose per-CTA partials
                 (runs of equal index summed in registers, then a shared-
                 memory partial where ``scatter_plan`` fits it) meet by
@@ -26,9 +27,12 @@ prints a verdict: "keep" when the port's current design choice still holds,
   pltpu_roll    ``roll_rows_probe``: (3136, 64) fp32 shifted by 56 flat
                 rows (one image row of stage 0) with 16-byte loads,
                 wrapping as jnp.roll; keep when exact.
-  reshape_c320  ``fold_probe``: (4, 784, 320) bf16 copied into (3136, 320)
-                through the folded index with 16-byte loads (640-byte
-                rows); keep (in the port the fold is a view) when exact.
+  reshape_c320  ``fold_probe``: (4, 784, 320) bf16 folded into (3136, 320).
+                For a contiguous input the folded row index r * N + n is
+                the flat one, so the kernel copies flat 16-byte vectors
+                (``fold_plan``; a 640-byte row is 40 aligned vectors, what
+                the Mosaic probe asked); keep (in the port the fold is a
+                view) when exact.
   cluster       ``cluster_probe``: clusters of 1, 2, 4, 8 and 16 CTAs (16
                 with the non-portable opt-in), each CTA reading its peers'
                 ranks from global and distributed shared memory after the
@@ -42,7 +46,11 @@ launches. ``PROBES[name](device)`` runs one probe and returns its result
 row; on the CPU it runs the plain versions only, and the row says so. On
 the card a row gives each kernel's time by CUDA events around its wrapper
 ("ms", host-paced where the kernel is short) and by the profiler's device
-time of the kernel alone ("kernel_ms"), with its library call's likewise.
+time of the kernel alone ("kernel_ms"), with its library call's likewise,
+beside the card's launch floor ("launch_floor_ms": the device time of a
+one-element fill). At the probes' shapes the erf's and the fold's bytes
+take less than that floor, so their rows also time them at a size where
+the bytes set the pace ("large").
 """
 from __future__ import annotations
 
@@ -69,6 +77,7 @@ ERF_TILE = (256, 256)
 ERF_TOL = 1e-6           # the verdict's limit on erff's error
 ERF_SLOPE_K = 33         # evaluations per element of the timed call
 ERF_TILES = 64           # the timed array: JAX's tile 64 times (vpu_probe)
+ERF_THREADS = 128        # constructs.cu::kErfThreads
 NOISE = 0.02             # device times closer than this decide no verdict
 SCATTER_X = (128, 128)   # JAX's scatter input, rows into arange % 8
 SCATTER_BINS = 8
@@ -79,6 +88,10 @@ SCATTER_CTAS = 2 * 132   # two CTAs an SM of the H100
 SCATTER_SMEM = 96 * 1024  # constructs.cu::kScatterSmem
 ROLL_X, ROLL_SHIFT = (3136, 64), 56
 FOLD_X = (4, 784, 320)
+FOLD_X_LARGE = (64, 784, 320)   # 32.1 MB each way: the bytes set the pace
+FOLD_THREADS = 128       # constructs.cu::kFoldThreads
+FOLD_VPT = 4             # constructs.cu::kFoldVpt: vectors a thread
+MAX_INT = 2 ** 31 - 1    # the kernels' counts are int32
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 CLUSTERS = 16            # clusters per probe launch
 
@@ -179,6 +192,37 @@ def fold_probe_plain(x) -> torch.Tensor:
     return x.reshape(r * n, c).clone()
 
 
+def fold_plan(n_vectors: int) -> dict:
+    """How ``k_fold_probe`` copies n_vectors 16-byte vectors: ``grid`` CTAs
+    of ``threads``, each a tile of threads * ``per_thread`` vectors, thread
+    t of CTA b holding vectors b * tile + t + j * threads (j < per_thread);
+    ``full`` tiles run unmasked and the last ``tail`` vectors (a partial
+    tile; 0 when every tile is full) one at a time. About two CTAs an SM
+    of the 132 at the probe's shape (245 CTAs). Raises where the kernel
+    takes no such count (below 1, or past int32)."""
+    if not 1 <= n_vectors <= MAX_INT:
+        raise ValueError(f"fold_probe: 1 to {MAX_INT} 16-byte vectors "
+                         f"expected, got {n_vectors}")
+    tile = FOLD_THREADS * FOLD_VPT
+    return {"threads": FOLD_THREADS, "per_thread": FOLD_VPT,
+            "grid": -(-n_vectors // tile), "full": n_vectors // tile,
+            "tail": n_vectors % tile}
+
+
+def erf_plan(n: int) -> dict:
+    """How ``k_erf_probe`` lays out n fp32 elements: thread i < ``vectors``
+    (= n // 4) takes the float4 of elements 4i .. 4i + 3, thread
+    ``vectors`` the ``tail`` = n % 4 elements left, in ``grid`` CTAs of
+    ``threads`` (128 CTAs at the probe's shape, about one wave). Raises
+    where the kernel takes no such count (below 1, or past int32)."""
+    if not 1 <= n <= MAX_INT:
+        raise ValueError(f"erf_probe: 1 to {MAX_INT} elements expected, "
+                         f"got {n}")
+    vectors, tail = divmod(n, 4)
+    return {"threads": ERF_THREADS, "vectors": vectors, "tail": tail,
+            "grid": -(-(vectors + (tail > 0)) // ERF_THREADS)}
+
+
 def cluster_probe_plain(csize: int, clusters: int) -> torch.Tensor:
     """What k_cluster_probe writes: per CTA its rank, then every peer's
     rank twice (read from global and from shared memory)."""
@@ -192,15 +236,17 @@ def cluster_probe_plain(csize: int, clusters: int) -> torch.Tensor:
 
 
 def erf_probe(x, poly: bool = False, k: int = 1) -> torch.Tensor:
-    """``erf_probe_plain`` on fp32 x: ``k_erf_probe<poly>``."""
+    """``erf_probe_plain`` on fp32 x: ``k_erf_probe<poly>`` as
+    ``erf_plan`` lays it out."""
     if not x.is_cuda:
         return erf_probe_plain(x, poly, k)
     probes.check_cuda("erf_probe", x, dtype=torch.float32)
     if k < 1:
         raise ValueError(f"erf_probe: k={k}; at least one evaluation")
+    plan = erf_plan(x.numel())
     out = torch.empty_like(x)
     probes.launch("erf_probe", x, int(poly), k, x, out, x.numel(),
-                  counts=LAUNCHES)
+                  plan["grid"], counts=LAUNCHES)
     return out
 
 
@@ -239,7 +285,8 @@ def roll_rows_probe(x, shift: int) -> torch.Tensor:
 
 
 def fold_probe(x) -> torch.Tensor:
-    """(R, N, C) -> (R * N, C) through the folded index: ``k_fold_probe``."""
+    """(R, N, C) -> (R * N, C): ``k_fold_probe``, a flat copy of 16-byte
+    vectors as ``fold_plan`` lays it out."""
     if not x.is_cuda:
         return fold_probe_plain(x)
     probes.check_cuda("fold_probe", x, dtype=torch.bfloat16)
@@ -247,8 +294,11 @@ def fold_probe(x) -> torch.Tensor:
         raise ValueError("fold_probe: (R, N, C) with C a multiple of 8 "
                          f"expected, got {tuple(x.shape)}")
     r, n, c = x.shape
+    nvec = x.numel() // 8
+    plan = fold_plan(nvec)
     out = torch.empty(r * n, c, dtype=x.dtype, device=x.device)
-    probes.launch("fold_probe", x, x, out, r, n, c, counts=LAUNCHES)
+    probes.launch("fold_probe", x, x, out, nvec, plan["grid"],
+                  counts=LAUNCHES)
     return out
 
 
@@ -298,10 +348,17 @@ def roll_input(device) -> torch.Tensor:
         ROLL_X).to(device)
 
 
-def fold_input(device) -> torch.Tensor:
-    """(4, 784, 320) bf16, seeded."""
+def fold_input(device, shape=FOLD_X) -> torch.Tensor:
+    """(4, 784, 320) bf16 (or ``shape``), seeded."""
     g = torch.Generator().manual_seed(0)
-    return torch.randn(FOLD_X, generator=g).to(torch.bfloat16).to(device)
+    return torch.randn(shape, generator=g).to(torch.bfloat16).to(device)
+
+
+def launch_floor_ms(device) -> float | None:
+    """The card's launch floor: the profiler's device ms of a one-element
+    ``zero_()``, the least a kernel launch shows on the device."""
+    z = torch.zeros(1, device=device)
+    return kernel_ms(z.zero_, 20, 3)
 
 
 def _times(device, kernel, name, plain, library=None, nbytes=0) -> dict:
@@ -309,17 +366,18 @@ def _times(device, kernel, name, plain, library=None, nbytes=0) -> dict:
     call's ms by CUDA events around each call ("ms", "plain_ms",
     "library_ms"), the profiler's device ms of the kernel alone (the
     kernels whose name holds ``name``: "kernel_ms") and of the library
-    call ("library_kernel_ms"), and the bytes bound; "not measured" on the
-    CPU."""
+    call ("library_kernel_ms"), the bytes bound and the launch floor
+    (``launch_floor_ms``); "not measured" on the CPU."""
     keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "library_kernel_ms",
-            "bound_ms")
+            "bound_ms", "launch_floor_ms")
     if torch.device(device).type != "cuda":
         return dict.fromkeys(keys, "not measured")
     lib = (None, None) if library is None else (
         cuda_ms(library), kernel_ms(library, 20, 3))
     return dict(zip(keys, (cuda_ms(kernel), kernel_ms(kernel, 20, 3, name),
                            cuda_ms(plain), *lib,
-                           nbytes / HBM_BYTES_PER_S * 1e3)))
+                           nbytes / HBM_BYTES_PER_S * 1e3,
+                           launch_floor_ms(device))))
 
 
 def _label(device) -> str:
@@ -341,24 +399,37 @@ def probe_erf_prim(device) -> dict:
     err = (got.double() - exact).abs().max().item()
     err_poly = (poly.double() - exact).abs().max().item()
     route = _label(device)
-    # the timed form too: ERF_SLOPE_K evaluations summed per element
+    # the timed form too: ERF_SLOPE_K evaluations summed per element, per
+    # evaluation against the plain sums and (erff) against the fp64 sum of
+    # erf at the same fp32 arguments
     err_k = max((erf_probe(x, pf, ERF_SLOPE_K) - erf_probe_plain(
         x, pf, ERF_SLOPE_K)).abs().max().item() / ERF_SLOPE_K
         for pf in (False, True))
+    exact_k = sum(torch.erf((x * (1.0 + p * (1.0 / 1024.0))).double())
+                  for p in range(ERF_SLOPE_K))
+    err_k_fp64 = (erf_probe(x, False, ERF_SLOPE_K).double() - exact_k
+                  ).abs().max().item() / ERF_SLOPE_K
     row = {"route": route, "err": err, "err_poly": err_poly,
-           "err_vs_plain": max(
+           "err_k_fp64": err_k_fp64, "err_vs_plain": max(
                (got - erf_probe_plain(x)).abs().max().item(),
                (poly - erf_probe_plain(x, poly=True)).abs().max().item(),
                err_k)}
     row.update(_times(device, lambda: erf_probe(x), "k_erf_probe",
                       lambda: erf_probe_plain(x), lambda: torch.erf(x),
                       2 * x.numel() * 4))
-    faster = True
+    faster, err_large = True, 0.0
     if route == "cuda":
-        # us per evaluation over one (256, 256) tile: the slope over k on
         # the tile repeated ERF_TILES times (enough threads to fill the
-        # card), as vpu_probe times its ops
+        # card): K = 1 where the bytes set the pace, then us per evaluation
+        # over one (256, 256) tile, the slope over k, as vpu_probe times
+        # its ops
         xs = x.repeat(ERF_TILES, 1)
+        err_large = (erf_probe(xs).double() - torch.erf(xs.double())
+                     ).abs().max().item()
+        row["large"] = {"shape": list(xs.shape), "err": err_large,
+                        **_times(device, lambda: erf_probe(xs),
+                                 "k_erf_probe", lambda: erf_probe_plain(xs),
+                                 lambda: torch.erf(xs), 2 * xs.numel() * 4)}
         for name, poly_form in (("erff", False), ("poly", True)):
             t1, tk = (cuda_ms(lambda: erf_probe(xs, poly_form, k))
                       for k in (1, ERF_SLOPE_K))
@@ -366,7 +437,8 @@ def probe_erf_prim(device) -> dict:
                                           / ERF_TILES * 1e3)
         faster = (row["erff_us_per_tile"]
                   <= (1 + NOISE) * row["poly_us_per_tile"])
-    row["ok"] = err <= ERF_TOL and row["err_vs_plain"] <= ERF_TOL
+    row["ok"] = max(err, err_k_fp64, err_large,
+                    row["err_vs_plain"]) <= ERF_TOL
     speed = ("" if route != "cuda" else
              f"; {row['erff_us_per_tile']:.4f} against "
              f"{row['poly_us_per_tile']:.4f} us per evaluation per tile")
@@ -467,6 +539,16 @@ def probe_reshape_c320(device) -> dict:
                       lambda: fold_probe_plain(x),
                       lambda: x.reshape(-1, FOLD_X[2]).clone(),
                       2 * x.numel() * 2))
+    if row["route"] == "cuda":  # where the bytes set the pace
+        xl = fold_input(device, FOLD_X_LARGE)
+        exact_large = bool(torch.equal(fold_probe(xl),
+                                       xl.reshape(-1, FOLD_X[2])))
+        row["large"] = {"shape": list(FOLD_X_LARGE), "exact": exact_large,
+                        **_times(device, lambda: fold_probe(xl),
+                                 "k_fold_probe", lambda: fold_probe_plain(xl),
+                                 lambda: xl.reshape(-1, FOLD_X[2]).clone(),
+                                 2 * xl.numel() * 2)}
+        exact = exact and exact_large
     row["ok"] = exact
     row["verdict"] = _verdict(
         row["route"], exact,

@@ -10,17 +10,22 @@
 //   k_roll_rows_probe      rows shifted with 16-byte loads, wrapping
 //                          (k_cpe_rows' row-shifted access)
 //                                                       probe_pltpu_roll :93
-//   k_fold_probe           (R, N, C) -> (R * N, C) bf16 through the folded
-//                          index, 16-byte loads        probe_reshape_c320 :108
+//   k_fold_probe           (R, N, C) -> (R * N, C) bf16: for a contiguous
+//                          x the folded row index r * N + n is the flat
+//                          one, so the fold is a flat copy of 16-byte
+//                          vectors (a 640-byte row at C = 320 is 40
+//                          aligned vectors, what the Mosaic probe asked)
+//                                                   probe_reshape_c320 :108
 //   k_cluster_probe        thread-block clusters of 1-16 CTAs: cluster
 //                          barrier, peer global and distributed shared
 //                          memory reads (the construct of k_s_stage's
 //                          first design, one cluster an image)
 // Bound on the H100: bytes for the roll and the fold (read and write once),
-// each well below a microsecond at the probes' shapes, so their times are
-// launch times; the erf passes are a few operations per element. The
-// scatter is bound by reading x and idx once (its atomics add to a few
-// hundred bytes at the tap probe's shape).
+// each well below a microsecond at the probes' shapes, so there their times
+// are launch times (constructs.py times the fold and the erf at a larger
+// size too); the erf passes are a few operations per element. The scatter
+// is bound by reading x and idx once (its atomics add to a few hundred
+// bytes at the tap probe's shape).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -55,19 +60,54 @@ __device__ __forceinline__ float erf_poly(float x) {
 // out = sum over p < k of erf(x (1 + p / 1024)): k evaluations per element
 // over the whole argument range (a chain erf(erf(x)) would stay below 1,
 // where erff takes its short path), independent of each other, so the
-// slope over k is the throughput of one evaluation.
+// slope over k is the throughput of one evaluation. Thread i
+// (constructs.py::erf_plan: CTAs of kErfThreads, about one wave of the 132
+// SMs at the probe's shape) takes the float4 of elements 4i .. 4i + 3 and
+// runs their four K-loops side by side, four independent chains behind one
+// 16-byte load; thread nv = n / 4 takes the n % 4 tail elements (its other
+// slots hold 0 and are not stored). Each element's sum keeps its order, p =
+// 0 .. k - 1, from +0 (p = 0, where x (1 + 0) is x, runs outside the loop).
+constexpr int kErfThreads = 128;
+
 template <bool POLY>
-__global__ void k_erf_probe(const float* __restrict__ x,
-                            float* __restrict__ out, int n, int k) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float xi = x[i];
-  float acc = 0.f;
-  for (int p = 0; p < k; ++p) {
-    const float t = xi * (1.f + p * (1.f / 1024.f));
-    acc += POLY ? erf_poly(t) : erff(t);
+__device__ __forceinline__ float erf_at(float t) {
+  return POLY ? erf_poly(t) : erff(t);
+}
+
+template <bool POLY>
+__global__ void __launch_bounds__(kErfThreads)
+    k_erf_probe(const float* __restrict__ x, float* __restrict__ out,
+                int nv, int tail, int k) {
+  const int i = blockIdx.x * kErfThreads + threadIdx.x;
+  float v[4];
+  if (i < nv) {
+    const float4 q = reinterpret_cast<const float4*>(x)[i];
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if (i == nv && tail > 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < tail ? x[4L * nv + e] : 0.f;
+  } else {
+    return;
   }
-  out[i] = acc;
+  float acc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = 0.f + erf_at<POLY>(v[e]);
+  for (int p = 1; p < k; ++p) {
+    const float s = 1.f + p * (1.f / 1024.f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += erf_at<POLY>(v[e] * s);
+  }
+  if (i < nv) {
+    reinterpret_cast<float4*>(out)[i] =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < tail) out[4L * nv + e] = acc[e];
+  }
 }
 
 // out[idx[r]] += x[r], fp32, with the rows summed on chip before any
@@ -166,15 +206,31 @@ __global__ void k_roll_rows_probe(const float4* __restrict__ x,
   out[i] = x[(long)src * vpr + (i - (long)r * vpr)];
 }
 
-// out (R * N, C) row r * N + n = x[r, n, :]; vpr 16-byte vectors per row
-__global__ void k_fold_probe(const uint4* __restrict__ x,
-                             uint4* __restrict__ out, int R, int N,
-                             int vpr) {
-  const long i = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long)R * N * vpr) return;
-  const long row = i / vpr;
-  const int r = (int)(row / N), n = (int)(row - (long)r * N);
-  out[i] = x[((long)r * N + n) * vpr + (i - row * vpr)];
+// The fold as a flat copy of nvec 16-byte vectors (see the header). A CTA
+// of kFoldThreads owns a tile of kFoldThreads * kFoldVpt vectors
+// (constructs.py::fold_plan: about two CTAs an SM at the probe's shape);
+// thread t holds vectors t + j * kFoldThreads (j < kFoldVpt, adjacent
+// threads on adjacent vectors) and issues all its loads before its first
+// store, as ew_probe.cu's k_ew_probe<Op, 0> does. Full tiles run unmasked;
+// the last, partial tile runs one vector at a time. No index is divided.
+constexpr int kFoldThreads = 128;
+constexpr int kFoldVpt = 4;
+
+__global__ void __launch_bounds__(kFoldThreads)
+    k_fold_probe(const uint4* __restrict__ x, uint4* __restrict__ out,
+                 int nvec) {
+  constexpr int kTile = kFoldThreads * kFoldVpt;
+  const long first = (long)blockIdx.x * kTile + threadIdx.x;
+  if ((long)(blockIdx.x + 1) * kTile <= nvec) {  // a full tile
+    uint4 v[kFoldVpt];
+#pragma unroll
+    for (int j = 0; j < kFoldVpt; ++j) v[j] = x[first + j * kFoldThreads];
+#pragma unroll
+    for (int j = 0; j < kFoldVpt; ++j) out[first + j * kFoldThreads] = v[j];
+    return;
+  }
+#pragma unroll 1
+  for (long i = first; i < nvec; i += kFoldThreads) out[i] = x[i];
 }
 
 // Each CTA of a cluster of csize writes its rank to global memory and to
@@ -229,18 +285,26 @@ int allow_wide_clusters(int csize) {
 }  // namespace
 }  // namespace lp
 
-// x, out: n fp32; poly 0 (erff) or 1 (JAX's polynomial); k >= 1
-// evaluations per element (k = 1: out = erf(x)).
+// x, out: n fp32, 16-byte aligned; poly 0 (erff) or 1 (JAX's
+// polynomial); k >= 1 evaluations per element (k = 1: out = erf(x)); grid:
+// constructs.py::erf_plan (a float4 a thread, one more thread for the
+// n % 4 tail, kErfThreads a CTA).
 extern "C" int lm_erf_probe(int poly, int k, const void* x, void* out, int n,
-                            void* stream) {
+                            int grid, void* stream) {
+  const int nv = n / 4, tail = n % 4;
+  const long threads = nv + (tail > 0);
+  if (n < 1 || k < 1 || grid < 1 || (long)grid * lp::kErfThreads < threads ||
+      (long)(grid - 1) * lp::kErfThreads >= threads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + lp::kThreads - 1) / lp::kThreads;
   const float* xi = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
   if (poly)
-    lp::k_erf_probe<true><<<blocks, lp::kThreads, 0, s>>>(xi, o, n, k);
+    lp::k_erf_probe<true><<<grid, lp::kErfThreads, 0, s>>>(xi, o, nv, tail,
+                                                           k);
   else
-    lp::k_erf_probe<false><<<blocks, lp::kThreads, 0, s>>>(xi, o, n, k);
+    lp::k_erf_probe<false><<<grid, lp::kErfThreads, 0, s>>>(xi, o, nv, tail,
+                                                            k);
   return (int)cudaGetLastError();
 }
 
@@ -292,15 +356,18 @@ extern "C" int lm_roll_rows_probe(const void* x, void* out, int rows,
   return (int)cudaGetLastError();
 }
 
-// x: (R, N, C) bf16, out: (R * N, C) bf16, C a multiple of 8, both 16-byte
-// aligned.
-extern "C" int lm_fold_probe(const void* x, void* out, int R, int N, int C,
+// x: (R, N, C) bf16, out: (R * N, C) bf16, both contiguous and 16-byte
+// aligned, C a multiple of 8: nvec = R * N * C / 8 vectors; grid:
+// constructs.py::fold_plan (tiles of kFoldThreads * kFoldVpt vectors).
+extern "C" int lm_fold_probe(const void* x, void* out, int nvec, int grid,
                              void* stream) {
-  const int vpr = C / 8;
-  const long n = (long)R * N * vpr;
-  lp::k_fold_probe<<<(unsigned)((n + lp::kThreads - 1) / lp::kThreads),
-                     lp::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), R, N, vpr);
+  constexpr long kTile = lp::kFoldThreads * lp::kFoldVpt;
+  if (nvec < 1 || grid < 1 || (long)grid * kTile < nvec ||
+      (long)(grid - 1) * kTile >= nvec)
+    return (int)cudaErrorInvalidValue;
+  lp::k_fold_probe<<<grid, lp::kFoldThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), nvec);
   return (int)cudaGetLastError();
 }
 

@@ -950,6 +950,30 @@ def test_scatter_add_probe_on_gpu(cuda, rows, cols, bins, sort):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 1025, 4097, 65538])
+@pytest.mark.parametrize("poly", [False, True])
+def test_erf_probe_ragged_on_gpu(cuda, n, poly):
+    """k_erf_probe where n % 4 leaves a partial last vector and where the
+    last tile is partial (erf_plan), against its plain version."""
+    x = torch.linspace(-4, 4, n, dtype=torch.float32)
+    for k in (1, 3):
+        got = constructs.erf_probe(x.to(cuda), poly, k).cpu()
+        want = constructs.erf_probe_plain(x, poly, k)
+        assert (got - want).abs().max().item() <= k * constructs.ERF_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1, 8), (3, 5, 16), (2, 1023, 8),
+                                   (1, 1024, 32), (4, 784, 320)])
+def test_fold_probe_ragged_on_gpu(cuda, shape):
+    """k_fold_probe on full and partial tiles (fold_plan): exact."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
+    assert torch.equal(constructs.fold_probe(x),
+                       constructs.fold_probe_plain(x))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", list(constructs.PROBES))
 def test_construct_probe_on_gpu(cuda, name):
     """Each construct probe's kernel against its plain version on the card,

@@ -18,9 +18,29 @@ and chip_smoke.py hold them against these):
     Pallas kernel in interpret mode (exact: JAX's input sums whole
     numbers) and against the fp64 sum within the probe's tolerance (1e-6
     of each bin's sum of |x|) in both of the kernel's branches;
-  - cli.probe_ab's slopes from a timed row.
+  - cli.probe_ab's slopes from a timed row, the erf's slopes per tile,
+    its report of the construct probes' bounds, the erf's slopes and the
+    launch floor, and its large fold input equal to constructs.fold_input's;
+  - constructs.fold_plan and erf_plan as pure functions: by the kernels'
+    rule (k_fold_probe: thread t of CTA b holds vectors b * tile + t + j *
+    threads; k_erf_probe: thread i the float4 of elements 4i .. 4i + 3,
+    thread n // 4 the n % 4 tail) every vector or element is covered once
+    and nothing past the end, at the probes' shapes, the large shapes and
+    ragged sizes, no CTA empty, and the refusals;
+  - the erf's and the fold's wrappers on the CPU (their plain versions)
+    against scripts/mosaic_probes.py's probe_erf_prim and
+    probe_reshape_c320 in interpret mode, the erf's K-sum against JAX's
+    kernel on each of its K arguments and against the fp64 sum;
+  - the build's ptxas report (attn/_build.py::ptxas_log, with a stand-in
+    nvcc) and chip_smoke.py's reading of it (ptxas_report,
+    check_probe_ptxas: a spill, a stack frame or a missing instance
+    fails).
 The JAX scripts set a compile-cache directory at import; the fixture
 restores the test run's settings after importing them."""
+import json
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +49,9 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas
 
+import chip_smoke
+from lemevit_tpu_torch import probes
+from lemevit_tpu_torch.attn import _build
 from lemevit_tpu_torch.cli import probe_ab
 from lemevit_tpu_torch.probes import constructs, ew
 
@@ -203,3 +226,239 @@ def test_probe_ab_slopes():
         0.8 / 8 * 1e9 / (2 * 64 * 8))
     assert s["ln"]["us_per_pass_device"] is None
     assert s["ln"]["ps_per_element"] is None
+
+
+ERF_SLOPE = {"k": 33, "tiles": 64,
+             "erff": {"k1": {"ms": 0.010, "device_ms": 0.008},
+                      "k33": {"ms": 0.138, "device_ms": 0.136}},
+             "poly": {"k1": {"ms": 0.010, "device_ms": None},
+                      "k33": {"ms": 0.106, "device_ms": 0.104}}}
+
+
+def test_probe_ab_erf_slopes():
+    s = probe_ab.erf_slopes(ERF_SLOPE)
+    assert s["erff"]["us_per_tile"] == pytest.approx(0.128 / 32 / 64 * 1e3)
+    assert s["erff"]["us_per_tile_device"] == pytest.approx(
+        0.128 / 32 / 64 * 1e3)
+    assert s["poly"]["us_per_tile"] == pytest.approx(0.096 / 32 / 64 * 1e3)
+    assert s["poly"]["us_per_tile_device"] is None
+
+
+def test_probe_ab_report_shows_bounds_slopes_and_floor():
+    entry = {"kernel": {"device_ms": 0.0015}, "library": {
+        "device_ms": 0.0014}, "bytes": 2 * 1003520 * 2}
+    run = {"root": "a", "card": "card", "ew": [], "launch_floor_ms": 0.001,
+           "constructs": {"fold": entry}, "erf_slope": ERF_SLOPE}
+    lines = probe_ab.report([run, {**run, "root": "b"}])
+    assert lines[1].split() == ["fold", "kernel", "0.0015", "0.0015", "|",
+                                "library", "0.0014", "0.0014", "|", "bytes",
+                                "bound", "0.00120"]
+    assert lines[2].startswith("erf slope erff: us per tile per evaluation, "
+                               "device 0.0625 0.0625 | events 0.0625 0.0625")
+    assert lines[3].startswith("erf slope poly: us per tile per evaluation, "
+                               "device - - | events")
+    assert lines[-1] == "launch floor (device) 0.001 0.001"
+
+
+def test_probe_ab_large_fold_input_is_fold_inputs():
+    """The harness makes the large fold input itself (a parent root's
+    package may lack it): the shape and bits of constructs.fold_input."""
+    assert probe_ab.FOLD_LARGE == constructs.FOLD_X_LARGE
+    g = torch.Generator().manual_seed(0)
+    mine = torch.randn(probe_ab.FOLD_LARGE, generator=g).to(torch.bfloat16)
+    assert torch.equal(mine, constructs.fold_input(
+        "cpu", constructs.FOLD_X_LARGE))
+
+
+# ---------------------------------------------------------- fold and erf
+
+FOLD_N = [int(np.prod(constructs.FOLD_X)) // 8,
+          int(np.prod(constructs.FOLD_X_LARGE)) // 8, 1, 1023, 1024, 1025,
+          4097]
+
+
+@pytest.mark.parametrize("n", FOLD_N)
+def test_fold_plan_covers_every_vector_once(n):
+    p = constructs.fold_plan(n)
+    t, v = p["threads"], p["per_thread"]
+    assert (t, v) == (constructs.FOLD_THREADS, constructs.FOLD_VPT)
+    tile = t * v
+    # k_fold_probe: thread t of CTA b holds vectors b * tile + t + j * t
+    idx = (np.arange(p["grid"])[:, None, None] * tile
+           + np.arange(t)[None, :, None] + np.arange(v)[None, None, :] * t)
+    live = idx[idx < n]
+    assert live.size == n
+    assert np.array_equal(np.sort(live), np.arange(n))
+    assert (p["grid"] - 1) * tile < n <= p["grid"] * tile  # no CTA empty
+    assert p["full"] == n // tile and p["tail"] == n - p["full"] * tile
+    assert p["grid"] == p["full"] + (p["tail"] > 0)
+    if n == FOLD_N[0]:  # about two CTAs an SM of the H100's 132
+        assert p["grid"] == 245
+
+
+ERF_N = [int(np.prod(constructs.ERF_TILE)),
+         int(np.prod(constructs.ERF_TILE)) * constructs.ERF_TILES, 1, 2, 3,
+         4, 5, 1023, 1025, 4097, 65538]
+
+
+@pytest.mark.parametrize("n", ERF_N)
+def test_erf_plan_covers_every_element_once(n):
+    p = constructs.erf_plan(n)
+    assert p["threads"] == constructs.ERF_THREADS
+    assert (p["vectors"], p["tail"]) == divmod(n, 4)
+    # k_erf_probe: thread i < n // 4 takes elements 4i .. 4i + 3, thread
+    # n // 4 the n % 4 tail, every other thread nothing
+    i = np.arange(p["grid"] * p["threads"])[:, None]
+    slot = np.arange(4)[None, :]
+    live = (i < p["vectors"]) | ((i == p["vectors"]) & (slot < p["tail"]))
+    assert np.array_equal(np.sort((4 * i + slot)[live]), np.arange(n))
+    busy = p["vectors"] + (p["tail"] > 0)
+    assert (p["grid"] - 1) * p["threads"] < busy <= p["grid"] * p["threads"]
+    if n == ERF_N[0]:  # about one wave of the H100's 132 SMs
+        assert p["grid"] == 128
+
+
+def test_fold_and_erf_plans_refuse():
+    for bad in (0, -1, constructs.MAX_INT + 1):
+        with pytest.raises(ValueError, match="fold_probe"):
+            constructs.fold_plan(bad)
+        with pytest.raises(ValueError, match="erf_probe"):
+            constructs.erf_plan(bad)
+    assert constructs.fold_plan(constructs.MAX_INT)["grid"] == -(
+        -constructs.MAX_INT // (constructs.FOLD_THREADS
+                                * constructs.FOLD_VPT))
+
+
+@pytest.fixture
+def interpret_calls(monkeypatch):
+    """pallas_call in interpret mode; returns (kernel, args, output) of
+    every kernel run, so that a test can run the kernel again."""
+    orig = pallas.pallas_call
+    runs = []
+
+    def wrapper(*a, **kw):
+        f = orig(*a, **{**kw, "interpret": True})
+
+        def run(*args):
+            out = f(*args)
+            runs.append((f, args, out))
+            return out
+        return run
+    monkeypatch.setattr(pallas, "pallas_call", wrapper)
+    return runs
+
+
+def test_erf_wrapper_on_cpu_matches_mosaic_probe(jax_scripts,
+                                                 interpret_calls,
+                                                 monkeypatch, capsys):
+    jm = jax_scripts[1]
+    monkeypatch.setattr(jm, "_setup_jax", lambda: jax)
+    jm.probe_erf_prim()
+    assert "COMPILED_OK" in capsys.readouterr().out
+    call, args, out = interpret_calls[-1]
+    # JAX's tile (its linspace rounds a few elements one step away)
+    x = _torch(args[0])
+    torch.testing.assert_close(x, constructs.erf_input("cpu"), rtol=0,
+                               atol=1e-6)
+    tol = constructs.ERF_TOL
+    torch.testing.assert_close(constructs.erf_probe(x), _torch(out),
+                               rtol=0, atol=tol)
+    # the K-sum: JAX's kernel on each of the K arguments x (1 + p / 1024)
+    k = 3
+    want = sum(_torch(call(jnp.asarray((x * (1.0 + p / 1024.0)).numpy())))
+               for p in range(k))
+    torch.testing.assert_close(constructs.erf_probe(x, k=k), want, rtol=0,
+                               atol=k * tol)
+    # the slope's K against the fp64 sum at the same fp32 arguments
+    k = constructs.ERF_SLOPE_K
+    exact = sum(torch.erf((x * (1.0 + p * (1.0 / 1024.0))).double())
+                for p in range(k))
+    err = (constructs.erf_probe(x, k=k).double() - exact).abs().max()
+    assert err / k <= tol
+
+
+def test_fold_wrapper_on_cpu_matches_mosaic_probe(jax_scripts,
+                                                  interpret_calls,
+                                                  monkeypatch, capsys):
+    jm = jax_scripts[1]
+    monkeypatch.setattr(jm, "_setup_jax", lambda: jax)
+    jm.probe_reshape_c320()
+    assert "COMPILED_OK" in capsys.readouterr().out
+    call, _, out = interpret_calls[-1]
+    ones = torch.ones(constructs.FOLD_X, dtype=torch.bfloat16)
+    assert torch.equal(constructs.fold_probe(ones).float(), _torch(out))
+    x = constructs.fold_input("cpu")
+    got = constructs.fold_probe(x)
+    assert got.shape == (constructs.FOLD_X[0] * constructs.FOLD_X[1],
+                         constructs.FOLD_X[2])
+    want = call(jnp.asarray(x.float().numpy(), jnp.bfloat16))
+    assert torch.equal(got.float(), _torch(want))
+
+
+# ---------------------------------------------------------------- ptxas
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    {frame} bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers, used 0 barriers, 360 bytes cmem[0]
+"""
+
+
+def _ptxas(kernels) -> str:
+    return "".join(PTXAS_LOG.format(name=n, frame=f, spill=sp, regs=r)
+                   for n, f, sp, r in kernels)
+
+
+def test_build_keeps_the_ptxas_report(tmp_path, monkeypatch):
+    """_build.build compiles each source with -Xptxas -v and keeps what it
+    printed beside the library: ptxas_log reads it back by file name."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"""#!{sys.executable}
+import sys
+args = sys.argv[1:]
+open(args[args.index("-o") + 1], "w").write("obj")
+if "-c" in args and "-v" in args:
+    src = args[args.index("-c") + 1].rsplit("/", 1)[-1]
+    sys.stderr.write("ptxas info    : Compiling entry function "
+                     "'k_" + src.split(".")[0] + "' for 'sm_90a'\\n")
+""")
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("// a source\n")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    so = _build.build(csrc, "probe_test")
+    assert so.exists() and _build.ptxas_path(so).exists()
+    log = _build.ptxas_log(csrc, "probe_test")
+    assert sorted(log) == ["a.cu", "b.cu"]
+    assert "'k_a'" in log["a.cu"] and "'k_b'" in log["b.cu"]
+    assert json.loads(_build.ptxas_path(so).read_text()) == log
+
+
+def test_chip_smoke_reads_the_probe_ptxas_report():
+    clean = {"ew_probe.cu": _ptxas(
+        [(f"k_ew_probe_{i}", 0, 0, 40) for i in range(229)]),
+        "constructs.cu": _ptxas([("k_scatter_add_probe_t", 0, 0, 48),
+                                 ("k_scatter_add_probe_f", 0, 0, 46),
+                                 ("k_fold_probe", 0, 0, 20),
+                                 ("k_erf_probe_t", 0, 0, 40),
+                                 ("k_erf_probe_f", 0, 0, 38)])}
+    report = {src: chip_smoke.ptxas_report(log, "/nonexistent/nvcc")
+              for src, log in clean.items()}
+    assert report["constructs.cu"].splitlines()[0] == (
+        "k_scatter_add_probe_t: 0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads")
+    got = chip_smoke.check_probe_ptxas(report)
+    assert got["constructs.cu"]["k_erf_probe"] == {
+        "instances": 2, "max_registers": 40, "spill_or_stack": 0}
+    assert got["ew_probe.cu"]["k_ew_probe"]["instances"] == 229
+    for bad in ([("k_fold_probe", 16, 0, 20)], [("k_fold_probe", 0, 8, 20)],
+                []):
+        log = clean["constructs.cu"].replace(_ptxas(
+            [("k_fold_probe", 0, 0, 20)]), _ptxas(bad))
+        with pytest.raises(AssertionError, match="k_fold_probe"):
+            chip_smoke.check_probe_ptxas({
+                **report, "constructs.cu": chip_smoke.ptxas_report(
+                    log, "/nonexistent/nvcc")})
