@@ -7,10 +7,11 @@ from lemevit_tpu_torch/probes/csrc), prints what ptxas reported during
 that build for the tensor-core kernels' sources (mhsa.cu, dca_attn.cu,
 s_block.cu, dca_block.cu, c_block.cu, s_stage.cu and the three training
 sources) and the probes' (ew_probe.cu, constructs.cu: every k_ew_probe
-instance, k_scatter_add_probe, k_fold_probe and both k_erf_probe
-instances with no spill and no stack frame, or the script fails), and
-drives the port's main paths, each with every kernel's launch count set
-to 0 just before it and read just after:
+instance, k_scatter_add_probe, k_roll_rows_probe, k_fold_probe and both
+k_erf_probe instances with no spill and no stack frame, or the script
+fails), says whether PIL imports (and its version), and drives the port's
+main paths, each with every kernel's launch count set to 0 just before it
+and read just after:
   - serving: every inference block kernel held against its plain PyTorch
     version at the shapes of LeMeViT-Base at 224^2 (the C, S and D kernels
     also in bf16 against their order of work in PyTorch,
@@ -105,7 +106,8 @@ to 0 just before it and read just after:
     copy exact, on each of its three (R, C) tiles x 64 (timed by events
     and the profiler beside the library call) and where the row layout
     changes (C = 8, 392, 2048 at 300 rows), the kernel's layout equal to
-    ew.layout at every C; then the probe path, python -m
+    ew.layout at every C, and the row roll at a shift past int32 bit for
+    bit torch.roll's; then the probe path, python -m
     lemevit_tpu_torch.cli.probes --ew (each construct probe, erff against
     JAX's polynomial erf, the scatter with per-CTA partials meeting by
     global atomics (JAX's input exact, the tap input twice, 4096 random
@@ -113,8 +115,9 @@ to 0 just before it and read just after:
     16-byte row-shifted loads, the C = 320 fold (exact) and thread-block
     clusters of 1-16, against its plain version in its own process, each
     timed by events and by the profiler's device time of its kernel alone
-    beside its library call's and the card's launch floor, the erf and the
-    fold also at a size where the bytes set the pace (erff within 1e-6 of
+    beside its library call's and the card's launch floor, the erf, the
+    roll and the fold also at a size where the bytes set the pace, beside
+    their bytes bound and the launch floor (erff within 1e-6 of
     fp64 and of its plain version at K = 1 and at the slope's K); the
     per-op slope table at the three
     shapes; the A/B rows of s_stage, the inference and the training CPE
@@ -275,7 +278,7 @@ CONSTRUCT_KERNELS = {
     "cluster": ("cluster_probe", None),
 }
 # the construct probes that also time their kernel where bytes set the pace
-LARGE_PROBES = ("erf_prim", "reshape_c320")
+LARGE_PROBES = ("erf_prim", "pltpu_roll", "reshape_c320")
 # launches per train step and per eval forward of each trained model
 VIT_STEP = {"s_train_fwd": 8, "mlp_bwd": 8, "s_attn_bwd": 8, "mhsa": 2}
 VIT_EVAL = {"s_block": 8, "mhsa": 2}
@@ -1759,7 +1762,8 @@ PTXAS_SOURCES = ("mhsa.cu", "dca_attn.cu", "s_block.cu", "dca_block.cu",
 # the probe sources, and their kernels (by a part of their name) with the
 # count of instances each must show, none with a spill or a stack frame
 PROBE_PTXAS = {"ew_probe.cu": {"k_ew_probe": 229},
-               "constructs.cu": {"k_scatter_add_probe": 2, "k_fold_probe": 1,
+               "constructs.cu": {"k_scatter_add_probe": 2,
+                                 "k_roll_rows_probe": 1, "k_fold_probe": 1,
                                  "k_erf_probe": 2}}
 
 
@@ -2117,6 +2121,34 @@ def serve_slice(dev, g, default_res, prof_default) -> tuple:
 EW_LAYOUT_SHAPES = ((300, 8), (300, 392), (300, 2048))
 
 
+def pil_status() -> str:
+    """Whether PIL imports, and its version: the image decoding that the
+    port's real-data path (not yet ported) would need."""
+    try:
+        import PIL
+    except ImportError as e:
+        return f"PIL does not import: {e}"
+    return f"PIL {PIL.__version__} imports"
+
+
+# a shift past int32: a ctypes int would keep its low 32 bits (57 rows)
+ROLL_SHIFT_PAST_INT32 = 2 ** 32 + 57
+
+
+def check_roll_shift(dev) -> None:
+    """k_roll_rows_probe on the probe's input at ROLL_SHIFT_PAST_INT32
+    rows, bit for bit torch.roll's."""
+    from lemevit_tpu_torch.probes import constructs
+    x = constructs.roll_input(dev)
+    shift = ROLL_SHIFT_PAST_INT32
+    if not torch.equal(constructs.roll_rows_probe(x, shift),
+                       torch.roll(x, shift, 0)):
+        raise AssertionError(f"roll_rows_probe by {shift} rows differs "
+                             "from torch.roll")
+    say("probe", f"roll_rows_probe {tuple(x.shape)} by {shift} rows "
+        f"({shift % x.shape[0]} mod {x.shape[0]}): bit for bit torch.roll")
+
+
 def check_ew_probes(dev) -> list:
     """k_ew_probe against ew_probe_plain for every op at K = 1 and at
     vpu_probe's K (within ew.max_ulps bf16 steps, ew.ATOL near zero), and
@@ -2209,13 +2241,14 @@ def probes_main_path() -> dict:
             f"device {fmt_ms(row['library_kernel_ms'])}, bound "
             f"{row['bound_ms']:.6f}, launch floor "
             f"{fmt_ms(row.get('launch_floor_ms'))})")
-        if "large" in row:  # the erf and the fold where bytes set the pace
+        if "large" in row:  # where the bytes set the pace
             big = row["large"]
             say("probe", f"{name} at {big['shape']}: {big['ms']:.4f} ms, "
                 f"device {fmt_ms(big['kernel_ms'])} (library "
                 f"{fmt_ms(big['library_ms'])}, device "
                 f"{fmt_ms(big['library_kernel_ms'])}, bound "
-                f"{big['bound_ms']:.6f})")
+                f"{big['bound_ms']:.6f}, launch floor "
+                f"{fmt_ms(big.get('launch_floor_ms'))})")
     if not all("large" in table[name] for name in LARGE_PROBES):
         raise AssertionError(f"cli.probes: no large-size row of "
                              f"{LARGE_PROBES}")
@@ -2285,6 +2318,7 @@ def main() -> None:
     kind_name = torch.cuda.get_device_name(0)
     say("card", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {kind_name} x{torch.cuda.device_count()}")
+    say("card", pil_status())
 
     # 2. build the model kernels and, beside them, the probes' library
     t0 = time.time()
@@ -2540,6 +2574,7 @@ def main() -> None:
     #     and train_seg reused from above, decided by the bare steps'
     #     device time in alternating pairs
     ew_rows = check_ew_probes(dev)
+    check_roll_shift(dev)
     t0 = time.time()
     table = probes_main_path()
     say("probes", f"cli.probes --ew in {time.time() - t0:.0f} s, launches "

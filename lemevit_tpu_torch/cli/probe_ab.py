@@ -16,12 +16,13 @@ harness, the same for every root:
     ("same_bits": how many of them agree);
   - the construct probes' kernels on their probes' inputs (erf, the
     scatter on the tap input, roll, fold) beside their library calls, and
-    the erf and the fold also where the bytes set the pace ("erf_large":
-    K = 1 on the slope input, the (256, 256) tile 64 times; "fold_large":
+    the erf, the roll and the fold also where the bytes set the pace
+    ("erf_large": K = 1 on the slope input, the (256, 256) tile 64 times;
+    "roll_large": (200704, 64) fp32 by the probe's 56 rows; "fold_large":
     (64, 784, 320) bf16), each with its bytes; fingerprints of the erf's
-    (both forms, K = 1 and the slope's K, and the large input at K = 1)
-    and the fold's (both sizes) outputs, compared with the first root's
-    as the ew outputs are;
+    (both forms, K = 1 and the slope's K, and the large input at K = 1),
+    the roll's and the fold's (both sizes) outputs, compared with the
+    first root's as the ew outputs are;
   - the erf probe's slopes (``erf_slopes``): each form at K = 1 and at
     constructs.ERF_SLOPE_K on the slope input, (t_K - t_1) / (K - 1) /
     64 in us per evaluation of one (256, 256) tile, as
@@ -46,9 +47,11 @@ import sys
 from pathlib import Path
 
 TILES = 64   # vpu_probe's grid: a probe input is (R * 64, C)
-# constructs.FOLD_X_LARGE, made here with constructs.fold_input's seed so
-# that a root whose package lacks it is timed on the same input
+# constructs.FOLD_X_LARGE and ROLL_X_LARGE, made here as constructs'
+# fold_input and roll_input make them, so that a root whose package lacks
+# them is timed on the same inputs
 FOLD_LARGE = (64, 784, 320)
+ROLL_LARGE = (200704, 64)
 
 
 def _events_ms(fn, reps: int, warm: int = 3) -> float:
@@ -87,6 +90,13 @@ def _device_ms(fn, name, iters: int = 20, warm: int = 3):
              and not getattr(e, "is_user_annotation", False)
              and (name is None or name in e.key))
     return us / 1e3 if us else None
+
+
+def roll_large(device):
+    """The large roll input: constructs.roll_input at ROLL_LARGE."""
+    import torch
+    return torch.arange(ROLL_LARGE[0] * ROLL_LARGE[1], dtype=torch.float32
+                        ).reshape(ROLL_LARGE).to(device)
 
 
 def _digest(t) -> str:
@@ -149,11 +159,13 @@ def measure(reps: int) -> dict:
         "kernel": timed(lambda: ci.scatter_add_probe(xs, zeros, 1),
                         "k_scatter_add_probe"),
         "library": timed(lambda: into.index_add_(0, zeros, xs), None)}
-    x = ci.roll_input(dev)
-    out["constructs"]["roll"] = {
-        "kernel": timed(lambda: ci.roll_rows_probe(x, ci.ROLL_SHIFT),
-                        "k_roll_rows_probe"),
-        "library": timed(lambda: torch.roll(x, ci.ROLL_SHIFT, 0), None)}
+    xr = ci.roll_input(dev)
+    xrl = roll_large(dev)
+    for key, xi in (("roll", xr), ("roll_large", xrl)):
+        out["constructs"][key] = probe(
+            lambda: ci.roll_rows_probe(xi, ci.ROLL_SHIFT),
+            "k_roll_rows_probe", lambda: torch.roll(xi, ci.ROLL_SHIFT, 0),
+            2 * xi.numel() * 4)
     xf = ci.fold_input(dev)
     g = torch.Generator().manual_seed(0)
     xl = torch.randn(FOLD_LARGE, generator=g).to(torch.bfloat16).to(dev)
@@ -168,6 +180,8 @@ def measure(reps: int) -> dict:
            for form, poly in (("erff", False), ("poly", True))
            for kk in (1, k)},
         "erf_large.erff.k1": _digest(ci.erf_probe(xes)),
+        "roll": _digest(ci.roll_rows_probe(xr, ci.ROLL_SHIFT)),
+        "roll_large": _digest(ci.roll_rows_probe(xrl, ci.ROLL_SHIFT)),
         "fold": _digest(ci.fold_probe(xf)),
         "fold_large": _digest(ci.fold_probe(xl))}
     return out
@@ -294,8 +308,8 @@ def main(argv=None) -> list:
         res["differ"] = [k for k, v in first.items() if res["bits"][k] != v]
         res["same_bits"] = (
             f"{len(first) - len(res['differ'])} of {len(first)} outputs "
-            f"((tile, op) at K = 1 and vpu_probe's K; the erf's and the "
-            f"fold's) bit for bit as {roots[0]}'s")
+            f"((tile, op) at K = 1 and vpu_probe's K; the erf's, the "
+            f"roll's and the fold's) bit for bit as {roots[0]}'s")
         runs.append(res)
         print(json.dumps({"root": label, "card": res["card"],
                           "same_bits": res["same_bits"],

@@ -26,7 +26,10 @@ prints a verdict: "keep" when the port's current design choice still holds,
                 tap runs differ in any bit.
   pltpu_roll    ``roll_rows_probe``: (3136, 64) fp32 shifted by 56 flat
                 rows (one image row of stage 0) with 16-byte loads,
-                wrapping as jnp.roll; keep when exact.
+                wrapping as jnp.roll. A roll by whole rows of a contiguous
+                array is a flat roll of 16-byte vectors, so the kernel
+                copies flat vectors with a wrap (``roll_plan``, which
+                normalises the shift as torch.roll does); keep when exact.
   reshape_c320  ``fold_probe``: (4, 784, 320) bf16 folded into (3136, 320).
                 For a contiguous input the folded row index r * N + n is
                 the flat one, so the kernel copies flat 16-byte vectors
@@ -48,9 +51,9 @@ the card a row gives each kernel's time by CUDA events around its wrapper
 ("ms", host-paced where the kernel is short) and by the profiler's device
 time of the kernel alone ("kernel_ms"), with its library call's likewise,
 beside the card's launch floor ("launch_floor_ms": the device time of a
-one-element fill). At the probes' shapes the erf's and the fold's bytes
-take less than that floor, so their rows also time them at a size where
-the bytes set the pace ("large").
+one-element fill). At the probes' shapes the erf's, the roll's and the
+fold's bytes take less than that floor, so their rows also time them at a
+size where the bytes set the pace ("large").
 """
 from __future__ import annotations
 
@@ -87,6 +90,9 @@ SCATTER_THREADS = 256
 SCATTER_CTAS = 2 * 132   # two CTAs an SM of the H100
 SCATTER_SMEM = 96 * 1024  # constructs.cu::kScatterSmem
 ROLL_X, ROLL_SHIFT = (3136, 64), 56
+ROLL_X_LARGE = (3136 * 64, 64)  # 51.4 MB each way, past the 50 MB L2
+ROLL_THREADS = 128       # constructs.cu::kRollThreads
+ROLL_VPT = 4             # constructs.cu::kRollVpt: vectors a thread
 FOLD_X = (4, 784, 320)
 FOLD_X_LARGE = (64, 784, 320)   # 32.1 MB each way: the bytes set the pace
 FOLD_THREADS = 128       # constructs.cu::kFoldThreads
@@ -187,6 +193,59 @@ def roll_rows_probe_plain(x, shift: int) -> torch.Tensor:
     return torch.roll(x, shift, 0)
 
 
+def roll_plan(rows: int, cols: int, shift: int) -> dict:
+    """How ``k_roll_rows_probe`` rolls a contiguous (rows, cols) fp32
+    array by ``shift`` rows: as a flat roll of ``n`` = rows * cols / 4
+    16-byte vectors by ``s`` = (shift % rows) * cols / 4 vectors (the shift
+    normalised as torch.roll does, here in Python, so any int, negative or
+    past int32, reaches the kernel as 0 <= s < n), output vector i reading
+    vector i - s, or i - s + n below s. ``grid`` CTAs of ``threads``, each
+    a tile of threads * ``per_thread`` vectors, thread t of CTA b holding
+    vectors b * tile + t + j * threads (j < per_thread); ``full`` tiles run
+    unmasked and the last ``tail`` vectors (a partial tile; 0 when every
+    tile is full) one at a time. Raises where the kernel takes no such
+    shape (rows below 1, cols not a positive multiple of 4, or n past
+    int32)."""
+    if rows < 1 or cols < 4 or cols % 4:
+        raise ValueError(f"roll_rows_probe: rows >= 1 and C a positive "
+                         f"multiple of 4 expected, got ({rows}, {cols})")
+    n = rows * (cols // 4)
+    if n > MAX_INT:
+        raise ValueError(f"roll_rows_probe: at most {MAX_INT} 16-byte "
+                         f"vectors, got {n}")
+    tile = ROLL_THREADS * ROLL_VPT
+    return {"threads": ROLL_THREADS, "per_thread": ROLL_VPT,
+            "grid": -(-n // tile), "full": n // tile, "tail": n % tile,
+            "n": n, "s": shift % rows * (cols // 4)}
+
+
+def _roll_source(i, n: int, s: int):
+    """The vector k_roll_rows_probe reads for output vector i."""
+    return torch.where(i < s, i + (n - s), i - s)
+
+
+def roll_rows_probe_tiles_plain(x, shift: int) -> torch.Tensor:
+    """``k_roll_rows_probe``'s order of work in PyTorch: the full tiles of
+    ``roll_plan``, each thread's ``per_thread`` vectors loaded before they
+    are stored, then the tail one vector at a time; every vector is a
+    16-byte copy, so the result is exact."""
+    rows, cols = x.shape
+    p = roll_plan(rows, cols, shift)
+    n, s, t = p["n"], p["s"], p["threads"]
+    src = x.reshape(n, 4)
+    out = torch.full_like(src, float("nan"))
+    tile = t * p["per_thread"]
+    # (CTA, vector j of the thread, thread): b * tile + j * threads + t
+    i = (torch.arange(p["full"])[:, None, None] * tile
+         + torch.arange(p["per_thread"])[None, :, None] * t
+         + torch.arange(t)[None, None, :]).reshape(-1).to(x.device)
+    out[i] = src[_roll_source(i, n, s)]
+    # the last CTA's threads walk the tail, each by ``threads`` vectors
+    i = torch.arange(p["full"] * tile, n, device=x.device)
+    out[i] = src[_roll_source(i, n, s)]
+    return out.reshape(rows, cols)
+
+
 def fold_probe_plain(x) -> torch.Tensor:
     r, n, c = x.shape
     return x.reshape(r * n, c).clone()
@@ -271,16 +330,18 @@ def scatter_add_probe(x, idx, out_rows: int) -> torch.Tensor:
 
 
 def roll_rows_probe(x, shift: int) -> torch.Tensor:
-    """torch.roll(x, shift, 0) by 16-byte loads: ``k_roll_rows_probe``."""
+    """torch.roll(x, shift, 0) by 16-byte loads: ``k_roll_rows_probe``, a
+    flat copy with a wrap as ``roll_plan`` lays it out (any int shift)."""
     if not x.is_cuda:
         return roll_rows_probe_plain(x, shift)
     probes.check_cuda("roll_rows_probe", x, dtype=torch.float32)
-    if x.dim() != 2 or x.shape[1] % 4:
-        raise ValueError("roll_rows_probe: (rows, C) with C a multiple of 4 "
-                         f"expected, got {tuple(x.shape)}")
+    if x.dim() != 2:
+        raise ValueError("roll_rows_probe: (rows, C) expected, got "
+                         f"{tuple(x.shape)}")
+    plan = roll_plan(x.shape[0], x.shape[1], shift)
     out = torch.empty_like(x)
-    probes.launch("roll_rows_probe", x, x, out, x.shape[0], x.shape[1],
-                  shift, counts=LAUNCHES)
+    probes.launch("roll_rows_probe", x, x, out, plan["n"], plan["s"],
+                  plan["grid"], counts=LAUNCHES)
     return out
 
 
@@ -342,10 +403,11 @@ def scatter_input(device):
     return x, idx.to(device)
 
 
-def roll_input(device) -> torch.Tensor:
-    """(3136, 64) fp32 whose every element differs (its flat index)."""
-    return torch.arange(ROLL_X[0] * ROLL_X[1], dtype=torch.float32).reshape(
-        ROLL_X).to(device)
+def roll_input(device, shape=ROLL_X) -> torch.Tensor:
+    """(3136, 64) fp32 (or ``shape``) whose every element differs (its
+    flat index, exact in fp32 below 2**24)."""
+    return torch.arange(shape[0] * shape[1], dtype=torch.float32).reshape(
+        shape).to(device)
 
 
 def fold_input(device, shape=FOLD_X) -> torch.Tensor:
@@ -519,6 +581,17 @@ def probe_pltpu_roll(device) -> dict:
                       lambda: roll_rows_probe_plain(x, ROLL_SHIFT),
                       lambda: torch.roll(x, ROLL_SHIFT, 0),
                       2 * x.numel() * 4))
+    if row["route"] == "cuda":  # where the bytes set the pace
+        xl = roll_input(device, ROLL_X_LARGE)
+        exact_large = bool(torch.equal(roll_rows_probe(xl, ROLL_SHIFT),
+                                       torch.roll(xl, ROLL_SHIFT, 0)))
+        row["large"] = {"shape": list(ROLL_X_LARGE), "exact": exact_large,
+                        **_times(device, lambda: roll_rows_probe(
+                            xl, ROLL_SHIFT), "k_roll_rows_probe",
+                            lambda: roll_rows_probe_plain(xl, ROLL_SHIFT),
+                            lambda: torch.roll(xl, ROLL_SHIFT, 0),
+                            2 * xl.numel() * 4)}
+        exact = exact and exact_large
     row["ok"] = exact
     row["verdict"] = _verdict(
         row["route"], exact,

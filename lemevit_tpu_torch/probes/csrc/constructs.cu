@@ -8,7 +8,11 @@
 //   k_scatter_add_probe    atomicAdd scatter of rows, pre-summed on chip
 //                                                       probe_scatter :78
 //   k_roll_rows_probe      rows shifted with 16-byte loads, wrapping
-//                          (k_cpe_rows' row-shifted access)
+//                          (k_cpe_rows' row-shifted access): a roll of a
+//                          contiguous (rows, cols) array by whole rows is
+//                          a flat roll of n = rows * cols / 4 vectors by
+//                          s = (shift mod rows) * cols / 4, so it is a
+//                          flat copy with a wrap
 //                                                       probe_pltpu_roll :93
 //   k_fold_probe           (R, N, C) -> (R * N, C) bf16: for a contiguous
 //                          x the folded row index r * N + n is the flat
@@ -22,10 +26,10 @@
 //                          first design, one cluster an image)
 // Bound on the H100: bytes for the roll and the fold (read and write once),
 // each well below a microsecond at the probes' shapes, so there their times
-// are launch times (constructs.py times the fold and the erf at a larger
-// size too); the erf passes are a few operations per element. The scatter
-// is bound by reading x and idx once (its atomics add to a few hundred
-// bytes at the tap probe's shape).
+// are launch times (constructs.py times the roll, the fold and the erf at a
+// larger size too); the erf passes are a few operations per element. The
+// scatter is bound by reading x and idx once (its atomics add to a few
+// hundred bytes at the tap probe's shape).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -194,16 +198,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out row r = x row (r - shift) mod rows, as jnp.roll / torch.roll
-__global__ void k_roll_rows_probe(const float4* __restrict__ x,
-                                  float4* __restrict__ out, int rows,
-                                  int vpr, int shift) {
-  const long i = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long)rows * vpr) return;
-  const int r = (int)(i / vpr);
-  int src = (r - shift) % rows;
-  if (src < 0) src += rows;
-  out[i] = x[(long)src * vpr + (i - (long)r * vpr)];
+// The roll as a flat copy of n 16-byte vectors with a wrap (see the
+// header): out[i] = x[i - s] for i >= s and x[i - s + n] below s, where
+// 0 <= s < n comes normalised from the host (constructs.py::roll_plan), so
+// no index is divided or reduced. The layout is k_fold_probe's: a CTA of
+// kRollThreads owns a tile of kRollThreads * kRollVpt vectors (98 CTAs at
+// the probe's shape), thread t holds vectors t + j * kRollThreads (j <
+// kRollVpt) and issues all its loads before its first store; full tiles
+// run unmasked, the last, partial tile one vector at a time.
+constexpr int kRollThreads = 128;
+constexpr int kRollVpt = 4;
+
+__global__ void __launch_bounds__(kRollThreads)
+    k_roll_rows_probe(const float4* __restrict__ x, float4* __restrict__ out,
+                      int n, int s) {
+  constexpr int kTile = kRollThreads * kRollVpt;
+  const long first = (long)blockIdx.x * kTile + threadIdx.x;
+  const long back = (long)n - s;  // below s, vector i reads x[i + n - s]
+  if ((long)(blockIdx.x + 1) * kTile <= n) {  // a full tile
+    float4 v[kRollVpt];
+#pragma unroll
+    for (int j = 0; j < kRollVpt; ++j) {
+      const long i = first + j * kRollThreads;
+      v[j] = x[i < s ? i + back : i - s];
+    }
+#pragma unroll
+    for (int j = 0; j < kRollVpt; ++j) out[first + j * kRollThreads] = v[j];
+    return;
+  }
+#pragma unroll 1
+  for (long i = first; i < n; i += kRollThreads)
+    out[i] = x[i < s ? i + back : i - s];
 }
 
 // The fold as a flat copy of nvec 16-byte vectors (see the header). A CTA
@@ -343,16 +368,19 @@ extern "C" int lm_scatter_add_probe(const void* x, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// x, out: (rows, cols) fp32, cols a multiple of 4, 16-byte aligned.
-extern "C" int lm_roll_rows_probe(const void* x, void* out, int rows,
-                                  int cols, int shift, void* stream) {
-  const int vpr = cols / 4;
-  const long n = (long)rows * vpr;
-  lp::k_roll_rows_probe<<<(unsigned)((n + lp::kThreads - 1) / lp::kThreads),
-                          lp::kThreads, 0,
+// x, out: (rows, cols) fp32, contiguous and 16-byte aligned, rolled by
+// whole rows as n = rows * cols / 4 vectors by s = (shift mod rows) * cols
+// / 4 vectors, 0 <= s < n; grid: constructs.py::roll_plan (tiles of
+// kRollThreads * kRollVpt vectors).
+extern "C" int lm_roll_rows_probe(const void* x, void* out, int n, int s,
+                                  int grid, void* stream) {
+  constexpr long kTile = lp::kRollThreads * lp::kRollVpt;
+  if (n < 1 || s < 0 || s >= n || grid < 1 || (long)grid * kTile < n ||
+      (long)(grid - 1) * kTile >= n)
+    return (int)cudaErrorInvalidValue;
+  lp::k_roll_rows_probe<<<grid, lp::kRollThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<float4*>(out), rows, vpr,
-      shift);
+      static_cast<const float4*>(x), static_cast<float4*>(out), n, s);
   return (int)cudaGetLastError();
 }
 

@@ -974,6 +974,49 @@ def test_fold_probe_ragged_on_gpu(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shift", ["0", "1", "rows-1", "rows", -57,
+                                   2 ** 32 + 57, -2 ** 31])
+@pytest.mark.parametrize("shape", [(1, 4), (5, 12), (127, 16), (128, 16),
+                                   (129, 16), (3136, 64), (200704, 64)])
+def test_roll_rows_probe_shifts_on_gpu(cuda, shape, shift):
+    """k_roll_rows_probe on full and partial tiles (roll_plan), bit for bit
+    torch.roll, at shifts past the rows, negative and past int32 (2**32 +
+    57 rolled by 57 rows while the shift went to the kernel unnormalised)."""
+    rows = shape[0]
+    shift = {"0": 0, "1": 1, "rows-1": rows - 1, "rows": rows}.get(shift,
+                                                                  shift)
+    x = torch.arange(rows * shape[1], dtype=torch.float32,
+                     device=cuda).reshape(shape)
+    before = constructs.LAUNCHES["roll_rows_probe"]
+    got = constructs.roll_rows_probe(x, shift)
+    assert constructs.LAUNCHES["roll_rows_probe"] == before + 1
+    want = torch.roll(x, shift, 0)
+    assert torch.equal(got, want), (got[0, 0].item(), want[0, 0].item())
+
+
+@pytest.mark.gpu
+def test_roll_rows_probe_launcher_refuses_on_gpu(cuda):
+    """lm_roll_rows_probe refuses a grid or an s that is not roll_plan's,
+    and the wrapper a shape the kernel does not take."""
+    from lemevit_tpu_torch import probes
+    x = constructs.roll_input(cuda)
+    out = torch.empty_like(x)
+    p = constructs.roll_plan(*x.shape, constructs.ROLL_SHIFT)
+    n, s, grid = p["n"], p["s"], p["grid"]
+    for args in ((n, s, grid + 1), (n, s, grid - 1), (n, s, 0), (n, n, grid),
+                 (n, -1, grid), (0, 0, 1)):
+        before = constructs.LAUNCHES["roll_rows_probe"]
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            probes.launch("roll_rows_probe", x, x, out, *args,
+                          counts=constructs.LAUNCHES)
+        assert constructs.LAUNCHES["roll_rows_probe"] == before
+    with pytest.raises(ValueError, match="multiple of 4"):
+        constructs.roll_rows_probe(torch.ones(8, 6, device=cuda), 1)
+    with pytest.raises(TypeError):
+        constructs.roll_rows_probe(x.double(), 1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", list(constructs.PROBES))
 def test_construct_probe_on_gpu(cuda, name):
     """Each construct probe's kernel against its plain version on the card,

@@ -31,6 +31,18 @@ and chip_smoke.py hold them against these):
     against scripts/mosaic_probes.py's probe_erf_prim and
     probe_reshape_c320 in interpret mode, the erf's K-sum against JAX's
     kernel on each of its K arguments and against the fp64 sum;
+  - constructs.roll_plan as a pure function: by k_roll_rows_probe's rule
+    (thread t of CTA b holds vectors b * tile + t + j * threads, reading
+    vector i - s, or i - s + n below s) every output vector is written
+    once, nothing past n, and each from np.roll's source vector, at the
+    probe's shape, the large shape and ragged sizes (n = 1, a tile and
+    one either side, cols = 4 and 12); the shift normalised as shift % rows
+    (0, 1, rows - 1, rows, -57, 2**32 + 57, -2**31); the refusals;
+  - constructs.roll_rows_probe_tiles_plain (roll_plan's order of work)
+    exactly torch.roll at those shifts, and JAX's probe_pltpu_roll kernel
+    in interpret mode on the probe's input, as the roll's CPU wrapper;
+  - cli.probe_ab's large roll input equal to constructs.roll_input's,
+    chip_smoke.LARGE_PROBES naming the roll, and chip_smoke.pil_status;
   - the build's ptxas report (attn/_build.py::ptxas_log, with a stand-in
     nvcc) and chip_smoke.py's reading of it (ptxas_report,
     check_probe_ptxas: a spill, a stack frame or a missing instance
@@ -395,6 +407,127 @@ def test_fold_wrapper_on_cpu_matches_mosaic_probe(jax_scripts,
     assert torch.equal(got.float(), _torch(want))
 
 
+# ---------------------------------------------------------------- roll
+
+# n = rows * cols / 4 vectors: the probe's 50176 and the large 3211264
+# (whole tiles), one vector, a tile (512) and one either side, cols = 12
+ROLL_SHAPES = [constructs.ROLL_X, constructs.ROLL_X_LARGE, (1, 4), (511, 4),
+               (512, 4), (513, 4), (5, 12), (1025, 8)]
+ROLL_SHIFTS = ["0", "1", "rows-1", "rows", -57, 2 ** 32 + 57, -2 ** 31]
+
+
+def _shift(spec, rows: int) -> int:
+    return {"0": 0, "1": 1, "rows-1": rows - 1, "rows": rows}.get(spec, spec)
+
+
+@pytest.mark.parametrize("rows,cols", ROLL_SHAPES)
+def test_roll_plan_covers_every_vector_once(rows, cols):
+    n = rows * cols // 4
+    want = np.arange(n).reshape(rows, cols // 4)
+    for shift in (constructs.ROLL_SHIFT, -57):
+        p = constructs.roll_plan(rows, cols, shift)
+        t, v = p["threads"], p["per_thread"]
+        assert (t, v) == (constructs.ROLL_THREADS, constructs.ROLL_VPT)
+        assert p["n"] == n and 0 <= p["s"] < n
+        tile = t * v
+        # k_roll_rows_probe: thread t of CTA b writes vectors b * tile + t +
+        # j * t, each read from vector i - s, or i - s + n below s
+        i = (np.arange(p["grid"])[:, None, None] * tile
+             + np.arange(t)[None, :, None] + np.arange(v)[None, None, :] * t)
+        i = i[i < n]
+        assert i.size == n and np.array_equal(np.sort(i), np.arange(n))
+        src = np.where(i < p["s"], i + n - p["s"], i - p["s"])
+        assert src.min() >= 0 and src.max() < n
+        out = np.empty(n, dtype=np.int64)
+        out[i] = src
+        assert np.array_equal(out, np.roll(want, shift, 0).reshape(-1))
+        assert (p["grid"] - 1) * tile < n <= p["grid"] * tile  # none empty
+        assert p["full"] == n // tile and p["tail"] == n - p["full"] * tile
+        assert p["grid"] == p["full"] + (p["tail"] > 0)
+    if (rows, cols) == constructs.ROLL_X:
+        assert p["grid"] == 98
+
+
+@pytest.mark.parametrize("spec", ROLL_SHIFTS)
+def test_roll_plan_normalises_the_shift(spec):
+    """Any int shift reaches the kernel as 0 <= s < n, (shift % rows) rows
+    of vectors, as torch.roll takes it: 2**32 + 57 is 2105 rows of the
+    probe's 3136, not the 57 its low 32 bits would give."""
+    for rows, cols in (constructs.ROLL_X, (5, 12), (1, 4), (513, 4)):
+        shift = _shift(spec, rows)
+        p = constructs.roll_plan(rows, cols, shift)
+        assert p["s"] == shift % rows * (cols // 4)
+        assert 0 <= p["s"] < p["n"]
+    if spec == 2 ** 32 + 57:
+        assert constructs.roll_plan(*constructs.ROLL_X, spec)["s"] == (
+            2105 * 16)
+
+
+@pytest.mark.parametrize("spec", ROLL_SHIFTS)
+@pytest.mark.parametrize("rows,cols", [constructs.ROLL_X, (1, 4), (513, 4),
+                                       (5, 12)])
+def test_roll_tiles_match_torch_roll(rows, cols, spec):
+    shift = _shift(spec, rows)
+    g = torch.Generator().manual_seed(rows + cols)
+    x = torch.randn(rows, cols, generator=g)
+    got = constructs.roll_rows_probe_tiles_plain(x, shift)
+    assert torch.equal(got, torch.roll(x, shift, 0))
+    # the CPU wrapper is torch.roll on the raw shift
+    assert torch.equal(constructs.roll_rows_probe(x, shift), got)
+
+
+def test_roll_plan_refuses():
+    for rows, cols in ((0, 4), (-1, 4), (10, 6), (10, 0), (10, 2),
+                       (2 ** 31, 4), (2 ** 29, 16)):
+        with pytest.raises(ValueError, match="roll_rows_probe"):
+            constructs.roll_plan(rows, cols, 1)
+    assert constructs.roll_plan(constructs.MAX_INT, 4, -1)["s"] == (
+        constructs.MAX_INT - 1)
+    with pytest.raises(ValueError, match="roll_rows_probe"):
+        constructs.roll_rows_probe_tiles_plain(torch.ones(4, 6), 1)
+
+
+def test_roll_tiles_match_mosaic_probe(jax_scripts, interpret_calls,
+                                       monkeypatch, capsys):
+    jm = jax_scripts[1]
+    monkeypatch.setattr(jm, "_setup_jax", lambda: jax)
+    jm.probe_pltpu_roll()
+    assert "COMPILED_OK" in capsys.readouterr().out
+    call, _, out = interpret_calls[-1]
+    ones = torch.ones(constructs.ROLL_X)
+    assert torch.equal(constructs.roll_rows_probe_tiles_plain(
+        ones, constructs.ROLL_SHIFT), _torch(out))
+    # distinct values fix the direction: jnp.roll's, as torch.roll's
+    x = constructs.roll_input("cpu")
+    want = _torch(call(jnp.asarray(x.numpy())))
+    assert torch.equal(constructs.roll_rows_probe_tiles_plain(
+        x, constructs.ROLL_SHIFT), want)
+    assert torch.equal(constructs.roll_rows_probe(x, constructs.ROLL_SHIFT),
+                       want)
+
+
+def test_probe_ab_large_roll_input_is_roll_inputs():
+    """The harness makes the large roll input itself (a parent root's
+    package may lack it): the shape and values of constructs.roll_input,
+    every element distinct."""
+    assert probe_ab.ROLL_LARGE == constructs.ROLL_X_LARGE
+    mine = probe_ab.roll_large("cpu")
+    assert torch.equal(mine, constructs.roll_input(
+        "cpu", constructs.ROLL_X_LARGE))
+    assert mine.dtype == torch.float32
+    assert mine[-1, -1].item() == mine.numel() - 1 < 2 ** 24
+
+
+def test_chip_smoke_times_the_roll_at_its_large_size():
+    assert "pltpu_roll" in chip_smoke.LARGE_PROBES
+    assert set(chip_smoke.LARGE_PROBES) <= set(constructs.PROBES)
+    assert chip_smoke.CONSTRUCT_KERNELS["pltpu_roll"] == (
+        "roll_rows_probe", "scripts/mosaic_probes.py:93")
+    assert chip_smoke.PROBE_PTXAS["constructs.cu"]["k_roll_rows_probe"] == 1
+    assert chip_smoke.ROLL_SHIFT_PAST_INT32 % 2 ** 32 == 57
+    assert chip_smoke.pil_status().startswith(("PIL ", "PIL does not"))
+
+
 # ---------------------------------------------------------------- ptxas
 
 PTXAS_LOG = """ptxas info    : Compiling entry function '{name}' for 'sm_90a'
@@ -442,6 +575,7 @@ def test_chip_smoke_reads_the_probe_ptxas_report():
         [(f"k_ew_probe_{i}", 0, 0, 40) for i in range(229)]),
         "constructs.cu": _ptxas([("k_scatter_add_probe_t", 0, 0, 48),
                                  ("k_scatter_add_probe_f", 0, 0, 46),
+                                 ("k_roll_rows_probe", 0, 0, 26),
                                  ("k_fold_probe", 0, 0, 20),
                                  ("k_erf_probe_t", 0, 0, 40),
                                  ("k_erf_probe_f", 0, 0, 38)])}
@@ -454,11 +588,12 @@ def test_chip_smoke_reads_the_probe_ptxas_report():
     assert got["constructs.cu"]["k_erf_probe"] == {
         "instances": 2, "max_registers": 40, "spill_or_stack": 0}
     assert got["ew_probe.cu"]["k_ew_probe"]["instances"] == 229
-    for bad in ([("k_fold_probe", 16, 0, 20)], [("k_fold_probe", 0, 8, 20)],
-                []):
-        log = clean["constructs.cu"].replace(_ptxas(
-            [("k_fold_probe", 0, 0, 20)]), _ptxas(bad))
-        with pytest.raises(AssertionError, match="k_fold_probe"):
-            chip_smoke.check_probe_ptxas({
-                **report, "constructs.cu": chip_smoke.ptxas_report(
-                    log, "/nonexistent/nvcc")})
+    assert got["constructs.cu"]["k_roll_rows_probe"]["max_registers"] == 26
+    for name, regs in (("k_fold_probe", 20), ("k_roll_rows_probe", 26)):
+        for bad in ([(name, 16, 0, regs)], [(name, 0, 8, regs)], []):
+            log = clean["constructs.cu"].replace(_ptxas(
+                [(name, 0, 0, regs)]), _ptxas(bad))
+            with pytest.raises(AssertionError, match=name):
+                chip_smoke.check_probe_ptxas({
+                    **report, "constructs.cu": chip_smoke.ptxas_report(
+                        log, "/nonexistent/nvcc")})
