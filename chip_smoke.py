@@ -48,6 +48,18 @@ and read just after:
     against its composition), one fp32 train step on the kernel path
     against the plain path, cli.train as above, cli.benchmark --bench
     train, and a profile of one train step;
+  - real images (PIL must import): a JPEG folder written from a seed (8
+    classes, 384 training images and 100 validation images of 256-512 px
+    a side, a PNG and a greyscale JPEG among them), a UCM manifest tree
+    and a zip with its map file; cli.train of lemevit_tiny on the folder
+    (configs/lemevit.yaml: RandAugment m9, hflip, random resized crops; 4
+    loader threads) with the synthetic run's launches per step;
+    cli.validate of lemevit_base on the validation split (a ragged last
+    batch of 36) on the default path and with --s-stage --cpe-in-kernel,
+    each against --attn-backend torch (equal counts, the loss within 4 bf16
+    steps), --real-labels, --dataset ucm and --dataset zipfolder; a
+    real-data batch's host build time with 1 and 4 threads beside a
+    synthetic one;
   - at every training shape above and below (and in the CPE mode), the
     phases on the tensor-core kernels: row 9, lm_s_train_fwd (S blocks:
     k_qkv_wg, k_mhsa_tc with the log-sum-exp, k_tail_wg's training
@@ -1484,24 +1496,34 @@ def check_train_step(dev, name, expect, **model_kw):
         f"(1e-3 max|ref| + 1e-6); launches {launched}")
 
 
-def train_main_path(model, per_step, per_eval, flags=()):
-    """cli.train on synthetic data: ``model``, 224^2, bf16, B=64, the
-    reference recipe (configs/lemevit.yaml: mixup, cutmix, erasing,
-    smoothing, drop-path 0.15, EMA), 1 epoch of TRAIN_STEPS steps and one
-    eval of the live and EMA models, with the extra CLI ``flags``, its
-    launch counts set to 0 just before and read just after. Returns
-    (launches, result)."""
+def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
+                    val_batches=2, steps=TRAIN_STEPS):
+    """cli.train on synthetic data, or on the image folder ``data_dir``
+    (--dataset imagefolder, 4 loader threads unless ``flags`` ask for
+    worker processes): ``model``, 224^2, bf16,
+    B=64, the reference recipe (configs/lemevit.yaml: RandAugment m9,
+    hflip and random resized crops on real images; mixup, cutmix, erasing,
+    smoothing, drop-path 0.15, EMA), 1 epoch of ``steps`` steps and one
+    eval of the live and EMA models over ``val_batches`` whole batches,
+    with the extra CLI ``flags``, its launch counts set to 0 just before
+    and read just after. Returns (launches, result); the result's
+    "log_times" are the wall times of the logged steps (events.jsonl)."""
     from lemevit_tpu_torch.cli import train as train_cli
+    data = (["--synthetic"] if data_dir is None else
+            ["--dataset", "imagefolder", "--data-dir", str(data_dir),
+             "--workers", "4"])
     with tempfile.TemporaryDirectory() as out:
         reset()
         torch.cuda.reset_peak_memory_stats()
         res = train_cli.main([
-            "--synthetic", "--model", model, "--img-size", "224",
+            *data, "--model", model, "--img-size", "224",
             "--batch-size", str(B_MAIN),
             "--config", str(REPO / "configs" / "lemevit.yaml"),
-            "--epochs", "1", "--steps-per-epoch", str(TRAIN_STEPS),
+            "--epochs", "1", "--steps-per-epoch", str(steps),
             "--output", out, *flags])
         launches = launch_counts()
+        with open(Path(out) / model / "events.jsonl") as f:
+            res["log_times"] = [json.loads(line)["time"] for line in f]
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         with open(Path(out) / model / "summary.csv") as f:
             rows = list(csv.DictReader(f))
@@ -1509,19 +1531,20 @@ def train_main_path(model, per_step, per_eval, flags=()):
             raise AssertionError(f"summary.csv: {rows}")
         ckpts = list((Path(out) / model / "checkpoints").glob(
             "checkpoint-*.pth"))
-    eval_fwds = 2 * 2  # two val batches, live and EMA model
-    want = {k: per_step.get(k, 0) * TRAIN_STEPS
+    eval_fwds = val_batches * 2  # live and EMA model
+    want = {k: per_step.get(k, 0) * steps
             + per_eval.get(k, 0) * eval_fwds for k in launches}
-    expect_launches(launches, want, f"{model} ({TRAIN_STEPS} steps, "
+    expect_launches(launches, want, f"{model} ({steps} steps, "
                     f"{eval_fwds} eval forwards)")
     loss = res["train_loss"]
-    if not (loss == loss and abs(loss) < 1e3) or res["steps"] != TRAIN_STEPS \
+    if not (loss == loss and abs(loss) < 1e3) or res["steps"] != steps \
             or len(ckpts) != 1:
         raise AssertionError(f"train: {res}, checkpoints {ckpts}")
-    say("train", f"{model} {' '.join(flags)} 224 bf16 B={B_MAIN}: "
+    say("train", f"{model} {' '.join(flags)} 224 bf16 B={B_MAIN}"
+        f"{'' if data_dir is None else ', JPEG folder'}: "
         f"{res['steps']} steps, "
         f"loss {loss:.4f}, {res['samples_per_sec']:.2f} img/s, "
-        f"{res['step_ms']:.2f} ms/step (steps 2-{TRAIN_STEPS}), peak "
+        f"{res['step_ms']:.2f} ms/step (steps 2-{steps}), peak "
         f"{res['peak_gib']:.2f} GiB allocated; eval top1 "
         f"{res['best_top1']:.3f}; launches per step " + ", ".join(
             f"{k} {v}" for k, v in per_step.items())
@@ -1562,16 +1585,281 @@ def profile_eval_forward(dev, name: str, batch: int = B_MAIN) -> dict:
                             f"(bf16, B={batch})", top=8)
 
 
-def host_batch_ms(n: int = 3) -> float:
-    """Host time to build one synthetic training batch (B_MAIN images at
-    224^2, as cli.train's loader thread builds them), mean of n."""
+def host_batch_ms(dataset=None, threads: int = 1, n: int = 3, procs: int = 0,
+                  spec=None) -> float:
+    """Host ms per training batch of B_MAIN images at 224^2 as cli.train's
+    loader builds them with ``threads`` producer threads, or ``procs``
+    spawned workers that build the dataset from ``spec`` (on the host, no
+    copy to the card): the steady pace, the time from the producers' first
+    round of batches (one each; it holds their start-up) to n batches
+    later, over n. The dataset is synthetic unless given."""
     from lemevit_tpu_torch.data.datasets import SyntheticDataset
-    from lemevit_tpu_torch.data.loader import _collate
-    ds = SyntheticDataset(num_samples=n * B_MAIN, image_size=224)
+    from lemevit_tpu_torch.data.loader import create_loader
+    first = procs or threads
+    ds = (SyntheticDataset(num_samples=(first + n) * B_MAIN, image_size=224)
+          if dataset is None else dataset)
+    loader = create_loader(ds, B_MAIN, is_training=True, num_threads=threads,
+                           num_procs=procs, dataset_spec=spec)
+    it = iter(loader)
+    for _ in range(first):
+        next(it)
     t0 = time.perf_counter()
-    for i in range(n):
-        _collate(ds, range(i * B_MAIN, (i + 1) * B_MAIN))
-    return (time.perf_counter() - t0) / n * 1e3
+    for _ in range(n):
+        next(it)
+    ms = (time.perf_counter() - t0) / n * 1e3
+    it.close()
+    return ms
+
+
+# the real-data phase's image folder: REAL_CLASSES classes, REAL_TRAIN_STEPS
+# + REAL_SPARE whole batches to train on and REAL_VAL validation images (a
+# ragged last batch of REAL_VAL % B_MAIN), sides drawn from REAL_SIDES.
+# cli.train trains REAL_TRAIN_STEPS steps of that epoch and logs every
+# REAL_LOG; its steady img/s is read over the last REAL_WINDOW of them: a
+# dozen steps after the first, and while the producers still build (the
+# REAL_SPARE batches are more than 4 producers' queues and the device
+# prefetch hold, 4 * (PREFETCH + 1) + DEVICE_PREFETCH = 14)
+REAL_CLASSES = 8
+REAL_VAL = 100
+REAL_SIDES = (256, 512)
+REAL_AA = "rand-m9-mstd0.5-inc1"  # configs/lemevit.yaml's aa
+REAL_LOG = 4
+REAL_TRAIN_STEPS = 6 * REAL_LOG + 1  # logged at steps 0, 4, ..., 24
+REAL_WINDOW = 3 * REAL_LOG
+REAL_SPARE = 16
+
+
+def real_picture(rs, h: int, w: int):
+    """A PIL RGB picture: smooth colour fields (upsampled noise) with
+    fine noise on top, so that JPEG coding and the augmentations do real
+    work."""
+    from PIL import Image
+    import numpy as np
+    small = rs.randint(0, 256, (h // 32 + 2, w // 32 + 2, 3), np.uint8)
+    img = np.asarray(Image.fromarray(small).resize((w, h), Image.BICUBIC),
+                     np.int16)
+    img = img + rs.randint(-12, 13, img.shape)
+    return Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+
+
+def write_real_data(root: Path, seed: int = 0) -> dict:
+    """Write, with PIL, from ``seed`` (each image from its own generator,
+    eight at a time): a class-per-directory JPEG folder (train/:
+    (REAL_TRAIN_STEPS + REAL_SPARE) * B_MAIN images over REAL_CLASSES
+    classes;
+    validation/: REAL_VAL images; mixed sizes within REAL_SIDES; one PNG
+    and one greyscale JPEG among them); a UCM-form manifest tree (all_img/
+    and valid_labels_55.txt) and a zip with its map file (validation.zip,
+    validation_map.txt), each of 2 images a class; and a ReaL-labels JSON
+    for validation/ (each image's class and the next). Returns the paths
+    and counts."""
+    import zipfile
+    import numpy as np
+    counts = {"train": (REAL_TRAIN_STEPS + REAL_SPARE) * B_MAIN,
+              "validation": REAL_VAL}
+
+    def write(job) -> Path:
+        s, split, k = job
+        rs = np.random.RandomState([seed, s, k])
+        d = root / "folder" / split / f"class{k % REAL_CLASSES}"
+        h, w = (int(v) for v in rs.randint(REAL_SIDES[0],
+                                           REAL_SIDES[1] + 1, 2))
+        img = real_picture(rs, h, w)
+        path = d / f"{split}_{k:05d}.{'png' if k == 1 else 'jpg'}"
+        if k == 2:
+            img = img.convert("L")
+        img.save(path, **({} if k == 1 else {"quality": 90}))
+        return path
+
+    jobs = [(s, split, k) for s, (split, total) in enumerate(counts.items())
+            for k in range(total)]
+    for split in counts:
+        for c in range(REAL_CLASSES):
+            (root / "folder" / split / f"class{c}").mkdir(parents=True)
+    with ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(write, jobs))
+    val = [(p, k % REAL_CLASSES) for (_, split, k), p in zip(jobs, paths)
+           if split == "validation" and p.suffix == ".jpg"]
+    real = {p.name: [c, (c + 1) % REAL_CLASSES] for p, c in val}
+    small = [(p, f"{p.parent.name}/{p.name}", c) for p, c in val
+             if int(p.stem.split("_")[1]) < 2 * REAL_CLASSES]
+    ucm = root / "ucm"
+    (ucm / "all_img").mkdir(parents=True)
+    (root / "zip").mkdir()
+    with zipfile.ZipFile(root / "zip" / "validation.zip", "w") as zf:
+        for path, inner, _ in small:
+            (ucm / "all_img" / path.name).write_bytes(path.read_bytes())
+            zf.write(path, inner)
+    (ucm / "valid_labels_55.txt").write_text(
+        "".join(f"{p.name} {c}\n" for p, _, c in small))
+    (root / "zip" / "validation_map.txt").write_text(
+        "".join(f"{inner}\t{c}\n" for _, inner, c in small))
+    (root / "real.json").write_text(json.dumps(real))
+    return {"folder": root / "folder", "ucm": ucm, "zip": root / "zip",
+            "real": root / "real.json", "small": len(small), **counts}
+
+
+def validate_real(folder: Path, flags=()) -> tuple:
+    """cli.validate of lemevit_base (bf16, B_MAIN) on ``folder``'s
+    validation split with ``flags``, its launch counts set to 0 just before
+    and read just after, then the same with --attn-backend torch. Raises
+    unless the counts are equal, the losses agree within PLAIN_STEPS bf16
+    steps of the plain path's, and every image's logits agree with the
+    plain path's within 2 * PLAIN_STEPS bf16 steps of their largest
+    element: each bf16 path is held within PLAIN_STEPS of fp32
+    (check_model_bf16), so two that pass lie within twice that of each
+    other, while logits that carry nothing of the image (uniform, or
+    another image's) are off by about the largest logit. Returns
+    (launches, kernel result, plain result, logits check)."""
+    from lemevit_tpu_torch.cli import validate
+    argv = ["--model", "lemevit_base", "--data-dir", str(folder),
+            "--batch-size", str(B_MAIN), *flags]
+    logits = ([], [])
+    reset()
+    got = validate.validate(validate.build_parser().parse_args(argv),
+                            logits[0])
+    launches = launch_counts()
+    plain = validate.validate(validate.build_parser().parse_args(
+        argv + ["--attn-backend", "torch"]), logits[1])
+    out, ref = (torch.cat(t).cpu() for t in logits)
+    if out.shape != (REAL_VAL, 1000) or ref.shape != out.shape or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"validate {' '.join(flags)} logits: "
+                             f"{tuple(out.shape)}, {tuple(ref.shape)}")
+    scale = ref.abs().max().item()
+    lim = 2 * PLAIN_STEPS * BF16_STEP * scale
+    diff = (out - ref).abs()
+    last = REAL_VAL - REAL_VAL % B_MAIN
+    check = {"err": diff.max().item(), "last_batch_err":
+             diff[last:].max().item(), "limit": lim, "max_ref": scale,
+             "argmax_equal": int((out.argmax(-1) == ref.argmax(-1)).sum())}
+    loss_lim = PLAIN_STEPS * BF16_STEP * max(1.0, abs(plain["loss"]))
+    if got["count"] != plain["count"] or not check["err"] <= lim or not (
+            abs(got["loss"] - plain["loss"]) <= loss_lim):
+        raise AssertionError(f"validate {' '.join(flags)} on images: "
+                             f"{got}, logits {check}, against the plain "
+                             f"path {plain}")
+    return launches, got, plain, check
+
+
+def real_data_phase(smi: str, synthetic_train: dict) -> dict:
+    """The classification data plane on real images: write the data, train
+    lemevit_tiny on the folder through cli.train (TINY_STEP's launches per
+    step, as on synthetic data) for REAL_TRAIN_STEPS steps with 4 loader
+    threads and with 4 worker processes, its img/s read over the steady
+    window; validate lemevit_base on its validation split
+    (a ragged last batch) on the default and the slice's path, each image's
+    logits against the plain path's; validate with ReaL labels, the UCM
+    tree and the zip; time a real-data batch's host build with 1 and 4
+    threads and 4 worker processes beside a synthetic one. Fails if PIL
+    does not import."""
+    import PIL  # noqa: F401  (no fallback to synthetic data)
+    from lemevit_tpu_torch.cli import validate
+    from lemevit_tpu_torch.data.spawn import DatasetSpec
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_real_data(Path(tmp))
+        t_write = time.time() - t0
+        trained = {}
+        # the process run skips the eval: each pass of a process loader
+        # spawns its workers anew, twice for the live and EMA models
+        for name, flags, val_batches in (
+                ("4_threads", (), REAL_VAL // B_MAIN),
+                ("4_procs", ("--worker-procs", "4", "--eval-interval", "2"),
+                 0)):
+            _, res = train_main_path(
+                "lemevit_tiny", TINY_STEP, TINY_EVAL,
+                data_dir=data["folder"], val_batches=val_batches,
+                steps=REAL_TRAIN_STEPS,
+                flags=("--log-interval", str(REAL_LOG), *flags))
+            times = res["log_times"]
+            if len(times) != REAL_TRAIN_STEPS // REAL_LOG + 1:
+                raise AssertionError(f"cli.train logged {len(times)} steps")
+            trained[name] = {
+                "img_per_s": REAL_WINDOW * B_MAIN / (
+                    times[-1] - times[-1 - REAL_WINDOW // REAL_LOG]),
+                # ms per step over each REAL_LOG steps after step 0
+                "ms_per_step_by_log": [1e3 * (b - a) / REAL_LOG for a, b
+                                       in zip(times, times[1:])],
+                "cli_train_img_per_s_steps_2_on": res["samples_per_sec"]}
+        n_fwd = 1 + -(-REAL_VAL // B_MAIN)  # the warm-up and each batch
+        paths = {}
+        for name, flags, per_fwd in (
+                ("default", (), {"c_block": 2, "dca_block": 8,
+                                 "s_block": 22}),
+                ("slice", ("--s-stage", "--cpe-in-kernel"), SLICE_FWD)):
+            launches, got, plain, check = validate_real(data["folder"],
+                                                        flags)
+            expect_launches(launches, {k: v * n_fwd
+                                       for k, v in per_fwd.items()},
+                            f"validate {name} path on {REAL_VAL} images "
+                            f"({n_fwd} forwards)")
+            if got["count"] != REAL_VAL:
+                raise AssertionError(f"validate counted {got['count']} of "
+                                     f"{REAL_VAL} images")
+            paths[name] = {"loss": got["loss"], "plain_loss": plain["loss"],
+                           "top1": got["top1"], "count": got["count"],
+                           "img_per_s": got["samples_per_sec"],
+                           "logits": check}
+            say("real-validate", f"lemevit_base {name} path bf16 B={B_MAIN} "
+                f"on {REAL_VAL} JPEGs (last batch {REAL_VAL % B_MAIN}): "
+                f"logits max abs err against the plain path {check['err']:.4g}"
+                f" (last batch {check['last_batch_err']:.4g}; limit "
+                f"{check['limit']:.4g}, {2 * PLAIN_STEPS} bf16 steps of "
+                f"max|ref| {check['max_ref']:.4g}), argmax equal on "
+                f"{check['argmax_equal']} of {REAL_VAL}; loss {got['loss']} "
+                f"vs {plain['loss']}, {got['samples_per_sec']} img/s; "
+                f"launches per forward " + ", ".join(
+                    f"{k} {launches[k] // n_fwd}" for k in per_fwd)
+                + f" ({smi})")
+        tiny = ["--model", "lemevit_tiny", "--batch-size", str(B_MAIN)]
+        real = validate.main([*tiny, "--data-dir", str(data["folder"]),
+                              "--real-labels", str(data["real"])])
+        ucm = validate.main([*tiny, "--data-dir", str(data["ucm"]),
+                             "--dataset", "ucm", "--split", "valid"])
+        zipped = validate.main([*tiny, "--data-dir", str(data["zip"]),
+                                "--dataset", "zipfolder"])
+        if not (0 <= real.get("real_top1", -1) <= 100
+                and real["count"] == REAL_VAL
+                and ucm["count"] == zipped["count"] == data["small"]
+                and abs(ucm["loss"] - zipped["loss"]) <= 1e-3):
+            raise AssertionError(f"ReaL / ucm / zipfolder: {real}, {ucm}, "
+                                 f"{zipped}")
+        say("real-validate", f"lemevit_tiny --real-labels: real_top1 "
+            f"{real['real_top1']} over {real['count']}; --dataset ucm "
+            f"{ucm['count']} images, loss {ucm['loss']}; --dataset "
+            f"zipfolder {zipped['count']}, loss {zipped['loss']}")
+        spec = DatasetSpec("lemevit_tpu_torch.data.spawn:build_split_dataset",
+                           dict(dataset="imagefolder",
+                                data_dir=str(data["folder"]), split="train",
+                                auto_augment=REAL_AA))
+        train_ds = spec.build()
+        host = {"synthetic_1_thread": host_batch_ms(),
+                "real_1_thread": host_batch_ms(train_ds, 1, 4),
+                "real_4_threads": host_batch_ms(train_ds, 4, 12),
+                "real_4_procs": host_batch_ms(train_ds, n=12, procs=4,
+                                              spec=spec)}
+    summary = {
+        "model": "lemevit_tiny", "batch": B_MAIN, "dtype": "bf16",
+        "train": trained, "steps": REAL_TRAIN_STEPS,
+        "window_steps": REAL_WINDOW,
+        "synthetic_train_img_per_s": synthetic_train["samples_per_sec"],
+        "host_batch_ms": host, "validate": paths,
+        "write_s": t_write, "phase_s": time.time() - t0, "card": smi}
+    say("real-data", f"cli.train lemevit_tiny on JPEGs over steps "
+        f"{REAL_TRAIN_STEPS - REAL_WINDOW}-{REAL_TRAIN_STEPS - 1}: " + "; ".join(
+            f"{name.replace('_', ' ')} {t['img_per_s']:.2f} img/s (ms per "
+            f"step over each {REAL_LOG} steps: " + ", ".join(
+                f"{v:.1f}" for v in t["ms_per_step_by_log"]) + ")"
+            for name, t in trained.items())
+        + f"; synthetic in this run: "
+        f"{synthetic_train['samples_per_sec']:.2f} img/s; host ms per "
+        f"batch of {B_MAIN}: synthetic {host['synthetic_1_thread']:.1f}, "
+        f"real {host['real_1_thread']:.1f} (1 thread), "
+        f"{host['real_4_threads']:.1f} (4 threads), "
+        f"{host['real_4_procs']:.1f} (4 processes) ({smi})")
+    say("real-data-summary", json.dumps(summary))
+    return summary
 
 
 def attn_work(name, b, n, ch, elt=2, m=M):
@@ -2122,8 +2410,8 @@ EW_LAYOUT_SHAPES = ((300, 8), (300, 392), (300, 2048))
 
 
 def pil_status() -> str:
-    """Whether PIL imports, and its version: the image decoding that the
-    port's real-data path (not yet ported) would need."""
+    """Whether PIL imports, and its version: the port's image decoding
+    (data/datasets.py, data/transforms.py)."""
     try:
         import PIL
     except ImportError as e:
@@ -2508,7 +2796,7 @@ def main() -> None:
         "ms_per_step": tiny_res["step_ms"],
         "peak_gib": tiny_res["peak_gib"],
         "bench_train_step_ms": tr["step_time"],
-        "host_batch_build_ms": host_batch_ms(),
+        "host_batch_build_ms": host_batch_ms(),  # synthetic, 1 thread
         "device_ms_per_step": prof.get("device_ms"),
         "launches_per_step": prof.get("launches"),
         # device time over the same profiled step's wall time
@@ -2529,6 +2817,11 @@ def main() -> None:
             "port_kernel_share": (slice_prof["port_ms"]
                                   / slice_prof["device_ms"]),
             "conv2d_calls": convs[1]}}))
+
+    # 7c. real images: lemevit_tiny trained from a JPEG folder, lemevit_base
+    #     validated on its ragged validation split (default and slice
+    #     paths against the plain path), ReaL labels, a UCM tree and a zip
+    real_data_phase(smi, tiny_res)
 
     # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and

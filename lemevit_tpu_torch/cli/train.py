@@ -1,6 +1,11 @@
 """Training CLI: the flags, outputs and loop of lemevit_tpu/cli/train.py.
 
   - two-stage YAML + argparse config (utils/parser.py), args.yaml record
+  - data: an image folder, a zip (zipfolder) or a remote-sensing manifest
+    (ucm, aid, nwpu, millionaid) through the PIL train transform (random
+    resized crop, hflip, RandAugment / AugMix from --aa) and the threaded
+    loader (--workers threads, or --worker-procs spawned processes); the
+    eval split through the centre crop at --crop-pct; or --synthetic
   - float32 parameters, optimizer state and EMA; bf16 compute by default on
     CUDA (autocast); the C, D/D2 and S blocks train through the
     hand-written training kernels (attn/fused_train.py)
@@ -11,12 +16,14 @@
     kept top-k by eval metric, mid-epoch recovery, auto-resume, summary.csv
     with a fixed field set, events.jsonl
 
-Ported: the ``--synthetic`` data path on one device. Image folders, packed
-caches, native decode, PIL RandAugment (--aa and --hflip are read from
-configs and not used), aug-splits / JSD, the plateau schedule and other
-optimizers, and multi-device runs are not ported yet and raise.
+Not ported yet, and raise: packed caches (--packed-data) and native decode
+(--native-decode; ROADMAP queue 1, item 4), aug-splits / JSD (--aug-splits,
+item 2), the plateau schedule and the other optimizers (item 2), and
+multi-device runs (item 6).
 
 Usage:
+  python -m lemevit_tpu_torch.cli.train --config configs/lemevit.yaml \\
+      --model lemevit_tiny --data-dir /data/imagenet
   python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_tiny \\
       --config configs/lemevit.yaml --epochs 1 --steps-per-epoch 6
   python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_micro \\
@@ -52,7 +59,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--img-size", type=int, default=224)
     p.add_argument("--crop-pct", type=float, default=0.9)
-    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--workers", type=int, default=4,
+                   help="loader threads")
+    p.add_argument("--worker-procs", type=int, default=0,
+                   help="build batches in N spawned worker processes "
+                        "instead of threads")
+    p.add_argument("--native-decode", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="C++ decode plane: not ported (item 4); raises "
+                        "when on")
+    p.add_argument("--packed-data", default="",
+                   help="packed uint8 cache dir: not ported (item 4)")
     p.add_argument("--synthetic", action="store_true")
     # model
     p.add_argument("--model", default="lemevit_tiny")
@@ -99,6 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reprob", type=float, default=0.25)
     p.add_argument("--aa", default="rand-m9-mstd0.5-inc1")
     p.add_argument("--hflip", type=float, default=0.5)
+    p.add_argument("--scale", type=float, nargs=2, default=[0.08, 1.0],
+                   help="RandomResizedCrop scale range (timm --scale)")
+    p.add_argument("--aug-splits", type=int, default=0,
+                   help="AugMix splits with per-split BN: not ported "
+                        "(item 2); raises above 1")
     p.add_argument("--model-ema", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--model-ema-decay", type=float, default=0.996)
@@ -139,8 +161,9 @@ def step_generators(seed: int, step: int, gen: torch.Generator
 
 
 def train(args, args_text: str = "") -> dict:
-    from lemevit_tpu_torch.data.datasets import SyntheticDataset
-    from lemevit_tpu_torch.data.loader import Loader, create_loader
+    from lemevit_tpu_torch.data.datasets import create_dataset
+    from lemevit_tpu_torch.data.loader import create_loader
+    from lemevit_tpu_torch.data.spawn import spec_for_split
     from lemevit_tpu_torch.data.mixup import (draw_erasing, draw_mixup,
                                               mixup_cutmix, random_erasing)
     from lemevit_tpu_torch.data.transforms import normalize
@@ -157,10 +180,15 @@ def train(args, args_text: str = "") -> dict:
     from lemevit_tpu_torch.utils.logging import setup_logging
     from lemevit_tpu_torch.utils.meters import MetricTracker
 
-    if not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported to lemevit_tpu_torch yet "
-            "(no image folders, packed caches or native decode)")
+    if args.packed_data:
+        raise NotImplementedError("--packed-data is not ported yet (ROADMAP "
+                                  "queue 1, item 4)")
+    if args.native_decode:
+        raise NotImplementedError("--native-decode is not ported yet "
+                                  "(ROADMAP queue 1, item 4)")
+    if args.aug_splits > 1:
+        raise NotImplementedError("--aug-splits is not ported yet (ROADMAP "
+                                  "queue 1, item 2)")
     device = resolve_device(args.device)
     out_dir = os.path.join(args.output, args.experiment or args.model)
     os.makedirs(out_dir, exist_ok=True)
@@ -175,13 +203,33 @@ def train(args, args_text: str = "") -> dict:
                 global_batch)
 
     # ---------------- data
-    train_ds = SyntheticDataset(num_samples=global_batch * 8,
+    train_spec = val_spec = None
+    if args.synthetic:
+        train_ds = create_dataset("synthetic", num_samples=global_batch * 8,
+                                  image_size=args.img_size,
+                                  num_classes=args.num_classes)
+        val_ds = create_dataset("synthetic", num_samples=global_batch * 2,
                                 image_size=args.img_size,
                                 num_classes=args.num_classes)
-    val_ds = SyntheticDataset(num_samples=global_batch * 2,
-                              image_size=args.img_size,
-                              num_classes=args.num_classes)
-    train_loader = Loader(train_ds, args.batch_size, device, seed=args.seed)
+    else:
+        if not os.path.isdir(args.data_dir):
+            raise FileNotFoundError(
+                f"--data-dir {args.data_dir!r} is not a directory (pass "
+                "--synthetic for synthetic data)")
+        # the spec builds the dataset here and in spawned workers alike
+        train_spec = spec_for_split(args, args.train_split, train=True)
+        val_spec = spec_for_split(args, args.val_split, train=False)
+        train_ds, val_ds = train_spec.build(), val_spec.build()
+        logger.info("data: %s %s, %d train / %d val samples", args.dataset,
+                    args.data_dir, len(train_ds), len(val_ds))
+    procs = args.worker_procs if train_spec is not None else 0
+    train_loader = create_loader(
+        train_ds, args.batch_size, is_training=True, seed=args.seed,
+        num_threads=args.workers, num_procs=procs, dataset_spec=train_spec,
+        device=device)
+    val_loader = create_loader(
+        val_ds, args.batch_size, num_threads=args.workers, num_procs=procs,
+        dataset_spec=val_spec, device=device)
     steps_per_epoch = args.steps_per_epoch or max(len(train_loader), 1)
 
     # ---------------- model / optimizer / state
@@ -249,7 +297,7 @@ def train(args, args_text: str = "") -> dict:
 
     def evaluate(forward) -> dict:
         sums = {"top1_sum": 0, "top5_sum": 0, "count": 0}
-        for batch in create_loader(val_ds, args.batch_size, device):
+        for batch in val_loader:
             if batch["image"].shape[0] != args.batch_size:
                 continue  # the ragged tail, as the JAX package skips it
             with autocast():

@@ -255,8 +255,9 @@ def train(args, args_text: str = "") -> dict:
         val_ds = SegDataset(args.data_dir, "val", args.crop_size,
                             args.num_classes, train=False,
                             ignore_index=args.ignore_index)
-    loader = Loader(train_ds, args.batch_size, device, seed=args.seed,
-                    collate_fn=_collate)
+    # one thread: SegDataset draws its augmentation from the module random
+    loader = Loader(train_ds, args.batch_size, seed=args.seed, num_threads=1,
+                    collate_fn=_collate, device=device)
 
     model = create_upernet(args.backbone, args.num_classes,
                            channels=args.channels, device=device,

@@ -136,9 +136,10 @@ def test_validate_cli_on_cpu(tmp_path):
     assert set(res) >= {"top1", "top5", "loss", "samples_per_sec"}
     assert 0 <= res["top1"] <= res["top5"] <= 100
     assert res["loss"] > 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 4"):
         validate.main(["--model", "lemevit_micro", "--device", "cpu",
-                       "--data-dir", str(tmp_path)])
+                       "--data-dir", str(tmp_path),
+                       "--packed-data", str(tmp_path)])
 
 
 def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):

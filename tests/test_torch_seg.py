@@ -258,13 +258,13 @@ def test_seg_loss(ignore):
 
 def test_loaders_take_collate_fn():
     ds = train_seg._SyntheticSeg(6, 8, NC)
-    (batch,) = list(Loader(ds, 4, torch.device("cpu"),
+    (batch,) = list(Loader(ds, 4, device=torch.device("cpu"),
                            collate_fn=train_seg._collate))
     assert batch["image"].shape == (4, 8, 8, 3)
     assert batch["image"].dtype == torch.uint8
     assert batch["mask"].shape == (4, 8, 8)
     assert batch["mask"].dtype == torch.int64
-    batches = list(create_loader(ds, 4, torch.device("cpu"),
+    batches = list(create_loader(ds, 4, device=torch.device("cpu"),
                                  collate_fn=train_seg._collate))
     assert [b["mask"].shape[0] for b in batches] == [4, 2]
     np.testing.assert_array_equal(batches[1]["mask"][1].numpy(), ds[5][1])

@@ -292,7 +292,7 @@ def test_draws_are_seeded_and_in_range():
 
 def test_train_loader_epochs_drop_last_and_skip():
     ds = SyntheticDataset(num_samples=26, image_size=4, num_classes=50)
-    loader = Loader(ds, 4, torch.device("cpu"), seed=3)
+    loader = Loader(ds, 4, device=torch.device("cpu"), seed=3)
     assert len(loader) == 6
     full = [b["label"] for b in loader]
     assert len(full) == 6 and all(lab.shape == (4,) for lab in full)
