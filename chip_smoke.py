@@ -60,6 +60,20 @@ and read just after:
     steps), --real-labels, --dataset ucm and --dataset zipfolder; a
     real-data batch's host build time with 1 and 4 threads beside a
     synthetic one;
+  - the rest of the training recipe (the train-recipe phase): cli.train
+    of lemevit_tiny with --aug-splits 3 --jsd-loss --aa augmix-m3-w3 (3
+    splits of 64 views in one forward, every BatchNorm with per-split
+    statistics) on synthetic data, with the clean-split eval (TINY_STEP's
+    and TINY_EVAL's launches, one checkpoint whose three sets of stem
+    statistics differ; img/s as clean images and as views, ms per step,
+    peak memory) and on the JPEG folder with 4 worker processes (AugMix on
+    the host), the host ms of a batch of 64 three-view samples, one bf16
+    JSD step and one freeze_bn step on the kernel path against the plain
+    path (freeze_bn's stem and downsample statistics bit for bit, the
+    head's moved), and every --opt rule over lemevit_tiny's parameters on
+    the card against a CPU copy (under 1e-5 of each tensor's largest
+    value), RMSpropTF and Adagrad apart from torch.optim's classes; the
+    phase's seconds;
   - at every training shape above and below (and in the CPE mode), the
     phases on the tensor-core kernels: row 9, lm_s_train_fwd (S blocks:
     k_qkv_wg, k_mhsa_tc with the log-sum-exp, k_tail_wg's training
@@ -148,6 +162,7 @@ from __future__ import annotations
 import copy
 import csv
 import json
+import math
 import os
 import re
 import subprocess
@@ -1497,7 +1512,7 @@ def check_train_step(dev, name, expect, **model_kw):
 
 
 def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
-                    val_batches=2, steps=TRAIN_STEPS):
+                    val_batches=2, steps=TRAIN_STEPS, keep_state=False):
     """cli.train on synthetic data, or on the image folder ``data_dir``
     (--dataset imagefolder, 4 loader threads unless ``flags`` ask for
     worker processes): ``model``, 224^2, bf16,
@@ -1507,7 +1522,8 @@ def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
     eval of the live and EMA models over ``val_batches`` whole batches,
     with the extra CLI ``flags``, its launch counts set to 0 just before
     and read just after. Returns (launches, result); the result's
-    "log_times" are the wall times of the logged steps (events.jsonl)."""
+    "log_times" are the wall times of the logged steps (events.jsonl), and
+    with ``keep_state`` its "state_dict" the checkpoint's model state."""
     from lemevit_tpu_torch.cli import train as train_cli
     data = (["--synthetic"] if data_dir is None else
             ["--dataset", "imagefolder", "--data-dir", str(data_dir),
@@ -1531,6 +1547,9 @@ def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
             raise AssertionError(f"summary.csv: {rows}")
         ckpts = list((Path(out) / model / "checkpoints").glob(
             "checkpoint-*.pth"))
+        if keep_state and ckpts:
+            res["state_dict"] = torch.load(
+                ckpts[0], map_location="cpu", weights_only=True)["state_dict"]
     eval_fwds = val_batches * 2  # live and EMA model
     want = {k: per_step.get(k, 0) * steps
             + per_eval.get(k, 0) * eval_fwds for k in launches}
@@ -1543,7 +1562,9 @@ def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
     say("train", f"{model} {' '.join(flags)} 224 bf16 B={B_MAIN}"
         f"{'' if data_dir is None else ', JPEG folder'}: "
         f"{res['steps']} steps, "
-        f"loss {loss:.4f}, {res['samples_per_sec']:.2f} img/s, "
+        f"loss {loss:.4f}, {res['samples_per_sec']:.2f} img/s"
+        + (f" ({res['views_per_sec']:.2f} views/s)"
+           if "views_per_sec" in res else "") + ", "
         f"{res['step_ms']:.2f} ms/step (steps 2-{steps}), peak "
         f"{res['peak_gib']:.2f} GiB allocated; eval top1 "
         f"{res['best_top1']:.3f}; launches per step " + ", ".join(
@@ -1742,7 +1763,7 @@ def validate_real(folder: Path, flags=()) -> tuple:
     return launches, got, plain, check
 
 
-def real_data_phase(smi: str, synthetic_train: dict) -> dict:
+def real_data_phase(smi: str, synthetic_train: dict, root: Path) -> dict:
     """The classification data plane on real images: write the data, train
     lemevit_tiny on the folder through cli.train (TINY_STEP's launches per
     step, as on synthetic data) for REAL_TRAIN_STEPS steps with 4 loader
@@ -1751,94 +1772,94 @@ def real_data_phase(smi: str, synthetic_train: dict) -> dict:
     (a ragged last batch) on the default and the slice's path, each image's
     logits against the plain path's; validate with ReaL labels, the UCM
     tree and the zip; time a real-data batch's host build with 1 and 4
-    threads and 4 worker processes beside a synthetic one. Fails if PIL
+    threads and 4 worker processes beside a synthetic one. The data is
+    written under ``root`` (write_real_data) and left there. Fails if PIL
     does not import."""
     import PIL  # noqa: F401  (no fallback to synthetic data)
     from lemevit_tpu_torch.cli import validate
     from lemevit_tpu_torch.data.spawn import DatasetSpec
     t0 = time.time()
-    with tempfile.TemporaryDirectory() as tmp:
-        data = write_real_data(Path(tmp))
-        t_write = time.time() - t0
-        trained = {}
-        # the process run skips the eval: each pass of a process loader
-        # spawns its workers anew, twice for the live and EMA models
-        for name, flags, val_batches in (
-                ("4_threads", (), REAL_VAL // B_MAIN),
-                ("4_procs", ("--worker-procs", "4", "--eval-interval", "2"),
-                 0)):
-            _, res = train_main_path(
-                "lemevit_tiny", TINY_STEP, TINY_EVAL,
-                data_dir=data["folder"], val_batches=val_batches,
-                steps=REAL_TRAIN_STEPS,
-                flags=("--log-interval", str(REAL_LOG), *flags))
-            times = res["log_times"]
-            if len(times) != REAL_TRAIN_STEPS // REAL_LOG + 1:
-                raise AssertionError(f"cli.train logged {len(times)} steps")
-            trained[name] = {
-                "img_per_s": REAL_WINDOW * B_MAIN / (
-                    times[-1] - times[-1 - REAL_WINDOW // REAL_LOG]),
-                # ms per step over each REAL_LOG steps after step 0
-                "ms_per_step_by_log": [1e3 * (b - a) / REAL_LOG for a, b
-                                       in zip(times, times[1:])],
-                "cli_train_img_per_s_steps_2_on": res["samples_per_sec"]}
-        n_fwd = 1 + -(-REAL_VAL // B_MAIN)  # the warm-up and each batch
-        paths = {}
-        for name, flags, per_fwd in (
-                ("default", (), {"c_block": 2, "dca_block": 8,
-                                 "s_block": 22}),
-                ("slice", ("--s-stage", "--cpe-in-kernel"), SLICE_FWD)):
-            launches, got, plain, check = validate_real(data["folder"],
-                                                        flags)
-            expect_launches(launches, {k: v * n_fwd
-                                       for k, v in per_fwd.items()},
-                            f"validate {name} path on {REAL_VAL} images "
-                            f"({n_fwd} forwards)")
-            if got["count"] != REAL_VAL:
-                raise AssertionError(f"validate counted {got['count']} of "
-                                     f"{REAL_VAL} images")
-            paths[name] = {"loss": got["loss"], "plain_loss": plain["loss"],
-                           "top1": got["top1"], "count": got["count"],
-                           "img_per_s": got["samples_per_sec"],
-                           "logits": check}
-            say("real-validate", f"lemevit_base {name} path bf16 B={B_MAIN} "
-                f"on {REAL_VAL} JPEGs (last batch {REAL_VAL % B_MAIN}): "
-                f"logits max abs err against the plain path {check['err']:.4g}"
-                f" (last batch {check['last_batch_err']:.4g}; limit "
-                f"{check['limit']:.4g}, {2 * PLAIN_STEPS} bf16 steps of "
-                f"max|ref| {check['max_ref']:.4g}), argmax equal on "
-                f"{check['argmax_equal']} of {REAL_VAL}; loss {got['loss']} "
-                f"vs {plain['loss']}, {got['samples_per_sec']} img/s; "
-                f"launches per forward " + ", ".join(
-                    f"{k} {launches[k] // n_fwd}" for k in per_fwd)
-                + f" ({smi})")
-        tiny = ["--model", "lemevit_tiny", "--batch-size", str(B_MAIN)]
-        real = validate.main([*tiny, "--data-dir", str(data["folder"]),
-                              "--real-labels", str(data["real"])])
-        ucm = validate.main([*tiny, "--data-dir", str(data["ucm"]),
-                             "--dataset", "ucm", "--split", "valid"])
-        zipped = validate.main([*tiny, "--data-dir", str(data["zip"]),
-                                "--dataset", "zipfolder"])
-        if not (0 <= real.get("real_top1", -1) <= 100
-                and real["count"] == REAL_VAL
-                and ucm["count"] == zipped["count"] == data["small"]
-                and abs(ucm["loss"] - zipped["loss"]) <= 1e-3):
-            raise AssertionError(f"ReaL / ucm / zipfolder: {real}, {ucm}, "
-                                 f"{zipped}")
-        say("real-validate", f"lemevit_tiny --real-labels: real_top1 "
-            f"{real['real_top1']} over {real['count']}; --dataset ucm "
-            f"{ucm['count']} images, loss {ucm['loss']}; --dataset "
-            f"zipfolder {zipped['count']}, loss {zipped['loss']}")
-        spec = DatasetSpec("lemevit_tpu_torch.data.spawn:build_split_dataset",
-                           dict(dataset="imagefolder",
-                                data_dir=str(data["folder"]), split="train",
-                                auto_augment=REAL_AA))
-        train_ds = spec.build()
-        host = {"synthetic_1_thread": host_batch_ms(),
-                "real_1_thread": host_batch_ms(train_ds, 1, 4),
-                "real_4_threads": host_batch_ms(train_ds, 4, 12),
-                "real_4_procs": host_batch_ms(train_ds, n=12, procs=4,
-                                              spec=spec)}
+    data = write_real_data(root)
+    t_write = time.time() - t0
+    trained = {}
+    # the process run skips the eval: each pass of a process loader
+    # spawns its workers anew, twice for the live and EMA models
+    for name, flags, val_batches in (
+            ("4_threads", (), REAL_VAL // B_MAIN),
+            ("4_procs", ("--worker-procs", "4", "--eval-interval", "2"),
+             0)):
+        _, res = train_main_path(
+            "lemevit_tiny", TINY_STEP, TINY_EVAL,
+            data_dir=data["folder"], val_batches=val_batches,
+            steps=REAL_TRAIN_STEPS,
+            flags=("--log-interval", str(REAL_LOG), *flags))
+        times = res["log_times"]
+        if len(times) != REAL_TRAIN_STEPS // REAL_LOG + 1:
+            raise AssertionError(f"cli.train logged {len(times)} steps")
+        trained[name] = {
+            "img_per_s": REAL_WINDOW * B_MAIN / (
+                times[-1] - times[-1 - REAL_WINDOW // REAL_LOG]),
+            # ms per step over each REAL_LOG steps after step 0
+            "ms_per_step_by_log": [1e3 * (b - a) / REAL_LOG for a, b
+                                   in zip(times, times[1:])],
+            "cli_train_img_per_s_steps_2_on": res["samples_per_sec"]}
+    n_fwd = 1 + -(-REAL_VAL // B_MAIN)  # the warm-up and each batch
+    paths = {}
+    for name, flags, per_fwd in (
+            ("default", (), {"c_block": 2, "dca_block": 8,
+                             "s_block": 22}),
+            ("slice", ("--s-stage", "--cpe-in-kernel"), SLICE_FWD)):
+        launches, got, plain, check = validate_real(data["folder"],
+                                                    flags)
+        expect_launches(launches, {k: v * n_fwd
+                                   for k, v in per_fwd.items()},
+                        f"validate {name} path on {REAL_VAL} images "
+                        f"({n_fwd} forwards)")
+        if got["count"] != REAL_VAL:
+            raise AssertionError(f"validate counted {got['count']} of "
+                                 f"{REAL_VAL} images")
+        paths[name] = {"loss": got["loss"], "plain_loss": plain["loss"],
+                       "top1": got["top1"], "count": got["count"],
+                       "img_per_s": got["samples_per_sec"],
+                       "logits": check}
+        say("real-validate", f"lemevit_base {name} path bf16 B={B_MAIN} "
+            f"on {REAL_VAL} JPEGs (last batch {REAL_VAL % B_MAIN}): "
+            f"logits max abs err against the plain path {check['err']:.4g}"
+            f" (last batch {check['last_batch_err']:.4g}; limit "
+            f"{check['limit']:.4g}, {2 * PLAIN_STEPS} bf16 steps of "
+            f"max|ref| {check['max_ref']:.4g}), argmax equal on "
+            f"{check['argmax_equal']} of {REAL_VAL}; loss {got['loss']} "
+            f"vs {plain['loss']}, {got['samples_per_sec']} img/s; "
+            f"launches per forward " + ", ".join(
+                f"{k} {launches[k] // n_fwd}" for k in per_fwd)
+            + f" ({smi})")
+    tiny = ["--model", "lemevit_tiny", "--batch-size", str(B_MAIN)]
+    real = validate.main([*tiny, "--data-dir", str(data["folder"]),
+                          "--real-labels", str(data["real"])])
+    ucm = validate.main([*tiny, "--data-dir", str(data["ucm"]),
+                         "--dataset", "ucm", "--split", "valid"])
+    zipped = validate.main([*tiny, "--data-dir", str(data["zip"]),
+                            "--dataset", "zipfolder"])
+    if not (0 <= real.get("real_top1", -1) <= 100
+            and real["count"] == REAL_VAL
+            and ucm["count"] == zipped["count"] == data["small"]
+            and abs(ucm["loss"] - zipped["loss"]) <= 1e-3):
+        raise AssertionError(f"ReaL / ucm / zipfolder: {real}, {ucm}, "
+                             f"{zipped}")
+    say("real-validate", f"lemevit_tiny --real-labels: real_top1 "
+        f"{real['real_top1']} over {real['count']}; --dataset ucm "
+        f"{ucm['count']} images, loss {ucm['loss']}; --dataset "
+        f"zipfolder {zipped['count']}, loss {zipped['loss']}")
+    spec = DatasetSpec("lemevit_tpu_torch.data.spawn:build_split_dataset",
+                       dict(dataset="imagefolder",
+                            data_dir=str(data["folder"]), split="train",
+                            auto_augment=REAL_AA))
+    train_ds = spec.build()
+    host = {"synthetic_1_thread": host_batch_ms(),
+            "real_1_thread": host_batch_ms(train_ds, 1, 4),
+            "real_4_threads": host_batch_ms(train_ds, 4, 12),
+            "real_4_procs": host_batch_ms(train_ds, n=12, procs=4,
+                                          spec=spec)}
     summary = {
         "model": "lemevit_tiny", "batch": B_MAIN, "dtype": "bf16",
         "train": trained, "steps": REAL_TRAIN_STEPS,
@@ -1859,6 +1880,259 @@ def real_data_phase(smi: str, synthetic_train: dict) -> dict:
         f"{host['real_4_threads']:.1f} (4 threads), "
         f"{host['real_4_procs']:.1f} (4 processes) ({smi})")
     say("real-data-summary", json.dumps(summary))
+    return summary
+
+
+# the training recipe's other half: AugMix splits with the JSD loss and
+# split BatchNorm (3 splits of B_MAIN views each on the main path), every
+# --opt rule, and freeze_bn
+JSD_SPLITS = 3
+JSD_FLAGS = ("--aug-splits", str(JSD_SPLITS), "--jsd-loss",
+             "--aa", "augmix-m3-w3")
+JSD_REAL_STEPS = 6
+B_RECIPE_CHECK = 16  # views per split of the kernel-vs-plain JSD step
+OPT_UPDATES = 3
+OPT_CLIP = 1.0
+OPT_TOL = 1e-5
+STEM_BN = "downsample_layers.0.1"
+# the BatchNorms freeze_bn keeps in eval mode (lemevit_tiny: the stem's two
+# and the three downsamples'; stage 0 is a C stage and keeps resolution)
+FROZEN_BN = ("downsample_layers.0.1.", "downsample_layers.0.4.",
+             "downsample_layers.2.1.", "downsample_layers.3.1.",
+             "downsample_layers.4.1.")
+
+
+def recipe_inputs(dev, b, g):
+    img = torch.randn(JSD_SPLITS, b, 224, 224, 3, generator=g).to(dev)
+    labels = torch.randint(0, 1000, (b,), generator=g).to(dev)
+    return img, F.one_hot(labels, 1000).float() * 0.9 + 0.1 / 1000
+
+
+def check_jsd_step(dev) -> dict:
+    """One bf16 JSD step (train/steps.py::jsd_train_step) of lemevit_tiny
+    at 224^2 on JSD_SPLITS splits of B_RECIPE_CHECK views, drop-path 0.15
+    with the same masks, every BatchNorm in split mode: the kernel path
+    against --attn-backend torch. Limits: loss and gradient norm within
+    PLAIN_STEPS bf16 steps of the plain path's; the kernel path launches
+    one TINY_STEP (one forward over the S B views); its splits' stem
+    statistics part."""
+    from lemevit_tpu_torch import create_model
+    from lemevit_tpu_torch.train.optim import build_optimizer
+    from lemevit_tpu_torch.train.state import TrainState
+    from lemevit_tpu_torch.train.steps import (jsd_train_step,
+                                               stack_batch_stats)
+    kern = create_model("lemevit_tiny", device=dev, drop_path_rate=0.15)
+    stack_batch_stats(kern, JSD_SPLITS)
+    plain = copy.deepcopy(kern)
+    plain.set_attn_backend("torch")
+    img, targets = recipe_inputs(dev, B_RECIPE_CHECK,
+                                 torch.Generator().manual_seed(13))
+    got = []
+    for m in (kern, plain):
+        m.set_generator(torch.Generator(device=dev).manual_seed(11))
+        state = TrainState(m, build_optimizer(m), lambda u: 1e-3)
+        before = launch_counts()
+        out = jsd_train_step(state, img, targets,
+                             autocast_dtype=torch.bfloat16)
+        got.append({k: v.item() for k, v in out.items()})
+        if m is kern:
+            expect_launches(launched_since(before), TINY_STEP,
+                            "one JSD step of lemevit_tiny")
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        errs[k] = abs(got[0][k] - got[1][k])
+        lim = PLAIN_STEPS * BF16_STEP * abs(got[1][k])
+        if not (math.isfinite(got[0][k]) and errs[k] <= lim):
+            raise AssertionError(f"JSD step {k}: kernel path {got[0][k]} vs "
+                                 f"plain {got[1][k]} (limit {lim:.3g})")
+    stem = kern.downsample_layers[0][1].running_mean
+    if torch.equal(stem[0], stem[1]) or torch.equal(stem[1], stem[2]):
+        raise AssertionError("JSD step: the splits' stem statistics agree")
+    say("recipe-jsd-step", f"lemevit_tiny 224 bf16 {JSD_SPLITS}x"
+        f"{B_RECIPE_CHECK} views: loss {got[0]['loss']:.6f} vs plain "
+        f"{got[1]['loss']:.6f}, grad norm {got[0]['grad_norm']:.6f} vs "
+        f"{got[1]['grad_norm']:.6f} (limits {PLAIN_STEPS} bf16 steps of "
+        f"the plain values); launches {TINY_STEP}")
+    return {"kernel": got[0], "plain": got[1], "abs_err": errs}
+
+
+def check_optimizers(dev) -> dict:
+    """Every --opt rule on lemevit_tiny's full parameter set: OPT_UPDATES
+    updates from the same weights and gradients (through apply_gradients:
+    a warmup LR, weight decay 0.05, a clip at OPT_CLIP, the plateau scale
+    0.5 from the second update on) on the card and on a CPU copy, by the
+    same port code; the largest difference as a share of its tensor's
+    largest value must stay under OPT_TOL (fp32). RMSpropTF and Adagrad
+    must also leave torch.optim.RMSprop's and Adagrad's results on the
+    same inputs (by more than a tenth of their largest update)."""
+    from lemevit_tpu_torch import create_model
+    from lemevit_tpu_torch.train import optim
+    from lemevit_tpu_torch.train.state import TrainState
+    from lemevit_tpu_torch.train.steps import apply_gradients
+    base = create_model("lemevit_tiny", device="cpu")
+    g = torch.Generator().manual_seed(17)
+    grads = [[torch.randn(p.shape, generator=g) * 1e-2
+              for p in base.parameters()] for _ in range(OPT_UPDATES)]
+    p0 = [p.detach().clone() for p in base.parameters()]
+    # warmup over the first two updates from 1e-6, then cosine
+    sched = optim.build_lr_schedule(steps_per_epoch=2, epochs=10,
+                                    warmup_epochs=1)
+
+    def run(device, make):
+        model = copy.deepcopy(base).to(device)
+        state = TrainState(model, make(model), sched, clip_grad=OPT_CLIP)
+        params = list(model.parameters())
+        for i, gs in enumerate(grads):
+            if i == 1:
+                optim.set_plateau_scale(state.optimizer, 0.5)
+            apply_gradients(state, params,
+                            [t.to(device, copy=True) for t in gs])
+        return [p.detach().cpu() for p in params]
+
+    def share(a, b, ref):
+        """max over tensors of max|a - b| / max|ref|."""
+        return max(((x - y).abs().max() / r.abs().max().clamp_min(1e-30))
+                   .item() for x, y, r in zip(a, b, ref))
+
+    rows = {}
+    for name in optim.OPTIMIZERS:
+        def make(m, name=name):
+            return optim.build_optimizer(m, opt=name)
+        card, cpu = run(dev, make), run("cpu", make)
+        steps = [c - p for c, p in zip(cpu, p0)]
+        rows[name] = {"max_rel_diff": share(card, cpu, cpu),
+                      "max_diff_per_update": share(card, cpu, steps)}
+        if not rows[name]["max_rel_diff"] <= OPT_TOL:
+            raise AssertionError(f"--opt {name}: card vs CPU {rows[name]}")
+        torch_cls = {"rmsprop": lambda m: torch.optim.RMSprop(
+            optim.param_groups(m.named_parameters(), 0.05), lr=0.0,
+            alpha=0.9, eps=1e-8, momentum=0.9),
+            "adagrad": lambda m: torch.optim.Adagrad(
+                optim.param_groups(m.named_parameters(), 0.05), lr=0.0,
+                eps=1e-8)}.get(name)
+        if torch_cls is not None:
+            other = run(dev, torch_cls)
+            rows[name]["torch_class_diff_per_update"] = share(
+                other, card, [c - p for c, p in zip(card, p0)])
+            if not rows[name]["torch_class_diff_per_update"] > 0.1:
+                raise AssertionError(f"--opt {name} matches the torch class")
+    say("recipe-optim", f"lemevit_tiny, {OPT_UPDATES} updates (warmup LR, "
+        f"wd 0.05, clip {OPT_CLIP}, plateau 0.5 from update 2), card vs CPU,"
+        f" max |diff| / max|param| (limit {OPT_TOL}): " + ", ".join(
+            f"{k} {v['max_rel_diff']:.2e}" for k, v in rows.items())
+        + "; torch.optim's RMSprop / Adagrad differ by " + ", ".join(
+            f"{v['torch_class_diff_per_update']:.3g}" for v in rows.values()
+            if "torch_class_diff_per_update" in v)
+        + " of the port's largest update")
+    return rows
+
+
+def check_freeze_bn(dev) -> dict:
+    """One bf16 train step of lemevit_tiny with freeze_bn=True at 224^2,
+    B_RECIPE_CHECK images, through the training kernels (TINY_STEP's
+    launches): the stem's and the downsamples' BatchNorm buffers bit for
+    bit as they were, the head's moved; the loss within PLAIN_STEPS bf16
+    steps of --attn-backend torch's."""
+    from lemevit_tpu_torch import create_model
+    from lemevit_tpu_torch.train.optim import build_optimizer
+    from lemevit_tpu_torch.train.state import TrainState
+    from lemevit_tpu_torch.train.steps import train_step
+    kern = create_model("lemevit_tiny", device=dev, drop_path_rate=0.15,
+                        freeze_bn=True)
+    plain = copy.deepcopy(kern)
+    plain.set_attn_backend("torch")
+    img, targets = recipe_inputs(dev, B_RECIPE_CHECK,
+                                 torch.Generator().manual_seed(19))
+    img = img[0]
+    before = {n: b.clone() for n, b in kern.named_buffers()}
+    losses = []
+    for m in (kern, plain):
+        m.set_generator(torch.Generator(device=dev).manual_seed(11))
+        state = TrainState(m, build_optimizer(m), lambda u: 1e-3)
+        counts = launch_counts()
+        losses.append(train_step(state, img, targets,
+                                 autocast_dtype=torch.bfloat16)["loss"]
+                      .item())
+        if m is kern:
+            expect_launches(launched_since(counts), TINY_STEP,
+                            "one freeze_bn step of lemevit_tiny")
+    for n, b in kern.named_buffers():
+        frozen = n.startswith(FROZEN_BN)
+        if frozen != torch.equal(b, before[n]):
+            what = "moved" if frozen else "stayed"
+            raise AssertionError(f"freeze_bn: {n} {what}")
+    lim = PLAIN_STEPS * BF16_STEP * abs(losses[1])
+    if not abs(losses[0] - losses[1]) <= lim:
+        raise AssertionError(f"freeze_bn loss {losses[0]} vs plain "
+                             f"{losses[1]} (limit {lim:.3g})")
+    say("recipe-freeze-bn", f"lemevit_tiny 224 bf16 B={B_RECIPE_CHECK}: "
+        f"the {len(FROZEN_BN)} stem and downsample BatchNorms' buffers bit "
+        f"for bit, the head's moved; loss {losses[0]:.6f} vs plain "
+        f"{losses[1]:.6f} (limit {lim:.3g}); launches {TINY_STEP}")
+    return {"loss": losses[0], "plain_loss": losses[1]}
+
+
+def train_recipe_phase(smi: str, synthetic_train: dict, folder: Path,
+                       dev) -> dict:
+    """The rest of the training recipe on the card: cli.train of
+    lemevit_tiny with --aug-splits 3 --jsd-loss --aa augmix-m3-w3 on
+    synthetic data (TRAIN_STEPS steps and the clean-split eval; TINY_STEP
+    and TINY_EVAL launches; the checkpoint's three sets of stem statistics
+    must differ) and on the JPEG folder ``folder`` with 4 worker processes
+    (AugMix on the host), the host ms of a batch of B_MAIN three-view
+    samples, one JSD step and one freeze_bn step against the plain path,
+    and every --opt rule card against CPU."""
+    from lemevit_tpu_torch.data.spawn import DatasetSpec
+    t0 = time.time()
+    _, syn = train_main_path("lemevit_tiny", TINY_STEP, TINY_EVAL,
+                             flags=JSD_FLAGS, keep_state=True)
+    stem = syn.pop("state_dict")[f"{STEM_BN}.running_mean"]
+    if stem.shape[0] != JSD_SPLITS or any(
+            torch.equal(stem[i], stem[j]) for i in range(JSD_SPLITS)
+            for j in range(i)):
+        raise AssertionError(f"aug-splits stem statistics: {stem}")
+    say("recipe-splits", f"stem BN running mean per split (mean over "
+        f"{stem.shape[1]} channels; first 3): " + "; ".join(
+            f"split {i} {stem[i].mean().item():.6g} "
+            f"{[round(v, 6) for v in stem[i, :3].tolist()]}"
+            for i in range(JSD_SPLITS)))
+    _, real = train_main_path(
+        "lemevit_tiny", TINY_STEP, TINY_EVAL, data_dir=folder,
+        val_batches=0, steps=JSD_REAL_STEPS,
+        flags=(*JSD_FLAGS, "--worker-procs", "4", "--eval-interval", "2"))
+    spec = DatasetSpec("lemevit_tpu_torch.data.spawn:build_split_dataset",
+                       dict(dataset="imagefolder", data_dir=str(folder),
+                            split="train", auto_augment="augmix-m3-w3",
+                            aug_splits=JSD_SPLITS))
+    host = {"real_1_thread": host_batch_ms(spec.build(), 1, 2),
+            "real_4_procs": host_batch_ms(spec.build(), n=8, procs=4,
+                                          spec=spec)}
+    step = check_jsd_step(dev)
+    opts = check_optimizers(dev)
+    frozen = check_freeze_bn(dev)
+    summary = {
+        "model": "lemevit_tiny", "splits": JSD_SPLITS, "batch": B_MAIN,
+        "dtype": "bf16",
+        "synthetic": {k: syn[k] for k in ("samples_per_sec", "views_per_sec",
+                                          "step_ms", "peak_gib",
+                                          "best_top1")},
+        "jpeg_4_procs": {k: real[k] for k in ("samples_per_sec",
+                                              "views_per_sec", "step_ms",
+                                              "peak_gib")},
+        "single_view_synthetic_img_per_s": synthetic_train["samples_per_sec"],
+        "host_batch_ms_3_views": host, "jsd_step": step,
+        "optimizers": opts, "freeze_bn": frozen,
+        "phase_s": time.time() - t0, "card": smi}
+    say("train-recipe", f"AugMix/JSD lemevit_tiny {JSD_SPLITS} x {B_MAIN}: "
+        f"synthetic {syn['samples_per_sec']:.2f} img/s "
+        f"({syn['views_per_sec']:.2f} views/s, {syn['step_ms']:.1f} "
+        f"ms/step, peak {syn['peak_gib']:.2f} GiB; single-view "
+        f"{synthetic_train['samples_per_sec']:.2f} img/s in this run); "
+        f"JPEGs on 4 processes {real['samples_per_sec']:.2f} img/s; host ms "
+        f"per batch of {B_MAIN} three-view samples {host['real_1_thread']:.1f}"
+        f" (1 thread), {host['real_4_procs']:.1f} (4 processes); phase "
+        f"{summary['phase_s']:.1f} s ({smi})")
+    say("train-recipe-summary", json.dumps(summary))
     return summary
 
 
@@ -2820,8 +3094,14 @@ def main() -> None:
 
     # 7c. real images: lemevit_tiny trained from a JPEG folder, lemevit_base
     #     validated on its ragged validation split (default and slice
-    #     paths against the plain path), ReaL labels, a UCM tree and a zip
-    real_data_phase(smi, tiny_res)
+    #     paths against the plain path), ReaL labels, a UCM tree and a zip;
+    #     then the rest of the training recipe on the same folder
+    with tempfile.TemporaryDirectory() as real_root:
+        real_data_phase(smi, tiny_res, Path(real_root))
+        # 7d. AugMix splits with the JSD loss and split BatchNorm (synthetic
+        #     and JPEG), a JSD step and a freeze_bn step against the plain
+        #     path, every --opt rule card against CPU
+        train_recipe_phase(smi, tiny_res, Path(real_root) / "folder", dev)
 
     # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and

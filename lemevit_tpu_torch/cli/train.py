@@ -10,16 +10,22 @@
     CUDA (autocast); the C, D/D2 and S blocks train through the
     hand-written training kernels (attn/fused_train.py)
   - ``--summary`` logs the parameter table and GMACs per image
-  - AdamW + warmup-cosine with the LR scaled to the global batch
+  - every --opt of the JAX package (adamw by default; adam, sgd, momentum,
+    nesterov, rmsprop, rmsproptf, lamb, adagrad) and every --sched
+    (warmup-cosine by default; step, multistep, poly, constant, and
+    plateau, whose scale PlateauController decays from the eval metric),
+    the LR scaled to the global batch
   - random erasing, mixup / cutmix and label smoothing on the device
+  - AugMix splits (--aug-splits S, --aa augmix-m3-w3): split 0 clean, the
+    rest through AugMix, every BatchNorm with S sets of statistics, the
+    JSD loss (--jsd-alpha); mixup and cutmix off; eval on the clean
+    split's statistics
   - EMA of the parameters, per-stage remat (--remat-stages), checkpoints
     kept top-k by eval metric, mid-epoch recovery, auto-resume, summary.csv
     with a fixed field set, events.jsonl
 
 Not ported yet, and raise: packed caches (--packed-data) and native decode
-(--native-decode; ROADMAP queue 1, item 4), aug-splits / JSD (--aug-splits,
-item 2), the plateau schedule and the other optimizers (item 2), and
-multi-device runs (item 6).
+(--native-decode; ROADMAP queue 1, item 4), and multi-device runs (item 6).
 
 Usage:
   python -m lemevit_tpu_torch.cli.train --config configs/lemevit.yaml \\
@@ -30,6 +36,9 @@ Usage:
       --img-size 32 --batch-size 4 --device cpu --summary
   python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_tiny \\
       --train-cpe-in-kernel   # the 3x3 CPEs inside the training kernels
+  python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_tiny \
+      --config configs/lemevit.yaml --aug-splits 3 --jsd-loss \
+      --aa augmix-m3-w3   # the AugMix / JSD recipe
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from lemevit_tpu_torch.attn.modules import BACKENDS
+from lemevit_tpu_torch.train.optim import OPTIMIZERS
 
 SUMMARY_FIELDS = ["epoch", "train_loss", "epoch_time_s",
                   "top1", "top5", "ema_top1", "ema_top5"]
@@ -91,14 +101,18 @@ def build_parser() -> argparse.ArgumentParser:
     # optimization
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--grad-accum-steps", type=int, default=1)
-    p.add_argument("--opt", default="adamw", choices=["adamw"])
+    p.add_argument("--opt", default="adamw", choices=list(OPTIMIZERS))
+    p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--sched", default="cosine",
                    choices=["cosine", "step", "multistep", "poly",
-                            "constant"])
+                            "constant", "plateau"])
     p.add_argument("--decay-epochs", type=float, default=90)
     p.add_argument("--decay-rate", type=float, default=0.1)
     p.add_argument("--decay-milestones", type=float, nargs="*", default=[])
     p.add_argument("--sched-power", type=float, default=1.0)
+    p.add_argument("--patience-epochs", type=int, default=10,
+                   help="plateau schedule: epochs without eval-metric "
+                        "improvement before the LR decays by --decay-rate")
     p.add_argument("--lr-base", type=float, default=5e-4)
     p.add_argument("--lr-base-size", type=int, default=512)
     p.add_argument("--lr-base-scale", default="linear",
@@ -119,8 +133,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale", type=float, nargs=2, default=[0.08, 1.0],
                    help="RandomResizedCrop scale range (timm --scale)")
     p.add_argument("--aug-splits", type=int, default=0,
-                   help="AugMix splits with per-split BN: not ported "
-                        "(item 2); raises above 1")
+                   help=">1 enables aug splits: split 0 clean, the rest "
+                        "augmented, with per-split BN statistics and the "
+                        "JSD loss")
+    p.add_argument("--jsd-loss", action="store_true",
+                   help="JSD consistency loss across aug splits (the loss "
+                        "of every --aug-splits run, as in the JAX package)")
+    p.add_argument("--jsd-alpha", type=float, default=12.0)
     p.add_argument("--model-ema", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--model-ema-decay", type=float, default=0.996)
@@ -150,6 +169,22 @@ def main(argv=None):
     return train(args, args_text)
 
 
+class SplitViews:
+    """Synthetic-data stand-in for build_augsplit_transform: each sample
+    repeated into (S, H, W, 3) views, so that the split path runs (the JAX
+    package's _SplitViews)."""
+
+    def __init__(self, ds, num_splits: int):
+        self.ds, self.num_splits = ds, num_splits
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        img, label = self.ds[i]
+        return np.stack([img] * self.num_splits), label
+
+
 def step_generators(seed: int, step: int, gen: torch.Generator
                     ) -> np.random.Generator:
     """Reseed ``gen`` (erasing boxes and noise, DropPath masks) and return
@@ -173,9 +208,14 @@ def train(args, args_text: str = "") -> dict:
                                                     restore_checkpoint,
                                                     save_checkpoint,
                                                     save_recovery)
-    from lemevit_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from lemevit_tpu_torch.train.optim import (PlateauController,
+                                               build_lr_schedule,
+                                               build_optimizer,
+                                               plateau_scale,
+                                               set_plateau_scale)
     from lemevit_tpu_torch.train.state import ModelEma, TrainState
-    from lemevit_tpu_torch.train.steps import eval_metrics, train_step
+    from lemevit_tpu_torch.train.steps import (eval_metrics, jsd_train_step,
+                                               stack_batch_stats, train_step)
     from lemevit_tpu_torch.utils.events import EventWriter
     from lemevit_tpu_torch.utils.logging import setup_logging
     from lemevit_tpu_torch.utils.meters import MetricTracker
@@ -186,9 +226,6 @@ def train(args, args_text: str = "") -> dict:
     if args.native_decode:
         raise NotImplementedError("--native-decode is not ported yet "
                                   "(ROADMAP queue 1, item 4)")
-    if args.aug_splits > 1:
-        raise NotImplementedError("--aug-splits is not ported yet (ROADMAP "
-                                  "queue 1, item 2)")
     device = resolve_device(args.device)
     out_dir = os.path.join(args.output, args.experiment or args.model)
     os.makedirs(out_dir, exist_ok=True)
@@ -203,6 +240,15 @@ def train(args, args_text: str = "") -> dict:
                 global_batch)
 
     # ---------------- data
+    aug_splits = args.aug_splits if args.aug_splits > 1 else 0
+    if aug_splits:
+        if not args.jsd_loss:
+            logger.info("aug-splits: training with the JSD loss (as the JAX "
+                        "package, with or without --jsd-loss)")
+        if args.mixup > 0 or args.cutmix > 0:
+            logger.info("aug-splits: disabling mixup/cutmix (JSD path "
+                        "takes hard targets, as in the reference)")
+            args.mixup = args.cutmix = 0.0
     train_spec = val_spec = None
     if args.synthetic:
         train_ds = create_dataset("synthetic", num_samples=global_batch * 8,
@@ -211,13 +257,16 @@ def train(args, args_text: str = "") -> dict:
         val_ds = create_dataset("synthetic", num_samples=global_batch * 2,
                                 image_size=args.img_size,
                                 num_classes=args.num_classes)
+        if aug_splits:
+            train_ds = SplitViews(train_ds, aug_splits)
     else:
         if not os.path.isdir(args.data_dir):
             raise FileNotFoundError(
                 f"--data-dir {args.data_dir!r} is not a directory (pass "
                 "--synthetic for synthetic data)")
         # the spec builds the dataset here and in spawned workers alike
-        train_spec = spec_for_split(args, args.train_split, train=True)
+        train_spec = spec_for_split(args, args.train_split, train=True,
+                                    aug_splits=aug_splits)
         val_spec = spec_for_split(args, args.val_split, train=False)
         train_ds, val_ds = train_spec.build(), val_spec.build()
         logger.info("data: %s %s, %d train / %d val samples", args.dataset,
@@ -247,6 +296,10 @@ def train(args, args_text: str = "") -> dict:
                     cost_analysis(model, args.img_size)["gmacs"])
     if args.initial_checkpoint:
         load_pretrained(model, args.initial_checkpoint)
+    if aug_splits:
+        # S sets of BatchNorm statistics, before the restore: a checkpoint
+        # of an aug-splits run holds all S
+        stack_batch_stats(model, aug_splits)
     sched = build_lr_schedule(
         base_lr=args.lr_base, global_batch_size=global_batch,
         steps_per_epoch=steps_per_epoch,
@@ -258,7 +311,8 @@ def train(args, args_text: str = "") -> dict:
         power=args.sched_power)
     state = TrainState(
         model=model, optimizer=build_optimizer(
-            model, weight_decay=args.weight_decay, opt=args.opt),
+            model, weight_decay=args.weight_decay, opt=args.opt,
+            momentum=args.momentum),
         schedule=sched,
         ema=ModelEma(model, args.model_ema_decay) if args.model_ema else None,
         grad_accum_steps=args.grad_accum_steps, clip_grad=args.clip_grad)
@@ -269,6 +323,12 @@ def train(args, args_text: str = "") -> dict:
         state, resumed = auto_resume(ckpt_dir, state)
         if resumed:
             logger.info("auto-resumed at step %d", state.step)
+    plateau_ctl = None
+    if args.sched == "plateau":
+        plateau_ctl = PlateauController(decay_rate=args.decay_rate,
+                                        patience=args.patience_epochs)
+        # a resumed run goes on from the scale its checkpoint holds
+        plateau_ctl.scale = plateau_scale(state.optimizer)
     gen = torch.Generator(device=device)
     model.set_generator(gen)
 
@@ -276,6 +336,23 @@ def train(args, args_text: str = "") -> dict:
         rng = step_generators(args.seed, state.step, gen)
         images = normalize(batch["image"])
         labels = batch["label"]
+        if aug_splits:
+            # (B, S, H, W, C) -> (S, B, H, W, C); erasing per view
+            images = images.transpose(0, 1)
+            s, b, h, w, _ = images.shape
+            if args.reprob > 0:
+                flat = images.flatten(0, 1)
+                draw = draw_erasing(gen, s * b, h, w, prob=args.reprob)
+                noise = torch.randn(flat.shape, generator=gen, device=device)
+                images = random_erasing(flat, draw, noise).unflatten(
+                    0, (s, b))
+            targets = torch.nn.functional.one_hot(
+                labels, args.num_classes).float()
+            if args.smoothing:
+                targets = (targets * (1 - args.smoothing)
+                           + args.smoothing / args.num_classes)
+            return jsd_train_step(state, images, targets, args.jsd_alpha,
+                                  autocast_dtype=amp)
         b, h, w, _ = images.shape
         if args.reprob > 0:
             draw = draw_erasing(gen, b, h, w, prob=args.reprob)
@@ -348,7 +425,8 @@ def train(args, args_text: str = "") -> dict:
                 save_recovery(ckpt_dir, state)
             if step_i % args.log_interval == 0:
                 m = {k: float(v) for k, v in metrics.items()}
-                m["lr"] = state.schedule(state.updates)
+                m["lr"] = state.schedule(state.updates) * plateau_scale(
+                    state.optimizer)
                 tracker.update(m)
                 events.log(state.step, m)
                 logger.info(
@@ -364,6 +442,9 @@ def train(args, args_text: str = "") -> dict:
             result["step_ms"] = 1e3 * (t_end - t_warm) / steady
             result["samples_per_sec"] = (steady * args.batch_size
                                          / (t_end - t_warm))
+            if aug_splits:
+                result["views_per_sec"] = (result["samples_per_sec"]
+                                           * aug_splits)
 
         eval_stats = {}
         if (epoch + 1) % args.eval_interval == 0:
@@ -382,6 +463,12 @@ def train(args, args_text: str = "") -> dict:
 
         metric = max(eval_stats.get("top1", -1.0),
                      eval_stats.get("ema_top1", -1.0))
+        if plateau_ctl is not None and eval_stats:
+            scale = plateau_ctl.update(metric)
+            set_plateau_scale(state.optimizer, scale)
+            result["plateau_scale"] = scale
+            if scale < 1.0:
+                logger.info("plateau LR scale %.2e", scale)
         save_checkpoint(ckpt_dir, state, metric=metric,
                         max_history=args.checkpoint_hist)
         best_top1 = max(best_top1, metric)

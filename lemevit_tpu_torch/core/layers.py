@@ -69,22 +69,54 @@ class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d whose train-mode update of ``running_var`` takes the
     *biased* batch variance, as flax's BatchNorm does (torch's takes the
     unbiased one); momentum 0.1 here is flax's 0.9. Statistics in fp32;
-    eval mode is torch's own."""
+    eval mode is torch's own.
+
+    Split mode (``set_splits(S)``, S > 1; timm's split BatchNorm of an
+    AugMix run) holds S sets of running statistics, (S, C) each. In train
+    mode an (S B, C, H, W) batch is S splits of B rows, and each split is
+    normalised with its own batch statistics and updates its own set; eval
+    mode uses set 0, the clean split's."""
+
+    num_splits = 1
+
+    def set_splits(self, num_splits: int) -> None:
+        """Enter split mode with ``num_splits`` copies of the current
+        statistics (set 0's when already split), or leave it with
+        ``num_splits`` 1, keeping set 0's."""
+        for name in ("running_mean", "running_var"):
+            t = getattr(self, name)
+            if self.num_splits > 1:
+                t = t[0]
+            setattr(self, name, t[None].repeat(num_splits, 1)
+                    if num_splits > 1 else t.clone())
+        self.num_splits = num_splits
 
     def forward(self, x):
+        s = self.num_splits
         if not self.training:
-            return super().forward(x)
+            mean, var = self.running_mean, self.running_var
+            if s > 1:
+                mean, var = mean[0], var[0]
+            return F.batch_norm(x, mean, var, self.weight, self.bias, False,
+                                0.0, self.eps)
         with torch.no_grad():
-            x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            var = x32.var(dim=(0, 2, 3), unbiased=False)
+            x32 = x.float().unflatten(0, (s, -1))
+            mean = x32.mean(dim=(1, 3, 4))
+            var = x32.var(dim=(1, 3, 4), unbiased=False)
+            if s == 1:
+                mean, var = mean[0], var[0]
             self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                     self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype),
                                    self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        # the splits' channels side by side, (B, S C, H, W) (a view when S
+        # is 1): one batch_norm normalises each split with its own
+        # statistics
+        xs = x.unflatten(0, (s, -1)).transpose(0, 1).flatten(1, 2)
+        y = F.batch_norm(xs, None, None, self.weight.repeat(s),
+                         self.bias.repeat(s), True, 0.0, self.eps)
+        return y.unflatten(1, (s, -1)).transpose(0, 1).flatten(0, 1)
 
 
 class ConvBN(nn.Sequential):

@@ -8,8 +8,8 @@ and CPU torch; it never touches CUDA). ``build_split_dataset`` rebuilds
 the classification CLIs' dataset and transform; any module-level function
 that returns a dataset serves.
 
-Not ported: ``packed`` (ROADMAP queue 1, item 4), ``native`` (item 4) and
-``aug_splits`` (item 2) raise NotImplementedError.
+Not ported: ``packed`` and ``native`` (ROADMAP queue 1, item 4) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -47,10 +47,12 @@ def build_split_dataset(dataset: str, data_dir: str, split: str,
     if native:
         raise NotImplementedError(
             "native decode is not ported yet (ROADMAP queue 1, item 4)")
-    if aug_splits:
-        raise NotImplementedError(
-            "aug splits are not ported yet (ROADMAP queue 1, item 2)")
-    if train:
+    if train and aug_splits:
+        tf = T.build_augsplit_transform(img_size, hflip=hflip,
+                                        auto_augment=auto_augment,
+                                        num_splits=aug_splits,
+                                        scale=tuple(scale))
+    elif train:
         tf = T.build_train_transform(img_size, hflip=hflip,
                                      auto_augment=auto_augment,
                                      scale=tuple(scale))
@@ -59,13 +61,15 @@ def build_split_dataset(dataset: str, data_dir: str, split: str,
     return create_dataset(dataset, data_dir, split=split, transform=tf)
 
 
-def spec_for_split(args, split: str, train: bool) -> DatasetSpec:
-    """The DatasetSpec of a CLI's ``split``, from its parsed ``args``."""
+def spec_for_split(args, split: str, train: bool,
+                   aug_splits: int = 0) -> DatasetSpec:
+    """The DatasetSpec of a CLI's ``split``, from its parsed ``args``; a
+    train split with ``aug_splits`` > 1 gives (S, H, W, 3) samples."""
     return DatasetSpec(
         "lemevit_tpu_torch.data.spawn:build_split_dataset",
         dict(dataset=args.dataset, data_dir=args.data_dir, split=split,
              img_size=args.img_size, train=train,
              hflip=getattr(args, "hflip", 0.5),
              auto_augment=getattr(args, "aa", ""),
-             crop_pct=getattr(args, "crop_pct", 0.9),
+             crop_pct=getattr(args, "crop_pct", 0.9), aug_splits=aug_splits,
              scale=tuple(getattr(args, "scale", (0.08, 1.0)))))

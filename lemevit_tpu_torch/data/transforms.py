@@ -13,8 +13,8 @@ calls in the same order. So ``random.seed(s); np.random.seed(s)`` before a
 JAX call and ``Rng.from_seed(s)`` handed to the port give the same bits.
 The loader gives each sample its own ``sample_rng(seed, epoch, index)``.
 
-Not ported: the AugMix split transform (``build_augsplit_transform``) and
-the native-decode transforms (``build_native_*``).
+Not ported: the native-decode transforms (``build_native_*``; ROADMAP
+queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -265,6 +265,28 @@ def build_train_transform(img_size: int = 224, hflip: float = 0.5,
         if ra is not None:
             img = ra(img, rng)
         return np.asarray(img, dtype=np.uint8)
+
+    return transform
+
+
+def build_augsplit_transform(img_size: int = 224, hflip: float = 0.5,
+                             auto_augment: str = "augmix-m3-w3",
+                             num_splits: int = 3,
+                             scale=(0.08, 1.0)) -> Callable:
+    """(PIL image, rng) -> uint8 (num_splits, img_size, img_size, 3), timm's
+    AugMixDataset: one random resized crop and flip per sample, then split
+    0 clean and splits 1.. each through the aa policy (AugMix for the JSD
+    recipe), in the JAX package's order of draws."""
+    aug = build_aug_policy(auto_augment)
+
+    def transform(img: Image.Image, rng: Rng) -> np.ndarray:
+        img = random_resized_crop(img, img_size, rng, scale=scale)
+        if hflip > 0 and rng.py.random() < hflip:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        views = [np.asarray(img, np.uint8)]
+        for _ in range(num_splits - 1):
+            views.append(np.asarray(aug(img, rng) if aug else img, np.uint8))
+        return np.stack(views)
 
     return transform
 

@@ -367,10 +367,11 @@ class LeMeViT(nn.Module):
                  remat_stages: Sequence[int] = (),
                  attn_backend: str = "auto", s_stage: bool = False,
                  cpe_in_kernel: bool = False,
-                 train_cpe_in_kernel: bool = False):
+                 train_cpe_in_kernel: bool = False, freeze_bn: bool = False):
         super().__init__()
         dims = list(embed_dim)
         self.s_stage = s_stage
+        self.freeze_bn = freeze_bn
         self.remat_stages = tuple(remat_stages)
         self.attn_type = tuple(attn_type)
         self.depth = tuple(depth)
@@ -413,6 +414,17 @@ class LeMeViT(nn.Module):
             self.norm_c = nn.LayerNorm(dims[-1], eps=1e-5)
             self.head = (nn.Linear(dims[-1], num_classes)
                          if num_classes > 0 else None)
+
+    def train(self, mode: bool = True) -> "LeMeViT":
+        """With ``freeze_bn`` the stem's and the downsamples' BatchNorms
+        stay in eval mode, normalising with their running statistics and
+        leaving them as they are, while the model trains (detection
+        fine-tuning; the JAX package's freeze_bn); the head's trains."""
+        super().train(mode)
+        if self.freeze_bn:
+            for ds in self.downsample_layers:
+                ds.eval()
+        return self
 
     def set_attn_backend(self, backend: str) -> None:
         """Switch every block (and its attention module) between "auto",

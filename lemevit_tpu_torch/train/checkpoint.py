@@ -11,8 +11,10 @@
   load_pretrained(model, path)    reference-named .pth weights
 
 A checkpoint holds the model's state_dict (parameters and BatchNorm
-statistics) under "state_dict", the EMA model's under "state_dict_ema" (its
-parameters with the live statistics), the optimizer's state and the step,
+statistics, S sets each in an aug-splits run) under "state_dict", the EMA
+model's under "state_dict_ema" (its parameters with the live statistics),
+the optimizer's state (every rule's moments and buffers, and each group's
+plateau scale) and the step,
 so ``load_pretrained`` and ``cli/validate.py --checkpoint [--use-ema]``
 read it as they read a reference checkpoint. ``restore_checkpoint`` reads
 it with ``weights_only=True``.

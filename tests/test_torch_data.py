@@ -490,11 +490,13 @@ def test_spec_for_split(train_folder, split, train):
     assert spec.kwargs["train"] is train and spec.kwargs["split"] == split
     import pickle
     assert pickle.loads(pickle.dumps(spec)) == spec
-    for key, item in (("packed", "item 4"), ("native", "item 4"),
-                      ("aug_splits", "item 2")):
+    for key, item in (("packed", "item 4"), ("native", "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             S.build_split_dataset("imagefolder", train_folder, "train",
                                   **{key: "x" if key == "packed" else 1})
+    # aug splits: (S, H, W, 3) train samples
+    img, _ = S.spec_for_split(Args, "train", True, aug_splits=3).build()[0]
+    assert img.shape == (3, 16, 16, 3) and img.dtype == np.uint8
 
 
 def test_device_prefetcher_propagates_worker_errors():

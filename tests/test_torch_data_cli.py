@@ -206,7 +206,7 @@ def test_train_on_a_folder_resumes(data, tmp_path):
 @pytest.mark.parametrize("cli,extra,err,match", [
     (train_cli, ["--packed-data", "x"], NotImplementedError, "item 4"),
     (train_cli, ["--native-decode"], NotImplementedError, "item 4"),
-    (train_cli, ["--aug-splits", "3"], NotImplementedError, "item 2"),
+    (train_cli, ["--aug-splits", "3"], FileNotFoundError, "--synthetic"),
     (train_cli, [], FileNotFoundError, "--synthetic"),
     (validate, ["--native-decode"], NotImplementedError, "item 4"),
     (validate, [], FileNotFoundError, "--synthetic")])
