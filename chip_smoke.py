@@ -60,6 +60,22 @@ and read just after:
     steps), --real-labels, --dataset ucm and --dataset zipfolder; a
     real-data batch's host build time with 1 and 4 threads beside a
     synthetic one;
+  - the packed and native data planes on the same JPEGs (the
+    packed-native phase): whether the C++ compiler finds jpeglib.h and
+    png.h (without them the native runs are skipped and said so; with
+    them the native decode library must build), the folder packed at 256^2
+    by cli.pack's pack_folder (its seconds, and whether through the native
+    plane); cli.train of lemevit_tiny from the cache (--packed-data: the
+    random resized crop, flip and RandAugment on the card) and on native
+    decode (--native-decode, 4 threads), each with TINY_STEP's launches a
+    step and its steady img/s beside the PIL runs' and the synthetic run's;
+    the host's ms per batch of 64 for the cache, native decode on 1 and 4
+    threads and PIL's; device_aug on a batch of 64 (256^2 to 224^2, two
+    RandAugment layers) against its CPU run on the same draws (the crop
+    and flip within 2e-3, each layer on the same input within 1e-2), timed
+    by CUDA events with its kernels a call; cli.validate of lemevit_base
+    --packed-data (resized to 248, centre 224) on the default and the
+    slice's path, every image's logits against the plain path's;
   - the rest of the training recipe (the train-recipe phase): cli.train
     of lemevit_tiny with --aug-splits 3 --jsd-loss --aa augmix-m3-w3 (3
     splits of 64 views in one forward, every BatchNorm with per-split
@@ -1512,10 +1528,12 @@ def check_train_step(dev, name, expect, **model_kw):
 
 
 def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
-                    val_batches=2, steps=TRAIN_STEPS, keep_state=False):
-    """cli.train on synthetic data, or on the image folder ``data_dir``
+                    val_batches=2, steps=TRAIN_STEPS, keep_state=False,
+                    data_flags=None):
+    """cli.train on synthetic data, on the image folder ``data_dir``
     (--dataset imagefolder, 4 loader threads unless ``flags`` ask for
-    worker processes): ``model``, 224^2, bf16,
+    worker processes), or on what ``data_flags`` name (a packed cache):
+    ``model``, 224^2, bf16,
     B=64, the reference recipe (configs/lemevit.yaml: RandAugment m9,
     hflip and random resized crops on real images; mixup, cutmix, erasing,
     smoothing, drop-path 0.15, EMA), 1 epoch of ``steps`` steps and one
@@ -1525,7 +1543,8 @@ def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
     "log_times" are the wall times of the logged steps (events.jsonl), and
     with ``keep_state`` its "state_dict" the checkpoint's model state."""
     from lemevit_tpu_torch.cli import train as train_cli
-    data = (["--synthetic"] if data_dir is None else
+    data = (list(data_flags) if data_flags else
+            ["--synthetic"] if data_dir is None else
             ["--dataset", "imagefolder", "--data-dir", str(data_dir),
              "--workers", "4"])
     with tempfile.TemporaryDirectory() as out:
@@ -1559,7 +1578,8 @@ def train_main_path(model, per_step, per_eval, flags=(), data_dir=None,
     if not (loss == loss and abs(loss) < 1e3) or res["steps"] != steps \
             or len(ckpts) != 1:
         raise AssertionError(f"train: {res}, checkpoints {ckpts}")
-    say("train", f"{model} {' '.join(flags)} 224 bf16 B={B_MAIN}"
+    say("train", f"{model} {' '.join(data_flags or ())} {' '.join(flags)}"
+        f" 224 bf16 B={B_MAIN}"
         f"{'' if data_dir is None else ', JPEG folder'}: "
         f"{res['steps']} steps, "
         f"loss {loss:.4f}, {res['samples_per_sec']:.2f} img/s"
@@ -1720,9 +1740,11 @@ def write_real_data(root: Path, seed: int = 0) -> dict:
             "real": root / "real.json", "small": len(small), **counts}
 
 
-def validate_real(folder: Path, flags=()) -> tuple:
+def validate_real(folder: Path, flags=(), data_flags=None) -> tuple:
     """cli.validate of lemevit_base (bf16, B_MAIN) on ``folder``'s
-    validation split with ``flags``, its launch counts set to 0 just before
+    validation split decoded by PIL (or on what ``data_flags`` name: a
+    packed cache) with
+    ``flags``, its launch counts set to 0 just before
     and read just after, then the same with --attn-backend torch. Raises
     unless the counts are equal, the losses agree within PLAIN_STEPS bf16
     steps of the plain path's, and every image's logits agree with the
@@ -1733,7 +1755,9 @@ def validate_real(folder: Path, flags=()) -> tuple:
     another image's) are off by about the largest logit. Returns
     (launches, kernel result, plain result, logits check)."""
     from lemevit_tpu_torch.cli import validate
-    argv = ["--model", "lemevit_base", "--data-dir", str(folder),
+    argv = ["--model", "lemevit_base",
+            *(data_flags or ("--data-dir", str(folder),
+                             "--no-native-decode")),
             "--batch-size", str(B_MAIN), *flags]
     logits = ([], [])
     reset()
@@ -1763,8 +1787,24 @@ def validate_real(folder: Path, flags=()) -> tuple:
     return launches, got, plain, check
 
 
+def steady_rate(res: dict) -> dict:
+    """A REAL_TRAIN_STEPS cli.train run's img/s over its last REAL_WINDOW
+    steps (events.jsonl's times, logged every REAL_LOG), its ms per step
+    over each REAL_LOG steps after step 0, and cli.train's own rate."""
+    times = res["log_times"]
+    if len(times) != REAL_TRAIN_STEPS // REAL_LOG + 1:
+        raise AssertionError(f"cli.train logged {len(times)} steps")
+    return {"img_per_s": REAL_WINDOW * B_MAIN / (
+                times[-1] - times[-1 - REAL_WINDOW // REAL_LOG]),
+            "ms_per_step_by_log": [1e3 * (b - a) / REAL_LOG for a, b
+                                   in zip(times, times[1:])],
+            "cli_train_img_per_s_steps_2_on": res["samples_per_sec"]}
+
+
 def real_data_phase(smi: str, synthetic_train: dict, root: Path) -> dict:
-    """The classification data plane on real images: write the data, train
+    """The classification data plane on real images, decoded by PIL
+    (--no-native-decode; packed_native_phase runs the other planes): write
+    the data, train
     lemevit_tiny on the folder through cli.train (TINY_STEP's launches per
     step, as on synthetic data) for REAL_TRAIN_STEPS steps with 4 loader
     threads and with 4 worker processes, its img/s read over the steady
@@ -1792,17 +1832,9 @@ def real_data_phase(smi: str, synthetic_train: dict, root: Path) -> dict:
             "lemevit_tiny", TINY_STEP, TINY_EVAL,
             data_dir=data["folder"], val_batches=val_batches,
             steps=REAL_TRAIN_STEPS,
-            flags=("--log-interval", str(REAL_LOG), *flags))
-        times = res["log_times"]
-        if len(times) != REAL_TRAIN_STEPS // REAL_LOG + 1:
-            raise AssertionError(f"cli.train logged {len(times)} steps")
-        trained[name] = {
-            "img_per_s": REAL_WINDOW * B_MAIN / (
-                times[-1] - times[-1 - REAL_WINDOW // REAL_LOG]),
-            # ms per step over each REAL_LOG steps after step 0
-            "ms_per_step_by_log": [1e3 * (b - a) / REAL_LOG for a, b
-                                   in zip(times, times[1:])],
-            "cli_train_img_per_s_steps_2_on": res["samples_per_sec"]}
+            flags=("--log-interval", str(REAL_LOG), "--no-native-decode",
+                   *flags))
+        trained[name] = steady_rate(res)
     n_fwd = 1 + -(-REAL_VAL // B_MAIN)  # the warm-up and each batch
     paths = {}
     for name, flags, per_fwd in (
@@ -1833,7 +1865,8 @@ def real_data_phase(smi: str, synthetic_train: dict, root: Path) -> dict:
             f"launches per forward " + ", ".join(
                 f"{k} {launches[k] // n_fwd}" for k in per_fwd)
             + f" ({smi})")
-    tiny = ["--model", "lemevit_tiny", "--batch-size", str(B_MAIN)]
+    tiny = ["--model", "lemevit_tiny", "--batch-size", str(B_MAIN),
+            "--no-native-decode"]
     real = validate.main([*tiny, "--data-dir", str(data["folder"]),
                           "--real-labels", str(data["real"])])
     ucm = validate.main([*tiny, "--data-dir", str(data["ucm"]),
@@ -1880,6 +1913,241 @@ def real_data_phase(smi: str, synthetic_train: dict, root: Path) -> dict:
         f"{host['real_4_threads']:.1f} (4 threads), "
         f"{host['real_4_procs']:.1f} (4 processes) ({smi})")
     say("real-data-summary", json.dumps(summary))
+    return summary
+
+
+# the packed and native data planes (cli.pack's cache at PACK_PX with the
+# device augmentation, and the C++ decode); device_aug held against its CPU
+# run on the same draws: the crop and flip within AUG_CROP_TOL, each
+# RandAugment layer, on the same input, within AUG_LAYER_TOL (the CPU tests'
+# limits against the JAX function)
+PACK_PX = 256
+AUG_CROP_TOL = 2e-3
+AUG_LAYER_TOL = 1e-2
+NATIVE_HEADERS = ("jpeglib.h", "png.h")
+
+
+def missing_native_headers() -> dict:
+    """The headers of data/csrc/leme_data.cpp that the native library's
+    build (native_decode.build_error) did not find, each with the
+    compiler's line that says so: the run cannot install them. {} when
+    the library loads; RuntimeError, quoting the build, when it failed for
+    another reason."""
+    from lemevit_tpu_torch.data import native_decode
+    err = native_decode.build_error()
+    if err is None:
+        return {}
+    missing = {h: line.strip() for h in NATIVE_HEADERS
+               for line in err.splitlines()
+               if f"{h}: No such file" in line}
+    if not missing:
+        native_decode.require()  # raises, quoting the build
+    return missing
+
+
+def host_syncs(fn) -> int:
+    """How many times fn() made the host wait on the card: the warnings of
+    torch.cuda.set_sync_debug_mode("warn") (a copy from pageable memory,
+    .item(), a sizing read, ...)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_device_aug(dev, packed_split: str, smi: str) -> dict:
+    """data/device_aug.py on a batch of B_MAIN packed squares (PACK_PX^2 to
+    224^2, REAL_AA): the card against its CPU run on the same draws, stage
+    by stage on the same input (the crop and flip within AUG_CROP_TOL,
+    each RandAugment layer within AUG_LAYER_TOL); the times the draws and
+    the apply make the host wait on the card (host_syncs; the apply must
+    not), and with ra_layer's constants made anew each call; ms per batch
+    by CUDA events for the apply, cached and not (in the order cached,
+    uncached, uncached, cached), and for the call (the draws included);
+    the kernels one call launches (profiler)."""
+    import numpy as np
+    from lemevit_tpu_torch.data import device_aug
+    from lemevit_tpu_torch.data.device_aug import (AugDraws, DeviceAug,
+                                                   layer_consts, ra_layer)
+    from lemevit_tpu_torch.data.packed import PackedDataset
+    ds = PackedDataset(packed_split)
+    x_cpu = torch.from_numpy(np.stack([ds[i][0] for i in range(B_MAIN)]))
+    x = x_cpu.to(dev)
+    aug = DeviceAug(224, auto_augment=REAL_AA)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = aug.draw(gen, B_MAIN, dev)
+    host = AugDraws(*(t.cpu() for t in draws[:4]),
+                    tuple(tuple(t.cpu() for t in lay)
+                          for lay in draws.layers))
+    crop = DeviceAug(224, auto_augment=None)
+    want = crop.apply(x_cpu, host._replace(layers=()))
+    errs = {"crop_flip": (crop.apply(x, draws._replace(layers=())).cpu()
+                          - want).abs().max().item()}
+    ra = aug.ra
+    for i, (lay, lay_cpu) in enumerate(zip(draws.layers, host.layers)):
+        got = ra_layer(want.to(dev), *lay, ra["magnitude"], ra["mag_std"])
+        want = ra_layer(want, *lay_cpu, ra["magnitude"], ra["mag_std"])
+        errs[f"layer_{i}"] = (got.cpu() - want).abs().max().item()
+    out = aug.apply(x, draws)
+    if out.shape != (B_MAIN, 224, 224, 3) or not torch.isfinite(out).all() \
+            or not (out.min() >= 0 and out.max() <= 255):
+        raise AssertionError(f"device_aug output {tuple(out.shape)}")
+    if not (errs["crop_flip"] <= AUG_CROP_TOL and all(
+            v <= AUG_LAYER_TOL for k, v in errs.items() if k != "crop_flip")):
+        raise AssertionError(f"device_aug card against CPU: {errs}")
+    def uncached():  # every layer makes its constants anew
+        device_aug.layer_consts = layer_consts.__wrapped__
+        try:
+            return aug.apply(x, draws)
+        finally:
+            device_aug.layer_consts = layer_consts
+
+    applies = {"cached": lambda: aug.apply(x, draws), "uncached": uncached}
+    syncs = {"draw": host_syncs(lambda: aug.draw(gen, B_MAIN, dev)),
+             **{f"apply_{k}": host_syncs(f) for k, f in applies.items()}}
+    if syncs["apply_cached"]:
+        raise AssertionError(f"device_aug's apply waited on the card "
+                             f"{syncs['apply_cached']} times")
+    timed = {k: [] for k in applies}
+    for k in ("cached", "uncached", "uncached", "cached"):
+        timed[k].append(cuda_ms(applies[k], iters=50))
+    res = {"max_abs_err": errs, "apply_ms": sum(timed["cached"]) / 2,
+           "apply_ms_runs": timed, "call_ms": cuda_ms(lambda: aug(gen, x)),
+           "host_syncs": syncs,
+           "launches": profile_call(lambda: aug(gen, x),
+                                    "one device_aug call", top=6).get(
+               "launches")}
+    runs = {k: ", ".join(f"{v:.3f}" for v in t) for k, t in timed.items()}
+    say("device-aug", f"{B_MAIN} x {PACK_PX}^2 -> 224^2 {REAL_AA}: "
+        f"{res['apply_ms']:.3f} ms apply ({runs['cached']}; with "
+        f"ra_layer's constants made anew each call, as before they were "
+        f"cached: {runs['uncached']}), "
+        f"{res['call_ms']:.3f} ms with the draws (CUDA events), "
+        f"{res['launches']} kernels a call; host waits on the card: "
+        f"{syncs['draw']} in the draws, {syncs['apply_cached']} in the "
+        f"apply ({syncs['apply_uncached']} uncached); card vs "
+        f"CPU on the same draws: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (limits {AUG_CROP_TOL:g} / {AUG_LAYER_TOL:g}) ({smi})")
+    return res
+
+
+def packed_native_phase(smi: str, synthetic_train: dict, real: dict,
+                        root: Path, dev) -> dict:
+    """The packed and native data planes on real_data_phase's JPEGs under
+    ``root``: pack the folder at PACK_PX with cli.pack's pack_folder (the
+    native plane where it builds); train lemevit_tiny from the cache
+    (--packed-data: RRC, flip and RandAugment on the card) and on native
+    decode (--native-decode, 4 threads), TINY_STEP's launches a step, img/s
+    read as real_data_phase reads it; the host's ms per batch of B_MAIN
+    for the cache and for native decode on 1 and 4 threads (PIL's from
+    real_data_phase's run); device_aug against its CPU run and timed;
+    cli.validate of lemevit_base --packed-data on the default and the
+    slice's path, each image's logits against the plain path's. Without
+    jpeglib.h or png.h the native runs are skipped and said so; with them,
+    a library that does not build fails the run."""
+    from lemevit_tpu_torch.data import native_decode
+    from lemevit_tpu_torch.data.packed import PackedDataset, pack_folder
+    from lemevit_tpu_torch.data.spawn import DatasetSpec
+    t0 = time.time()
+    missing = missing_native_headers()
+    if missing:
+        say("packed-native", f"no {' / '.join(missing)} on this machine "
+            f"({'; '.join(missing.values())}): packing through PIL, the "
+            f"native runs skipped")
+    folder, packed = root / "folder", root / "packed"
+    t_pack = {}
+    for split in ("train", "validation"):
+        t1 = time.time()
+        meta = pack_folder(str(folder / split), str(packed / split),
+                           px=PACK_PX, log_every=0)
+        t_pack[split] = {"s": time.time() - t1, "n": meta["n"]}
+    say("pack", f"{t_pack['train']['n']} + {t_pack['validation']['n']} "
+        f"images at {PACK_PX}^2 in {t_pack['train']['s']:.2f} + "
+        f"{t_pack['validation']['s']:.2f} s, "
+        + ("through the native plane" if native_decode.available() else
+           "through PIL") + f" (1 thread) ({smi})")
+    launches, trained = {}, {}
+    runs = [("packed", {"data_flags": ("--packed-data", str(packed))})]
+    if not missing:
+        runs.append(("native_4_threads", {
+            "data_dir": folder, "flags": ("--native-decode",)}))
+    for name, kw in runs:
+        launches[name], res = train_main_path(
+            "lemevit_tiny", TINY_STEP, TINY_EVAL,
+            val_batches=REAL_VAL // B_MAIN, steps=REAL_TRAIN_STEPS,
+            flags=("--log-interval", str(REAL_LOG), *kw.pop("flags", ())),
+            **kw)
+        trained[name] = steady_rate(res)
+    host = {"packed_1_thread": host_batch_ms(
+        PackedDataset(str(packed / "train")), 1, 8)}
+    if not missing:
+        spec = DatasetSpec(
+            "lemevit_tpu_torch.data.spawn:build_split_dataset",
+            dict(dataset="imagefolder", data_dir=str(folder), split="train",
+                 auto_augment=REAL_AA, native=True))
+        native_ds = spec.build()
+        host.update(native_1_thread=host_batch_ms(native_ds, 1, 4),
+                    native_4_threads=host_batch_ms(native_ds, 4, 12))
+    host.update({f"pil_{k[5:]}": v for k, v in real["host_batch_ms"].items()
+                 if k.startswith("real_") and "thread" in k})
+    aug = check_device_aug(dev, str(packed / "train"), smi)
+    paths = {}
+    n_fwd = 1 + -(-REAL_VAL // B_MAIN)  # the warm-up and each batch
+    for name, flags, per_fwd in (
+            ("default", (), {"c_block": 2, "dca_block": 8, "s_block": 22}),
+            ("slice", ("--s-stage", "--cpe-in-kernel"), SLICE_FWD)):
+        got_launches, got, plain, check = validate_real(
+            packed, flags, data_flags=("--packed-data", str(packed)))
+        expect_launches(got_launches, {k: v * n_fwd
+                                       for k, v in per_fwd.items()},
+                        f"validate --packed-data {name} path on "
+                        f"{REAL_VAL} images ({n_fwd} forwards)")
+        if got["count"] != REAL_VAL:
+            raise AssertionError(f"validate --packed-data counted "
+                                 f"{got['count']} of {REAL_VAL}")
+        launches[f"validate_{name}"] = got_launches
+        paths[name] = {"loss": got["loss"], "plain_loss": plain["loss"],
+                       "top1": got["top1"], "img_per_s":
+                       got["samples_per_sec"], "logits": check}
+        say("packed-validate", f"lemevit_base {name} path bf16 B={B_MAIN} "
+            f"--packed-data ({PACK_PX}^2 resized to 248, centre 224) on "
+            f"{REAL_VAL} images: logits max abs err against the plain path "
+            f"{check['err']:.4g} (last batch {check['last_batch_err']:.4g};"
+            f" limit {check['limit']:.4g}), argmax equal on "
+            f"{check['argmax_equal']} of {REAL_VAL}; loss {got['loss']} vs "
+            f"{plain['loss']}, {got['samples_per_sec']} img/s ({smi})")
+    summary = {
+        "model": "lemevit_tiny", "batch": B_MAIN, "dtype": "bf16",
+        "pack_px": PACK_PX, "pack": t_pack,
+        "native_plane": native_decode.available(),
+        "missing_headers": missing, "train": trained,
+        "steps": REAL_TRAIN_STEPS, "window_steps": REAL_WINDOW,
+        "pil_train": real["train"],
+        "synthetic_train_img_per_s": synthetic_train["samples_per_sec"],
+        "host_batch_ms": host, "device_aug": aug, "validate": paths,
+        "phase_s": time.time() - t0, "card": smi}
+    say("packed-native", f"cli.train lemevit_tiny over steps "
+        f"{REAL_TRAIN_STEPS - REAL_WINDOW}-{REAL_TRAIN_STEPS - 1}: " + "; ".join(
+            f"{k.replace('_', ' ')} {t['img_per_s']:.2f} img/s"
+            for k, t in trained.items())
+        + "; PIL in this run: " + ", ".join(
+            f"{k.replace('_', ' ')} {t['img_per_s']:.2f}"
+            for k, t in real["train"].items())
+        + f"; synthetic {synthetic_train['samples_per_sec']:.2f} img/s; "
+        f"host ms per batch of {B_MAIN}: " + ", ".join(
+            f"{k.replace('_', ' ')} {v:.1f}" for k, v in host.items())
+        + f"; device_aug {aug['apply_ms']:.3f} ms a batch; phase "
+        f"{summary['phase_s']:.1f} s ({smi})")
+    say("packed-native-summary", json.dumps(summary))
+    summary["launches"] = launches
     return summary
 
 
@@ -3097,7 +3365,11 @@ def main() -> None:
     #     paths against the plain path), ReaL labels, a UCM tree and a zip;
     #     then the rest of the training recipe on the same folder
     with tempfile.TemporaryDirectory() as real_root:
-        real_data_phase(smi, tiny_res, Path(real_root))
+        real = real_data_phase(smi, tiny_res, Path(real_root))
+        # 7c'. the packed and native data planes on the same JPEGs: the
+        #      cache with the augmentation on the card, the C++ decode
+        data_planes = packed_native_phase(smi, tiny_res, real,
+                                          Path(real_root), dev)
         # 7d. AugMix splits with the JSD loss and split BatchNorm (synthetic
         #     and JPEG), a JSD step and a freeze_bn step against the plain
         #     path, every --opt rule card against CPU
@@ -3176,6 +3448,11 @@ def main() -> None:
 
     # 9. per-kernel numbers: per-launch means over each main path's mix
     kernels = []
+
+    def plane_launches(name):
+        """This kernel's launches on each run of the data planes' phase."""
+        return {run: counts[name] for run, counts in
+                data_planes["launches"].items() if counts.get(name)}
     for name in ("c_block", "dca_block", "s_block"):
         kernels.append(kernel_entry(
             name, [r for r in shape_rows if r["name"] == name],
@@ -3191,6 +3468,7 @@ def main() -> None:
                 "seg_train_eval_launches": seg_launches[name],
                 "seg_shapes": strip(seg_eval_rows)}
                if name == "s_block" else {}),
+            data_plane_launches=plane_launches(name),
             eval_forward_device_ms={
                 "lemevit_base": prof_default["device_ms"],
                 "lemevit_tiny": tiny_fwd.get("device_ms"),
@@ -3208,7 +3486,8 @@ def main() -> None:
             extra.update(seg_launches=seg_launches[name],
                          seg_shapes=strip(r for r in seg_train_rows
                                           if r["name"] == name))
-        extra.update(slice_launches=slice_train_launches[name])
+        extra.update(slice_launches=slice_train_launches[name],
+                     data_plane_launches=plane_launches(name))
         if name != "mlp_bwd":
             extra["cpe_shapes"] = strip(r for r in cpe_train_rows
                                         if r["name"] == name)
@@ -3218,6 +3497,7 @@ def main() -> None:
     kernels.append(kernel_entry(
         "s_stage", [r for r in stage_rows if r["per_forward"]],
         slice_launches["s_stage"], "per_forward",
+        data_plane_launches=plane_launches("s_stage"),
         other_shapes=strip(r for r in stage_rows if not r["per_forward"]),
         slice_serving=slice_res, ptxas=ptxas["s_stage.cu"]))
     kernels.append(kernel_entry(

@@ -1,11 +1,17 @@
 """Training CLI: the flags, outputs and loop of lemevit_tpu/cli/train.py.
 
   - two-stage YAML + argparse config (utils/parser.py), args.yaml record
-  - data: an image folder, a zip (zipfolder) or a remote-sensing manifest
-    (ucm, aid, nwpu, millionaid) through the PIL train transform (random
-    resized crop, hflip, RandAugment / AugMix from --aa) and the threaded
-    loader (--workers threads, or --worker-procs spawned processes); the
-    eval split through the centre crop at --crop-pct; or --synthetic
+  - data: an image folder, a zip (zipfolder), a remote-sensing manifest
+    (ucm, aid, nwpu, millionaid) or hub and shard data (hfds/, tfds/, wds)
+    through the PIL train transform (random resized crop, hflip,
+    RandAugment / AugMix from --aa) and the threaded loader (--workers
+    threads, or --worker-procs spawned processes); the eval split through
+    the centre crop at --crop-pct. --native-decode decodes, crops and flips
+    JPEG / PNG in C++ with the GIL released (data/native_decode.py); it is
+    on by default where its library builds, without --aug-splits.
+    --packed-data <dir> streams a packed uint8 cache (cli/pack.py) and
+    runs the random resized crop, flip and RandAugment on the device
+    (data/device_aug.py), the eval on its centre crop. Or --synthetic
   - float32 parameters, optimizer state and EMA; bf16 compute by default on
     CUDA (autocast); the C, D/D2 and S blocks train through the
     hand-written training kernels (attn/fused_train.py)
@@ -24,8 +30,7 @@
     kept top-k by eval metric, mid-epoch recovery, auto-resume, summary.csv
     with a fixed field set, events.jsonl
 
-Not ported yet, and raise: packed caches (--packed-data) and native decode
-(--native-decode; ROADMAP queue 1, item 4), and multi-device runs (item 6).
+Not ported yet: multi-device runs (ROADMAP queue 1, item 6).
 
 Usage:
   python -m lemevit_tpu_torch.cli.train --config configs/lemevit.yaml \\
@@ -39,6 +44,8 @@ Usage:
   python -m lemevit_tpu_torch.cli.train --synthetic --model lemevit_tiny \
       --config configs/lemevit.yaml --aug-splits 3 --jsd-loss \
       --aa augmix-m3-w3   # the AugMix / JSD recipe
+  python -m lemevit_tpu_torch.cli.train --packed-data /data/packed \\
+      --config configs/lemevit.yaml   # after cli.pack; aug on the device
 """
 from __future__ import annotations
 
@@ -76,10 +83,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of threads")
     p.add_argument("--native-decode", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="C++ decode plane: not ported (item 4); raises "
-                        "when on")
+                   help="C++ decode + crop plane; default on when its "
+                        "library builds (and without --aug-splits); an "
+                        "explicit --native-decode raises when it does not")
     p.add_argument("--packed-data", default="",
-                   help="packed uint8 cache dir: not ported (item 4)")
+                   help="packed uint8 cache dir (cli.pack): crop, flip and "
+                        "RandAugment run on the device")
     p.add_argument("--synthetic", action="store_true")
     # model
     p.add_argument("--model", default="lemevit_tiny")
@@ -196,11 +205,13 @@ def step_generators(seed: int, step: int, gen: torch.Generator
 
 
 def train(args, args_text: str = "") -> dict:
+    from lemevit_tpu_torch.data import native_decode
     from lemevit_tpu_torch.data.datasets import create_dataset
     from lemevit_tpu_torch.data.loader import create_loader
     from lemevit_tpu_torch.data.spawn import spec_for_split
     from lemevit_tpu_torch.data.mixup import (draw_erasing, draw_mixup,
                                               mixup_cutmix, random_erasing)
+    from lemevit_tpu_torch.data.device_aug import DeviceAug, center_crop
     from lemevit_tpu_torch.data.transforms import normalize
     from lemevit_tpu_torch.models.registry import create_model, resolve_device
     from lemevit_tpu_torch.train.checkpoint import (auto_resume,
@@ -220,12 +231,6 @@ def train(args, args_text: str = "") -> dict:
     from lemevit_tpu_torch.utils.logging import setup_logging
     from lemevit_tpu_torch.utils.meters import MetricTracker
 
-    if args.packed_data:
-        raise NotImplementedError("--packed-data is not ported yet (ROADMAP "
-                                  "queue 1, item 4)")
-    if args.native_decode:
-        raise NotImplementedError("--native-decode is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
     device = resolve_device(args.device)
     out_dir = os.path.join(args.output, args.experiment or args.model)
     os.makedirs(out_dir, exist_ok=True)
@@ -249,7 +254,7 @@ def train(args, args_text: str = "") -> dict:
             logger.info("aug-splits: disabling mixup/cutmix (JSD path "
                         "takes hard targets, as in the reference)")
             args.mixup = args.cutmix = 0.0
-    train_spec = val_spec = None
+    train_spec = val_spec = device_aug = None
     if args.synthetic:
         train_ds = create_dataset("synthetic", num_samples=global_batch * 8,
                                   image_size=args.img_size,
@@ -260,17 +265,35 @@ def train(args, args_text: str = "") -> dict:
         if aug_splits:
             train_ds = SplitViews(train_ds, aug_splits)
     else:
-        if not os.path.isdir(args.data_dir):
-            raise FileNotFoundError(
-                f"--data-dir {args.data_dir!r} is not a directory (pass "
-                "--synthetic for synthetic data)")
+        if args.packed_data:
+            if aug_splits:
+                raise SystemExit("--packed-data does not support "
+                                 "--aug-splits (AugMix/JSD runs on the host "
+                                 "PIL pipeline)")
+            device_aug = DeviceAug(
+                args.img_size, hflip=args.hflip, auto_augment=args.aa,
+                scale=tuple(args.scale))
+        else:
+            args.native_decode = native_decode.resolve(
+                args.native_decode, auto=not aug_splits)
+            if not os.path.isdir(args.data_dir):
+                raise FileNotFoundError(
+                    f"--data-dir {args.data_dir!r} is not a directory (pass "
+                    "--synthetic for synthetic data)")
+            if args.native_decode:
+                logger.info("native decode plane on")
         # the spec builds the dataset here and in spawned workers alike
         train_spec = spec_for_split(args, args.train_split, train=True,
                                     aug_splits=aug_splits)
         val_spec = spec_for_split(args, args.val_split, train=False)
         train_ds, val_ds = train_spec.build(), val_spec.build()
-        logger.info("data: %s %s, %d train / %d val samples", args.dataset,
-                    args.data_dir, len(train_ds), len(val_ds))
+        if device_aug is not None:
+            logger.info("packed data plane: %d/%d samples @ %dpx, device "
+                        "aug", len(train_ds), len(val_ds), train_ds.px)
+        else:
+            logger.info("data: %s %s, %d train / %d val samples",
+                        args.dataset, args.data_dir, len(train_ds),
+                        len(val_ds))
     procs = args.worker_procs if train_spec is not None else 0
     train_loader = create_loader(
         train_ds, args.batch_size, is_training=True, seed=args.seed,
@@ -334,7 +357,11 @@ def train(args, args_text: str = "") -> dict:
 
     def full_train_step(batch):
         rng = step_generators(args.seed, state.step, gen)
-        images = normalize(batch["image"])
+        images = batch["image"]
+        if device_aug is not None:
+            # crop, flip and RandAugment on the device, drawn from gen
+            images = device_aug(gen, images)
+        images = normalize(images)
         labels = batch["label"]
         if aug_splits:
             # (B, S, H, W, C) -> (S, B, H, W, C); erasing per view
@@ -377,8 +404,11 @@ def train(args, args_text: str = "") -> dict:
         for batch in val_loader:
             if batch["image"].shape[0] != args.batch_size:
                 continue  # the ragged tail, as the JAX package skips it
+            images = batch["image"]
+            if device_aug is not None:
+                images = center_crop(images, args.img_size)
             with autocast():
-                logits = forward(normalize(batch["image"]))
+                logits = forward(normalize(images))
             m = eval_metrics(logits, batch["label"])
             for k in sums:  # device-side sums; read once at the end
                 sums[k] = sums[k] + m[k]

@@ -1,20 +1,25 @@
 """Evaluation CLI: the flags and ``--result`` JSON of
 lemevit_tpu/cli/validate.py (model + checkpoint -> top-1 / top-5 / loss).
 
-Data: an image folder, a zip (zipfolder) or a remote-sensing manifest
-(ucm, aid, nwpu, millionaid) through the centre crop at --crop-pct and the
-threaded loader, or --synthetic. The last batch may be short (no padding).
-``--real-labels`` rescores top-1 against ImageNet-ReaL labels (``real_top1``),
-keyed by image file name. Also ``--checkpoint`` (reference-named .pth),
-``--use-ema``, ``--tta``, ``--bulk``. Packed caches (--packed-data) and
-native decode (--native-decode) are not ported yet (ROADMAP queue 1,
-item 4) and raise.
+Data: an image folder, a zip (zipfolder), a remote-sensing manifest
+(ucm, aid, nwpu, millionaid) or hub and shard data (hfds/, tfds/, wds)
+through the centre crop at --crop-pct and the threaded loader, or
+--synthetic. --native-decode crops in C++ (data/native_decode.py), on by
+default where its library builds. --packed-data <dir> reads the split of a
+packed cache (cli/pack.py) and, on the device, resizes its squares to
+int(img_size / crop_pct) (bicubic, as jax.image.resize) and takes the
+centre crop. The last batch may be short (no padding). ``--real-labels``
+rescores top-1 against ImageNet-ReaL labels (``real_top1``), keyed by
+image file name. Also ``--checkpoint`` (reference-named .pth),
+``--use-ema``, ``--tta``, ``--bulk``.
 
 Usage:
   python -m lemevit_tpu_torch.cli.validate --model lemevit_base \\
       --data-dir /data/imagenet --checkpoint weights.pth
   python -m lemevit_tpu_torch.cli.validate --model lemevit_base --synthetic
   python -m lemevit_tpu_torch.cli.validate --model lemevit_base --synthetic --s-stage --cpe-in-kernel
+  python -m lemevit_tpu_torch.cli.validate --model lemevit_base \\
+      --packed-data /data/packed --checkpoint weights.pth
 """
 from __future__ import annotations
 
@@ -43,8 +48,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crop-pct", type=float, default=0.9)
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--native-decode", action=argparse.BooleanOptionalAction,
-                   default=None)
-    p.add_argument("--packed-data", default="")
+                   default=None,
+                   help="C++ decode + centre crop; default on when its "
+                        "library builds, an explicit --native-decode "
+                        "raises when it does not")
+    p.add_argument("--packed-data", default="",
+                   help="packed uint8 cache dir (cli.pack); resize and "
+                        "centre crop on the device")
     p.add_argument("--attn-backend", default="auto", choices=list(BACKENDS),
                    help="block dispatch: 'torch' composes every block in "
                         "plain PyTorch instead of the CUDA kernels")
@@ -86,7 +96,9 @@ def load_real_labels(path: str) -> Dict[str, List[int]]:
 def validate(args, logits: Optional[list] = None) -> dict:
     """The ``--result`` dict of ``args``; when ``logits`` is a list, each
     batch's logits (fp32, on the device) are appended to it."""
+    from lemevit_tpu_torch.data import native_decode
     from lemevit_tpu_torch.data.datasets import create_dataset
+    from lemevit_tpu_torch.data.device_aug import center_crop, resize_square
     from lemevit_tpu_torch.data.loader import create_loader
     from lemevit_tpu_torch.data.spawn import spec_for_split
     from lemevit_tpu_torch.data.transforms import normalize
@@ -94,12 +106,6 @@ def validate(args, logits: Optional[list] = None) -> dict:
     from lemevit_tpu_torch.train.checkpoint import load_pretrained
     from lemevit_tpu_torch.train.steps import eval_metrics
 
-    if args.packed_data:
-        raise NotImplementedError("--packed-data is not ported yet (ROADMAP "
-                                  "queue 1, item 4)")
-    if args.native_decode:
-        raise NotImplementedError("--native-decode is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
     device = resolve_device(args.device)
     bf16 = args.bf16 if args.bf16 is not None else device.type == "cuda"
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -111,11 +117,15 @@ def validate(args, logits: Optional[list] = None) -> dict:
     if args.checkpoint:
         load_pretrained(model, args.checkpoint, use_ema=args.use_ema)
     model.eval()
+    packed = bool(args.packed_data) and not args.synthetic
     if args.synthetic:
         dataset = create_dataset("synthetic", num_samples=4 * args.batch_size,
                                  image_size=args.img_size,
                                  num_classes=args.num_classes)
+    elif packed:
+        dataset = spec_for_split(args, args.split, train=False).build()
     else:
+        args.native_decode = native_decode.resolve(args.native_decode)
         if not os.path.isdir(args.data_dir):
             raise FileNotFoundError(
                 f"--data-dir {args.data_dir!r} is not a directory (pass "
@@ -133,7 +143,16 @@ def validate(args, logits: Optional[list] = None) -> dict:
     loader = create_loader(dataset, args.batch_size,
                            num_threads=args.workers, device=device)
 
+    # the packed squares are resized to the eval transform's short side
+    # (floor, as transforms.center_crop_resize) before the centre crop
+    resize_to = int(args.img_size / args.crop_pct)
+
     def step(images_u8, labels):
+        if packed:
+            if resize_to != images_u8.shape[1]:
+                images_u8 = torch.clamp(torch.round(resize_square(
+                    images_u8.to(torch.float32), resize_to)), 0, 255)
+            images_u8 = center_crop(images_u8, args.img_size)
         images = normalize(images_u8, dtype=dtype)
         out = model(images)
         if args.tta:
@@ -146,7 +165,8 @@ def validate(args, logits: Optional[list] = None) -> dict:
 
     with torch.inference_mode():
         # warm-up outside the timed loop
-        step(torch.zeros(args.batch_size, args.img_size, args.img_size, 3,
+        px = dataset.px if packed else args.img_size
+        step(torch.zeros(args.batch_size, px, px, 3,
                          dtype=torch.uint8, device=device),
              torch.zeros(args.batch_size, dtype=torch.int64, device=device))
         if device.type == "cuda":

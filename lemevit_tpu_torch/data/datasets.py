@@ -15,7 +15,8 @@ fallback; __getitem__(i) is get(i, sample_rng(0, 0, i)). The loader calls
 ``load_sample(dataset, i, seed, epoch)``, which takes ``get`` where there
 is one.
 
-Not ported: the hub and shard datasets (hfds/, tfds/, wds) and the
+create_dataset also routes the hub and shard names (hfds/<name>,
+tfds/<name>, wds and wds/<shards>) to data/iterable.py. Not ported: the
 change-detection pairs (cdd, levir, cd_pairs); create_dataset raises
 NotImplementedError for them.
 """
@@ -268,13 +269,26 @@ _NOT_PORTED = "is not ported to lemevit_tpu_torch yet (ROADMAP queue 1, "
 
 def create_dataset(name: str, root: str = "", split: str = "train",
                    transform: Optional[Callable] = None, **kwargs):
-    """The JAX package's factory, with its names. 'zipfolder' takes
+    """The JAX package's factory, with its names. 'wds' reads the tar
+    shards of ``<root>/<split>`` (or ``shards=``), 'wds/<glob>' without a
+    root those of the glob. 'zipfolder' takes
     ``zip_path`` and ``ann_file``, or reads ``<root>/<split>.zip`` with
     ``<root>/<split>_map.txt`` (the reference's zip layout)."""
     name = name.lower()
-    if name.startswith(("hfds/", "tfds/", "wds/")) or name == "wds":
-        raise NotImplementedError(
-            f"dataset {name!r} {_NOT_PORTED}item 4: hub and shard data)")
+    if name.startswith("hfds/"):
+        from lemevit_tpu_torch.data.iterable import HFDataset
+        return HFDataset(name[5:], split=split, transform=transform,
+                         **kwargs)
+    if name.startswith("tfds/"):
+        from lemevit_tpu_torch.data.iterable import TFDSDataset
+        return TFDSDataset(name[5:], split=split, data_dir=root or None,
+                           transform=transform, **kwargs)
+    if name.startswith("wds/") or name == "wds":
+        from lemevit_tpu_torch.data.iterable import WebDatasetFolder
+        shards = kwargs.pop("shards", None)
+        if shards is None:
+            shards = os.path.join(root, split) if root else name[4:]
+        return WebDatasetFolder(shards, transform=transform, **kwargs)
     if name in ("cdd", "levir", "cd_pairs"):
         raise NotImplementedError(
             f"dataset {name!r} {_NOT_PORTED}item 8: change detection)")

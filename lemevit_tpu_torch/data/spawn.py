@@ -6,14 +6,14 @@ A transform is a closure and does not pickle, so a worker process gets a
 arguments, and builds the dataset in its own fresh interpreter (numpy, PIL
 and CPU torch; it never touches CUDA). ``build_split_dataset`` rebuilds
 the classification CLIs' dataset and transform; any module-level function
-that returns a dataset serves.
-
-Not ported: ``packed`` and ``native`` (ROADMAP queue 1, item 4) raise
-NotImplementedError.
+that returns a dataset serves. ``packed`` gives the split of a packed
+cache (data/packed.py; augmentation on the device), ``native`` the native
+decode transforms.
 """
 from __future__ import annotations
 
 import importlib
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict
 
@@ -42,20 +42,20 @@ def build_split_dataset(dataset: str, data_dir: str, split: str,
     from lemevit_tpu_torch.data.datasets import create_dataset
 
     if packed:
-        raise NotImplementedError(
-            "packed data is not ported yet (ROADMAP queue 1, item 4)")
-    if native:
-        raise NotImplementedError(
-            "native decode is not ported yet (ROADMAP queue 1, item 4)")
+        from lemevit_tpu_torch.data.packed import PackedDataset
+        return PackedDataset(os.path.join(packed, split))
     if train and aug_splits:
         tf = T.build_augsplit_transform(img_size, hflip=hflip,
                                         auto_augment=auto_augment,
                                         num_splits=aug_splits,
                                         scale=tuple(scale))
     elif train:
-        tf = T.build_train_transform(img_size, hflip=hflip,
-                                     auto_augment=auto_augment,
-                                     scale=tuple(scale))
+        build = (T.build_native_train_transform if native
+                 else T.build_train_transform)
+        tf = build(img_size, hflip=hflip, auto_augment=auto_augment,
+                   scale=tuple(scale))
+    elif native:
+        tf = T.build_native_eval_transform(img_size, crop_pct)
     else:
         tf = T.build_eval_transform(img_size, crop_pct)
     return create_dataset(dataset, data_dir, split=split, transform=tf)
@@ -71,5 +71,7 @@ def spec_for_split(args, split: str, train: bool,
              img_size=args.img_size, train=train,
              hflip=getattr(args, "hflip", 0.5),
              auto_augment=getattr(args, "aa", ""),
+             native=bool(getattr(args, "native_decode", False)),
              crop_pct=getattr(args, "crop_pct", 0.9), aug_splits=aug_splits,
+             packed=getattr(args, "packed_data", ""),
              scale=tuple(getattr(args, "scale", (0.08, 1.0)))))

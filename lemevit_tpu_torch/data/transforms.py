@@ -13,11 +13,13 @@ calls in the same order. So ``random.seed(s); np.random.seed(s)`` before a
 JAX call and ``Rng.from_seed(s)`` handed to the port give the same bits.
 The loader gives each sample its own ``sample_rng(seed, epoch, index)``.
 
-Not ported: the native-decode transforms (``build_native_*``; ROADMAP
-queue 1, item 4).
+The native transforms (``build_native_*``) take the encoded bytes
+(``wants_encoded``) and decode, crop and flip them in C++
+(data/native_decode.py), with the PIL path's draws in its order.
 """
 from __future__ import annotations
 
+import io
 import math
 import random
 from typing import Callable, NamedTuple, Optional
@@ -288,6 +290,66 @@ def build_augsplit_transform(img_size: int = 224, hflip: float = 0.5,
             views.append(np.asarray(aug(img, rng) if aug else img, np.uint8))
         return np.stack(views)
 
+    return transform
+
+
+def build_native_train_transform(img_size: int = 224, hflip: float = 0.5,
+                                 auto_augment: Optional[str] =
+                                 "rand-m9-mstd0.5-inc1",
+                                 scale=(0.08, 1.0)) -> Callable:
+    """(encoded bytes or PIL image, rng) -> uint8 (img_size, img_size, 3):
+    decode, random resized crop and flip in C++ with the GIL released (the
+    box from ``rng.py``, then the flip from ``rng.py.random()``), then the
+    aa policy on the cropped image. Bytes the library cannot decode (other
+    formats, CMYK, corrupt, no library) and PIL images go through
+    build_train_transform."""
+    from lemevit_tpu_torch.data import native_decode as nd
+
+    ra = build_aug_policy(auto_augment)
+    pil_path = build_train_transform(img_size, hflip, auto_augment, scale)
+
+    def transform(data, rng: Rng) -> np.ndarray:
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            data = bytes(data)
+            size = nd.jpeg_size(data)
+            if size is not None:
+                box = nd.rrc_box(*size, rng.py, scale=scale)
+                flip = hflip > 0 and rng.py.random() < hflip
+                arr = nd.decode_crop(data, box, (img_size, img_size), flip)
+                if arr is not None:
+                    if ra is not None:
+                        arr = np.asarray(ra(Image.fromarray(arr), rng),
+                                         np.uint8)
+                    return arr
+            data = Image.open(io.BytesIO(data)).convert("RGB")
+        return pil_path(data, rng)
+
+    transform.wants_encoded = True
+    return transform
+
+
+def build_native_eval_transform(img_size: int = 224,
+                                crop_pct: float = 0.9) -> Callable:
+    """The native twin of build_eval_transform: the centre crop as one
+    crop-then-resize in C++ (native_decode.center_box); draws nothing."""
+    from lemevit_tpu_torch.data import native_decode as nd
+
+    pil_path = build_eval_transform(img_size, crop_pct)
+
+    def transform(data, rng: Optional[Rng] = None) -> np.ndarray:
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            data = bytes(data)
+            size = nd.jpeg_size(data)
+            if size is not None:
+                arr = nd.decode_crop(data,
+                                     nd.center_box(*size, img_size, crop_pct),
+                                     (img_size, img_size))
+                if arr is not None:
+                    return arr
+            data = Image.open(io.BytesIO(data)).convert("RGB")
+        return pil_path(data, rng)
+
+    transform.wants_encoded = True
     return transform
 
 

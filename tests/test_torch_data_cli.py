@@ -2,9 +2,11 @@
 test-written image folder and a UCM manifest tree against the JAX package's
 cli.validate (lemevit_micro, 32 px, fp32, a ragged last batch, one
 reference-named checkpoint loaded by both; loss within 2e-4, top-1, top-5
-and the count equal), ReaL labels in both JSON forms, a zip read as the
+and the count equal), on PIL's decode (--no-native-decode) and on the C++
+decode (--native-decode), ReaL labels in both JSON forms, a zip read as the
 folder, cli.train on an image folder that resumes where it stopped, and
-the options that are not ported raising."""
+missing data, a missing packed cache and an explicit --native-decode
+without its library raising."""
 import csv
 import json
 import os
@@ -115,7 +117,8 @@ def test_validate_folder_matches_jax(data, tmp_path):
     want = jax_validate.main(jax_argv(data["folder"], data["ckpt"],
                                       "--real-labels", str(as_dict)))
     got = validate.main(argv(data["folder"], data["ckpt"], "--device", "cpu",
-                             "--real-labels", str(as_dict)))
+                             "--no-native-decode", "--real-labels",
+                             str(as_dict)))
     n = len(jax_create_dataset("imagefolder", data["folder"],
                                split="validation"))
     assert got["count"] == n == len(data["valid"])
@@ -125,11 +128,42 @@ def test_validate_folder_matches_jax(data, tmp_path):
     # real.json's list form, keyed by ILSVRC2012_val_%08d.JPEG, and one
     # loader thread give the same
     again = validate.main(argv(data["folder"], data["ckpt"], "--device",
-                               "cpu", "--workers", "1", "--real-labels",
-                               str(as_list)))
+                               "cpu", "--no-native-decode", "--workers", "1",
+                               "--real-labels", str(as_list)))
     assert {k: again[k] for k in ("loss", "top1", "top5", "count",
                                   "real_top1")} == {
         k: got[k] for k in ("loss", "top1", "top5", "count", "real_top1")}
+
+
+@pytest.mark.parametrize("which", ["folder", "ucm"])
+def test_validate_native_decode_matches_jax(data, monkeypatch, which):
+    """--native-decode on both sides: the port's C++ decode and centre
+    crop against JAX's cli.validate (loss within 2e-4, top-1 and top-5
+    equal, every image counted). JAX runs its own library where native/libleme_data.so is
+    already on disk; elsewhere its native eval transform is the port's
+    (bit for bit JAX's where both load, tests/test_torch_native_data.py),
+    so that the case never runs JAX's make."""
+    from lemevit_tpu.data import native_decode as JN
+    from lemevit_tpu.data import transforms as JT
+    from lemevit_tpu_torch.data import transforms as T
+    if not (os.path.exists(JN._SO_PATH) and JN.available()):
+        monkeypatch.setattr(JT, "build_native_eval_transform",
+                            T.build_native_eval_transform)
+    extra = {"folder": (), "ucm": ("--dataset", "ucm", "--split",
+                                   "valid")}[which]
+    n_batches = -(-len(data["valid"]) // 4)
+    want = jax_validate.main(argv(data[which], data["ckpt"],
+                                  "--native-decode", "--max-batches",
+                                  str(n_batches), *extra))
+    got = validate.main(argv(data[which], data["ckpt"], "--device", "cpu",
+                             "--native-decode", *extra))
+    assert got["count"] == len(data["valid"])
+    assert abs(got["loss"] - want["loss"]) <= 2e-4, (got, want)
+    assert (got["top1"], got["top5"]) == (want["top1"], want["top5"])
+    # and it is not the PIL plane's run
+    pil = validate.main(argv(data[which], data["ckpt"], "--device", "cpu",
+                             "--no-native-decode", *extra))
+    assert pil["loss"] != got["loss"]
 
 
 def test_validate_hands_back_each_images_logits(data):
@@ -156,7 +190,7 @@ def test_validate_ucm_matches_jax_and_zip_matches_folder(data):
     extra = ("--dataset", "ucm", "--split", "valid")
     want = jax_validate.main(jax_argv(data["ucm"], data["ckpt"], *extra))
     got = validate.main(argv(data["ucm"], data["ckpt"], "--device", "cpu",
-                             *extra))
+                             "--no-native-decode", *extra))
     assert got["count"] == len(data["valid"])
     assert abs(got["loss"] - want["loss"]) <= 2e-4, (got, want)
     assert (got["top1"], got["top5"]) == (want["top1"], want["top5"])
@@ -176,7 +210,7 @@ def _train(data, out, epochs, *extra):
         "--num-classes", str(NC), "--device", "cpu", "--epochs", str(epochs),
         "--steps-per-epoch", "2", "--warmup-epochs", "1",
         "--checkpoint-hist", "3", "--workers", "2", "--output", str(out),
-        *extra])
+        "--no-native-decode", *extra])
 
 
 def test_train_on_a_folder_resumes(data, tmp_path):
@@ -203,15 +237,30 @@ def test_train_on_a_folder_resumes(data, tmp_path):
         assert torch.equal(a["state_dict"][k], v), k
 
 
+# --packed-data and --native-decode are ported (ROADMAP queue 1, item 4);
+# their cases keep their ids and now check that a missing cache and an
+# explicit --native-decode whose library did not build raise
 @pytest.mark.parametrize("cli,extra,err,match", [
-    (train_cli, ["--packed-data", "x"], NotImplementedError, "item 4"),
-    (train_cli, ["--native-decode"], NotImplementedError, "item 4"),
+    pytest.param(train_cli, ["--packed-data", "x"], FileNotFoundError,
+                 "meta.json", id="lemevit_tpu_torch.cli.train-extra0-"
+                 "NotImplementedError-item 4"),
+    pytest.param(train_cli, ["--native-decode"], RuntimeError,
+                 "did not build", id="lemevit_tpu_torch.cli.train-extra1-"
+                 "NotImplementedError-item 4"),
     (train_cli, ["--aug-splits", "3"], FileNotFoundError, "--synthetic"),
     (train_cli, [], FileNotFoundError, "--synthetic"),
-    (validate, ["--native-decode"], NotImplementedError, "item 4"),
+    pytest.param(validate, ["--native-decode"], RuntimeError,
+                 "did not build", id="lemevit_tpu_torch.cli.validate-extra4-"
+                 "NotImplementedError-item 4"),
     (validate, [], FileNotFoundError, "--synthetic")])
-def test_unported_options_and_missing_data_raise(tmp_path, cli, extra, err,
-                                                 match):
+def test_unported_options_and_missing_data_raise(tmp_path, monkeypatch, cli,
+                                                 extra, err, match):
+    if "--native-decode" in extra:  # a library that does not build
+        from lemevit_tpu_torch.data import native_decode
+        broken = tmp_path / "leme_data.cpp"
+        broken.write_text("#error does not build\n")
+        monkeypatch.setattr(native_decode, "SOURCE", broken)
+        monkeypatch.setattr(native_decode, "BUILD_DIR", tmp_path / "build")
     args = ["--model", "lemevit_micro", "--img-size", "32", "--device",
             "cpu", "--data-dir", str(tmp_path / "missing"), *extra]
     if cli is train_cli:

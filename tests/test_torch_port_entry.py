@@ -136,7 +136,8 @@ def test_validate_cli_on_cpu(tmp_path):
     assert set(res) >= {"top1", "top5", "loss", "samples_per_sec"}
     assert 0 <= res["top1"] <= res["top5"] <= 100
     assert res["loss"] > 0
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # --packed-data is ported: a directory without a packed split raises
+    with pytest.raises(FileNotFoundError, match="meta.json"):
         validate.main(["--model", "lemevit_micro", "--device", "cpu",
                        "--data-dir", str(tmp_path),
                        "--packed-data", str(tmp_path)])
