@@ -128,6 +128,25 @@ and read just after:
     img/s and peak memory, cli.benchmark --bench train
     --train-cpe-in-kernel, and a profile of one train step (the same
     launches, no convolution for the 15 block CPEs);
+  - multi-process training (the dist phase; parallel/, DDP with SyncBN
+    inside core/layers.py::BatchNorm): cli.train of lemevit_tiny (224^2,
+    bf16, 3 steps) in fresh processes, one rank in an NCCL group it opens
+    (wrapped in DDP) against a process with no group (per-step losses
+    within 1e-4, cuDNN deterministic in both, the same launches), and two
+    ranks on the one card over gloo (NCCL refuses two ranks on one device)
+    at B = 32 each, mixup, cutmix and DropPath off, against one process at
+    B = 64 (per-step losses within the bf16 limit, both ranks' losses
+    equal, rank 1 writing nothing; the gloo img/s crosses the host and is
+    labelled so);
+  - change detection (the cd phase): PNG pairs written from a seed (64
+    train, 16 val at 256^2), cli.train_cd with
+    configs/cd/bit_lemevit_small_cdd.yaml (BIT on lemevit_small, B = 16,
+    bf16) for 4 steps and its eval, its launches by kernel per train step
+    and per eval forward (every kernel of the path launched), pairs/s, the
+    kernel path's loss on the first batch beside --attn-backend torch's on
+    the same weights, one synthetic step of snunet, snunet_conc,
+    siamunet_diff and BIT on resnet18, and cli.visualize_cd on the best
+    checkpoint (one mask PNG per val pair);
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
     6 classes): the kernels held
     against their plain versions and, in bf16, against their order of work
@@ -2429,17 +2448,18 @@ def sdpa_ms(groups) -> tuple:
     return cuda_ms(run), device_ms(run)
 
 
-def check_dca_attn(n, ch, blocks, dev, g, m=M):
+def check_dca_attn(n, ch, blocks, dev, g, m=M, b_check=SEG_B_CHECK,
+                   b_main=SEG_B):
     """dca_attn with m meta tokens at one of UperNet's stage 1-2 shapes (or
-    one of DCA_OFF_PATH) against dca_plain, on column views of projection
-    outputs as the D module passes them: fp32 at SEG_B_CHECK (1e-4), bf16
-    at SEG_B (3e-2 and PLAIN_STEPS against fp32 on the same bf16-cast
+    of DCA_OFF_PATH, or BIT's CD_DCA) against dca_plain, on column views of
+    projection outputs as the D module passes them: fp32 at b_check (1e-4),
+    bf16 at b_main (3e-2 and PLAIN_STEPS against fp32 on the same bf16-cast
     inputs, TILES_TOL and TILES_STEPS against dca_tiles_plain on the same
     bf16 inputs), two bf16 runs bit for bit equal; D2's dca(q, q, v1, k, k,
     v2) on qv / kv views in fp32, its outputs and, through the Function
     (kernel forward, plain backward), the gradients of both projections
     against plain autograd (1e-4 of each one's largest element); then
-    times at SEG_B in bf16 (CUDA events and the profiler's device time)
+    times at b_main in bf16 (CUDA events and the profiler's device time)
     beside the plain version and SDPA's two calls."""
     from lemevit_tpu_torch.attn import dca as dm
     from lemevit_tpu_torch.attn.reference import dca_scales
@@ -2451,11 +2471,11 @@ def check_dca_attn(n, ch, blocks, dev, g, m=M):
         lin2 = torch.randn(b, m, parts * ch, generator=g).to(dev, dtype)
         return lin1, lin2
 
-    l1, l2 = views(SEG_B_CHECK, torch.float32)
+    l1, l2 = views(b_check, torch.float32)
     a32 = (*l1.split(ch, -1), *l2.split(ch, -1))
     err32 = max_err(dm.dca_kernel(*a32, **kw), dm.dca_plain(*a32, **kw),
                     1e-4)
-    l1, l2 = views(SEG_B, torch.bfloat16)
+    l1, l2 = views(b_main, torch.bfloat16)
     a16 = (*l1.split(ch, -1), *l2.split(ch, -1))
     got = dm.dca_kernel(*a16, **kw)
     err16 = max_err(got, dm.dca_plain(*[t.float() for t in a16], **kw),
@@ -2467,10 +2487,10 @@ def check_dca_attn(n, ch, blocks, dev, g, m=M):
         raise AssertionError(f"dca_attn N={n}: two runs differ")
 
     # D2: q and k passed twice, one backward through the Function
-    lin1, lin2 = (t.requires_grad_() for t in views(SEG_B_CHECK,
+    lin1, lin2 = (t.requires_grad_() for t in views(b_check,
                                                     torch.float32, 2))
-    wx = torch.randn(SEG_B_CHECK, n, ch, generator=g).to(dev)
-    wc = torch.randn(SEG_B_CHECK, m, ch, generator=g).to(dev)
+    wx = torch.randn(b_check, n, ch, generator=g).to(dev)
+    wc = torch.randn(b_check, m, ch, generator=g).to(dev)
 
     def run(fn):
         lin1.grad = lin2.grad = None
@@ -2499,15 +2519,15 @@ def check_dca_attn(n, ch, blocks, dev, g, m=M):
     plain_ms = cuda_ms(lambda: dm.dca_plain(*a16, **kw))
     lib_ms, lib_dev = sdpa_ms([(a16[0], a16[4], a16[5], sx),
                       (a16[3], a16[1], a16[2], sc)])
-    t_bound, by = bound(*attn_work("dca_attn", SEG_B, n, ch, m=m))
-    row = dict(name="dca_attn", n=n, c=ch, m=m, batch=SEG_B,
+    t_bound, by = bound(*attn_work("dca_attn", b_main, n, ch, m=m))
+    row = dict(name="dca_attn", n=n, c=ch, m=m, batch=b_main,
                per_step=blocks, tile=dm.TILE[torch.bfloat16],
                err_fp32=err32, err_bf16=err16, err_tiles_bf16=err_tiles,
                err_d2_fp32=err_d2, ms=ms, kernel_ms=dev_ms, plain_ms=plain_ms,
                library_ms=lib_ms, library_kernel_ms=lib_dev,
                bound_ms=t_bound, bound_by=by)
     say("attn-kernel", f"dca_attn N={n} C={ch} M={m}: fp32 err {err32:.2e} "
-        f"(B={SEG_B_CHECK}), bf16 err {err16:.2e} (B={SEG_B}), against "
+        f"(B={b_check}), bf16 err {err16:.2e} (B={b_main}), against "
         f"dca_tiles_plain {err_tiles:.2e}, two runs equal; D2 aliasing "
         f"out / grads err {err_d2:.2e}; {ms:.4f} ms (device "
         f"{fmt_ms(dev_ms)}) vs plain {plain_ms:.4f} ms, SDPA x2 "
@@ -3119,6 +3139,458 @@ def strip(rows):
     return [{k: v for k, v in r.items() if k != "name"} for r in rows]
 
 
+# the dist phase: cli.train of lemevit_tiny in fresh processes, one rank
+# over NCCL (a group that the process opens itself) against no group, and
+# two ranks over gloo on the one card against one process at their global
+# batch, with two planted faults that the comparison must see
+DIST_STEPS = 3
+DIST_TOL = 1e-4               # check_train_step's loss limit (NCCL, 1 rank)
+DIST_GLOO_TOL = TRAIN_TOL[torch.bfloat16][0]  # 2 ranks against 1, bf16
+# the two-rank run's final state against one process's, in units of the
+# one process's own move from the initial weights (dist_drift): sound,
+# the parameters read 1.6e-2 and the statistics 4.0e-4; with SyncBN
+# reducing nothing 8.3e-2 and 5.0e-2, without the gradient all-reduce
+# 0.46 and 1.1e-3 (NVIDIA H100 80GB HBM3, 700 W)
+DIST_DRIFT_TOL = {"params": 0.05, "stats": 5e-3}
+# planted into the two-rank run: BatchNorm statistics per rank (SyncBN
+# reducing nothing), DDP's gradient all-reduce left out
+DIST_FAULTS = ("gloo-localbn", "gloo-noreduce")
+DIST_SCRIPT = r"""
+import json, os, sys
+import torch
+import torch.distributed as dist
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+from lemevit_tpu_torch.attn import dca, fused_block, fused_train, mhsa
+from lemevit_tpu_torch.cli import train
+from lemevit_tpu_torch.parallel.distributed import init_distributed
+mode = sys.argv[1]
+if mode == "nccl":
+    dist.init_process_group(
+        "nccl", init_method="tcp://localhost:" + os.environ["MASTER_PORT"],
+        rank=0, world_size=1)
+elif mode.startswith("gloo"):
+    init_distributed("cuda", backend="gloo")
+if mode == "gloo-localbn":  # planted fault: no SyncBN
+    from lemevit_tpu_torch.core import layers
+    layers.group_active = lambda: False
+elif mode == "gloo-noreduce":  # planted fault: no gradient all-reduce
+    import torch.nn.parallel as tnp
+
+    def local(state, bucket):
+        fut = torch.futures.Future()
+        fut.set_result(bucket.buffer())
+        return fut
+
+    class LocalDDP(tnp.DistributedDataParallel):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.register_comm_hook(None, local)
+    tnp.DistributedDataParallel = LocalDDP
+res = train.main(json.loads(sys.argv[2]))
+out = {k: res.get(k) for k in ("train_loss", "processes", "ddp",
+                               "samples_per_sec", "step_ms")}
+out["backend"] = dist.get_backend() if dist.is_initialized() else None
+out["launches"] = {k: v for c in (fused_block.LAUNCHES, fused_train.LAUNCHES,
+                                  dca.LAUNCHES, mhsa.LAUNCHES)
+                   for k, v in c.items() if v}
+print("RESULT " + json.dumps(out), flush=True)
+if dist.is_initialized():
+    dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_runs(jobs: list) -> list:
+    """cli.train for each (mode, argv, ranks) of ``jobs``, all started at
+    once, each rank a fresh process with its own --output (``mode``
+    "plain": no process group; "nccl": one rank in a group it opens;
+    "gloo" and DIST_FAULTS: RANK / WORLD_SIZE set, every rank on card 0).
+    Returns for each job, for each rank: {"result": its RESULT dict,
+    "events": its events.jsonl rows or None, "state": its last checkpoint's
+    state_dict or None}; the outputs are removed."""
+    import shutil
+    procs, outs = [], []
+    for mode, argv, ranks in jobs:
+        port = str(free_port())
+        for r in range(ranks):
+            out = tempfile.mkdtemp(prefix=f"dist_{mode}_{r}_")
+            outs.append(out)
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
+                       LOCAL_RANK="0", MASTER_ADDR="localhost",
+                       MASTER_PORT=port)
+            if mode == "plain":
+                for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                    env.pop(k)
+            procs.append((mode, r, subprocess.Popen(
+                [sys.executable, "-c", DIST_SCRIPT, mode,
+                 json.dumps(argv + ["--output", out])], cwd=REPO, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    try:
+        logs = [p.communicate(timeout=600)[0] for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            p.kill()
+    runs = []
+    for (mode, r, p), log, out in zip(procs, logs, outs):
+        found = [line for line in log.splitlines()
+                 if line.startswith("RESULT ")]
+        if p.returncode != 0 or not found:
+            raise AssertionError(f"dist {mode} rank {r} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+        run = Path(out) / "lemevit_tiny"
+        events = state = None
+        if (run / "events.jsonl").exists():
+            events = [json.loads(line) for line in open(run
+                                                         / "events.jsonl")]
+            ckpt = json.load(open(run / "checkpoints"
+                                  / "checkpoints.json"))[0]["path"]
+            state = torch.load(ckpt, map_location="cpu",
+                               weights_only=True)["state_dict"]
+        runs.append({"result": json.loads(found[-1][7:]), "events": events,
+                     "state": state})
+        shutil.rmtree(out)
+    by_job, at = [], 0
+    for _, _, ranks in jobs:
+        by_job.append(runs[at:at + ranks])
+        at += ranks
+    return by_job
+
+
+def dist_drift(got: dict, want: dict, init: dict) -> dict:
+    """How far a run ended from the reference run, in units of the
+    reference run's own move from the same initial weights: "params",
+    |got - want| / |want - init| over all parameters at once (L2 norms; a
+    conv bias before a BatchNorm has no gradient but rounding noise, which
+    Adam scales up to full steps, so no single parameter is read alone),
+    and "stats", the largest of that ratio over the BatchNorm
+    statistics."""
+    num = den = worst = 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        d = (got[k].double() - w.double()).norm().item()
+        move = (w.double() - init[k].double()).norm().item()
+        if k.endswith(("running_mean", "running_var")):
+            if move > 0:
+                worst = max(worst, d / move)
+        else:
+            num, den = num + d * d, den + move * move
+    return {"params": math.sqrt(num / den), "stats": worst}
+
+
+def dist_phase(smi: str, folder: Path) -> dict:
+    """Multi-process cli.train of lemevit_tiny at 224^2, bf16, on the JPEG
+    folder ``folder`` (configs/lemevit.yaml: RandAugment, flips and random
+    resized crops, drawn per sample), DIST_STEPS steps, no eval, from one
+    initial checkpoint, with mixup, cutmix, erasing and DropPath off (the
+    row order of a global batch differs between one and two processes, and
+    these draw per row), each run in fresh processes, against one plain
+    process (no group) at B = 64, cuDNN deterministic in all:
+      - one rank over NCCL (the process opens the group; init_distributed
+        is a no-op at one process), B = 64: wrapped in DDP (SyncBN inside
+        the BatchNorms), its per-step losses within DIST_TOL of the plain
+        process's, the same launches;
+      - two ranks over gloo (NCCL refuses two ranks on one card) at B = 32
+        each: both exit 0, report the same loss, rank 1 writes nothing,
+        rank 0's per-step losses are within DIST_GLOO_TOL of the plain
+        process's and its final state within DIST_DRIFT_TOL of the plain
+        process's (dist_drift; its img/s crosses the host through gloo and
+        says nothing of NCCL's);
+      - the two-rank run again with each of DIST_FAULTS planted (side by
+        side with the sound one): each must end beyond one of the
+        DIST_DRIFT_TOL limits."""
+    from lemevit_tpu_torch import create_model
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = create_model("lemevit_tiny", device="cpu", seed=0)
+        init_path = Path(tmp) / "init.pth"
+        torch.save({"state_dict": init.state_dict()}, init_path)
+        init = init.state_dict()
+        base = ["--dataset", "imagefolder", "--data-dir", str(folder),
+                "--workers", "4", "--no-native-decode",
+                "--model", "lemevit_tiny", "--img-size", "224",
+                "--config", str(REPO / "configs" / "lemevit.yaml"),
+                "--initial-checkpoint", str(init_path),
+                "--epochs", "1", "--steps-per-epoch", str(DIST_STEPS),
+                "--eval-interval", "2", "--log-interval", "1",
+                "--mixup", "0", "--cutmix", "0", "--reprob", "0",
+                "--drop-path", "0"]
+        one = base + ["--batch-size", str(B_MAIN)]
+        half = base + ["--batch-size", str(B_MAIN // 2)]
+        [nccl], = dist_runs([("nccl", one, 1)])
+        [plain], = dist_runs([("plain", one, 1)])
+        (r0, r1), *faults = dist_runs([("gloo", half, 2)] + [
+            (mode, half, 2) for mode in DIST_FAULTS])
+    losses = {k: [e["loss"] for e in run["events"]]
+              for k, run in (("nccl", nccl), ("plain", plain),
+                             ("gloo", r0))}
+    if not (nccl["result"]["ddp"] and nccl["result"]["backend"] == "nccl"
+            and nccl["result"]["processes"] == 1
+            and not plain["result"]["ddp"]):
+        raise AssertionError(f"dist: nccl run {nccl['result']}, plain run "
+                             f"{plain['result']}")
+    d1 = max(abs(a - b) for a, b in zip(losses["nccl"], losses["plain"]))
+    if len(losses["nccl"]) != DIST_STEPS or not d1 <= DIST_TOL:
+        raise AssertionError(f"dist: NCCL losses {losses['nccl']} against "
+                             f"plain {losses['plain']}")
+    if nccl["result"]["launches"] != plain["result"]["launches"]:
+        raise AssertionError(f"dist: launches {nccl['result']['launches']} "
+                             f"against {plain['result']['launches']}")
+    say("dist", f"1 rank over NCCL in DDP, lemevit_tiny 224 bf16 B={B_MAIN},"
+        f" JPEG folder, {DIST_STEPS} steps: losses {losses['nccl']} against "
+        f"the plain process's {losses['plain']} (max |diff| {d1:.2e}, limit "
+        f"{DIST_TOL}); {nccl['result']['samples_per_sec']:.2f} img/s against "
+        f"{plain['result']['samples_per_sec']:.2f}; launches "
+        f"{nccl['result']['launches']} ({smi})")
+
+    def reading(rank0, rank1) -> dict:
+        gn = [e["grad_norm"] for e in rank0["events"]]
+        gn_plain = [e["grad_norm"] for e in plain["events"]]
+        return {"loss_diff": max(abs(e["loss"] - b) for e, b in
+                                 zip(rank0["events"], losses["plain"])),
+                "grad_norm_0_rel": abs(gn[0] - gn_plain[0]) / gn_plain[0],
+                "drift": dist_drift(rank0["state"], plain["state"], init),
+                "rank1_wrote": rank1["events"] is not None}
+    sound = reading(r0, r1)
+    res0, res1 = r0["result"], r1["result"]
+    if not (res0["ddp"] and res0["backend"] == "gloo"
+            and res0["processes"] == 2 and not sound["rank1_wrote"]
+            and res0["train_loss"] == res1["train_loss"]):
+        raise AssertionError(f"dist gloo: rank 0 {res0}, rank 1 {res1} "
+                             f"(rank 1 wrote: {sound['rank1_wrote']})")
+    planted = {mode: reading(*ranks)
+               for mode, ranks in zip(DIST_FAULTS, faults)}
+
+    def drift(r):
+        return ", ".join(f"{k} {v:.3e}" for k, v in r["drift"].items())
+    say("dist", f"2 ranks over gloo on one card, B={B_MAIN // 2} each: "
+        f"losses {losses['gloo']} (both ranks' mean {res0['train_loss']:.6f})"
+        f" against one process at B={B_MAIN} {losses['plain']} (max |diff| "
+        f"{sound['loss_diff']:.2e}, limit {DIST_GLOO_TOL}); final-state "
+        f"drift {drift(sound)} (limits {DIST_DRIFT_TOL}), step-0 grad norm "
+        f"rel. diff {sound['grad_norm_0_rel']:.2e}; planted faults: "
+        + "; ".join(f"{m}: drift {drift(r)}, loss diff "
+                    f"{r['loss_diff']:.2e}, step-0 grad norm rel. diff "
+                    f"{r['grad_norm_0_rel']:.2e}"
+                    for m, r in planted.items())
+        + f"; {res0['samples_per_sec']:.2f} img/s over gloo (through the "
+        f"host, beside the fault runs; not NCCL's rate) against "
+        f"{plain['result']['samples_per_sec']:.2f}; phase "
+        f"{time.time() - t0:.0f} s")
+    within = {m: all(r["drift"][k] <= lim
+                     for k, lim in DIST_DRIFT_TOL.items())
+              for m, r in [("gloo", sound), *planted.items()]}
+    if len(losses["gloo"]) != DIST_STEPS or not (
+            sound["loss_diff"] <= DIST_GLOO_TOL and within["gloo"]):
+        raise AssertionError(f"dist gloo: losses {losses['gloo']} against "
+                             f"one process {losses['plain']}, {sound}")
+    unseen = [m for m in DIST_FAULTS if within[m]]
+    if unseen:
+        raise AssertionError(f"dist: planted faults {unseen} end within "
+                             f"{DIST_DRIFT_TOL} of one process: {planted}")
+    return {"nccl_launches": nccl["result"]["launches"],
+            "nccl_img_per_s": nccl["result"]["samples_per_sec"],
+            "plain_img_per_s": plain["result"]["samples_per_sec"],
+            "nccl_loss_diff": d1, "gloo": sound, "planted": planted,
+            "gloo_img_per_s": res0["samples_per_sec"],
+            "seconds": time.time() - t0}
+
+
+# the cd phase: BIT on lemevit_small at 256^2 (configs/cd)
+CD_PX, CD_TRAIN, CD_VAL, CD_B = 256, 64, 16, 16
+CD_STEPS = CD_TRAIN // CD_B
+CD_LOSS_TOL = 3e-2  # bf16 kernel path's loss against --attn-backend torch
+# the kernels' shapes on it, each backbone call at CD_B (two a step):
+# stage 1's D blocks compose (N 4096 > 3136), each attention one dca_attn
+# call, (N, C, launches per step); stage 2's D and stage 3's S blocks
+# take the block kernels, (kernel, N, C, launches per eval forward of a
+# pair) and (kind, N, C, blocks run per train step); stage 4 is not run
+# (BIT reads stage 3's map); the fp32 checks' batch
+CD_DCA_SHAPES = [(4096, 96, 4)]
+CD_BLOCK_SHAPES = [("dca_block", 1024, 192, 4), ("s_block", 256, 320, 12)]
+CD_TRAIN_SHAPES = [("dca", 1024, 192, 4), ("s", 256, 320, 12)]
+CD_B_CHECK = 4
+# launches per train step and per eval forward of a pair
+CD_STEP = {"dca_attn": 4, "dca_train_fwd": 4, "dca_attn_bwd": 4,
+           "s_train_fwd": 12, "s_attn_bwd": 12, "mlp_bwd": 16}
+CD_EVAL = {"dca_attn": 4, "dca_block": 4, "s_block": 12}
+
+
+def write_cd_pairs(root: Path, seed: int = 0) -> None:
+    """{train,val}/{A,B,OUT}/<i>.png: CD_TRAIN / CD_VAL pairs of smooth
+    random pictures at CD_PX^2, B with a changed rectangle, OUT 255 there."""
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    for split, n in (("train", CD_TRAIN), ("val", CD_VAL)):
+        for sub in ("A", "B", "OUT"):
+            (root / split / sub).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            small = rs.randint(0, 256, (CD_PX // 8, CD_PX // 8, 3), np.uint8)
+            a = np.asarray(Image.fromarray(small).resize(
+                (CD_PX, CD_PX), Image.BILINEAR))
+            b, m = a.copy(), np.zeros((CD_PX, CD_PX), np.uint8)
+            y, x, h, w = (int(v) for v in rs.randint(0, CD_PX // 2, 4))
+            b[y:y + h + 8, x:x + w + 8] = 255 - b[y:y + h + 8, x:x + w + 8]
+            m[y:y + h + 8, x:x + w + 8] = 255
+            for sub, arr in (("A", a), ("B", b), ("OUT", m)):
+                Image.fromarray(arr).save(root / split / sub / f"{i:03d}.png")
+
+
+def cd_phase(smi: str, dev, fb, ft, g) -> tuple:
+    """Change detection through cli.train_cd. First each kernel of the
+    path against its plain version at the path's shapes (CD_DCA_SHAPES,
+    CD_BLOCK_SHAPES, CD_TRAIN_SHAPES: fp32 at CD_B_CHECK, bf16 at CD_B,
+    forward and backward, each check's own tolerances). Then PNG pairs
+    written from a seed (CD_TRAIN train / CD_VAL val at 256^2), configs/cd/
+    bit_lemevit_small_cdd.yaml (BIT on lemevit_small, B = 16, dec_depth 8,
+    token_len 4, bf16) for 1 epoch of CD_STEPS steps and its eval, the
+    launches by kernel per train step (the run's minus its eval's, counted
+    by an --eval-only run of the same split) and per eval forward (each
+    CD_STEP and CD_EVAL exactly), pairs/s; as a smoke check, the loss of
+    the kernel path on the first batch beside --attn-backend torch on the
+    same weights (within CD_LOSS_TOL); one synthetic step of each other
+    head and of BIT on resnet18; cli.visualize_cd on the best checkpoint
+    (one PNG per val pair). Nothing here catches its own failure. Returns
+    (the phase's numbers, the shape rows by kernel)."""
+    from lemevit_tpu_torch.cli import train_cd, visualize_cd
+    from lemevit_tpu_torch.core.layers import set_generator
+    from lemevit_tpu_torch.data.datasets import CDPairDataset
+    t0 = time.time()
+    rows = [check_dca_attn(n, ch, per_step, dev, g, b_check=CD_B_CHECK,
+                           b_main=CD_B) for n, ch, per_step in CD_DCA_SHAPES]
+    rows += [check_block_kernel(fb, kind, n, ch, per_fwd, dev, g,
+                                b_check=CD_B_CHECK, b_main=CD_B)
+             for kind, n, ch, per_fwd in CD_BLOCK_SHAPES]
+    for kind, n, ch, blocks in CD_TRAIN_SHAPES:
+        rows += check_train_kernels(ft, kind, n, ch, blocks, dev, g,
+                                    b_check=CD_B_CHECK, b_main=CD_B)
+    shape_rows = {}
+    for r in rows:
+        shape_rows.setdefault(r["name"], []).append(r)
+    cfg = str(REPO / "configs" / "cd" / "bit_lemevit_small_cdd.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_cd_pairs(root / "data")
+        data = ["--data-dir", str(root / "data"), "--workers", "4"]
+        reset()
+        res = train_cd.main(["--config", cfg, *data, "--epochs", "1",
+                             "--steps-per-epoch", str(CD_STEPS),
+                             "--output", str(root / "run")])
+        run_launches = launch_counts()
+        best = json.load(open(root / "run" / "checkpoints"
+                              / "checkpoints.json"))[0]["path"]
+        reset()
+        ev = train_cd.main(["--config", cfg, *data, "--eval-only", best,
+                            "--output", str(root / "eval")])
+        eval_launches = launch_counts()
+        n_eval = -(-CD_VAL // CD_B)
+        per_step = {k: (run_launches[k] - eval_launches[k]) / CD_STEPS
+                    for k in run_launches
+                    if run_launches[k] - eval_launches[k]}
+        per_eval = {k: v / n_eval for k, v in eval_launches.items() if v}
+        if per_step != CD_STEP or per_eval != CD_EVAL:
+            raise AssertionError(f"cd: launches per train step {per_step} "
+                                 f"(expected {CD_STEP}), per eval forward "
+                                 f"{per_eval} (expected {CD_EVAL})")
+        if not (res["steps"] == CD_STEPS and res["loss"] == res["loss"]
+                and abs(ev["f1"] - res["best_f1"]) < 1e-9):
+            raise AssertionError(f"cd: run {res}, eval-only {ev}")
+        say("cd", f"BIT lemevit_small {CD_PX} bf16 B={CD_B}: {CD_STEPS} "
+            f"steps, loss {res['loss']:.4f}, {res['pairs_per_sec']:.2f} "
+            f"pairs/s, {res['step_ms']:.2f} ms/step (steps 2-{CD_STEPS}); "
+            f"eval {json.dumps(res['final_metrics'])}; launches per train "
+            f"step {json.dumps(per_step)}; per eval forward "
+            f"{json.dumps(per_eval)} ({smi})")
+
+        # the kernel path's loss against the plain path, same weights
+        args = train_cd.build_parser().parse_args(
+            ["--backbone", "lemevit_small", "--dec-depth", "8"])
+        ds = CDPairDataset(str(root / "data"), "train")
+        batch = {k: v.to(dev) for k, v in train_cd._collate(
+            [ds[i] for i in range(CD_B)]).items()}
+        losses = []
+        for backend in ("auto", "torch"):
+            args.attn_backend = backend
+            model = train_cd.build_model(args, dev).train()
+            before = launch_counts()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                logits = model(train_cd.normalize_pair(batch["a"]),
+                               train_cd.normalize_pair(batch["b"]))
+            losses.append(train_cd.cd_loss(logits, batch["mask"]).item())
+            fwd = launched_since(before)
+            if (backend == "torch") == bool(fwd):
+                raise AssertionError(f"cd: {backend} forward launched {fwd}")
+            del model
+        d = abs(losses[0] - losses[1])
+        if not d <= CD_LOSS_TOL:
+            raise AssertionError(f"cd: kernel-path loss {losses[0]} against "
+                                 f"plain {losses[1]}")
+        say("cd", f"first batch, train-mode bf16 forward: loss {losses[0]:.6f}"
+            f" on the kernel path against {losses[1]:.6f} with "
+            f"--attn-backend torch (|diff| {d:.2e}, limit {CD_LOSS_TOL}; a "
+            f"smoke check: the kernels are held at this path's shapes "
+            f"above)")
+        t1 = time.perf_counter()
+        train_cd._collate([ds[i] for i in range(CD_B)])
+        host_ms = (time.perf_counter() - t1) * 1e3
+        args.attn_backend = "auto"
+        model = train_cd.build_model(args, dev)
+        set_generator(model, torch.Generator(device=dev))
+        opt = torch.optim.AdamW(model.parameters(), lr=0.0,
+                                weight_decay=0.01)
+        prof = profile_call(lambda: train_cd.cd_train_step(
+            model, opt, 0.0, batch, "ce", torch.bfloat16),
+            f"one BIT lemevit_small train step (B={CD_B} pairs)")
+        del model, opt
+        if not prof:
+            raise AssertionError("cd: the profiler recorded no device time")
+        say("cd", f"host: {host_ms:.1f} ms to read and collate {CD_B} PNG "
+            f"pairs on one thread")
+
+        others = {}
+        for name, flags in (("snunet", ["--head", "snunet"]),
+                            ("snunet_conc", ["--head", "snunet_conc"]),
+                            ("siamunet_diff", ["--head", "siamunet_diff"]),
+                            ("bit_resnet18", ["--backbone", "resnet18"])):
+            r = train_cd.main(["--synthetic", *flags, "--epochs", "1",
+                               "--steps-per-epoch", "1", "--output",
+                               str(root / name)])
+            if not (r["steps"] == 1 and r["loss"] == r["loss"]):
+                raise AssertionError(f"cd {name}: {r}")
+            others[name] = r["loss"]
+        say("cd", "one synthetic step each (256^2, B=16): " + ", ".join(
+            f"{k} loss {v:.4f}" for k, v in others.items()))
+
+        vis = root / "vis"
+        n = visualize_cd.main(["--checkpoint", best, "--data-dir",
+                               str(root / "data"), "--split", "val",
+                               "--backbone", "lemevit_small", "--out",
+                               str(vis)])
+        pngs = sorted(p.name for p in vis.glob("*.png"))
+        if n != CD_VAL or pngs != CDPairDataset(str(root / "data"),
+                                                "val").names:
+            raise AssertionError(f"visualize_cd wrote {pngs}")
+        say("cd", f"visualize_cd: {n} masks; phase "
+            f"{time.time() - t0:.0f} s")
+    return {"per_step": per_step, "per_eval": per_eval,
+            "pairs_per_sec": res["pairs_per_sec"], "step_ms": res["step_ms"],
+            "loss_vs_plain": d, "host_batch_ms": host_ms,
+            "device_ms_per_step": prof["device_ms"],
+            "launches_per_step": prof["launches"],
+            "device_busy_share": prof["device_ms"] / prof["wall_ms"],
+            "port_kernel_share": prof["port_ms"] / prof["device_ms"],
+            "seconds": time.time() - t0}, shape_rows
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3374,6 +3846,16 @@ def main() -> None:
         #     and JPEG), a JSD step and a freeze_bn step against the plain
         #     path, every --opt rule card against CPU
         train_recipe_phase(smi, tiny_res, Path(real_root) / "folder", dev)
+        # 7e. multi-process cli.train (DDP, SyncBN in the BatchNorms) on
+        #     the same JPEGs: one rank over NCCL against no group, two
+        #     ranks over gloo against one process at their global batch,
+        #     and the two ranks with a fault planted
+        dist_res = dist_phase(smi, Path(real_root) / "folder")
+    # 7f. change detection: BIT on lemevit_small at 256^2, its kernels
+    #     against their plain versions at its shapes, then cli.train_cd
+    #     (launches by kernel, pairs/s, kernel against plain loss), the
+    #     other heads, cli.visualize_cd
+    cd_res, cd_rows = cd_phase(smi, dev, fb, ft, g)
 
     # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
@@ -3549,6 +4031,18 @@ def main() -> None:
                       if k not in ("ms", "plain_ms", "bound_ms",
                                    "library_ms", "verdict", "route",
                                    "launches")}})
+    # this slice's paths: each kernel's launches on them
+    for k in kernels:
+        if k["name"] in launch_counts():
+            k["cd_launches_per_train_step"] = cd_res["per_step"].get(
+                k["name"], 0)
+            k["cd_launches_per_eval_forward"] = cd_res["per_eval"].get(
+                k["name"], 0)
+            k["dist_nccl_launches"] = dist_res["nccl_launches"].get(
+                k["name"], 0)
+        if k["name"] in cd_rows:
+            k["cd_shapes"] = strip(cd_rows[k["name"]])
+    say("dist-cd-summary", json.dumps({"dist": dist_res, "cd": cd_res}))
     say("done", f"{time.time() - t_start:.0f} s")
     print(f"kernels: {json.dumps([k['name'] for k in kernels])}")
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,25 @@
   - EMA of the parameters, per-stage remat (--remat-stages), checkpoints
     kept top-k by eval metric, mid-epoch recovery, auto-resume, summary.csv
     with a fixed field set, events.jsonl
-
-Not ported yet: multi-device runs (ROADMAP queue 1, item 6).
+  - multi-process data-parallel runs (parallel/): started torchrun-style
+    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK; or SLURM's
+    variables), one process per card, over NCCL on CUDA (gloo on the CPU).
+    --batch-size is per process; the global batch is batch x world x
+    --grad-accum-steps and the LR is scaled to it. The model is built from
+    the same seed on every rank and wrapped in DDP (``no_sync`` on the
+    accumulation micro-steps); its BatchNorms take the global batch's
+    statistics (SyncBN). Erasing, mixup / cutmix and DropPath draw over
+    the global batch as the JAX package's step does
+    (train/steps.py::augmented_train_step): the per-row draws at the
+    global shape, the erasing noise for this rank's rows only (from a
+    seed a global row), mixup's partner rows from the mirror rank by one
+    send / recv. The logged loss and grad norm are the global ones; each
+    rank evaluates its stride of the val split and the sums are
+    all-reduced. Only rank 0 writes the log file, events,
+    summary.csv, args.yaml, checkpoints and recovery files; checkpoints
+    hold the inner module's state_dict (no "module." prefix), so they
+    restore in any number of processes. --mesh-model-axis above 1 (tensor
+    parallelism) is refused (ROADMAP queue 1, item 13).
 
 Usage:
   python -m lemevit_tpu_torch.cli.train --config configs/lemevit.yaml \\
@@ -46,6 +63,8 @@ Usage:
       --aa augmix-m3-w3   # the AugMix / JSD recipe
   python -m lemevit_tpu_torch.cli.train --packed-data /data/packed \\
       --config configs/lemevit.yaml   # after cli.pack; aug on the device
+  torchrun --nproc-per-node 4 -m lemevit_tpu_torch.cli.train \\
+      --config configs/lemevit.yaml --data-dir /data/imagenet  # 4 cards
 """
 from __future__ import annotations
 
@@ -153,6 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--model-ema-decay", type=float, default=0.996)
     # infra
+    p.add_argument("--mesh-model-axis", type=int, default=1,
+                   help="tensor-parallel ranks per model replica; only 1 "
+                        "is ported (ROADMAP queue 1, item 13)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--output", default="./output")
     p.add_argument("--experiment", default="")
@@ -196,9 +218,10 @@ class SplitViews:
 
 def step_generators(seed: int, step: int, gen: torch.Generator
                     ) -> np.random.Generator:
-    """Reseed ``gen`` (erasing boxes and noise, DropPath masks) and return
-    a numpy Generator (mixup) for train step ``step``: the draws depend on
-    (seed, step) alone, so a resumed run draws what the first would have."""
+    """Reseed ``gen`` (erasing boxes, DropPath masks) and return a numpy
+    Generator (mixup, the erasing noise's seeds) for train step ``step``:
+    the draws depend on (seed, step) alone, so a resumed run draws what
+    the first would have."""
     ss = np.random.SeedSequence([seed, step])
     gen.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
     return np.random.default_rng(ss)
@@ -209,8 +232,8 @@ def train(args, args_text: str = "") -> dict:
     from lemevit_tpu_torch.data.datasets import create_dataset
     from lemevit_tpu_torch.data.loader import create_loader
     from lemevit_tpu_torch.data.spawn import spec_for_split
-    from lemevit_tpu_torch.data.mixup import (draw_erasing, draw_mixup,
-                                              mixup_cutmix, random_erasing)
+    from lemevit_tpu_torch.data.mixup import (draw_erasing, random_erasing,
+                                              row_noise)
     from lemevit_tpu_torch.data.device_aug import DeviceAug, center_crop
     from lemevit_tpu_torch.data.transforms import normalize
     from lemevit_tpu_torch.models.registry import create_model, resolve_device
@@ -225,24 +248,41 @@ def train(args, args_text: str = "") -> dict:
                                                plateau_scale,
                                                set_plateau_scale)
     from lemevit_tpu_torch.train.state import ModelEma, TrainState
-    from lemevit_tpu_torch.train.steps import (eval_metrics, jsd_train_step,
-                                               stack_batch_stats, train_step)
+    from lemevit_tpu_torch.parallel.distributed import (Shard,
+                                                        all_reduce_sum,
+                                                        init_distributed)
+    from lemevit_tpu_torch.parallel.mesh import TP_ITEM
+    from lemevit_tpu_torch.train.steps import (BatchAug,
+                                               augmented_train_step,
+                                               eval_metrics, jsd_train_step,
+                                               stack_batch_stats)
     from lemevit_tpu_torch.utils.events import EventWriter
     from lemevit_tpu_torch.utils.logging import setup_logging
     from lemevit_tpu_torch.utils.meters import MetricTracker
 
+    if args.mesh_model_axis > 1:
+        raise SystemExit(
+            f"--mesh-model-axis {args.mesh_model_axis}: tensor parallelism "
+            f"is not ported ({TP_ITEM}); run data-parallel with 1")
     device = resolve_device(args.device)
+    dist_info = init_distributed(device)
+    rank, world = dist_info["process_index"], dist_info["process_count"]
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    primary = rank == 0
+    shard = Shard(rank, world)
     out_dir = os.path.join(args.output, args.experiment or args.model)
-    os.makedirs(out_dir, exist_ok=True)
-    logger = setup_logging(os.path.join(out_dir, "train.log"))
-    if args_text:
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
+    logger = setup_logging(os.path.join(out_dir, "train.log"), rank=rank)
+    if args_text and primary:
         with open(os.path.join(out_dir, "args.yaml"), "w") as f:
             f.write(args_text)
     bf16 = args.bf16 if args.bf16 is not None else device.type == "cuda"
     amp = torch.bfloat16 if bf16 else None
-    global_batch = args.batch_size * args.grad_accum_steps
-    logger.info("device=%s bf16=%s global_batch=%d", device, bf16,
-                global_batch)
+    global_batch = args.batch_size * world * args.grad_accum_steps
+    logger.info("device=%s bf16=%s processes=%d global_batch=%d",
+                device, bf16, world, global_batch)
 
     # ---------------- data
     aug_splits = args.aug_splits if args.aug_splits > 1 else 0
@@ -295,13 +335,14 @@ def train(args, args_text: str = "") -> dict:
                         args.dataset, args.data_dir, len(train_ds),
                         len(val_ds))
     procs = args.worker_procs if train_spec is not None else 0
+    # each process loads its stride of every split
     train_loader = create_loader(
         train_ds, args.batch_size, is_training=True, seed=args.seed,
         num_threads=args.workers, num_procs=procs, dataset_spec=train_spec,
-        device=device)
+        device=device, rank=rank, world_size=world)
     val_loader = create_loader(
         val_ds, args.batch_size, num_threads=args.workers, num_procs=procs,
-        dataset_spec=val_spec, device=device)
+        dataset_spec=val_spec, device=device, rank=rank, world_size=world)
     steps_per_epoch = args.steps_per_epoch or max(len(train_loader), 1)
 
     # ---------------- model / optimizer / state
@@ -352,8 +393,18 @@ def train(args, args_text: str = "") -> dict:
                                         patience=args.patience_epochs)
         # a resumed run goes on from the scale its checkpoint holds
         plateau_ctl.scale = plateau_scale(state.optimizer)
+    if dist_info["backend"] is not None:
+        # a process group is open (one rank included): DDP, SyncBN within
+        # the BatchNorms; they keep the buffers equal, so no broadcast
+        from torch.nn.parallel import DistributedDataParallel
+        state.ddp = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda"
+            else None, broadcast_buffers=False)
     gen = torch.Generator(device=device)
-    model.set_generator(gen)
+    model.set_generator(gen, shard=(rank, world) if world > 1 else None)
+    aug = BatchAug(args.num_classes, reprob=args.reprob, mixup=args.mixup,
+                   cutmix=args.cutmix, mixup_prob=args.mixup_prob,
+                   smoothing=args.smoothing)
 
     def full_train_step(batch):
         rng = step_generators(args.seed, state.step, gen)
@@ -368,39 +419,29 @@ def train(args, args_text: str = "") -> dict:
             images = images.transpose(0, 1)
             s, b, h, w, _ = images.shape
             if args.reprob > 0:
-                flat = images.flatten(0, 1)
-                draw = draw_erasing(gen, s * b, h, w, prob=args.reprob)
-                noise = torch.randn(flat.shape, generator=gen, device=device)
-                images = random_erasing(flat, draw, noise).unflatten(
-                    0, (s, b))
-            targets = torch.nn.functional.one_hot(
-                labels, args.num_classes).float()
-            if args.smoothing:
-                targets = (targets * (1 - args.smoothing)
-                           + args.smoothing / args.num_classes)
-            return jsd_train_step(state, images, targets, args.jsd_alpha,
-                                  autocast_dtype=amp)
-        b, h, w, _ = images.shape
-        if args.reprob > 0:
-            draw = draw_erasing(gen, b, h, w, prob=args.reprob)
-            noise = torch.randn(images.shape, generator=gen, device=device)
-            images = random_erasing(images, draw, noise)
-        if args.mixup > 0 or args.cutmix > 0:
-            images, targets = mixup_cutmix(
-                images, labels, args.num_classes,
-                draw_mixup(rng, h, w, mixup_alpha=args.mixup,
-                           cutmix_alpha=args.cutmix, prob=args.mixup_prob),
-                label_smoothing=args.smoothing)
-        else:
-            targets = torch.nn.functional.one_hot(
-                labels, args.num_classes).float()
-            if args.smoothing:
-                targets = (targets * (1 - args.smoothing)
-                           + args.smoothing / args.num_classes)
-        return train_step(state, images, targets, autocast_dtype=amp)
+                # drawn for the (S, world B) views of the global batch;
+                # this rank keeps its block of each split
+                g = world * b
+
+                def own(t):
+                    return shard.rows(t.unflatten(0, (s, g)), 1).flatten(
+                        0, 1)
+                draw = {k: own(v) for k, v in draw_erasing(
+                    gen, s * g, h, w, prob=args.reprob).items()}
+                seeds = own(torch.from_numpy(rng.integers(2 ** 63,
+                                                          size=s * g)))
+                noise = row_noise(seeds, images.shape[2:], device)
+                images = random_erasing(images.flatten(0, 1), draw,
+                                        noise).unflatten(0, (s, b))
+            return jsd_train_step(state, images, aug.soft_targets(labels),
+                                  args.jsd_alpha, autocast_dtype=amp)
+        return augmented_train_step(state, images, labels, aug, gen, rng,
+                                    shard, autocast_dtype=amp)
 
     def evaluate(forward) -> dict:
-        sums = {"top1_sum": 0, "top5_sum": 0, "count": 0}
+        # device-side sums over this rank's stride, all-reduced and read
+        # once at the end
+        sums = torch.zeros(3, dtype=torch.float64, device=device)
         for batch in val_loader:
             if batch["image"].shape[0] != args.batch_size:
                 continue  # the ragged tail, as the JAX package skips it
@@ -410,9 +451,11 @@ def train(args, args_text: str = "") -> dict:
             with autocast():
                 logits = forward(normalize(images))
             m = eval_metrics(logits, batch["label"])
-            for k in sums:  # device-side sums; read once at the end
-                sums[k] = sums[k] + m[k]
-        tot = {k: float(v) for k, v in sums.items()}
+            sums += torch.stack([torch.as_tensor(
+                m[k], dtype=torch.float64, device=device)
+                for k in ("top1_sum", "top5_sum", "count")])
+        tot = dict(zip(("top1_sum", "top5_sum", "count"),
+                       all_reduce_sum(sums).tolist()))
         if not tot["count"]:
             return {}
         return {"top1": 100 * tot["top1_sum"] / tot["count"],
@@ -426,7 +469,7 @@ def train(args, args_text: str = "") -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    events = EventWriter(out_dir)
+    events = EventWriter(out_dir, enabled=primary)
     summary_path = os.path.join(out_dir, "summary.csv")
     best_top1 = -1.0
     result = {}
@@ -450,7 +493,7 @@ def train(args, args_text: str = "") -> dict:
             if step_i == first:  # the steady window starts after step 1
                 sync()
                 t_warm = time.perf_counter()
-            if (args.recovery_interval
+            if (args.recovery_interval and primary
                     and (step_i + 1) % args.recovery_interval == 0):
                 save_recovery(ckpt_dir, state)
             if step_i % args.log_interval == 0:
@@ -470,7 +513,7 @@ def train(args, args_text: str = "") -> dict:
         steady = steps_per_epoch - first - 1
         if steady > 0:
             result["step_ms"] = 1e3 * (t_end - t_warm) / steady
-            result["samples_per_sec"] = (steady * args.batch_size
+            result["samples_per_sec"] = (steady * args.batch_size * world
                                          / (t_end - t_warm))
             if aug_splits:
                 result["views_per_sec"] = (result["samples_per_sec"]
@@ -499,23 +542,26 @@ def train(args, args_text: str = "") -> dict:
             result["plateau_scale"] = scale
             if scale < 1.0:
                 logger.info("plateau LR scale %.2e", scale)
-        save_checkpoint(ckpt_dir, state, metric=metric,
-                        max_history=args.checkpoint_hist)
+        if primary:
+            save_checkpoint(ckpt_dir, state, metric=metric,
+                            max_history=args.checkpoint_hist)
         best_top1 = max(best_top1, metric)
         result["train_loss"] = tracker.summary().get("loss", float("nan"))
         row = {"epoch": epoch, "train_loss": result["train_loss"],
                "epoch_time_s": round(epoch_time, 1),
                **{k: round(v, 4) for k, v in eval_stats.items()}}
-        write_header = not os.path.exists(summary_path)
-        with open(summary_path, "a", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=SUMMARY_FIELDS, restval="",
-                               extrasaction="ignore")
-            if write_header:
-                w.writeheader()
-            w.writerow(row)
+        if primary:
+            write_header = not os.path.exists(summary_path)
+            with open(summary_path, "a", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=SUMMARY_FIELDS, restval="",
+                                   extrasaction="ignore")
+                if write_header:
+                    w.writeheader()
+                w.writerow(row)
 
     logger.info("done; best top1 %.3f", best_top1)
-    return {"best_top1": best_top1, "steps": state.step, **result}
+    return {"best_top1": best_top1, "steps": state.step,
+            "processes": world, "ddp": state.ddp is not None, **result}
 
 
 if __name__ == "__main__":

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lemevit_tpu_torch.train.checkpoint import load_backbone as _load_backbone
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="lemevit_tpu_torch segmentation")
@@ -202,18 +204,6 @@ def seg_train_step(model, optimizer, lr: float, images: torch.Tensor,
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return loss.detach()
-
-
-def _load_backbone(backbone, path: str) -> None:
-    """A classification checkpoint's weights into the features_only
-    backbone: its head's entries (absent from the backbone) are left out,
-    every backbone entry must be present."""
-    from lemevit_tpu_torch.models.convert import strip_prefixes
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd = strip_prefixes(ckpt if isinstance(ckpt, dict) else ckpt.state_dict())
-    own = backbone.state_dict()
-    backbone.load_state_dict({k: v for k, v in sd.items() if k in own},
-                             strict=True)
 
 
 def main(argv=None) -> dict:

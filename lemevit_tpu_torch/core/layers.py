@@ -12,11 +12,14 @@ follow the reference PyTorch checkpoints (``downsample_layers.0.{0,1,3,4}``,
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lemevit_tpu_torch.parallel.distributed import (all_reduce_sum_grad,
+                                                    group_active)
 
 
 def trunc_normal_(t: torch.Tensor, std: float = 0.02,
@@ -75,7 +78,16 @@ class BatchNorm(nn.BatchNorm2d):
     AugMix run) holds S sets of running statistics, (S, C) each. In train
     mode an (S B, C, H, W) batch is S splits of B rows, and each split is
     normalised with its own batch statistics and updates its own set; eval
-    mode uses set 0, the clean split's."""
+    mode uses set 0, the clean split's.
+
+    Under a process group of more than one rank (SyncBN, JAX's BatchNorm
+    with ``axis_name="data"`` under pjit) the train-mode statistics are
+    those of the global batch, per split: the per-channel sums and then the
+    centred sums of squares are all-reduced (``all_reduce_sum_grad``, whose
+    backward all-reduces their gradients, so the gradient runs through the
+    reduction), the rows are normalised with the global mean and biased
+    variance, and the running statistics follow the global values. With
+    one process the local path below runs, as before."""
 
     num_splits = 1
 
@@ -91,6 +103,37 @@ class BatchNorm(nn.BatchNorm2d):
                     if num_splits > 1 else t.clone())
         self.num_splits = num_splits
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            if self.num_splits == 1:
+                mean, var = mean[0], var[0]
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the process group (see the class docstring)."""
+        s = self.num_splits
+        x32 = x.float().unflatten(0, (s, -1))         # (S, B, C, H, W)
+        dims = (1, 3, 4)
+        count = x32.shape[1] * x32.shape[3] * x32.shape[4]
+        sums = x32.sum(dim=dims)                      # (S, C)
+        # in float64, so that the global count stays exact
+        tot = all_reduce_sum_grad(torch.cat([
+            sums.flatten().double(),
+            torch.tensor([count], dtype=torch.float64, device=x.device)]))
+        n = tot[-1].detach()
+        mean = (tot[:-1] / n).float().view_as(sums)
+        d = x32 - mean[:, None, :, None, None]
+        var = all_reduce_sum_grad(d.square().sum(dim=dims)) / n
+        self._update_running(mean.detach(), var.detach())
+        inv = torch.rsqrt(var + self.eps)[:, None, :, None, None]
+        y = (d * inv * self.weight.float()[:, None, None]
+             + self.bias.float()[:, None, None])
+        return y.flatten(0, 1).to(x.dtype)
+
     def forward(self, x):
         s = self.num_splits
         if not self.training:
@@ -99,17 +142,12 @@ class BatchNorm(nn.BatchNorm2d):
                 mean, var = mean[0], var[0]
             return F.batch_norm(x, mean, var, self.weight, self.bias, False,
                                 0.0, self.eps)
+        if group_active():
+            return self._synced(x)
         with torch.no_grad():
             x32 = x.float().unflatten(0, (s, -1))
-            mean = x32.mean(dim=(1, 3, 4))
-            var = x32.var(dim=(1, 3, 4), unbiased=False)
-            if s == 1:
-                mean, var = mean[0], var[0]
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
-                                    self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype),
-                                   self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(x32.mean(dim=(1, 3, 4)),
+                                 x32.var(dim=(1, 3, 4), unbiased=False))
         # the splits' channels side by side, (B, S C, H, W) (a view when S
         # is 1): one batch_norm normalises each split with its own
         # statistics
@@ -171,12 +209,17 @@ class DropPath(nn.Module):
     mode or at rate 0. The keep masks are drawn from ``generator``, a
     ``torch.Generator`` on the activations' device that the training loop
     sets (``LeMeViT.set_generator``) and seeds from its --seed, so a run is
-    reproducible; training at a rate above 0 without one raises."""
+    reproducible; training at a rate above 0 without one raises. With a
+    ``shard`` (rank, world) of a data-parallel run, the masks are drawn for
+    the global batch of world x batch rows, one value per global row, and
+    this rank keeps its block of them, as the JAX package draws over the
+    global batch."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[Tuple[int, int]] = None
 
     def scales(self, n: int, batch: int, device) -> Optional[torch.Tensor]:
         """(n, batch) float32 branch scales keep_mask / keep on ``device``
@@ -189,7 +232,10 @@ class DropPath(nn.Module):
             raise RuntimeError("DropPath at rate > 0 in training needs a "
                                "torch.Generator (LeMeViT.set_generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(n, batch, generator=g, device=g.device) < keep
+        rank, world = self.shard or (0, 1)
+        mask = torch.rand(n, batch * world, generator=g,
+                          device=g.device) < keep
+        mask = mask[:, rank * batch:(rank + 1) * batch]
         return (mask.float() / keep).to(device)
 
     def forward(self, x):
@@ -197,6 +243,41 @@ class DropPath(nn.Module):
         if s is None:
             return x
         return x * s[0].view(-1, *([1] * (x.dim() - 1))).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout drawn from an explicit generator (flax's
+    Dropout: keep with 1 - rate, kept values scaled by 1 / (1 - rate));
+    the identity in eval mode. Training at a rate above 0 without a
+    generator (``set_generator``) raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        g = self.generator
+        if g is None:
+            raise RuntimeError("Dropout in training needs a torch.Generator "
+                               "(core.layers.set_generator)")
+        keep = torch.rand(x.shape, generator=g, device=g.device).to(
+            x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_generator(model: nn.Module, generator: torch.Generator,
+                  shard: Optional[Tuple[int, int]] = None) -> None:
+    """Draw every DropPath's and Dropout's masks in ``model`` from
+    ``generator``; DropPath over the global batch of a data-parallel run
+    with ``shard`` (rank, world)."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator, m.shard = generator, shard
+        elif isinstance(m, Dropout):
+            m.generator = generator
 
 
 class Mlp(nn.Module):

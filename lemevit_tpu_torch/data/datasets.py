@@ -6,7 +6,9 @@
   - ZipImageFolder: images inside a zip with an annotation file, read
     through ZipReader (``archive.zip@inner/path``), a corrupt image
     replaced by random pixels;
-  - SyntheticDataset: seeded random images for benchmarks and tests.
+  - SyntheticDataset: seeded random images for benchmarks and tests;
+  - CDPairDataset: change-detection pairs, {split}/A, {split}/B and
+    {split}/OUT images of one name each.
 
 A dataset has __len__ and __getitem__ -> (uint8 HWC image or PIL image,
 int label). The image datasets also have ``get(i, rng)``, which hands the
@@ -16,9 +18,8 @@ fallback; __getitem__(i) is get(i, sample_rng(0, 0, i)). The loader calls
 is one.
 
 create_dataset also routes the hub and shard names (hfds/<name>,
-tfds/<name>, wds and wds/<shards>) to data/iterable.py. Not ported: the
-change-detection pairs (cdd, levir, cd_pairs); create_dataset raises
-NotImplementedError for them.
+tfds/<name>, wds and wds/<shards>) to data/iterable.py, and the
+change-detection names (cdd, levir, cd_pairs) to CDPairDataset.
 """
 from __future__ import annotations
 
@@ -264,7 +265,33 @@ class SyntheticDataset:
         return img, int(rng.randint(self.num_classes))
 
 
-_NOT_PORTED = "is not ported to lemevit_tpu_torch yet (ROADMAP queue 1, "
+class CDPairDataset:
+    """Change-detection pairs: {split}/A/<name>, {split}/B/<name> and the
+    binary mask {split}/OUT/<name>, for the image names of A in sorted
+    order. A sample is ((image A, image B) as RGB PIL images, mask as an
+    "L" PIL image), through ``transform(a, b, mask)`` where one is given
+    (the JAX package's CDPairDataset)."""
+
+    def __init__(self, root: str, split: str = "train",
+                 transform: Optional[Callable] = None):
+        self.dir_a = os.path.join(root, split, "A")
+        self.dir_b = os.path.join(root, split, "B")
+        self.dir_m = os.path.join(root, split, "OUT")
+        self.names = sorted(fn for fn in os.listdir(self.dir_a)
+                            if fn.lower().endswith(IMG_EXTS))
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, i):
+        n = self.names[i]
+        a = _pil_open(os.path.join(self.dir_a, n))
+        b = _pil_open(os.path.join(self.dir_b, n))
+        m = Image.open(os.path.join(self.dir_m, n)).convert("L")
+        if self.transform:
+            a, b, m = self.transform(a, b, m)
+        return (a, b), m
 
 
 def create_dataset(name: str, root: str = "", split: str = "train",
@@ -290,8 +317,7 @@ def create_dataset(name: str, root: str = "", split: str = "train",
             shards = os.path.join(root, split) if root else name[4:]
         return WebDatasetFolder(shards, transform=transform, **kwargs)
     if name in ("cdd", "levir", "cd_pairs"):
-        raise NotImplementedError(
-            f"dataset {name!r} {_NOT_PORTED}item 8: change detection)")
+        return CDPairDataset(root, split=split, transform=transform)
     table = {
         "millionaid": MillionAIDDataset,
         "torch/millionaid": MillionAIDDataset,

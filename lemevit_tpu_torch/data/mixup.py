@@ -10,13 +10,14 @@ apply can be held to the JAX package's on the same draw:
   mixup_cutmix(images, labels, num_classes, draw, label_smoothing)
   draw_erasing(generator, b, h, w, ...) -> per-image boxes, drawn on the
                                        generator's device
+  row_noise(seeds, shape, device)   -> the erasing noise, one seed a row
   random_erasing(images, draw, noise)
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,11 +61,18 @@ def draw_mixup(rng: np.random.Generator, h: int, w: int,
 
 def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor,
                  num_classes: int, draw: MixupDraw,
-                 label_smoothing: float = 0.1
+                 label_smoothing: float = 0.1,
+                 partner: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mix each sample with its partner in the reversed batch as ``draw``
-    says. Returns (images, soft targets (B, num_classes) float32)."""
-    flipped = images.flip(0)
+    says. Returns (images, soft targets (B, num_classes) float32).
+    ``partner`` (images, labels), whose reversed rows are the partners of
+    these, defaults to this batch; in a data-parallel step it is the mirror
+    rank's rows (parallel/distributed.py::Shard.mirror), so that row i of
+    the global batch pairs with row G - 1 - i."""
+    p_images, p_labels = partner if partner is not None else (images,
+                                                              labels)
+    flipped = p_images.flip(0)
     if draw.mode == "mixup":
         images = draw.lam * images + (1.0 - draw.lam) * flipped
     elif draw.mode == "cutmix":
@@ -72,7 +80,8 @@ def mixup_cutmix(images: torch.Tensor, labels: torch.Tensor,
         images = images.clone()
         images[:, y0:y1, x0:x1] = flipped[:, y0:y1, x0:x1]
     y1h = F.one_hot(labels, num_classes).float()
-    targets = draw.lam * y1h + (1.0 - draw.lam) * y1h.flip(0)
+    y2h = F.one_hot(p_labels, num_classes).float().flip(0)
+    targets = draw.lam * y1h + (1.0 - draw.lam) * y2h
     if label_smoothing > 0:
         targets = (targets * (1.0 - label_smoothing)
                    + label_smoothing / num_classes)
@@ -99,6 +108,20 @@ def draw_erasing(generator: torch.Generator, b: int, h: int, w: int,
     y0 = (u() * (h - eh).float()).long()
     x0 = (u() * (w - ew).float()).long()
     return {"apply": apply, "y0": y0, "x0": x0, "eh": eh, "ew": ew}
+
+
+def row_noise(seeds: torch.Tensor, shape: Tuple[int, ...],
+              device) -> torch.Tensor:
+    """Gaussian noise (len(seeds), *shape) in float32 on ``device``, row i
+    drawn from a generator seeded with seeds[i] alone: a row's noise does
+    not depend on the rows drawn beside it, so a rank draws only its own
+    rows of the global batch (one launch a row)."""
+    out = torch.empty((len(seeds),) + tuple(shape), device=device)
+    g = torch.Generator(device=device)
+    for row, seed in zip(out, seeds.tolist()):
+        g.manual_seed(seed)
+        row.normal_(generator=g)
+    return out
 
 
 def random_erasing(images: torch.Tensor, draw: Dict[str, torch.Tensor],

@@ -37,7 +37,15 @@ def build_split_dataset(dataset: str, data_dir: str, split: str,
                         aug_splits: int = 0, packed: str = "",
                         scale=(0.08, 1.0)):
     """The dataset and transform of cli/train.py and cli/validate.py, from
-    picklable arguments."""
+    picklable arguments.
+
+    ``scale`` (cli.train's --scale, the random resized crop's area range)
+    reaches every train transform: the PIL and native ones and the AugMix
+    splits', in loader threads and in spawned workers alike, as timm (and
+    the reference) honours it. This deviates from the JAX package, whose
+    spawned workers (its data/spawn.py has no ``scale``) and AugMix splits
+    crop at (0.08, 1.0) whatever --scale says, while its threads honour it
+    (ROADMAP queue 3)."""
     from lemevit_tpu_torch.data import transforms as T
     from lemevit_tpu_torch.data.datasets import create_dataset
 

@@ -7,7 +7,9 @@ package's variables ({'params', 'batch_stats'}, as numpy arrays) into the
 port's state_dict, so one set of weights can drive both packages; its logic
 is that of lemevit_tpu/models/convert.py::flax_to_torch (conv HWIO -> OIHW,
 dense (in, out) -> (out, in)). ``from_jax_upernet`` does the same for the
-JAX UperNet (tasks/upernet.py).
+JAX UperNet (tasks/upernet.py), ``from_jax_backbone`` for the ResNet and
+Swin backbones and ``from_jax_cd`` for the change-detection models
+(tasks/change_detection.py, tasks/snunet.py).
 """
 from __future__ import annotations
 
@@ -164,3 +166,89 @@ def from_jax_upernet(variables: Mapping[str, Any], model
         conv_module(f"aux_head.conv{i}", ["aux_head", f"conv{i}"])
     w.conv("aux_head.seg", ["aux_head", "seg"])
     return {**sd, **w.sd}
+
+
+def _from_tree(params: Mapping[str, Any], stats: Mapping[str, Any],
+               rename=lambda k: k, prefix: str = ""
+               ) -> Dict[str, torch.Tensor]:
+    """A state dict from a JAX variable tree whose module names are the
+    port's (up to ``rename`` of the dotted path): kernels of 4 dims are
+    convolutions (HWIO -> OIHW; flax's ConvTranspose kernels too, the
+    port applying them unflipped), of 2 dims Dense (in, out) -> (out, in);
+    ``scale`` -> ``weight``; a module with BatchNorm statistics in
+    ``stats`` gets ``running_mean`` / ``running_var``; other arrays
+    (pos_embed, rel_pos_bias) keep their names and shapes."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        sd[rename(prefix + key)] = torch.from_numpy(
+            np.array(arr, np.float32, order="C"))
+
+    def walk(p, s, path):
+        for k, v in p.items():
+            key = f"{path}{k}"
+            if isinstance(v, Mapping):
+                walk(v, s.get(k, {}) if isinstance(s, Mapping) else {},
+                     key + ".")
+                continue
+            a = np.asarray(v, dtype=np.float32)
+            if k == "kernel":
+                put(f"{path}weight", np.transpose(a, (3, 2, 0, 1))
+                    if a.ndim == 4 else a.T)
+            elif k == "scale":
+                put(f"{path}weight", a)
+            else:
+                put(key, a)
+        if isinstance(s, Mapping) and "mean" in s and "var" in s:
+            put(f"{path}running_mean", np.asarray(s["mean"]))
+            put(f"{path}running_var", np.asarray(s["var"]))
+            sd[rename(f"{prefix}{path}num_batches_tracked")] = torch.tensor(0)
+
+    walk(params, stats, "")
+    return sd
+
+
+def _swin_name(k: str) -> str:
+    return k.replace(".mlp.fc1.", ".mlp.0.").replace(".mlp.fc2.", ".mlp.3.")
+
+
+def _diff_name(k: str) -> str:
+    """SiamUnetDiff's encoder stages: enc{i}.conv{k} -> enc{i}_conv{k}."""
+    parts = k.split(".")
+    if parts[0].startswith("enc") and len(parts) > 2:
+        return f"{parts[0]}_{parts[1]}." + ".".join(parts[2:])
+    return k
+
+
+def from_jax_backbone(variables: Mapping[str, Any], model
+                      ) -> Dict[str, torch.Tensor]:
+    """State dict for a port backbone (LeMeViT, ResNet or Swin) from the
+    JAX backbone's variables."""
+    from lemevit_tpu_torch.models.lemevit import LeMeViT
+    from lemevit_tpu_torch.models.swin import SwinTransformer
+    if isinstance(model, LeMeViT):
+        return from_jax_params(variables, model)
+    return _from_tree(variables["params"], variables.get("batch_stats", {}),
+                      _swin_name if isinstance(model, SwinTransformer)
+                      else (lambda k: k))
+
+
+def from_jax_cd(variables: Mapping[str, Any], model
+                ) -> Dict[str, torch.Tensor]:
+    """State dict for a port change-detection model from the JAX model's
+    variables, BatchNorm statistics included: BIT over a LeMeViT, ResNet
+    or Swin backbone (``backbone.`` + from_jax_backbone, ``bit_head.``),
+    SNUNetECAM, SiamNestedUNetConc and SiamUnetDiff."""
+    from lemevit_tpu_torch.tasks.change_detection import BITChangeDetector
+    from lemevit_tpu_torch.tasks.snunet import SiamUnetDiff
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if isinstance(model, BITChangeDetector):
+        sd = {f"backbone.{k}": v for k, v in from_jax_backbone(
+            {"params": params["backbone"],
+             "batch_stats": stats.get("backbone", {})},
+            model.backbone).items()}
+        sd.update(_from_tree(params["bit_head"], {}, prefix="bit_head."))
+        return sd
+    return _from_tree(params, stats, _diff_name
+                      if isinstance(model, SiamUnetDiff) else (lambda k: k))

@@ -72,6 +72,7 @@ from lemevit_tpu_torch.core.layers import (
     DWConv,
     MetaTokenDownsample,
     Mlp,
+    set_generator,
 )
 
 _ATTN = {"S": StandardAttention, "C": CrossAttention,
@@ -350,7 +351,8 @@ class LeMeBlock(nn.Module):
 class LeMeViT(nn.Module):
     """Hierarchical vision transformer with learnable meta tokens. Input
     (B, H, W, in_chans); output logits (B, num_classes) in float32, or with
-    ``features_only`` the NHWC maps of ``out_indices``."""
+    ``features_only`` the NHWC maps of ``out_indices``, the stages after
+    the last of them not run."""
 
     def __init__(self, depth: Sequence[int] = (2, 3, 4, 8, 3),
                  in_chans: int = 3, num_classes: int = 1000,
@@ -435,12 +437,12 @@ class LeMeViT(nn.Module):
             for blk in stage:
                 blk.attn_backend = backend
 
-    def set_generator(self, generator: torch.Generator) -> None:
+    def set_generator(self, generator: torch.Generator,
+                      shard: Optional[tuple] = None) -> None:
         """Draw every block's DropPath masks from ``generator`` (a
-        torch.Generator on the activations' device)."""
-        for m in self.modules():
-            if isinstance(m, DropPath):
-                m.generator = generator
+        torch.Generator on the activations' device); with ``shard`` (rank,
+        world) over the global batch, this rank keeping its rows."""
+        set_generator(self, generator, shard)
 
     def _try_s_stage(self, i: int, x, c):
         """Stage i in one ``fused_block.s_stage`` launch, the counterpart of
@@ -497,6 +499,14 @@ class LeMeViT(nn.Module):
                     x, c = blk(x, c)
             if self.features_only and i in self.out_indices:
                 feats.append(x)
+                if i == max(self.out_indices):
+                    if self.training and i + 1 < len(self.stages):
+                        # the rest is dead work, but for the next
+                        # downsample's BatchNorm statistics: they move as
+                        # the JAX package's do
+                        with torch.no_grad():
+                            self.downsample_layers[i + 1](x)
+                    break
         if self.features_only:
             return feats
         x = self.norm(x.permute(0, 3, 1, 2)).mean(dim=(2, 3))

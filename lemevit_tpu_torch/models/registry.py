@@ -1,6 +1,9 @@
 """Model registry and factory (timm-style names): counterpart of
 lemevit_tpu/models/registry.py, with the same variant hyperparameters.
-All released variants use 16 meta tokens and head_dim 32."""
+All released variants use 16 meta tokens and head_dim 32. The
+change-detection vertical's other backbones (resnet18 / 34 / 50,
+swin_tiny; models/resnet.py, models/swin.py) are registered beside them,
+as the JAX package registers them."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -8,6 +11,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from lemevit_tpu_torch.core.layers import init_weights
+from lemevit_tpu_torch.models import resnet, swin
 from lemevit_tpu_torch.models.lemevit import LeMeViT
 
 VARIANT_CFGS: Dict[str, Dict[str, Any]] = {
@@ -43,13 +47,20 @@ VARIANT_CFGS: Dict[str, Dict[str, Any]] = {
 }
 
 
+BACKBONES = {"resnet18": resnet.resnet18, "resnet34": resnet.resnet34,
+             "resnet50": resnet.resnet50, "swin_tiny": swin.swin_tiny}
+
+
 def list_models():
+    """The LeMeViT variants (``variant_config`` takes each); the other
+    backbones are in ``BACKBONES``."""
     return sorted(VARIANT_CFGS)
 
 
 def variant_config(name: str) -> Dict[str, Any]:
     if name not in VARIANT_CFGS:
-        raise KeyError(f"unknown model {name!r}; known: {list_models()}")
+        raise KeyError(f"unknown model {name!r}; known: {list_models()} "
+                       f"and {list(BACKBONES)}")
     return dict(VARIANT_CFGS[name])
 
 
@@ -73,8 +84,14 @@ def create_model(name: str, *, device: Optional[Any] = None,
     every device gets the same weights) and moved to ``device`` (CUDA by
     default, see resolve_device) in ``dtype``."""
     dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    if name in BACKBONES:
+        model = BACKBONES[name](**kwargs)
+        (swin.init_swin if name.startswith("swin") else init_weights)(
+            model, gen)
+        return model.to(device=dev, dtype=dtype)
     cfg = variant_config(name)
     cfg.update(kwargs)
     model = LeMeViT(**cfg)
-    init_weights(model, torch.Generator().manual_seed(seed))
+    init_weights(model, gen)
     return model.to(device=dev, dtype=dtype)

@@ -9,6 +9,8 @@
   restore_checkpoint(path, state) model, optimizer, EMA and step
   auto_resume(dir, state)         the newer of the two
   load_pretrained(model, path)    reference-named .pth weights
+  load_backbone(backbone, path)   a classification checkpoint's weights
+                                  into a features_only backbone
 
 A checkpoint holds the model's state_dict (parameters and BatchNorm
 statistics, S sets each in an aug-splits run) under "state_dict", the EMA
@@ -137,3 +139,16 @@ def load_pretrained(model: torch.nn.Module, path: str,
     sd = strip_prefixes(ckpt if isinstance(ckpt, dict) else ckpt.state_dict())
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_backbone(backbone: torch.nn.Module, path: str) -> None:
+    """A classification checkpoint's weights into a features_only backbone
+    (the downstream CLIs' --initial-checkpoint): its head's entries, absent
+    from the backbone, are left out; every backbone entry must be present.
+    Unpickled in full, as load_pretrained: load only checkpoints you
+    trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = strip_prefixes(ckpt if isinstance(ckpt, dict) else ckpt.state_dict())
+    own = backbone.state_dict()
+    backbone.load_state_dict({k: v for k, v in sd.items() if k in own},
+                             strict=True)

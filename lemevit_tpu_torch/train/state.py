@@ -63,6 +63,10 @@ class TrainState:
     step: int = 0
     grad_accum_steps: int = 1
     clip_grad: Optional[float] = None
+    # the DistributedDataParallel wrapper of ``model`` in a multi-process
+    # run: the train steps run their forward through it; checkpoints and
+    # the EMA keep to ``model``, so their names carry no "module." prefix
+    ddp: Optional[torch.nn.Module] = None
 
     @property
     def updates(self) -> int:

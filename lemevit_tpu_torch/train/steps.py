@@ -4,8 +4,14 @@ jsd_cross_entropy, make_jsd_train_step, stack_batch_stats /
 unstack_batch_stats, optax_global_norm, eval_metrics).
 
 Both steps share ``apply_gradients``: gradient accumulation, clipping, the
-LR and the EMA. The JSD step runs the model once over the S splits' views
-concatenated to an (S B, ...) batch, with every BatchNorm in split mode
+LR and the EMA. With ``TrainState.ddp`` set (a multi-process run) they run
+their forward through the DDP wrapper and their backward by DDP, which
+averages the gradients over the ranks. ``augmented_train_step`` is
+cli.train's classification step with its device-side augmentation drawn
+over the global batch.
+
+The JSD step runs the model once over the S splits' views concatenated to
+an (S B, ...) batch, with every BatchNorm in split mode
 (``stack_batch_stats``): each split is normalised with its own batch
 statistics and updates its own running set, which is the function of the
 JAX package's vmap over splits with stacked ``batch_stats``.
@@ -13,12 +19,18 @@ JAX package's vmap over splits with stacked ``batch_stats``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from lemevit_tpu_torch.core.layers import BatchNorm
+from lemevit_tpu_torch.data.mixup import (draw_erasing, draw_mixup,
+                                          mixup_cutmix, random_erasing,
+                                          row_noise)
+from lemevit_tpu_torch.parallel.distributed import Shard, all_reduce_mean
 from lemevit_tpu_torch.train.optim import set_lr
 from lemevit_tpu_torch.train.state import TrainState
 
@@ -104,6 +116,14 @@ def apply_gradients(state: TrainState, params: List[torch.Tensor],
     for p, g in zip(params, grads):
         g = g / k if k > 1 else g
         p.grad = g if p.grad is None else p.grad.add_(g)
+    _finish_step(state, params, gnorm)
+
+
+def _finish_step(state: TrainState, params: List[torch.Tensor],
+                 gnorm: Optional[torch.Tensor]) -> None:
+    """Count the step; on the last of ``grad_accum_steps`` clip and apply
+    the gradients accumulated in ``params``' ``.grad``; then the EMA."""
+    k = state.grad_accum_steps
     state.step += 1
     if state.step % k == 0:
         if state.clip_grad:
@@ -120,15 +140,50 @@ def apply_gradients(state: TrainState, params: List[torch.Tensor],
         state.ema.update(state.model)
 
 
+def _step_context(state: TrainState):
+    """DDP's ``no_sync`` on an accumulation micro-step: DDP all-reduces
+    the gradients only on the step that ends the window."""
+    if (state.ddp is not None
+            and (state.step + 1) % state.grad_accum_steps != 0):
+        return state.ddp.no_sync()
+    return contextlib.nullcontext()
+
+
 def _backward_and_update(state: TrainState, loss: torch.Tensor
                          ) -> Dict[str, torch.Tensor]:
     params = [p for p in state.model.parameters() if p.requires_grad]
+    if state.ddp is not None:
+        return _ddp_backward_and_update(state, params, loss)
     # a parameter the forward does not reach gets zeros, as under jax.grad
     grads = torch.autograd.grad(loss, params, allow_unused=True,
                                 materialize_grads=True)
     gnorm = global_norm(grads)
     apply_gradients(state, params, grads, gnorm)
     return {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+
+
+def _ddp_backward_and_update(state: TrainState, params: List[torch.Tensor],
+                             loss: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The data-parallel form: ``backward`` through the DDP wrapper, which
+    on the step that ends an accumulation window all-reduces the
+    accumulated gradients to their mean over the ranks (the gradient of
+    the global batch's mean loss, SyncBN's reductions included), then as
+    apply_gradients. The loss returned is the global batch's mean. The
+    grad norm is the global gradient's on the syncing step (with
+    accumulation, of the window's mean gradient, the one clipped); on the
+    micro-steps before, under ``no_sync``, it is this rank's accumulated
+    gradient's."""
+    k = state.grad_accum_steps
+    (loss / k if k > 1 else loss).backward()
+    for p in params:  # unreached by the forward: zeros, as under jax.grad
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    gnorm = global_norm([p.grad for p in params])
+    if k > 1:  # the window's mean gradient so far, in the units of one
+        gnorm = gnorm * (k / ((state.step % k) + 1))
+    _finish_step(state, params, gnorm)
+    return {"loss": all_reduce_mean(loss.detach()),
+            "grad_norm": gnorm.detach()}
 
 
 def train_step(state: TrainState, images: torch.Tensor,
@@ -141,8 +196,10 @@ def train_step(state: TrainState, images: torch.Tensor,
     backward and apply_gradients. Returns {"loss", "grad_norm"} as device
     tensors (the norm of this step's gradients of every parameter, before
     clipping); reading them waits for the device."""
-    logits = _forward(state.model, images, autocast_dtype)
-    return _backward_and_update(state, cross_entropy_loss(logits, targets))
+    with _step_context(state):
+        logits = _forward(state.ddp or state.model, images, autocast_dtype)
+        return _backward_and_update(state,
+                                    cross_entropy_loss(logits, targets))
 
 
 def jsd_train_step(state: TrainState, images: torch.Tensor,
@@ -160,9 +217,67 @@ def jsd_train_step(state: TrainState, images: torch.Tensor,
         raise ValueError(f"{len(bad)} BatchNorms hold {bad[0].num_splits} "
                          f"statistics sets for {s} splits (call "
                          "stack_batch_stats(model, num_splits) first)")
-    logits = _forward(state.model, images.flatten(0, 1), autocast_dtype)
-    loss = jsd_cross_entropy(logits.unflatten(0, (s, b)), targets, alpha)
-    return _backward_and_update(state, loss)
+    with _step_context(state):
+        logits = _forward(state.ddp or state.model, images.flatten(0, 1),
+                          autocast_dtype)
+        loss = jsd_cross_entropy(logits.unflatten(0, (s, b)), targets,
+                                 alpha)
+        return _backward_and_update(state, loss)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchAug:
+    """The device-side augmentation of a classification step (cli.train's
+    --reprob, --mixup, --cutmix, --mixup-prob, --smoothing)."""
+    num_classes: int
+    reprob: float = 0.0
+    mixup: float = 0.0
+    cutmix: float = 0.0
+    mixup_prob: float = 1.0
+    smoothing: float = 0.0
+
+    def soft_targets(self, labels: torch.Tensor) -> torch.Tensor:
+        t = F.one_hot(labels, self.num_classes).float()
+        if self.smoothing:
+            t = t * (1 - self.smoothing) + self.smoothing / self.num_classes
+        return t
+
+
+def augmented_train_step(state: TrainState, images: torch.Tensor,
+                         labels: torch.Tensor, aug: BatchAug,
+                         gen: torch.Generator, rng: np.random.Generator,
+                         shard: Shard = Shard(),
+                         autocast_dtype: Optional[torch.dtype] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """cli.train's step on normalised NHWC ``images``: random erasing
+    (boxes from ``gen``, the noise from a seed a row drawn from ``rng``),
+    mixup / cutmix (the draw from ``rng``) or hard targets with label
+    smoothing, then train_step. The JAX package draws these over the
+    global batch, and so does this step: with a ``shard`` of W ranks every
+    rank draws the erasing boxes and the noise seeds for W x B rows and
+    keeps its own (the noise itself only for its own rows), mixup pairs
+    the rows with the mirror rank's reversed ones, and DropPath draws per
+    global row (LeMeViT.set_generator's shard), so that a W-rank step on
+    the W row blocks of a batch equals the one-rank step on the whole
+    batch."""
+    b, h, w, _ = images.shape
+    if aug.reprob > 0:
+        g = shard.world * b
+        draw = {k: shard.rows(v) for k, v in draw_erasing(
+            gen, g, h, w, prob=aug.reprob).items()}
+        seeds = shard.rows(torch.from_numpy(rng.integers(2 ** 63, size=g)))
+        images = random_erasing(images, draw, row_noise(
+            seeds, images.shape[1:], images.device))
+    if aug.mixup > 0 or aug.cutmix > 0:
+        images, targets = mixup_cutmix(
+            images, labels, aug.num_classes,
+            draw_mixup(rng, h, w, mixup_alpha=aug.mixup,
+                       cutmix_alpha=aug.cutmix, prob=aug.mixup_prob),
+            label_smoothing=aug.smoothing,
+            partner=(shard.mirror(images), shard.mirror(labels)))
+    else:
+        targets = aug.soft_targets(labels)
+    return train_step(state, images, targets, autocast_dtype=autocast_dtype)
 
 
 def eval_metrics(logits: torch.Tensor, labels: torch.Tensor

@@ -321,8 +321,9 @@ def test_zip_reader_paths(tmp_path):
 
 
 # the hub and shard names (ROADMAP queue 1, item 4) are ported: without
-# their library or their shards they raise as the JAX package does (the
-# cases keep their ids); the change-detection names still wait (item 8)
+# their library or their shards they raise as the JAX package does; the
+# change-detection names (item 8) build a CDPairDataset from a written
+# folder, the JAX package's samples (the cases keep their ids)
 @pytest.mark.parametrize("name,err,match", [
     pytest.param("hfds/cifar10", ImportError, "`datasets` package",
                  id="hfds/cifar10-item 4"),
@@ -332,15 +333,32 @@ def test_zip_reader_paths(tmp_path):
     pytest.param("wds", FileNotFoundError, "no .tar shards", id="wds-item 4"),
     pytest.param("wds/shards", FileNotFoundError, "no .tar shards",
                  id="wds/shards-item 4"),
-    pytest.param("cdd", NotImplementedError, "item 8", id="cdd-item 8"),
-    pytest.param("levir", NotImplementedError, "item 8", id="levir-item 8"),
-    pytest.param("cd_pairs", NotImplementedError, "item 8",
-                 id="cd_pairs-item 8")])
+    pytest.param("cdd", None, None, id="cdd-item 8"),
+    pytest.param("levir", None, None, id="levir-item 8"),
+    pytest.param("cd_pairs", None, None, id="cd_pairs-item 8")])
 def test_names_that_wait_raise(tmp_path, monkeypatch, name, err, match):
     for package in ("datasets", "tensorflow_datasets"):
         monkeypatch.setitem(sys.modules, package, None)  # import fails
-    with pytest.raises(err, match=match):
-        D.create_dataset(name, str(tmp_path))
+    if err is not None:
+        with pytest.raises(err, match=match):
+            D.create_dataset(name, str(tmp_path))
+        return
+    for i, sub in enumerate(("A", "B", "OUT")):
+        os.makedirs(tmp_path / "val" / sub)
+        for k in range(3):
+            img = picture(20, 24, seed=10 * i + k)
+            (img.convert("L") if sub == "OUT" else img).save(
+                tmp_path / "val" / sub / f"{k}.png")
+    ds = D.create_dataset(name, str(tmp_path), split="val")
+    jds = JD.create_dataset(name, str(tmp_path), split="val")
+    assert isinstance(ds, D.CDPairDataset) and len(ds) == len(jds) == 3
+    assert ds.names == jds.names
+    for k in range(3):
+        (a, b), m = ds[k]
+        (ja, jb), jm = jds[k]
+        assert a.mode == b.mode == "RGB" and m.mode == "L"
+        for x, y in ((a, ja), (b, jb), (m, jm)):
+            np.testing.assert_array_equal(arr(x), arr(y))
 
 
 def test_unknown_and_synthetic_names():
@@ -475,6 +493,34 @@ def test_spawn_workers_match_threads(train_folder, tmp_path, monkeypatch):
         list(L.create_loader(ds, 4, num_procs=1, dataset_spec=bad))
     with pytest.raises(ValueError, match="dataset_spec"):
         L.Loader(ds, 4, num_procs=2)
+
+
+@pytest.mark.parametrize("aug_splits", [0, 3], ids=["plain", "augsplits"])
+def test_scale_reaches_threads_and_worker_procs(train_folder, aug_splits):
+    """--scale 0.5 1.0 reaches the train transform through spec_for_split
+    on both loaders: 2 threads and 2 spawned worker processes give the same
+    batches, and both differ from the default scale's (the port keeps
+    timm's behaviour; the JAX package's workers and AugMix splits drop
+    --scale, ROADMAP queue 3)."""
+    class Args:
+        dataset, data_dir, img_size, hflip = ("imagefolder", train_folder,
+                                               16, 0.5)
+        aa, crop_pct, scale = "rand-m9-mstd0.5-inc1", 0.9, [0.5, 1.0]
+
+    def batches(spec, procs):
+        ld = L.create_loader(spec.build(), 4, is_training=True, seed=5,
+                             num_threads=2, num_procs=procs,
+                             dataset_spec=spec)
+        return list(ld.iter_batches(3))
+
+    spec = S.spec_for_split(Args, "train", True, aug_splits=aug_splits)
+    assert spec.kwargs["scale"] == (0.5, 1.0)
+    threads = batches(spec, 0)
+    batches_equal(batches(spec, 2), threads)
+    Args.scale = [0.08, 1.0]
+    default = batches(S.spec_for_split(Args, "train", True,
+                                       aug_splits=aug_splits), 0)
+    assert not torch.equal(default[0]["image"], threads[0]["image"])
 
 
 def test_spawn_worker_imports_no_jax():
