@@ -147,6 +147,20 @@ and read just after:
     the same weights, one synthetic step of snunet, snunet_conc,
     siamunet_diff and BIT on resnet18, and cli.visualize_cd on the best
     checkpoint (one mask PNG per val pair);
+  - oriented detection (the det phase): rows 1, 7, 8 and 9-11 held
+    against their plain versions at Oriented R-CNN's shapes (dca_attn at
+    N = 65536 / 16384, mhsa at N = 16 C = 320, the S kernels at N = 1024
+    C = 384; B = 8), three 1500x1300 DOTA images written from a seed and
+    tiled by cli.dota_split (tiles and shifted annotations checked against
+    the originals), cli.train_det with configs/det/
+    oriented_rcnn_lemevit_small_fpn_1x_dota10.yaml (1024^2, B = 8, bf16,
+    rpn_nms_pre 2000) for 3 steps and its eval (mAP, B = 1), the launches
+    by kernel per train step and per eval forward, steps/s, img/s, peak
+    GiB, device ms, launches and busy share of a profiled step, the
+    eval's ms per image, the kernel path's first-batch loss beside
+    --attn-backend torch's on the same proposals, the port's leme_ops
+    library loaded, then a
+    step each with --tile on the originals and --format-only;
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
     6 classes): the kernels held
     against their plain versions and, in bf16, against their order of work
@@ -187,8 +201,9 @@ and read just after:
     cli.train_seg with --train-cpe-in-kernel beside the default runs
     above, decided by each path's bare train step's device time with the
     switch off and on in alternating pairs.
-Every phase prints one line; any failure raises and exits non-zero. The
-script's total seconds are printed before the last lines, which are a
+Every phase prints one line and its seconds ([phase-seconds]); any
+failure raises and exits non-zero. The script's total seconds are printed
+before the last lines, which are a
 JSON object of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and {"ok": true, "device": {...}}.
 """
@@ -3591,8 +3606,325 @@ def cd_phase(smi: str, dev, fb, ft, g) -> tuple:
             "seconds": time.time() - t0}, shape_rows
 
 
+# the det phase: Oriented R-CNN on lemevit_small at 1024^2 (configs/det)
+DET_CFG = "oriented_rcnn_lemevit_small_fpn_1x_dota10.yaml"
+DET_ORIG = (1500, 1300)  # original images, (w, h): 4 windows of 1024 each
+DET_IMAGES = (("train", "P9001"), ("train", "P9002"), ("val", "P9003"))
+DET_TILES = {"train": 8, "val": 4}
+DET_STEPS = 3
+DET_B_CHECK = 2
+# bf16 kernel path's first-batch loss and each of its parts against
+# --attn-backend torch's, the plain path given the kernel path's
+# proposals (cd_phase's limit): proposals come from top-k and NMS
+# decisions over near-equal scores, which bf16 rounding flips, and the RoI
+# losses of two proposal sets differ by far more than the features do
+DET_LOSS_TOL = 3e-2
+# the kernels' shapes on it: stages 1-2 (N = 65536 C = 96, N = 16384
+# C = 192, M = 16, D blocks beyond 3136) compose with each attention one
+# dca_attn call; stage 3 (N = 4096 C = 320) composes, its meta stream
+# (N = 16) on mhsa; stage 4 (N = 1024 C = 384) takes the S kernels;
+# (N, C, launches per forward)
+DET_DCA_SHAPES = [(65536, 96, 2), (16384, 192, 2)]
+DET_MHSA_SHAPE = (16, 320, 6)
+DET_S_SHAPE = (1024, 384, 2)
+# launches per train step (B = 8) and per eval forward (B = 1)
+DET_STEP = {"dca_attn": 4, "mhsa": 6, "s_train_fwd": 2, "s_attn_bwd": 2,
+            "mlp_bwd": 2}
+DET_EVAL = {"dca_attn": 4, "mhsa": 6, "s_block": 2}
+
+
+def write_det_data(root: Path, seed: int = 0) -> dict:
+    """Original-size DOTA images (DET_ORIG) of DET_IMAGES under
+    root/{split}/{images,annfiles}: a smooth random picture with filled
+    rotated rectangles of the DOTA classes, ten of them inside the area
+    every 1024^2 window covers, and their polygons (DOTA's two header
+    lines first). Returns {stem: (picture, polygons (K, 8), class names)}."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+    from lemevit_tpu_torch.tasks.dota import DOTA10_CLASSES
+    rs = np.random.RandomState(seed)
+    w, h = DET_ORIG
+    out = {}
+    for split, stem in DET_IMAGES:
+        for sub in ("images", "annfiles"):
+            (root / split / sub).mkdir(parents=True, exist_ok=True)
+        small = rs.randint(0, 256, (h // 16, w // 16, 3), np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        draw = ImageDraw.Draw(img)
+        polys, names = [], []
+        for i in range(16):
+            inner = i < 10  # inside [476, 1024] x [276, 1024]
+            cx = rs.uniform(540, 960) if inner else rs.uniform(60, w - 60)
+            cy = rs.uniform(340, 960) if inner else rs.uniform(60, h - 60)
+            bw, bh, t = rs.uniform(20, 80), rs.uniform(12, 50), rs.uniform(
+                -1.4, 1.4)
+            c, sn = np.cos(t), np.sin(t)
+            quad = [(cx + dx * c - dy * sn, cy + dx * sn + dy * c)
+                    for dx, dy in ((-bw / 2, -bh / 2), (bw / 2, -bh / 2),
+                                   (bw / 2, bh / 2), (-bw / 2, bh / 2))]
+            draw.polygon(quad, fill=tuple(int(v) for v in
+                                          rs.randint(0, 256, 3)))
+            polys.append(np.asarray(quad).reshape(8))
+            names.append(DOTA10_CLASSES[rs.randint(0, len(DOTA10_CLASSES))])
+        img.save(root / split / "images" / f"{stem}.png")
+        lines = ["imagesource:GoogleEarth", "gsd:0.146"] + [
+            " ".join(f"{v:.1f}" for v in p) + f" {n} 0"
+            for p, n in zip(polys, names)]
+        (root / split / "annfiles" / f"{stem}.txt").write_text(
+            "\n".join(lines) + "\n")
+        out[stem] = (np.asarray(img), np.round(np.stack(polys), 1), names)
+    return out
+
+
+def check_det_tiles(tiles: Path, originals: dict) -> int:
+    """cli.dota_split's tiles against the originals: each tile the
+    original's window (padded where it runs off), each annotation line an
+    original polygon shifted by the tile's offset (within the files' 0.1
+    rounding) with its class. Returns the objects checked."""
+    import numpy as np
+    from PIL import Image
+    from lemevit_tpu_torch.data.dota_split import parse_tile_name
+    n_obj = 0
+    for split, n in DET_TILES.items():
+        names = sorted((tiles / split / "images").iterdir())
+        if len(names) != n:
+            raise AssertionError(f"dota_split: {len(names)} {split} tiles, "
+                                 f"expected {n}")
+        for f in names:
+            stem, _, x0, y0 = parse_tile_name(f.stem)
+            img, polys, classes = originals[stem]
+            tile = np.asarray(Image.open(f).convert("RGB"))
+            crop = img[y0:y0 + 1024, x0:x0 + 1024]
+            if not np.array_equal(tile[:crop.shape[0], :crop.shape[1]],
+                                  crop):
+                raise AssertionError(f"dota_split: tile {f.name} pixels")
+            for line in (tiles / split / "annfiles" / f"{f.stem}.txt"
+                         ).read_text().splitlines():
+                parts = line.split()
+                p = np.asarray(parts[:8], float)
+                p[0::2] += x0
+                p[1::2] += y0
+                d = np.abs(polys - p).max(1)
+                j = int(d.argmin())
+                if d[j] > 0.11 or classes[j] != parts[8]:
+                    raise AssertionError(f"dota_split: {f.name}: {line}")
+                n_obj += 1
+    return n_obj
+
+
+def det_phase(smi: str, dev, fb, ft, g) -> tuple:
+    """Oriented detection through cli.dota_split and cli.train_det. First
+    each kernel of the path against its plain version at the path's
+    shapes (DET_DCA_SHAPES, DET_MHSA_SHAPE, DET_S_SHAPE: fp32 at
+    DET_B_CHECK, bf16 at the config's B = 8, forward and backward, each
+    check's own tolerances). Then three original-size images written from
+    a seed (DET_ORIG, rotated rectangles of the DOTA classes) tiled by
+    cli.dota_split at 1024^2 (gap 200, every window kept: DET_TILES) and
+    checked against the originals; cli.train_det with configs/det/
+    DET_CFG (Oriented R-CNN on lemevit_small, 1024^2, B = 8, FPN 256,
+    rpn_nms_pre 2000, 15 classes, bf16, --sched step, clip 35) for 1 epoch
+    of DET_STEPS steps and its eval (VOC mAP over the 4 val tiles at
+    B = 1), steps/s, img/s and peak GiB; the launches by kernel of one
+    train step and one eval forward (DET_STEP, DET_EVAL exactly, and the
+    run's launches their sum over its steps and eval forwards); the
+    kernel path's first-batch loss and its parts beside --attn-backend
+    torch's on the same weights and proposals (DET_LOSS_TOL); a profile
+    of one train step; the eval's
+    ms per image; the port's leme_ops library loaded (the eval's rotated
+    IoU in C++); then cli.train_det --tile on the originals (the eval
+    merges the tiles' detections) and --format-only (the DOTA submission
+    files), a step each. Nothing here catches its own failure. Returns
+    (the phase's numbers, the shape rows by kernel)."""
+    import numpy as np
+    from lemevit_tpu_torch.cli import dota_split, train_det
+    from lemevit_tpu_torch.data.detection import (DOTADataset,
+                                                  detection_collate)
+    from lemevit_tpu_torch.data.transforms import normalize
+    from lemevit_tpu_torch.ops import native
+    from lemevit_tpu_torch.tasks.detection_train import detection_loss
+    from lemevit_tpu_torch.utils.parser import parse_args_with_config
+    t0 = time.time()
+    rows = [check_dca_attn(n, ch, per_fwd, dev, g, b_check=DET_B_CHECK,
+                           b_main=8) for n, ch, per_fwd in DET_DCA_SHAPES]
+    n, ch, per_fwd = DET_MHSA_SHAPE
+    rows.append(check_mhsa(n, ch, DET_B_CHECK, 8, dev, g))
+    rows[-1]["per_step"] = per_fwd
+    n, ch, per_fwd = DET_S_SHAPE
+    rows.append(check_block_kernel(fb, "s_block", n, ch, per_fwd, dev, g,
+                                   b_check=DET_B_CHECK, b_main=8))
+    rows += check_train_kernels(ft, "s", n, ch, per_fwd, dev, g,
+                                b_check=DET_B_CHECK, b_main=8)
+    shape_rows = {}
+    for r in rows:
+        shape_rows.setdefault(r["name"], []).append(r)
+    t_kernels = time.time() - t0
+    cfg = str(REPO / "configs" / "det" / DET_CFG)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        originals = write_det_data(root / "orig")
+        split = dota_split.main(["--src", str(root / "orig"), "--dst",
+                                 str(root / "tiles"), "--keep-empty"])
+        if split != DET_TILES:
+            raise AssertionError(f"dota_split: {split}")
+        n_obj = check_det_tiles(root / "tiles", originals)
+        say("det", f"cli.dota_split: {DET_ORIG[0]}x{DET_ORIG[1]} originals "
+            f"-> {json.dumps(split)} tiles of 1024^2, {n_obj} shifted "
+            f"objects checked against the originals")
+
+        data = ["--data-dir", str(root / "tiles"), "--workers", "4"]
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        res = train_det.main(["--config", cfg, *data, "--epochs", "1",
+                              "--steps-per-epoch", str(DET_STEPS),
+                              "--output", str(root / "run")])
+        run_launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (res["steps"] == DET_STEPS and math.isfinite(res["loss"])
+                and 0.0 <= res["best_mAP"] <= 1.0):
+            raise AssertionError(f"det: run {res}")
+        if not native.available():
+            raise AssertionError(f"det: leme_ops did not load: "
+                                 f"{native.build_error()}")
+
+        # one train step and one eval forward by themselves: the launches
+        args, _ = parse_args_with_config(train_det.build_parser(),
+                                         ["--config", cfg])
+        ds = DOTADataset(str(root / "tiles"), "train")
+        batch = {k: v.to(dev) for k, v in detection_collate(
+            [ds[i] for i in range(args.batch_size)]).items()}
+        val = DOTADataset(str(root / "tiles"), "val")
+        model = train_det.build_model(args, dev)
+        opt = torch.optim.AdamW(model.parameters(), lr=0.0,
+                                weight_decay=args.weight_decay)
+        reset()
+        train_det.det_train_step(model, opt, 0.0, batch, args.num_classes,
+                                 args.clip_grad, torch.bfloat16)
+        per_step = {k: v for k, v in launch_counts().items() if v}
+        img = torch.from_numpy(np.array(val[0][0])).to(dev)
+        reset()
+        train_det.predict(model, img, torch.bfloat16)
+        per_eval = {k: v for k, v in launch_counts().items() if v}
+        run_sum = {k: DET_STEPS * per_step.get(k, 0)
+                   + len(val) * per_eval.get(k, 0)
+                   for k in set(per_step) | set(per_eval)}
+        if (per_step != DET_STEP or per_eval != DET_EVAL
+                or {k: v for k, v in run_launches.items() if v} != run_sum):
+            raise AssertionError(
+                f"det: launches per train step {per_step} (expected "
+                f"{DET_STEP}), per eval forward {per_eval} (expected "
+                f"{DET_EVAL}); the run's {run_launches} against {run_sum}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(len(val)):
+            train_det.predict(model, torch.from_numpy(np.array(val[i][0]))
+                              .to(dev), torch.bfloat16)
+        eval_ms = (time.perf_counter() - t1) * 1e3 / len(val)
+        prof = profile_call(lambda: train_det.det_train_step(
+            model, opt, 0.0, batch, args.num_classes, args.clip_grad,
+            torch.bfloat16), f"one det train step (B={args.batch_size}, "
+            f"1024^2, bf16)")
+        if not prof:
+            raise AssertionError("det: the profiler recorded no device time")
+        del model, opt
+        say("det", f"Oriented R-CNN lemevit_small 1024^2 bf16 "
+            f"B={args.batch_size}: {DET_STEPS} steps, loss {res['loss']:.4f} "
+            f"{json.dumps({k: round(v, 4) for k, v in res['parts'].items()})}"
+            f", {1e3 / res['step_ms']:.3f} steps/s, {res['img_per_sec']:.2f} "
+            f"img/s, {res['step_ms']:.2f} ms/step (steps 2-{DET_STEPS}), peak "
+            f"{peak_gib:.2f} GiB; device {prof['device_ms']:.2f} ms a step "
+            f"in {prof['launches']} launches, "
+            f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy; eval "
+            f"{eval_ms:.1f} ms per image (B=1), mAP "
+            f"{res['final_metrics']['mAP']:.4f} over {len(val)} val tiles; "
+            f"launches per train step {json.dumps(per_step)}, per eval "
+            f"forward {json.dumps(per_eval)}; {native.version()} ({smi})")
+
+        # the kernel path's loss against the plain path, same weights, the
+        # plain path on the kernel path's proposals; the plain path's own
+        # proposals' loss beside them, for the record
+        losses, proposals = [], None
+        for backend in ("auto", "torch", "torch"):
+            args.attn_backend = backend
+            model = train_det.build_model(args, dev).train()
+            before = launch_counts()
+            with torch.no_grad(), torch.autocast("cuda",
+                                                 dtype=torch.bfloat16):
+                out = model(normalize(batch["image"]),
+                            proposals if len(losses) == 1 else None)
+            total, parts = detection_loss(
+                out, batch["gt_obbs"], batch["gt_labels"], batch["gt_mask"],
+                args.num_classes)
+            losses.append({"total": total.item(),
+                           **{k: v.item() for k, v in parts.items()}})
+            proposals = out["proposals"]
+            fwd = launched_since(before)
+            if (backend == "torch") == bool(fwd):
+                raise AssertionError(f"det: {backend} forward launched {fwd}")
+            del model, out
+        diffs = {k: abs(losses[0][k] - losses[1][k]) for k in losses[0]}
+        if not max(diffs.values()) <= DET_LOSS_TOL:
+            raise AssertionError(f"det: kernel-path losses {losses[0]} "
+                                 f"against plain {losses[1]} on the same "
+                                 f"proposals")
+        d_total = diffs["total"]
+        say("det", f"first batch, train-mode bf16 forward: loss "
+            f"{json.dumps({k: round(v, 6) for k, v in losses[0].items()})} "
+            f"on the kernel path against "
+            f"{json.dumps({k: round(v, 6) for k, v in losses[1].items()})} "
+            f"with --attn-backend torch on the same proposals (largest "
+            f"|diff| {max(diffs.values()):.2e}, limit {DET_LOSS_TOL}); "
+            f"--attn-backend torch on its own proposals: total "
+            f"{losses[2]['total']:.6f}")
+
+        # original-size images: --tile (the merge) and --format-only
+        one = ["--epochs", "1", "--steps-per-epoch", "1"]
+        tile = train_det.main(["--config", cfg, "--data-dir",
+                               str(root / "orig"), "--tile", "--workers",
+                               "4", *one, "--output", str(root / "tile")])
+        if not (tile["steps"] == 1 and 0.0 <= tile["best_mAP"] <= 1.0):
+            raise AssertionError(f"det --tile: {tile}")
+        fmt = train_det.main(["--config", cfg, *data, *one, "--format-only",
+                              "--output", str(root / "fmt")])
+        sub = sorted((root / "fmt" / "submission").iterdir())
+        ids = {line.split()[0] for f in sub
+               for line in f.read_text().splitlines()}
+        # the non-tiled eval names its images by their index
+        if fmt["best_mAP"] != -1.0 or len(sub) != 15 or not ids <= {
+                str(i) for i in range(len(val))}:
+            raise AssertionError(f"det --format-only: {fmt}, {sub}, {ids}")
+        say("det", f"--tile on the originals: mAP "
+            f"{tile['final_metrics']['mAP']:.4f} over the merged val image; "
+            f"--format-only: {len(sub)} Task1 files, "
+            f"{sum(len(f.read_text().splitlines()) for f in sub)} lines; "
+            f"phase {time.time() - t0:.0f} s (kernel checks "
+            f"{t_kernels:.0f} s; {smi})")
+    return {"per_step": per_step, "per_eval": per_eval,
+            "steps_per_sec": 1e3 / res["step_ms"],
+            "img_per_sec": res["img_per_sec"], "step_ms": res["step_ms"],
+            "peak_gib": peak_gib, "loss": res["loss"], "mAP":
+            res["final_metrics"]["mAP"], "eval_ms_per_image": eval_ms,
+            "loss_vs_plain": d_total, "loss_parts_vs_plain": diffs,
+            "plain_own_proposals_loss": losses[2]["total"],
+            "device_ms_per_step": prof["device_ms"],
+            "launches_per_step": prof["launches"],
+            "device_busy_share": prof["device_ms"] / prof["wall_ms"],
+            "port_kernel_share": prof["port_ms"] / prof["device_ms"],
+            "tile_mAP": tile["final_metrics"]["mAP"],
+            "seconds": time.time() - t0}, shape_rows
+
+
 def main() -> None:
     t_start = time.time()
+    phase_s = {}
+    t_lap = [t_start]
+
+    def lap(name):
+        """Print and keep the seconds since the last lap."""
+        now = time.time()
+        phase_s[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+        say("phase-seconds", f"{name}: {phase_s[name]} s")
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -3638,6 +3970,7 @@ def main() -> None:
             say("ptxas", f"{src}: {line}")
     probe_ptxas = check_probe_ptxas(ptxas)
     say("ptxas", f"probes: {json.dumps(probe_ptxas)}")
+    lap("build")
 
     # 3. inference kernels against their plain versions
     g = torch.Generator().manual_seed(0)
@@ -3718,6 +4051,7 @@ def main() -> None:
     if not (vres["loss"] > 0 and vres["samples_per_sec"] > 0):
         raise AssertionError(f"validate: {vres}")
     say("validate", json.dumps(vres))
+    lap("serve")
 
     # 5b. the slice's path: s_stage and the blocks' in-kernel CPE against
     #     their plain versions, then base served through them
@@ -3726,6 +4060,7 @@ def main() -> None:
                                    img_w=w)
                 for kind, n, w, ch, per_fwd in CPE_SHAPES]
     slice_launches, slice_res = serve_slice(dev, g, res, prof_default)
+    lap("serve-slice")
 
     # 6. training vit_tiny (all S): the inference and training kernels at
     #    its shapes, one step against the plain path, then its main path and
@@ -3739,6 +4074,7 @@ def main() -> None:
     vit_launches, vit_res = train_main_path("vit_tiny", VIT_STEP, VIT_EVAL)
     profile_train_step(dev, "vit_tiny")
     vit_fwd = profile_eval_forward(dev, "vit_tiny")
+    lap("train-vit_tiny")
 
     # 7. training lemevit_tiny (C, D, S): inference kernels at its shapes,
     #    its training kernels, a D2 block, one step against the plain path,
@@ -3764,6 +4100,7 @@ def main() -> None:
         f"{tr['samples_per_sec']} img/s, step {tr['step_time']} ms, fwd "
         f"{tr['fwd_time']} ms, bwd+opt {tr['bwd_opt_time']} ms")
     prof = profile_train_step(dev, "lemevit_tiny")
+    lap("train-lemevit_tiny")
 
     # 7b. the slice's path: lemevit_tiny trained with each block's 3x3 CPE
     #     inside its training kernels
@@ -3836,26 +4173,38 @@ def main() -> None:
     #     validated on its ragged validation split (default and slice
     #     paths against the plain path), ReaL labels, a UCM tree and a zip;
     #     then the rest of the training recipe on the same folder
+    lap("train-slice")
     with tempfile.TemporaryDirectory() as real_root:
         real = real_data_phase(smi, tiny_res, Path(real_root))
+        lap("real-data")
         # 7c'. the packed and native data planes on the same JPEGs: the
         #      cache with the augmentation on the card, the C++ decode
         data_planes = packed_native_phase(smi, tiny_res, real,
                                           Path(real_root), dev)
+        lap("packed-native")
         # 7d. AugMix splits with the JSD loss and split BatchNorm (synthetic
         #     and JPEG), a JSD step and a freeze_bn step against the plain
         #     path, every --opt rule card against CPU
         train_recipe_phase(smi, tiny_res, Path(real_root) / "folder", dev)
+        lap("train-recipe")
         # 7e. multi-process cli.train (DDP, SyncBN in the BatchNorms) on
         #     the same JPEGs: one rank over NCCL against no group, two
         #     ranks over gloo against one process at their global batch,
         #     and the two ranks with a fault planted
         dist_res = dist_phase(smi, Path(real_root) / "folder")
+        lap("dist")
     # 7f. change detection: BIT on lemevit_small at 256^2, its kernels
     #     against their plain versions at its shapes, then cli.train_cd
     #     (launches by kernel, pairs/s, kernel against plain loss), the
     #     other heads, cli.visualize_cd
     cd_res, cd_rows = cd_phase(smi, dev, fb, ft, g)
+    lap("cd")
+    # 7g. oriented detection: Oriented R-CNN on lemevit_small at 1024^2,
+    #     its kernels against their plain versions at its shapes, then
+    #     cli.dota_split and cli.train_det (launches by kernel, steps/s,
+    #     kernel against plain loss, the eval's mAP, --tile, --format-only)
+    det_res, det_rows = det_phase(smi, dev, fb, ft, g)
+    lap("det")
 
     # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
@@ -3893,6 +4242,7 @@ def main() -> None:
                               if seg_prof else None),
         "port_kernel_share": (seg_prof["port_ms"] / seg_prof["device_ms"]
                               if seg_prof else None)}))
+    lap("seg")
 
     # 8b. the probes: the per-op kernel against its plain version here,
     #     then the probe path (cli.probes: each construct probe against
@@ -3927,6 +4277,7 @@ def main() -> None:
         for k, v in table.items()
         if isinstance(v, dict) and k not in ("launches",)}))
     say("probes-train-paths", json.dumps(table["pb_train_paths"]))
+    lap("probes")
 
     # 9. per-kernel numbers: per-launch means over each main path's mix
     kernels = []
@@ -4042,7 +4393,17 @@ def main() -> None:
                 k["name"], 0)
         if k["name"] in cd_rows:
             k["cd_shapes"] = strip(cd_rows[k["name"]])
+        if k["name"] in launch_counts():
+            k["det_launches_per_train_step"] = det_res["per_step"].get(
+                k["name"], 0)
+            k["det_launches_per_eval_forward"] = det_res["per_eval"].get(
+                k["name"], 0)
+        if k["name"] in det_rows:
+            k["det_shapes"] = strip(det_rows[k["name"]])
     say("dist-cd-summary", json.dumps({"dist": dist_res, "cd": cd_res}))
+    say("det-summary", json.dumps(det_res))
+    lap("summary")
+    say("phase-seconds", json.dumps(phase_s))
     say("done", f"{time.time() - t_start:.0f} s")
     print(f"kernels: {json.dumps([k['name'] for k in kernels])}")
     print(json.dumps({"kernels": kernels}))

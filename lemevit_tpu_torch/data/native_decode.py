@@ -9,91 +9,42 @@ None where the library cannot help (no library, other formats, CMYK,
 corrupt bytes), and the caller falls back to PIL.
 
 The library is built at first use with ``g++ ... -ljpeg -lpng`` into
-``lemevit_tpu_torch/_build/libleme_data_<hash>.so`` (git-ignored). The hash
-covers the source, the flags and the host's CPU (the build is for
-``-march=native``). The build writes a temporary name and moves it into
-place under a file lock, so processes that load at once never see half a
-library. ``available()`` is true only when the library loads;
-``require()`` raises with the compiler's output when it does not.
+``lemevit_tpu_torch/_build/libleme_data_<hash>.so`` by _native.py (the
+hash covers the source, the flags and the host's CPU; a file lock and a
+temporary name, so processes that load at once never see half a library).
+``available()`` is true only when the library loads; ``require()`` raises
+with the compiler's output when it does not.
 """
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import functools
-import hashlib
 import math
-import os
-import platform
 import random
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from lemevit_tpu_torch import _native
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "leme_data.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-CXX = "g++"
-# the JAX package's native/Makefile flags, so that both builds give the
-# same bits
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
-             "-march=native", "-shared"]
-LIBS = ["-ljpeg", "-lpng"]
-BUILD_TIMEOUT_S = 300
+BUILD_DIR = _native.BUILD_DIR
+STEM = "leme_data"
+LIBS = ("-ljpeg", "-lpng")
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 
-def _host_key() -> str:
-    """The CPU the build is for: the machine and its feature flags."""
-    flags = ""
-    try:
-        with open("/proc/cpuinfo") as f:
-            flags = next((line for line in f if line.startswith("flags")),
-                         "")
-    except OSError:
-        pass
-    return platform.machine() + flags
-
-
 def library_path(source: Path, build_dir: Path) -> Path:
-    h = hashlib.sha256(" ".join([CXX, *CXX_FLAGS, *LIBS]).encode())
-    h.update(_host_key().encode())
-    h.update(source.read_bytes())
-    return build_dir / f"libleme_data_{h.hexdigest()[:16]}.so"
+    return _native.library_path(source, build_dir, STEM, LIBS)
 
 
 def build(source: Path, build_dir: Path) -> Path:
     """Compile ``source`` into its hashed library in ``build_dir`` unless it
     is there; raises RuntimeError with the compiler's output if the build
     fails."""
-    so = library_path(source, build_dir)
-    if so.exists():
-        return so
-    build_dir.mkdir(parents=True, exist_ok=True)
-    with open(build_dir / "libleme_data.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.exists():  # built by another process while this one waited
-            return so
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-        os.close(fd)
-        try:
-            cmd = [CXX, *CXX_FLAGS, "-o", tmp, str(source), *LIBS]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=BUILD_TIMEOUT_S)
-            except (OSError, subprocess.TimeoutExpired) as e:
-                raise RuntimeError(f"$ {' '.join(cmd)}\n{e}") from e
-            if proc.returncode != 0:
-                raise RuntimeError(f"$ {' '.join(cmd)}\n{proc.stdout}"
-                                   f"{proc.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return so
+    return _native.build(source, build_dir, STEM, LIBS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,8 +8,9 @@ port's state_dict, so one set of weights can drive both packages; its logic
 is that of lemevit_tpu/models/convert.py::flax_to_torch (conv HWIO -> OIHW,
 dense (in, out) -> (out, in)). ``from_jax_upernet`` does the same for the
 JAX UperNet (tasks/upernet.py), ``from_jax_backbone`` for the ResNet and
-Swin backbones and ``from_jax_cd`` for the change-detection models
-(tasks/change_detection.py, tasks/snunet.py).
+Swin backbones, ``from_jax_cd`` for the change-detection models
+(tasks/change_detection.py, tasks/snunet.py) and ``from_jax_det`` for the
+oriented detector (tasks/detection.py).
 """
 from __future__ import annotations
 
@@ -252,3 +253,20 @@ def from_jax_cd(variables: Mapping[str, Any], model
         return sd
     return _from_tree(params, stats, _diff_name
                       if isinstance(model, SiamUnetDiff) else (lambda k: k))
+
+
+def from_jax_det(variables: Mapping[str, Any], model
+                 ) -> Dict[str, torch.Tensor]:
+    """State dict for a port tasks.detection.OrientedRCNN from the JAX
+    OrientedRCNN's variables: the backbone's (``backbone.``, its BatchNorm
+    statistics included) by from_jax_backbone, ``neck``, ``rpn`` and
+    ``roi_head`` by name (conv HWIO -> OIHW, Dense kernels transposed)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {f"backbone.{k}": v for k, v in from_jax_backbone(
+        {"params": params["backbone"],
+         "batch_stats": stats.get("backbone", {})}, model.backbone).items()}
+    for head in ("neck", "rpn", "roi_head"):
+        sd.update(_from_tree(params[head], stats.get(head, {}),
+                             prefix=f"{head}."))
+    return sd

@@ -24,16 +24,21 @@ import torch.nn.functional as F
 from lemevit_tpu_torch.core.layers import BatchNorm, init_weights, nhwc_conv
 
 
-def resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of NHWC ``x`` to ``size`` = (h, w), as
-    ``jax.image.resize(..., "bilinear")``: half-pixel centres and, where a
-    side shrinks, an antialiasing (triangle) filter widened by the scale
-    (in fp32: PyTorch's CPU filter takes no bf16); the identity at the
-    same size."""
+def resize(x: torch.Tensor, size: Tuple[int, int],
+           method: str = "bilinear") -> torch.Tensor:
+    """Resize of NHWC ``x`` to ``size`` = (h, w), as ``jax.image.resize``:
+    bilinear with half-pixel centres and, where a side shrinks, an
+    antialiasing (triangle) filter widened by the scale (in fp32:
+    PyTorch's CPU filter takes no bf16); ``method="nearest"`` takes the
+    pixel under each half-pixel centre (torch's "nearest-exact"); the
+    identity at the same size."""
     h, w = x.shape[1:3]
     size = tuple(size)
     if (h, w) == size:
         return x
+    if method == "nearest":
+        return F.interpolate(x.permute(0, 3, 1, 2), size=size,
+                             mode="nearest-exact").permute(0, 2, 3, 1)
     shrink = size[0] < h or size[1] < w
     t = x.permute(0, 3, 1, 2)
     return F.interpolate(t.float() if shrink else t, size=size,

@@ -14,7 +14,7 @@ import torch
 
 import lemevit_tpu_torch
 from lemevit_tpu_torch.attn import _build
-from lemevit_tpu_torch.cli import benchmark, train, validate
+from lemevit_tpu_torch.cli import benchmark, train, train_det, validate
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "lemevit_tpu_torch"
@@ -86,10 +86,13 @@ def test_create_model_refuses_cpu_fallback(no_cuda):
     assert next(m.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("cli", [benchmark, validate, train])
-def test_cli_refuses_cpu_fallback(no_cuda, cli):
+@pytest.mark.parametrize("cli", [benchmark, validate, train, train_det])
+def test_cli_refuses_cpu_fallback(no_cuda, cli, tmp_path):
     argv = ["--model", "lemevit_micro", "--img-size", "32",
             "--batch-size", "2"]
+    if cli is train_det:
+        argv = ["--backbone", "lemevit_micro", "--img-size", "64",
+                "--output", str(tmp_path)]
     if cli is not benchmark:
         argv.append("--synthetic")
     with pytest.raises(RuntimeError, match="no CUDA device"):
