@@ -161,6 +161,21 @@ and read just after:
     --attn-backend torch's on the same proposals, the port's leme_ops
     library loaded, then a
     step each with --tile on the originals and --format-only;
+  - instance segmentation (the maskrcnn phase): rows 1, 7 and 9-11 held
+    against their plain versions at Mask R-CNN's shapes (dca_attn at
+    N = 16384 C = 96 and N = 4096 C = 192, the S kernels at N = 1024
+    C = 320 and N = 256 C = 384; fp32 at B = 1, bf16 at B = 2), a COCO
+    folder written from a seed (varied aspect ratios, polygons, an RLE, a
+    crowd annotation, sparse category ids) with COCODataset's items
+    checked against it, cli.train_maskrcnn with configs/coco/
+    mask_rcnn_lemevit_small_fpn_1x_coco.yaml (512^2, B = 2, 80 classes,
+    bf16, --sched step) for 3 steps and its eval (box and mask mAP,
+    B = 1), the launches by kernel per train step and per eval forward,
+    steps/s, img/s, peak GiB, the eval's ms per image, a profiled step,
+    the kernel path's first-batch loss parts beside --attn-backend
+    torch's on the same proposals; then one cli.train_seg step on a PNG
+    folder written from a seed and cli.visualize_attn (lemevit_tiny, its
+    maps from the kernel path against the plain path's);
   - segmentation (UperNet on lemevit_tiny, 512^2 crops, 512 head channels,
     6 classes): the kernels held
     against their plain versions and, in bf16, against their order of work
@@ -3913,6 +3928,421 @@ def det_phase(smi: str, dev, fb, ft, g) -> tuple:
             "seconds": time.time() - t0}, shape_rows
 
 
+# the maskrcnn phase: Mask R-CNN on lemevit_small at 512^2 (configs/coco)
+MR_CFG = "mask_rcnn_lemevit_small_fpn_1x_coco.yaml"
+# COCO's 80 sparse category ids (1..90 without the ten unused ones)
+COCO_IDS = [i for i in range(1, 91)
+            if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+# (w, h) of the written images: varied aspect ratios, 6 train and 4 val
+MR_TRAIN = ((640, 480), (500, 375), (427, 640), (612, 612), (640, 360),
+            (333, 500))
+MR_VAL = ((640, 427), (480, 640), (550, 550), (640, 300))
+MR_STEPS = 3
+MR_B_CHECK = 1
+# the bf16 kernel path's first-batch loss parts against --attn-backend
+# torch's on the same weights and proposals (det_phase's limit)
+MR_LOSS_TOL = 3e-2
+# the kernels' shapes on it: stage 0 (C, N = 16384) composes; stages 1-2
+# (D, N = 16384 C = 96, N = 4096 C = 192, M = 16) compose with each
+# attention one dca_attn call; stages 3-4 (S, N = 1024 C = 320 in 6
+# blocks, N = 256 C = 384 in 2) take the S kernels whole;
+# (N, C, launches per forward)
+MR_DCA_SHAPES = [(16384, 96, 2), (4096, 192, 2)]
+MR_S_SHAPES = [(1024, 320, 6), (256, 384, 2)]
+# launches per train step (B = 2) and per eval forward (B = 1)
+MR_STEP = {"dca_attn": 4, "s_train_fwd": 8, "s_attn_bwd": 8, "mlp_bwd": 8}
+MR_EVAL = {"dca_attn": 4, "s_block": 8}
+
+
+def write_coco(root: Path, seed: int = 0) -> dict:
+    """A COCO-format folder under root (train2017/, val2017/,
+    annotations/instances_{split}.json) from a seed: smooth random
+    pictures of MR_TRAIN / MR_VAL sizes with 3-5 filled polygons each
+    (their polygon annotations, bbox the polygon's extent), the first
+    train image's last object as an uncompressed RLE instead, one crowd
+    annotation on the second train image, the 80 sparse COCO category
+    ids (the RLE checked to decode to its polygon's mask). Returns
+    {split: the written annotation dict}."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+    from lemevit_tpu_torch.data.coco import decode_rle, rasterize_polygons
+    rs = np.random.RandomState(seed)
+    (root / "annotations").mkdir(parents=True, exist_ok=True)
+    out = {}
+    for split, sizes in (("train2017", MR_TRAIN), ("val2017", MR_VAL)):
+        (root / split).mkdir(exist_ok=True)
+        images, anns = [], []
+        for i, (w, h) in enumerate(sizes):
+            small = rs.randint(0, 256, (h // 16, w // 16, 3), np.uint8)
+            img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+            draw = ImageDraw.Draw(img)
+            img_id = 1000 * (split == "val2017") + 7 * i + 3
+            n_obj = rs.randint(3, 6)
+            for j in range(n_obj):
+                cx, cy = rs.uniform(0.2 * w, 0.8 * w), rs.uniform(0.2 * h,
+                                                                  0.8 * h)
+                r = rs.uniform(0.05, 0.2) * min(w, h)
+                ang = np.sort(rs.uniform(0, 2 * np.pi, 6))
+                poly = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                                -1)
+                draw.polygon([tuple(p) for p in poly],
+                             fill=tuple(int(v) for v in rs.randint(0, 256, 3)))
+                x0, y0 = poly.min(0)
+                x1, y1 = poly.max(0)
+                ann = {"id": len(anns) + 1, "image_id": img_id,
+                       "category_id": int(COCO_IDS[rs.randint(80)]),
+                       "iscrowd": 0,
+                       "bbox": [float(x0), float(y0), float(x1 - x0),
+                                float(y1 - y0)],
+                       "segmentation": [[float(v) for v in poly.ravel()]]}
+                if split == "train2017" and i == 0 and j == n_obj - 1:
+                    m = rasterize_polygons(ann["segmentation"], h, w)
+                    flat = m.T.ravel()  # column-major runs, 0s first
+                    change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+                    bounds = np.concatenate([[0], change, [flat.size]])
+                    counts = np.diff(bounds).tolist()
+                    if flat[0]:
+                        counts = [0] + counts
+                    ann["segmentation"] = {"counts": counts, "size": [h, w]}
+                    if not (decode_rle(ann["segmentation"], h, w) == m).all():
+                        raise AssertionError("coco: the RLE does not decode "
+                                             "to its polygon")
+                anns.append(ann)
+            if split == "train2017" and i == 1:
+                anns.append({"id": len(anns) + 1, "image_id": img_id,
+                             "category_id": COCO_IDS[0], "iscrowd": 1,
+                             "bbox": [0.0, 0.0, 40.0, 40.0],
+                             "segmentation": [[0, 0, 40, 0, 40, 40, 0, 40]]})
+            name = f"{img_id:012d}.jpg"
+            img.save(root / split / name, quality=95)
+            images.append({"id": img_id, "file_name": name, "width": w,
+                           "height": h})
+        cats = [{"id": c, "name": f"class{c}"} for c in COCO_IDS]
+        out[split] = {"images": images, "annotations": anns,
+                      "categories": cats[::-1]}
+        with open(root / "annotations" / f"instances_{split}.json",
+                  "w") as f:
+            json.dump(out[split], f)
+    return out
+
+
+def check_coco_items(root: Path, written: dict, size: int) -> int:
+    """COCODataset's items against the written annotations: the images in
+    id order, padded at the bottom and right; one box, label and mask per
+    non-crowd annotation (the box the bbox times the scale, the label the
+    category's rank among the sparse ids, the mask inside the image's
+    resized area); returns the objects checked."""
+    import numpy as np
+    from lemevit_tpu_torch.data.coco import COCODataset
+    n_obj = 0
+    for split, ann in written.items():
+        ds = COCODataset(str(root), split, img_size=size)
+        ids = sorted(im["id"] for im in ann["images"])
+        if ds.ids != ids or ds.cat_to_label != {
+                c: i for i, c in enumerate(COCO_IDS)}:
+            raise AssertionError(f"coco {split}: ids {ds.ids}")
+        for k, img_id in enumerate(ids):
+            img, boxes, labels, masks = ds[k]
+            info = ds.images[img_id]
+            objs = [a for a in ann["annotations"]
+                    if a["image_id"] == img_id and not a["iscrowd"]]
+            scale = size / max(info["width"], info["height"])
+            nh, nw = (round(info["height"] * scale),
+                      round(info["width"] * scale))
+            want = np.float32([[x, y, x + w, y + h] for x, y, w, h in
+                               (a["bbox"] for a in objs)]) * scale
+            if not (img.shape == (size, size, 3) and len(boxes) == len(objs)
+                    and np.allclose(boxes, want, rtol=1e-5)
+                    and [int(v) for v in labels] == [
+                        COCO_IDS.index(a["category_id"]) for a in objs]
+                    and masks.shape == (len(objs), size, size)
+                    and not img[nh:].any() and not img[:, nw:].any()
+                    and all(m[:nh, :nw].any() and not m[nh:].any()
+                            and not m[:, nw:].any() for m in masks)):
+                raise AssertionError(f"coco {split} item {k}: {boxes}, "
+                                     f"{labels}, {objs}")
+            n_obj += len(objs)
+    return n_obj
+
+
+def maskrcnn_phase(smi: str, dev, fb, ft, g) -> tuple:
+    """Instance segmentation through cli.train_maskrcnn. First each kernel
+    of the path against its plain version at the path's shapes
+    (MR_DCA_SHAPES, MR_S_SHAPES: fp32 at MR_B_CHECK, bf16 at the config's
+    B = 2, forward and backward, each check's own tolerances). Then a
+    COCO-format folder written from a seed (write_coco: 6 train and 4 val
+    images of varied aspect ratios, polygons, an uncompressed RLE, a crowd
+    annotation, the sparse category ids) and COCODataset's items held
+    against it; cli.train_maskrcnn with configs/coco/MR_CFG (Mask R-CNN on
+    lemevit_small, 512^2, B = 2, 80 classes, 128 proposals, FPN 256, bf16,
+    --sched step) for 1 epoch of MR_STEPS steps and its eval (box and mask
+    mAP over the val images at B = 1), steps/s, img/s, peak GiB, the
+    eval's ms per image; the launches by kernel of one train step and one
+    eval forward (MR_STEP, MR_EVAL exactly, and the run's launches their
+    sum); the kernel path's first-batch loss and its five parts beside
+    --attn-backend torch's on the same weights and proposals (the batch's
+    gt boxes first among them, so that the RoI and mask terms have
+    positives; MR_LOSS_TOL); a profile of one train step. Nothing here
+    catches its own failure. Returns (the phase's numbers, the shape rows
+    by kernel)."""
+    import numpy as np
+    from lemevit_tpu_torch.cli import train_maskrcnn
+    from lemevit_tpu_torch.data.coco import COCODataset, instance_collate
+    from lemevit_tpu_torch.data.transforms import normalize
+    from lemevit_tpu_torch.tasks.mask_rcnn import mask_rcnn_loss
+    from lemevit_tpu_torch.utils.parser import parse_args_with_config
+    t0 = time.time()
+    rows = [check_dca_attn(n, ch, per_fwd, dev, g, b_check=MR_B_CHECK,
+                           b_main=2) for n, ch, per_fwd in MR_DCA_SHAPES]
+    for n, ch, per_fwd in MR_S_SHAPES:
+        rows.append(check_block_kernel(fb, "s_block", n, ch, per_fwd, dev, g,
+                                       b_check=MR_B_CHECK, b_main=2))
+        rows += check_train_kernels(ft, "s", n, ch, per_fwd, dev, g,
+                                    b_check=MR_B_CHECK, b_main=2)
+    shape_rows = {}
+    for r in rows:
+        shape_rows.setdefault(r["name"], []).append(r)
+    t_kernels = time.time() - t0
+    cfg = str(REPO / "configs" / "coco" / MR_CFG)
+    args, _ = parse_args_with_config(train_maskrcnn.build_parser(),
+                                     ["--config", cfg])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        written = write_coco(root / "coco")
+        n_obj = check_coco_items(root / "coco", written, args.img_size)
+        say("maskrcnn", f"COCO folder: {len(MR_TRAIN)} train and "
+            f"{len(MR_VAL)} val images, {n_obj} objects of COCODataset "
+            f"checked against the written annotations (polygons, one RLE, "
+            f"one crowd skipped, 80 sparse category ids)")
+
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        res = train_maskrcnn.main([
+            "--config", cfg, "--data-dir", str(root / "coco"),
+            "--workers", "2", "--epochs", "1", "--steps-per-epoch",
+            str(MR_STEPS), "--output", str(root / "run")])
+        run_launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        m = res["metrics"]
+        if not (res["steps"] == MR_STEPS and math.isfinite(res["loss"])
+                and 0.0 <= res["best_mask_mAP"] <= 1.0
+                and 0.0 <= m["mAP"] <= 1.0 and 0.0 <= m["mask_mAP"] <= 1.0):
+            raise AssertionError(f"maskrcnn: run {res}")
+
+        # one train step and one eval forward by themselves: the launches
+        train = COCODataset(str(root / "coco"), "train2017",
+                            img_size=args.img_size)
+        val = COCODataset(str(root / "coco"), "val2017",
+                          img_size=args.img_size)
+        batch = {k: v.to(dev) for k, v in instance_collate(
+            [train[i] for i in range(args.batch_size)],
+            max_boxes=args.max_boxes).items()}
+        model = train_maskrcnn.build_model(args, dev)
+        opt = torch.optim.AdamW(model.parameters(), lr=0.0,
+                                weight_decay=args.weight_decay)
+        reset()
+        train_maskrcnn.maskrcnn_train_step(model, opt, 0.0, batch,
+                                           args.num_classes, args.clip_grad,
+                                           torch.bfloat16)
+        per_step = {k: v for k, v in launch_counts().items() if v}
+        img = torch.from_numpy(np.array(val[0][0])).to(dev)
+        reset()
+        train_maskrcnn.predict(model, img, torch.bfloat16)
+        per_eval = {k: v for k, v in launch_counts().items() if v}
+        run_sum = {k: MR_STEPS * per_step.get(k, 0)
+                   + len(val) * per_eval.get(k, 0)
+                   for k in set(per_step) | set(per_eval)}
+        if (per_step != MR_STEP or per_eval != MR_EVAL
+                or {k: v for k, v in run_launches.items() if v} != run_sum):
+            raise AssertionError(
+                f"maskrcnn: launches per train step {per_step} (expected "
+                f"{MR_STEP}), per eval forward {per_eval} (expected "
+                f"{MR_EVAL}); the run's {run_launches} against {run_sum}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(len(val)):
+            train_maskrcnn.predict(model, torch.from_numpy(np.array(
+                val[i][0])).to(dev), torch.bfloat16)
+        eval_ms = (time.perf_counter() - t1) * 1e3 / len(val)
+        prof = profile_call(lambda: train_maskrcnn.maskrcnn_train_step(
+            model, opt, 0.0, batch, args.num_classes, args.clip_grad,
+            torch.bfloat16), f"one Mask R-CNN train step (B="
+            f"{args.batch_size}, 512^2, bf16)")
+        if not prof:
+            raise AssertionError("maskrcnn: the profiler recorded no device "
+                                 "time")
+        del model, opt
+        say("maskrcnn", f"Mask R-CNN lemevit_small 512^2 bf16 "
+            f"B={args.batch_size}: {MR_STEPS} steps, loss {res['loss']:.4f} "
+            f"{json.dumps({k: round(v, 4) for k, v in res['parts'].items()})}"
+            f", {1e3 / res['step_ms']:.3f} steps/s, {res['img_per_sec']:.2f} "
+            f"img/s, {res['step_ms']:.2f} ms/step (steps 2-{MR_STEPS}), peak "
+            f"{peak_gib:.2f} GiB; device {prof['device_ms']:.2f} ms a step "
+            f"in {prof['launches']} launches, "
+            f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy, "
+            f"{100 * prof['port_ms'] / prof['device_ms']:.1f}% in the "
+            f"port's kernels; eval {eval_ms:.1f} ms per image (B=1), box "
+            f"mAP {m['mAP']:.4f}, mask mAP {m['mask_mAP']:.4f} over "
+            f"{len(val)} val images; launches per train step "
+            f"{json.dumps(per_step)}, per eval forward "
+            f"{json.dumps(per_eval)} ({smi})")
+
+        # the kernel path's loss against the plain path, same weights, on
+        # the same proposals: the kernel path's own, the batch's valid gt
+        # boxes in their first rows (RoI and mask positives)
+        losses, proposals = [], None
+        for backend in ("auto", "torch"):
+            args.attn_backend = backend
+            model = train_maskrcnn.build_model(args, dev).train()
+            before = launch_counts()
+            with torch.no_grad(), torch.autocast("cuda",
+                                                 dtype=torch.bfloat16):
+                if proposals is None:
+                    own = model(normalize(batch["image"]))["proposals"]
+                    proposals = own.clone()
+                    for i in range(len(proposals)):
+                        gt = batch["gt_boxes"][i][batch["gt_valid"][i]]
+                        proposals[i, :len(gt)] = gt
+                out = model(normalize(batch["image"]), proposals)
+            total, parts = mask_rcnn_loss(
+                out, batch["gt_boxes"], batch["gt_labels"],
+                batch["gt_masks"], batch["gt_valid"], args.num_classes)
+            losses.append({"total": total.item(),
+                           **{k: v.item() for k, v in parts.items()}})
+            fwd = launched_since(before)
+            if (backend == "torch") == bool(fwd):
+                raise AssertionError(f"maskrcnn: {backend} forward "
+                                     f"launched {fwd}")
+            del model, out
+        diffs = {k: abs(losses[0][k] - losses[1][k]) for k in losses[0]}
+        if not (max(diffs.values()) <= MR_LOSS_TOL
+                and min(losses[0]["roi_reg"], losses[0]["mask"]) > 0):
+            raise AssertionError(f"maskrcnn: kernel-path losses {losses[0]} "
+                                 f"against plain {losses[1]} on the same "
+                                 f"proposals")
+        say("maskrcnn", f"first batch, train-mode bf16 forward: loss "
+            f"{json.dumps({k: round(v, 6) for k, v in losses[0].items()})} "
+            f"on the kernel path against "
+            f"{json.dumps({k: round(v, 6) for k, v in losses[1].items()})} "
+            f"with --attn-backend torch on the same proposals (largest "
+            f"|diff| {max(diffs.values()):.2e}, limit {MR_LOSS_TOL}); phase "
+            f"{time.time() - t0:.0f} s (kernel checks {t_kernels:.0f} s)")
+    return {"per_step": per_step, "per_eval": per_eval,
+            "steps_per_sec": 1e3 / res["step_ms"],
+            "img_per_sec": res["img_per_sec"], "step_ms": res["step_ms"],
+            "peak_gib": peak_gib, "loss": res["loss"], "box_mAP": m["mAP"],
+            "mask_mAP": m["mask_mAP"], "eval_ms_per_image": eval_ms,
+            "loss_parts_vs_plain": diffs,
+            "device_ms_per_step": prof["device_ms"],
+            "launches_per_step": prof["launches"],
+            "device_busy_share": prof["device_ms"] / prof["wall_ms"],
+            "port_kernel_share": prof["port_ms"] / prof["device_ms"],
+            "seconds": time.time() - t0}, shape_rows
+
+
+# cli.train_seg on files: 8 train PNGs of varied sizes, 2 val PNGs of one
+# 512^2 window each
+SEG_FILES = {"train": ((400, 300), (640, 512), (512, 700), (300, 300),
+                       (800, 600), (512, 512), (350, 620), (600, 450)),
+             "val": ((512, 512), (512, 512))}
+
+
+def seg_files_step(smi: str) -> dict:
+    """One step of cli.train_seg with its defaults (UperNet on
+    lemevit_tiny, 512^2 crops, B = 8, bf16) on an
+    {train,val}/{images,labels} PNG folder written from a seed (labels
+    with values past the classes and 255, --ignore-index 255), and its
+    slide-inference eval of the two val images: the launches the step and
+    the eval windows' forwards (SEG_STEP + 2 SEG_CROP_FWD), a finite loss,
+    metrics in range, a checkpoint."""
+    import numpy as np
+    from PIL import Image
+    from lemevit_tpu_torch.cli import train_seg
+    rs = np.random.RandomState(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for split, sizes in SEG_FILES.items():
+            for sub in ("images", "labels"):
+                (root / split / sub).mkdir(parents=True)
+            for i, (w, h) in enumerate(sizes):
+                small = rs.randint(0, 256, (h // 8, w // 8, 3), np.uint8)
+                Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+                    root / split / "images" / f"{i:03d}.png")
+                lbl = np.kron(rs.randint(0, SEG_CLASSES + 1,
+                                         (h // 16 + 1, w // 16 + 1)),
+                              np.ones((16, 16), np.int64))[:h, :w]
+                lbl[rs.rand(h, w) < 0.05] = 255
+                Image.fromarray(lbl.astype(np.uint8), "L").save(
+                    root / split / "labels" / f"{i:03d}.png")
+        reset()
+        res = train_seg.main(["--data-dir", str(root), "--iters", "1",
+                              "--eval-interval", "1", "--ignore-index",
+                              "255", "--output", str(root / "run")])
+        launches = {k: v for k, v in launch_counts().items() if v}
+        ckpts = list((root / "run" / "checkpoints").glob("*.pth"))
+    want = {k: v + 2 * SEG_CROP_FWD.get(k, 0) for k, v in SEG_STEP.items()}
+    want.update({k: 2 * v for k, v in SEG_CROP_FWD.items() if k not in want})
+    m = res["final_metrics"]
+    if not (launches == want and res["steps"] == 1 and len(ckpts) == 1
+            and math.isfinite(res["loss"])
+            and all(0 <= v <= 100 for v in m.values())):
+        raise AssertionError(f"train_seg on files: {res}, launches "
+                             f"{launches} (expected {want}), {ckpts}")
+    say("seg-files", f"cli.train_seg on a PNG folder (8 train images of "
+        f"varied sizes, 2 val, --ignore-index 255), one step: loss "
+        f"{res['loss']:.4f}, eval {json.dumps({k: round(v, 3) for k, v in m.items()})}"
+        f", launches {json.dumps(launches)} ({smi})")
+    return {"loss": res["loss"], "metrics": m, "launches": launches}
+
+
+VIS_TOL = 1e-3  # the maps of the kernel path's block inputs against plain
+
+
+def visualize_attn_run(smi: str, dev) -> dict:
+    """cli.visualize_attn on the card: lemevit_tiny (seed 0) at 224^2, its
+    stage-1 block 0, on a picture written from a seed: 17 PNGs of the
+    image's size, and the launches of one eval forward (TINY_EVAL); then
+    the maps it draws from the kernel path's block inputs against those
+    of --attn-backend torch's forward (VIS_TOL)."""
+    import numpy as np
+    from PIL import Image
+    from lemevit_tpu_torch.cli import visualize_attn
+    from lemevit_tpu_torch.data.transforms import normalize
+    rs = np.random.RandomState(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        Image.fromarray(rs.randint(0, 256, (20, 30, 3), np.uint8)).resize(
+            (300, 200), Image.BILINEAR).save(root / "img.png")
+        reset()
+        res = visualize_attn.main(["--image", str(root / "img.png"),
+                                   "--out", str(root / "vis")])
+        launches = {k: v for k, v in launch_counts().items() if v}
+        sizes = {Image.open(p).size for p in res["paths"]}
+        if not (len(res["paths"]) == M + 1 and sizes == {(224, 224)}
+                and launches == TINY_EVAL):
+            raise AssertionError(f"visualize_attn: {res}, sizes {sizes}, "
+                                 f"launches {launches}")
+    from lemevit_tpu_torch import create_model
+    model = create_model("lemevit_tiny", num_classes=1000, device=dev).eval()
+    x = normalize(torch.randint(0, 256, (1, 224, 224, 3), dtype=torch.uint8,
+                                generator=torch.Generator().manual_seed(5)
+                                ).to(dev))
+    maps = []
+    for backend in ("auto", "torch"):
+        model.set_attn_backend(backend)
+        maps.append(visualize_attn.attention_maps(model, x, 1, 0, 32)[:2])
+    err = max((a - b).abs().max().item() for a, b in zip(*maps))
+    if not err <= VIS_TOL:
+        raise AssertionError(f"visualize_attn: kernel path's maps {err:.3g} "
+                             f"from the plain path's")
+    say("visualize-attn", f"lemevit_tiny 224 stage 1 block 0: "
+        f"{len(res['paths'])} PNGs, launches {json.dumps(launches)}; the "
+        f"maps from the kernel path's block inputs within {err:.2e} of the "
+        f"plain path's (limit {VIS_TOL}; {smi})")
+    return {"pngs": len(res["paths"]), "launches": launches, "map_err": err}
+
+
+
 def main() -> None:
     t_start = time.time()
     phase_s = {}
@@ -4205,6 +4635,16 @@ def main() -> None:
     #     kernel against plain loss, the eval's mAP, --tile, --format-only)
     det_res, det_rows = det_phase(smi, dev, fb, ft, g)
     lap("det")
+    # 7h. instance segmentation: Mask R-CNN on lemevit_small at 512^2, its
+    #     kernels against their plain versions at its shapes, then a COCO
+    #     folder and cli.train_maskrcnn (launches by kernel, steps/s, box
+    #     and mask mAP, kernel against plain loss on the same proposals)
+    mr_res, mr_rows = maskrcnn_phase(smi, dev, fb, ft, g)
+    lap("maskrcnn")
+    # 7i. cli.train_seg on a PNG folder and cli.visualize_attn
+    seg_files = seg_files_step(smi)
+    vis_res = visualize_attn_run(smi, dev)
+    lap("seg-files-vis")
 
     # 8. segmentation, UperNet on lemevit_tiny at 512^2: the attention-only
     #    kernels (dca_attn at stages 1-2's shapes, mhsa at its three) and
@@ -4400,8 +4840,18 @@ def main() -> None:
                 k["name"], 0)
         if k["name"] in det_rows:
             k["det_shapes"] = strip(det_rows[k["name"]])
+        if k["name"] in launch_counts():
+            k["maskrcnn_launches_per_train_step"] = mr_res["per_step"].get(
+                k["name"], 0)
+            k["maskrcnn_launches_per_eval_forward"] = mr_res[
+                "per_eval"].get(k["name"], 0)
+        if k["name"] in mr_rows:
+            k["maskrcnn_shapes"] = strip(mr_rows[k["name"]])
     say("dist-cd-summary", json.dumps({"dist": dist_res, "cd": cd_res}))
     say("det-summary", json.dumps(det_res))
+    say("maskrcnn-summary", json.dumps({"maskrcnn": mr_res,
+                                        "seg_files": seg_files,
+                                        "visualize_attn": vis_res}))
     lap("summary")
     say("phase-seconds", json.dumps(phase_s))
     say("done", f"{time.time() - t_start:.0f} s")

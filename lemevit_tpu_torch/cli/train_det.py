@@ -151,13 +151,22 @@ def det_train_step(model, optimizer, lr: float,
     Returns (loss, parts), detached device tensors."""
     from lemevit_tpu_torch.data.transforms import normalize
     from lemevit_tpu_torch.tasks.detection_train import detection_loss
-    from lemevit_tpu_torch.train.steps import global_norm
     model.train()
     images = batch["image"]
     with _autocast(images.device, autocast_dtype):
         out = model(normalize(images))
     loss, parts = detection_loss(out, batch["gt_obbs"], batch["gt_labels"],
                                  batch["gt_mask"], num_classes)
+    apply_update(model, optimizer, lr, loss, clip_grad)
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+
+def apply_update(model, optimizer, lr: float, loss: torch.Tensor,
+                 clip_grad: Optional[float] = None) -> None:
+    """The update of the detection CLIs' steps: backward, zero gradients
+    for unreached parameters, the global-norm clip (optax's: g * clip / |g|
+    where |g| >= clip), the optimizer's step at ``lr``."""
+    from lemevit_tpu_torch.train.steps import global_norm
     loss.backward()
     params = list(model.parameters())
     for p in params:
@@ -173,7 +182,6 @@ def det_train_step(model, optimizer, lr: float,
         group["lr"] = lr
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
-    return loss.detach(), {k: v.detach() for k, v in parts.items()}
 
 
 @torch.no_grad()

@@ -9,8 +9,10 @@ is that of lemevit_tpu/models/convert.py::flax_to_torch (conv HWIO -> OIHW,
 dense (in, out) -> (out, in)). ``from_jax_upernet`` does the same for the
 JAX UperNet (tasks/upernet.py), ``from_jax_backbone`` for the ResNet and
 Swin backbones, ``from_jax_cd`` for the change-detection models
-(tasks/change_detection.py, tasks/snunet.py) and ``from_jax_det`` for the
-oriented detector (tasks/detection.py).
+(tasks/change_detection.py, tasks/snunet.py), ``from_jax_det`` for the
+oriented detector (tasks/detection.py), ``from_jax_maskrcnn`` for Mask
+R-CNN (tasks/mask_rcnn.py) and ``from_jax_plugin`` for the plugin layers
+(ops/plugins.py).
 """
 from __future__ import annotations
 
@@ -270,3 +272,32 @@ def from_jax_det(variables: Mapping[str, Any], model
         sd.update(_from_tree(params[head], stats.get(head, {}),
                              prefix=f"{head}."))
     return sd
+
+
+def from_jax_maskrcnn(variables: Mapping[str, Any], model
+                      ) -> Dict[str, torch.Tensor]:
+    """State dict for a port tasks.mask_rcnn.MaskRCNN from the JAX
+    MaskRCNN's variables: the backbone's (``backbone.``, BatchNorm
+    statistics included) by from_jax_backbone; ``neck``, ``rpn``,
+    ``box_head`` and ``mask_head`` by name. The mask head's 2x2
+    ConvTranspose kernel (HWIO, applied unflipped) becomes the OIHW weight
+    that tasks/snunet.conv_transpose_same correlates with."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {f"backbone.{k}": v for k, v in from_jax_backbone(
+        {"params": params["backbone"],
+         "batch_stats": stats.get("backbone", {})}, model.backbone).items()}
+    for head in ("neck", "rpn", "box_head", "mask_head"):
+        sd.update(_from_tree(params[head], stats.get(head, {}),
+                             prefix=f"{head}."))
+    return sd
+
+
+def from_jax_plugin(variables: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """State dict for a port plugin layer (ops/plugins.py: ContextBlock,
+    NonLocal2D, GeneralizedAttention, SumCell, GlobalPoolingCell) from
+    the JAX module's variables; the names are the JAX package's
+    (LayerNorm and BatchNorm ``scale`` -> ``weight``, the BatchNorm's
+    statistics -> ``running_mean`` / ``running_var``)."""
+    return _from_tree(variables["params"], variables.get("batch_stats", {}))

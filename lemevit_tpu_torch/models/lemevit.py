@@ -45,7 +45,8 @@ package's ``.astype(dtype)`` does.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -515,3 +516,26 @@ class LeMeViT(nn.Module):
         if self.head is not None:
             x = F.linear(x, self.head.weight.float(), self.head.bias.float())
         return x
+
+
+@contextlib.contextmanager
+def capture_block_inputs(model: LeMeViT
+                         ) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Collect every block's (x, c) inputs, in order, over the forwards run
+    inside the ``with``: the counterpart of the JAX package's
+    ``sow("intermediates", "block_inputs", ...)`` (cli/visualize_attn.py).
+    A forward pre-hook on each block, registered only here, records its
+    detached inputs and leaves dispatch as it is; ``s_stage`` is off
+    meanwhile, as JAX's _try_s_stage steps aside while intermediates are
+    collected, so that every block runs and is seen."""
+    inputs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args: inputs.append((args[0].detach(), args[1].detach())))
+        for stage in model.stages for blk in stage]
+    s_stage, model.s_stage = model.s_stage, False
+    try:
+        yield inputs
+    finally:
+        model.s_stage = s_stage
+        for h in hooks:
+            h.remove()

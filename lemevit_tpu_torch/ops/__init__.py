@@ -1,8 +1,9 @@
 """Ops of the downstream tasks: the losses (ops/losses.py), axis-aligned
 and rotated boxes (ops/boxes.py, ops/rotated.py), RoI sampling
-(ops/roi.py) and the host library of NMS and rotated IoU (ops/native.py).
-The JAX package's ops/pooling.py, ops/orn.py and ops/plugins.py are not
-ported yet (ROADMAP queue 1, items 9 and 11)."""
+(ops/roi.py), corner pooling and masked conv (ops/pooling.py), the
+Oriented Response Network ops (ops/orn.py), the plugin layers
+(ops/plugins.py) and the host library of NMS and rotated IoU
+(ops/native.py); the names lemevit_tpu/ops/__init__.py exports."""
 from lemevit_tpu_torch.ops.boxes import (  # noqa: F401
     batched_nms,
     box_iou,
@@ -18,6 +19,29 @@ from lemevit_tpu_torch.ops.losses import (  # noqa: F401
     sigmoid_focal_loss,
     softmax_focal_loss,
     tversky_loss,
+)
+from lemevit_tpu_torch.ops.orn import (  # noqa: F401
+    active_rotating_filter,
+    orconv2d,
+    rotation_invariant_encoding,
+    rotation_invariant_pooling,
+)
+from lemevit_tpu_torch.ops.plugins import (  # noqa: F401
+    PLUGIN_LAYERS,
+    ContextBlock,
+    GeneralizedAttention,
+    GlobalPoolingCell,
+    NonLocal2D,
+    SumCell,
+    build_plugin_layer,
+)
+from lemevit_tpu_torch.ops.pooling import (  # noqa: F401
+    bottom_pool,
+    corner_pool,
+    left_pool,
+    masked_conv2d,
+    right_pool,
+    top_pool,
 )
 from lemevit_tpu_torch.ops.roi import (  # noqa: F401
     multilevel_roi_align,

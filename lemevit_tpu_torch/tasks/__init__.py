@@ -1,7 +1,6 @@
 """Downstream heads: UperNet segmentation, change detection (BIT on a
-LeMeViT, ResNet or Swin backbone; the SNUNet family) and oriented
-detection (Oriented R-CNN). Mask R-CNN (lemevit_tpu/tasks/mask_rcnn.py)
-is not ported yet (ROADMAP queue 1, item 11)."""
+LeMeViT, ResNet or Swin backbone; the SNUNet family), oriented detection
+(Oriented R-CNN) and instance segmentation (Mask R-CNN)."""
 from lemevit_tpu_torch.tasks.change_detection import (  # noqa: F401
     BITChangeDetector,
     BITHead,
@@ -18,6 +17,11 @@ from lemevit_tpu_torch.tasks.detection import (  # noqa: F401
     decode_obb_deltas,
     encode_obb_deltas,
     make_anchors,
+)
+from lemevit_tpu_torch.tasks.mask_rcnn import (  # noqa: F401
+    MaskRCNN,
+    create_mask_rcnn,
+    mask_rcnn_loss,
 )
 from lemevit_tpu_torch.tasks.snunet import (  # noqa: F401
     SiamNestedUNetConc,

@@ -162,14 +162,21 @@ class SiamNestedUNetConc(nn.Module):
 
 
 def conv_transpose_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """flax's ConvTranspose (3x3 kernel, stride 2, "SAME" padding, the
-    kernel not flipped) on NCHW ``x``, with ``conv``'s weight and bias:
-    the input dilated by 2, padded (2, 1) and correlated with the kernel.
+    """flax's ConvTranspose (a k x k kernel, stride 2, "SAME" padding, the
+    kernel not flipped) on NCHW ``x``, with ``conv``'s weight and bias
+    (``conv`` unpadded): the input dilated by 2, padded as
+    lax.conv_transpose pads "SAME" (k - 1 + s - 1 in all, before it
+    k - 1 where the stride exceeds k - 1, else half of it rounded up:
+    (2, 1) at k = 3, (1, 1) at k = 2) and correlated with the kernel.
     Output 2H x 2W."""
     b, c, h, w = x.shape
+    k, s = conv.kernel_size[0], 2
+    total = k + s - 2
+    before = k - 1 if s > k - 1 else -(-total // 2)
     z = x.new_zeros(b, c, 2 * h - 1, 2 * w - 1)
     z[:, :, ::2, ::2] = x
-    return conv(F.pad(z, (2, 1, 2, 1)))
+    pad = (before, total - before)
+    return conv(F.pad(z, pad + pad))
 
 
 class SiamUnetDiff(nn.Module):

@@ -14,7 +14,8 @@ import torch
 
 import lemevit_tpu_torch
 from lemevit_tpu_torch.attn import _build
-from lemevit_tpu_torch.cli import benchmark, train, train_det, validate
+from lemevit_tpu_torch.cli import (benchmark, train, train_det,
+                                   train_maskrcnn, validate, visualize_attn)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "lemevit_tpu_torch"
@@ -86,14 +87,18 @@ def test_create_model_refuses_cpu_fallback(no_cuda):
     assert next(m.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("cli", [benchmark, validate, train, train_det])
+@pytest.mark.parametrize("cli", [benchmark, validate, train, train_det,
+                                 train_maskrcnn, visualize_attn])
 def test_cli_refuses_cpu_fallback(no_cuda, cli, tmp_path):
     argv = ["--model", "lemevit_micro", "--img-size", "32",
             "--batch-size", "2"]
-    if cli is train_det:
+    if cli in (train_det, train_maskrcnn):
         argv = ["--backbone", "lemevit_micro", "--img-size", "64",
                 "--output", str(tmp_path)]
-    if cli is not benchmark:
+    if cli is visualize_attn:
+        argv = ["--image", str(tmp_path / "absent.png"), "--model",
+                "lemevit_micro"]
+    elif cli is not benchmark:
         argv.append("--synthetic")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
